@@ -1,0 +1,27 @@
+"""vorbis_tpu_torch — the PyTorch + CUDA port of vorbis_tpu.
+
+The JAX package `vorbis_tpu` stays the reference; this package mirrors
+its layout and names (`ops/torchdsp.py` is the counterpart of
+`ops/jaxdsp.py`, `ops/floor_cuda.py` of `ops/floor_pallas.py`, and so
+on) and imports only its jax-free host layers (bitstream, the scalar
+codec, encsetup, psy tables, vorbisfile).  Device code is plain torch on
+an explicit device; the one hand-written kernel (the floor1 greedy fit,
+`csrc/floor_fit.cu`) is built with nvcc at first use.
+
+Importing the package sets the fp32 policy the reference runs under:
+the JAX side computes its matmuls at Precision.HIGHEST, so TF32 is off
+for both cuBLAS and cuDNN.
+"""
+
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.set_float32_matmul_precision("highest")
+
+
+def fp32_policy_ok() -> bool:
+    """True when the process still runs fp32 matmuls in full fp32."""
+    return (not torch.backends.cuda.matmul.allow_tf32
+            and not torch.backends.cudnn.allow_tf32
+            and torch.get_float32_matmul_precision() == "highest")

@@ -1,0 +1,806 @@
+"""Torch counterpart of vorbis_tpu/ops/encdevice.py: the on-device
+encode step, raw PCM chunk -> packed packets (reference hot loop:
+lib/mapping0.c mapping0_forward + lib/floor1.c floor1_encode +
+lib/res0.c _01forward + lib/codebook.c vorbis_book_encode + libogg
+oggpack_write):
+
+  framing -> window/MDCT/FFT -> psy mask -> floor1 fit (CUDA kernel)
+  -> post wrap coding -> floor curve render -> stereo coupling ->
+  residue classify + lattice VQ -> codeword lookup -> bit-field
+  columns -> LSB-first bit packing
+
+The host receives only (packed packet bytes, bit counts).  This port
+covers the single-submap long-only stateless step (`make_step`);
+multi-submap 5.1 layouts, the two-phase psy-state steps, the managed
+pass and the switching gather step raise NotImplementedError.
+
+Differences from the JAX module, all exact:
+  * bit fields ride int64 (torch has no uint32 shifts/comparisons on
+    every backend); values < 2^32 are exact;
+  * the one-hot MXU table lookups (a TPU workaround for serial gathers)
+    are plain gathers from the same tables;
+  * bit packing scatter-adds the byte planes of each (value << off&7)
+    onto the (F, wb) packet bytes.  Fields occupy disjoint bit ranges,
+    so integer addition equals bitwise OR and the bytes are exact.
+Host numpy (PackPlan, the _prepare_* table builders) is copied
+line-aligned with the JAX module.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from vorbis_tpu.bitstream.bitpack import ilog
+
+from ..convert import device_tables
+
+f32 = np.float32
+i32 = torch.int32
+i64 = torch.int64
+
+
+# ---------------------------------------------------------------------------
+# static column plan
+
+@dataclass
+class PackPlan:
+    gidx: np.ndarray        # (C1, Gmax) int32 indices into columns, -1 pad
+    n_cols: int             # raw column count C
+    wb: int                 # packet byte budget
+    worst_bytes: int        # true static worst case
+
+    @staticmethod
+    def build(maxbits, wb_cap=768):
+        maxbits = np.asarray(maxbits, np.int64)
+        C = len(maxbits)
+        groups = []
+        cur = []
+        acc = 0
+        for i in range(C):
+            mb = int(maxbits[i])
+            # 0-width columns are legal (e.g. modebits==0 for a
+            # single-mode template, window flags on W=0 packets)
+            assert 0 <= mb <= 32, mb
+            if acc + mb > 32:
+                groups.append(cur)
+                cur = []
+                acc = 0
+            cur.append(i)
+            acc += mb
+        if cur:
+            groups.append(cur)
+        gmax = max(len(g) for g in groups)
+        gidx = np.full((len(groups), gmax), -1, np.int32)
+        for gi, g in enumerate(groups):
+            gidx[gi, :len(g)] = g
+        worst = (int(maxbits.sum()) + 7) // 8
+        return PackPlan(gidx=gidx, n_cols=C,
+                        wb=min(worst + 4, wb_cap), worst_bytes=worst + 4)
+
+
+def merge_columns(vals, lens, gidx):
+    """(F, C) columns -> (F, C1) merged columns per the static plan.
+    gidx: (C1, Gmax) long tensor, pads pointing at column C."""
+    F = vals.shape[0]
+    v = torch.cat([vals, vals.new_zeros((F, 1))], 1)
+    l = torch.cat([lens, lens.new_zeros((F, 1))], 1)
+    vg = v[:, gidx]                     # (F, C1, Gmax) static gather
+    lg = l[:, gidx]
+    # zero-length columns may carry stale values (masked lookups);
+    # they must contribute no bits to the OR-merge
+    vg = torch.where(lg > 0, vg, 0)
+    acc_v = vg[..., 0]
+    acc_l = lg[..., 0]
+    for k in range(1, gidx.shape[1]):
+        # plan guarantees acc_l <= 32 - maxbits_k < 32 whenever column
+        # k can be non-empty, so the shift stays in range
+        acc_v = acc_v | (vg[..., k] << torch.clamp_max(acc_l, 31))
+        acc_l = acc_l + lg[..., k]
+    # uint32 semantics: bits shifted past 32 are dropped
+    return acc_v & 0xFFFFFFFF, acc_l
+
+
+def pack_bits(vals, lens, wb):
+    """(F, C1) merged (value, nbits) columns -> (F, wb) packed bytes
+    uint8 + (F,) total bit counts int32.  LSB-first like
+    oggpack_write; bytes past wb are dropped (the caller redoes an
+    oversized packet with the worst-case budget)."""
+    F, C1 = vals.shape
+    lens = lens.to(i64)
+    off = torch.cumsum(lens, dim=1) - lens
+    total = off[:, -1] + lens[:, -1]
+    width = torch.bitwise_left_shift(torch.ones_like(lens), lens) - 1
+    v = torch.where(lens > 0, vals & width, 0)
+    base = off >> 3
+    shifted = v << (off & 7)                     # <= 39 bits
+    out = torch.zeros((F, wb + 1), dtype=i32, device=vals.device)
+    for j in range(5):
+        # column wb collects every byte past the budget
+        idx = torch.clamp_max(base + j, wb)
+        out.scatter_add_(1, idx, ((shifted >> (8 * j)) & 0xFF).to(i32))
+    return out[:, :wb].to(torch.uint8), total.to(i32)
+
+
+# ---------------------------------------------------------------------------
+# the encoder step
+
+class DeviceFastEncode:
+    """PCM -> packets step for the long-block fast path, on fe.device.
+
+    Construction pulls every static table out of a FastEncoder's looks
+    (floor neighbours, class/sub books, residue lattice parameters,
+    codeword tables) and precomputes the column/merge/pack plan.
+    """
+
+    def __init__(self, fe, chunk_packets=1024, W=1):
+        self.fe = fe
+        self.device = fe.device
+        self.ctx = fe.ctx(W) if hasattr(fe, "ctx") else fe
+        self.W = W
+        self.ch = fe.ch
+        # residue-domain channel count: res2 codes ONE interleaved
+        # vector over the coupled bundle
+        self.res_type = getattr(self.ctx, "res_type", 1)
+        self.res_ch = 1 if self.res_type == 2 else fe.ch
+        self.n = self.ctx.n
+        self.hop = self.n // 2
+        self.chunk_packets = chunk_packets
+        self.chunk_samples = chunk_packets * self.hop + self.hop
+        mapping = getattr(self.ctx, "mapping", None)
+        self.multi = mapping is not None and (
+            mapping.submaps > 1 or mapping.coupling_steps > 1)
+        if self.multi:
+            raise NotImplementedError(
+                "multi-submap / multi-step coupling layouts (5.1): "
+                "ROADMAP §1.10")
+        nm = getattr(self.ctx, "normal", None)
+        if nm is not None and nm["thresh"] < 9000.0:
+            raise NotImplementedError(
+                "noise-normalize promotion (_normalize_promote) at this "
+                "rung: ROADMAP §1.6")
+        self._prepare_floor()
+        self._prepare_residue()
+        self._prepare_columns()
+        self._prepare_device()
+        self._step_cache = {}
+
+    # -- static preparation ------------------------------------------------
+    def _prepare_floor(self, look=None, tgt=None):
+        """Extract one floor config's static tables onto tgt (default:
+        self — the single-submap fast path)."""
+        fe = self.fe
+        tgt = tgt if tgt is not None else self
+        look = look if look is not None else self.ctx.fl_look
+        self = tgt
+        info = look.info
+        self.fl = look
+        self.P = look.posts
+        self.quant_q = look.quant_q
+        self.qb = ilog(look.quant_q - 1)
+        self.lo_static = np.asarray(look.loneighbor, np.int64)
+        self.hi_static = np.asarray(look.hineighbor, np.int64)
+        self.postlist = np.asarray(info.postlist, np.int64)
+        self.mult = info.mult
+        # per-partition class metadata + codeword tables
+        vb = fe.vi.books
+        sb = fe.vi.static_books
+        self.fl_parts = []
+        for i in range(info.partitions):
+            cls = info.partitionclass[i]
+            cdim = info.class_dim[cls]
+            csubbits = info.class_subs[cls]
+            csub = 1 << csubbits
+            subs = [info.class_subbook[cls][k] for k in range(csub)]
+            maxval = np.asarray(
+                [1 if s < 0 else sb[s].entries for s in subs], np.int64)
+            cb = vb[info.class_book[cls]] if csubbits else None
+            subbooks = [(None if s < 0 else vb[s]) for s in subs]
+            self.fl_parts.append(dict(
+                cls=cls, cdim=cdim, csubbits=csubbits, csub=csub,
+                maxval=maxval, classbook=cb, subbooks=subbooks))
+
+    def _prepare_residue(self, look=None, dvq=None, tgt=None,
+                         res_ch=None):
+        """Extract one residue config's static tables onto tgt
+        (default: self)."""
+        fe = self.fe
+        tgt = tgt if tgt is not None else self
+        look = look if look is not None else self.ctx.res_look
+        dvq = dvq if dvq is not None else self.ctx.dvq
+        self = tgt
+        self.res_look_ = look
+        self.dvq_ = dvq
+        if res_ch is not None:
+            self.res_ch = res_ch
+        info = look.info
+        self.ri = info
+        self.spp = info.grouping
+        self.partvals = (info.end - info.begin) // self.spp
+        self.ppw = look.dim
+        self.nchunks = (self.partvals + self.ppw - 1) // self.ppw
+        self.parts_pad = self.nchunks * self.ppw
+        self.possible = info.partitions
+        self.stages = look.stages
+        self.sec = np.asarray(info.secondstages, np.int64)
+        self.phrasebook = look.phrasebook
+        # per (stage, class): lattice params (books are exact zigzag
+        # lattices: value(m) = delta * zz(m), verified at init)
+        self.res_books = []          # [stage][class] dict or None
+        for s in range(self.stages):
+            row = []
+            for c in range(self.possible):
+                b = (dvq.books[c][s]
+                     if s < len(dvq.books[c]) else None)
+                if b is None or not (self.sec[c] >> s) & 1:
+                    row.append(None)
+                    continue
+                vals_np = np.asarray(b.values_np, np.float64)
+                qv, dim, E = b.qv, b.dim, b.entries
+                assert qv ** dim == E, "expected a full lattice"
+                # verify zigzag-separable values
+                ok = True
+                for k in range(dim):
+                    vmap = vals_np[(np.arange(qv) * qv ** k), k]
+                    zz = np.where(np.arange(qv) % 2,
+                                  -((np.arange(qv) + 1) // 2),
+                                  np.arange(qv) // 2)
+                    if not np.array_equal(vmap, b.delta * zz):
+                        ok = False
+                    dig = (np.arange(E) // qv ** k) % qv
+                    if not np.array_equal(vals_np[:, k], vmap[dig]):
+                        ok = False
+                assert ok, f"non-lattice residue book c{c} s{s}"
+                # the exact-int32 trunc division in _vq_stages needs
+                # integral lattice params
+                assert float(b.delta).is_integer(), b.delta
+                assert float(b.minval).is_integer(), b.minval
+                remap = np.asarray(b.remap_np)
+                ident = bool(np.all(remap == np.arange(E)))
+                rdig = None
+                if not ident:
+                    rdig = np.stack(
+                        [((remap // qv ** k) % qv) for k in range(dim)],
+                        1).astype(np.int8)
+                row.append(dict(book=b, qv=qv, dim=dim, entries=E,
+                                minval=b.minval, delta=b.delta,
+                                ident=ident, remap_digits=rdig))
+            self.res_books.append(row)
+        # per-stage codeword tables: per-class (cw, cl) pairs for the
+        # width-grouped lookup plus the stacked padded form
+        self.stage_tabs = []
+        for s in range(self.stages):
+            maxent = max((d["entries"] for d in self.res_books[s]
+                          if d is not None), default=1)
+            cw = np.zeros((self.possible, maxent), np.uint32)
+            cl = np.zeros((self.possible, maxent), np.int32)
+            steps = np.ones(self.possible, np.int64)
+            cls_books = []
+            for c, d in enumerate(self.res_books[s]):
+                if d is None:
+                    cls_books.append(None)
+                    continue
+                bk = look.partbooks[c][s]
+                bcw = np.asarray(bk.codewords, np.uint64) \
+                    .astype(np.uint32)
+                bcl = np.asarray(bk.lengths, np.int32)
+                cls_books.append((bcw, bcl))
+                cw[c, :d["entries"]] = bcw
+                cl[c, :d["entries"]] = bcl
+                steps[c] = self.spp // d["dim"]
+            max_steps = int(steps[[d is not None
+                                   for d in self.res_books[s]]].max()
+                            if any(d is not None
+                                   for d in self.res_books[s]) else 1)
+            self.stage_tabs.append(dict(
+                cw=cw, cl=cl, steps=steps, max_steps=max_steps,
+                maxent=maxent, cls_books=cls_books,
+                maxlen=[int(cl[:, :].max())]))
+        # phrase codewords
+        ph = self.phrasebook
+        self.ph_cw = np.asarray(ph.codewords, np.uint64) \
+            .astype(np.uint32)
+        self.ph_cl = np.asarray(ph.lengths, np.int32)
+
+    def _prepare_columns(self):
+        """Static per-column worst-case widths, in exact packet
+        emission order (must mirror _assemble_columns)."""
+        fe = self.fe
+        maxbits = [1, fe.modebits, 1, 1]
+        # floor per channel
+        fl_bits = [1, self.qb, self.qb]
+        for p in self.fl_parts:
+            if p["csubbits"]:
+                fl_bits.append(int(np.max(p["classbook"].lengths)))
+            for k in range(p["cdim"]):
+                ml = max((int(np.max(b.lengths))
+                          for b in p["subbooks"] if b is not None),
+                         default=1)
+                fl_bits.append(max(ml, 1))
+        for _ in range(self.ch):
+            maxbits.extend(fl_bits)
+        self.fl_ncols = len(fl_bits)
+        # residue stages
+        ph_maxlen = int(self.ph_cl.max())
+        self.res_ncols = []
+        for s in range(self.stages):
+            st = self.stage_tabs[s]
+            ms = st["max_steps"]
+            # per step position: max codeword length over classes
+            # whose stage-s book still has that step
+            pos_ml = np.zeros(ms, np.int64)
+            for c, d in enumerate(self.res_books[s]):
+                if d is None:
+                    continue
+                sc = self.spp // d["dim"]
+                ml = int(np.max(np.asarray(
+                    self.ctx.res_look.partbooks[c][s].lengths)))
+                pos_ml[:sc] = np.maximum(pos_ml[:sc], ml)
+            pos_ml = np.maximum(pos_ml, 1)
+            ncols = 0
+            for c0 in range(self.nchunks):
+                if s == 0:
+                    maxbits.extend([ph_maxlen] * self.res_ch)
+                    ncols += self.res_ch
+                for _ in range(self.ppw):
+                    for _ in range(self.res_ch):
+                        maxbits.extend(pos_ml.tolist())
+                        ncols += ms
+            self.res_ncols.append(ncols)
+        self.plan = PackPlan.build(maxbits)
+
+    def _prepare_device(self):
+        """Every table the device stages read, through device_tables."""
+        dev = self.device
+        for p in self.fl_parts:
+            tabs = dict(maxval=p["maxval"].astype(np.int32))
+            if p["csubbits"]:
+                cb = p["classbook"]
+                tabs["cb_cw"] = np.asarray(cb.codewords, np.uint64) \
+                    .astype(np.uint32)
+                tabs["cb_cl"] = np.asarray(cb.lengths, np.int32)
+            for l, bk in enumerate(p["subbooks"]):
+                if bk is None:
+                    continue
+                tabs[f"sub_cw{l}"] = np.asarray(bk.codewords, np.uint64) \
+                    .astype(np.uint32)
+                tabs[f"sub_cl{l}"] = np.asarray(bk.lengths, np.int32)
+            p["t"] = device_tables(tabs, dev)
+        for s, st in enumerate(self.stage_tabs):
+            st["t"] = device_tables(dict(
+                cw=st["cw"], cl=st["cl"],
+                steps=st["steps"].astype(np.int32)), dev)
+            for d in self.res_books[s]:
+                if d is not None and not d["ident"]:
+                    d["rd_t"] = device_tables(
+                        {"rd": d["remap_digits"].astype(np.int32)},
+                        dev)["rd"]
+        gidx = np.where(self.plan.gidx < 0, self.plan.n_cols,
+                        self.plan.gidx).astype(np.int64)
+        tabs = dict(sec=self.sec.astype(np.int32), ph_cw=self.ph_cw,
+                    ph_cl=self.ph_cl, gidx=gidx,
+                    hdr_l=np.array([1, self.fe.modebits,
+                                    1 if self.W else 0,
+                                    1 if self.W else 0], np.int32))
+        if self.res_type == 2:
+            cp = self.ctx.couple
+            tabs["thr1"] = np.asarray(cp["thr1"], np.float32)
+            tabs["threv"] = np.asarray(cp["threv"], np.float32)
+        vars(self).update({f"{k}_t": v for k, v in
+                           device_tables(tabs, dev).items()})
+
+    # -- device stages -------------------------------------------------------
+    def _floor_wrap(self, posts):
+        """Raw fit posts (B, P) -> (codes (B, P), qposts (B, P)) — the
+        floor1_encode quantization + predictive wrap coding
+        (floor1.c:774-935), vectorized over frames."""
+        P = self.P
+        post = posts.to(i32)
+        val = post & 0x7FFF
+        m = self.mult
+        val = (val >> 2 if m == 1 else val >> 3 if m == 2
+               else torch.div(val, 12, rounding_mode="floor") if m == 3
+               else val >> 4)
+        post = val | (post & 0x8000)
+        outs = [post[:, 0] & 0x7FFF, post[:, 1] & 0x7FFF]
+        cols = [post[:, i] for i in range(P)]
+        qq = self.quant_q
+        for i in range(2, P):
+            ln = int(self.lo_static[i - 2])
+            hn = int(self.hi_static[i - 2])
+            y0 = cols[ln] & 0x7FFF
+            y1 = cols[hn] & 0x7FFF
+            dy = y1 - y0
+            adx = int(self.postlist[hn] - self.postlist[ln])
+            err = torch.abs(dy) * int(self.postlist[i]
+                                      - self.postlist[ln])
+            offp = torch.div(err, adx, rounding_mode="floor")
+            predicted = torch.where(dy < 0, y0 - offp, y0 + offp)
+            flag = ((cols[i] & 0x8000) != 0) | (predicted == cols[i])
+            headroom = torch.minimum(qq - predicted, predicted)
+            v = cols[i] - predicted
+            vneg = torch.where(v < -headroom, headroom - v - 1,
+                               -1 - (v << 1))
+            vpos = torch.where(v >= headroom, v + headroom, v << 1)
+            code = torch.where(v < 0, vneg, vpos)
+            outs.append(torch.where(flag, 0, code))
+            cols[i] = torch.where(flag, predicted | 0x8000, cols[i])
+            unflag = ~flag
+            cols[ln] = torch.where(unflag, cols[ln] & 0x7FFF, cols[ln])
+            cols[hn] = torch.where(unflag, cols[hn] & 0x7FFF, cols[hn])
+        return torch.stack(outs, 1), torch.stack(cols, 1)
+
+    def _floor_fields(self, codes, used):
+        """codes (B, P) + used (B,) -> (vals (B, FC) int64,
+        lens (B, FC) int32) for one batch of channels."""
+        B = codes.shape[0]
+        dev = codes.device
+        vals = [used.to(i64)]
+        lens = [torch.ones((B,), dtype=i32, device=dev)]
+        qbl = torch.where(used, self.qb, 0).to(i32)
+        vals += [codes[:, 0].to(i64), codes[:, 1].to(i64)]
+        lens += [qbl, qbl]
+        j = 2
+        for p in self.fl_parts:
+            t = p["t"]
+            cdim = p["cdim"]
+            seg = codes[:, j:j + cdim]                 # (B, cdim)
+            cond = seg[:, :, None] < t["maxval"][None, None, :]
+            anyc = cond.any(-1)
+            # first sub-book whose range holds the code
+            bookas = torch.where(anyc, cond.to(torch.uint8).argmax(-1), 0)
+            if p["csubbits"]:
+                shifts = torch.arange(cdim, device=dev) * p["csubbits"]
+                cval = (bookas << shifts[None, :]).sum(-1)
+                vals.append(t["cb_cw"][cval])
+                lens.append(torch.where(used, t["cb_cl"][cval], 0))
+            for k in range(cdim):
+                v_k = torch.zeros((B,), dtype=i64, device=dev)
+                l_k = torch.zeros((B,), dtype=i32, device=dev)
+                ok = torch.zeros((B,), dtype=torch.bool, device=dev)
+                for l, bk in enumerate(p["subbooks"]):
+                    if bk is None:
+                        continue
+                    idx = torch.clamp(seg[:, k], 0, bk.entries - 1).long()
+                    sel = (bookas[:, k] == l) & (seg[:, k] < bk.entries)
+                    v_k = torch.where(sel, t[f"sub_cw{l}"][idx], v_k)
+                    l_k = torch.where(sel, t[f"sub_cl{l}"][idx], l_k)
+                    ok = ok | sel
+                vals.append(v_k)
+                lens.append(torch.where(ok & used, l_k, 0))
+            j += cdim
+        return torch.stack(vals, 1), torch.stack(lens, 1)
+
+    def _pad_to(self, x, need):
+        if need > x.shape[-1]:
+            x = torch.nn.functional.pad(x, (0, need - x.shape[-1]))
+        return x
+
+    def _classify(self, res):
+        """res (B, n) float (already rint'ed) -> partword
+        (B, partvals) int32 (res01_class)."""
+        ri = self.ri
+        spp = self.spp
+        need = ri.begin + self.partvals * spp
+        res = self._pad_to(res, need)
+        seg = torch.abs(res[..., ri.begin:need].to(i32)) \
+            .reshape(res.shape[:-1] + (self.partvals, spp))
+        mx = seg.amax(-1)
+        scale = float(f32(f32(100.0) / f32(spp)))
+        ent = (seg.sum(-1, dtype=i32).to(torch.float32) * scale).to(i32)
+        cm1 = np.asarray(ri.classmetric1, np.int64)
+        cm2 = np.asarray(ri.classmetric2, np.int64)
+        k = torch.full(mx.shape, self.possible - 1, dtype=i32,
+                       device=res.device)
+        for kk in range(self.possible - 2, -1, -1):
+            okk = mx <= int(cm1[kk])
+            if cm2[kk] >= 0:
+                okk = okk & (ent < int(cm2[kk]))
+            k = torch.where(okk, kk, k)
+        return k
+
+    def _vq_stages(self, res, pw):
+        """res (B, n) float residuals, pw (B, partvals) -> per stage
+        entries (B, partvals, max_steps) int32 (-1 where inactive).
+        Pure elementwise zigzag-lattice math (res0.c _encodepart with
+        the lattice fast path; value reconstruction is delta*zz(m))."""
+        spp = self.spp
+        need = self.ri.begin + self.partvals * spp
+        res = self._pad_to(res, need)
+        work = res[..., self.ri.begin:need].to(torch.float32) \
+            .reshape(res.shape[:-1] + (self.partvals, spp))
+        dev = res.device
+        out = []
+        for s in range(self.stages):
+            st = self.stage_tabs[s]
+            ents = torch.full(work.shape[:-1] + (st["max_steps"],), -1,
+                              dtype=i32, device=dev)
+            new_work = work
+            dims = sorted({d["dim"] for d in self.res_books[s]
+                           if d is not None})
+            for dim in dims:
+                steps = spp // dim
+                a = work.reshape(work.shape[:-1] + (steps, dim))
+                classes = [c for c, d in enumerate(self.res_books[s])
+                           if d is not None and d["dim"] == dim]
+                # per-partition scalar params via where-ladder
+                mvv = torch.zeros(pw.shape, dtype=torch.float32, device=dev)
+                dl = torch.ones(pw.shape, dtype=torch.float32, device=dev)
+                addv = torch.zeros(pw.shape, dtype=torch.float32,
+                                   device=dev)
+                qvv = torch.ones(pw.shape, dtype=i32, device=dev)
+                act = torch.zeros(pw.shape, dtype=torch.bool, device=dev)
+                for c in classes:
+                    d = self.res_books[s][c]
+                    selc = pw == c
+                    mvv = torch.where(selc, float(d["minval"]), mvv)
+                    dl = torch.where(selc, float(d["delta"]), dl)
+                    # C: +(delta>>1) before the divide, but only for
+                    # delta != 1 (res0.c local_book_besterror)
+                    addf = float(d["delta"] >> 1) if d["delta"] != 1 \
+                        else 0.0
+                    addv = torch.where(selc, addf, addv)
+                    qvv = torch.where(selc, d["qv"], qvv)
+                    act = act | selc
+                mv4 = mvv[..., None, None]
+                dl4 = dl[..., None, None]
+                qv4 = qvv[..., None, None]
+                ze4 = qv4 >> 1
+                t = a - mv4 + addv[..., None, None]
+                # exact int32 trunc division (C: IEEE f32 divide +
+                # truncate; every delta is integral and t integer-valued)
+                ti = t.to(i32)
+                di = dl4.to(i32)
+                v = torch.div(ti, di, rounding_mode="trunc")
+                m = torch.where(v < ze4, ((ze4 - v) << 1) - 1,
+                                (v - ze4) << 1)
+                m = torch.minimum(torch.clamp_min(m, 0), qv4 - 1)
+                # entry index: digit o has significance qv^o
+                idx = torch.zeros(a.shape[:-1], dtype=i32, device=dev)
+                for o in range(dim - 1, -1, -1):
+                    idx = idx * qv4[..., 0] + m[..., o]
+                mdig = m
+                # non-identity remaps (unused lattice entries)
+                for c in classes:
+                    d = self.res_books[s][c]
+                    if d["ident"]:
+                        continue
+                    rd = d["rd_t"][torch.clamp(idx, 0, d["entries"] - 1)
+                                   .long()]
+                    selc = (pw == c)[..., None, None]
+                    mdig = torch.where(selc, rd, mdig)
+                    idx2 = torch.zeros(a.shape[:-1], dtype=i32, device=dev)
+                    for o in range(dim - 1, -1, -1):
+                        idx2 = idx2 * d["qv"] + rd[..., o]
+                    idx = torch.where(selc[..., 0], idx2, idx)
+                zz = torch.where((mdig & 1) == 1, -((mdig + 1) >> 1),
+                                 mdig >> 1)
+                rec = dl4 * zz.to(torch.float32)
+                sel = act[..., None]
+                rem = (a - rec).reshape(work.shape)
+                new_work = torch.where(sel, rem, new_work)
+                ents[..., :steps] = torch.where(sel, idx,
+                                                ents[..., :steps])
+            work = new_work
+            out.append(ents)
+        return out
+
+    def _residue_fields(self, pw, entries, used):
+        """pw (F, ch, partvals), entries per stage
+        (F, ch, partvals, max_steps), used (F, ch) -> (vals, lens)
+        (F, RC) in res01_forward emission order."""
+        F = pw.shape[0]
+        ch = self.res_ch
+        ppw = self.ppw
+        nck = self.nchunks
+        dev = pw.device
+        pwl = pw.long()
+        vals_blocks = []
+        lens_blocks = []
+        padn = self.parts_pad - self.partvals
+        pwp = torch.nn.functional.pad(pw, (0, padn)) if padn else pw
+        for s in range(self.stages):
+            st = self.stage_tabs[s]
+            t = st["t"]
+            ms = st["max_steps"]
+            e = entries[s]
+            ent_act = e >= 0
+            act = (((self.sec_t[pwl] >> s) & 1) == 1) & used[..., None]
+            nsteps = t["steps"][pwl]                   # (F, ch, parts)
+            krange = torch.arange(ms, dtype=i32, device=dev)
+            inr = (krange < nsteps[..., None]) & act[..., None] & ent_act
+            # codeword lookup: a plain gather from the stacked
+            # (class, entry) tables
+            e_in = torch.where(inr, e, 0).long()
+            ev = t["cw"][pwl[..., None], e_in]
+            el = torch.where(inr, t["cl"][pwl[..., None], e_in], 0)
+            # pad partitions to nchunks*ppw
+            if padn:
+                ev = torch.nn.functional.pad(ev, (0, 0, 0, padn))
+                el = torch.nn.functional.pad(el, (0, 0, 0, padn))
+            # (F, ch, nck, ppw, ms) -> (F, nck, ppw, ch, ms)
+            ev = ev.reshape(F, ch, nck, ppw, ms).permute(0, 2, 3, 1, 4)
+            el = el.reshape(F, ch, nck, ppw, ms).permute(0, 2, 3, 1, 4)
+            if s == 0:
+                # phrase words: digit-pack ppw partwords, MSB first
+                ph_v = torch.zeros((F, ch, nck), dtype=i32, device=dev)
+                for k in range(ppw):
+                    ph_v = ph_v * self.possible \
+                        + pwp[..., k::ppw][..., :nck]
+                ph_ok = (ph_v < self.phrasebook.entries) \
+                    & used[..., None]
+                ph_idx = torch.where(ph_ok, ph_v, 0).long()
+                ph_cw = self.ph_cw_t[ph_idx]
+                ph_cl = torch.where(ph_ok, self.ph_cl_t[ph_idx], 0)
+                # (F, ch, nck) -> (F, nck, ch)
+                blk_v = torch.cat([ph_cw.permute(0, 2, 1),
+                                   ev.reshape(F, nck, ppw * ch * ms)], -1)
+                blk_l = torch.cat([ph_cl.permute(0, 2, 1),
+                                   el.reshape(F, nck, ppw * ch * ms)], -1)
+            else:
+                blk_v = ev.reshape(F, nck, ppw * ch * ms)
+                blk_l = el.reshape(F, nck, ppw * ch * ms)
+            vals_blocks.append(blk_v.reshape(F, -1))
+            lens_blocks.append(blk_l.reshape(F, -1))
+        return torch.cat(vals_blocks, 1), torch.cat(lens_blocks, 1)
+
+    # -- channel coupling (res2 / coupled stereo) ---------------------------
+    def _classify2(self, absM, absA, nch=2):
+        """res2 classification (_2class, res0.c:473): per interleaved
+        partition, the magnitude channel's max and the angle channels'
+        max walk the classmetric thresholds."""
+        ri = self.ri
+        spp = self.spp
+        per = spp // nch
+        b0 = ri.begin // nch
+        need = b0 + self.partvals * per
+
+        def seg(x):
+            x = self._pad_to(x, need)
+            return x[..., b0:need].reshape(
+                x.shape[:-1] + (self.partvals, per))
+        magmax = seg(absM).amax(-1)
+        angmax = seg(absA).amax(-1)
+        cm1 = np.asarray(ri.classmetric1, np.int64)
+        cm2 = np.asarray(ri.classmetric2, np.int64)
+        k = torch.full(magmax.shape, self.possible - 1, dtype=i32,
+                       device=absM.device)
+        for kk in range(self.possible - 2, -1, -1):
+            ok = (magmax <= int(cm1[kk])) & (angmax <= int(cm2[kk]))
+            k = torch.where(ok, kk, k)
+        return k
+
+    def _couple_quantize(self, md, curve, used, F):
+        """Stereo channel coupling + quantization (reference:
+        _vp_couple_quantize_normalize, psy.c:4858-5142), stateless fast
+        path: per-bin lossless flags from the stereo point thresholds,
+        integer mag/ang lossless transform, min_indemnity_dipole_hypot
+        point fold with energy requantization.  md/curve: (F*2, n2);
+        returns integer-valued (F, 2, n2) float32 residues.  The M6/M9
+        history terms and the noise-normalize promotion belong to the
+        psy-state slice (ROADMAP §1.6)."""
+        n2 = md.shape[-1]
+        mdc = md.reshape(F, 2, n2)
+        us = used.reshape(F, 2)
+        cur = curve.reshape(F, 2, n2)
+        cur = torch.where(us[..., None], cur, float(f32(1e-10)))
+        res = torch.where(us[..., None], mdc / cur, 0.0)
+        thr1 = self.thr1_t[:n2]
+        r = torch.abs(res)
+        f1M = r[:, 0] >= thr1
+        f1A = r[:, 1] >= thr1
+        lossless = f1M | f1A
+        qi = torch.round(res)
+        qiM, qiA = qi[:, 0], qi[:, 1]
+        # integer lossless mag/ang (psy.c lossless_coupling)
+        c1 = torch.abs(qiM) > torch.abs(qiA)
+        mag = torch.where(c1, qiM, qiA)
+        ang = torch.where(c1,
+                          torch.where(qiM > 0, qiM - qiA, qiA - qiM),
+                          torch.where(qiA > 0, qiM - qiA, qiA - qiM))
+        flip = ang >= torch.abs(mag) * 2
+        mag = torch.where(flip, -mag, mag)
+        ang = torch.where(flip, -ang, ang)
+        # point-stereo fold on the signed energy domain
+        thnor = float(f32(0.94))
+        mm = torch.where(us[:, 0, None], mdc[:, 0], 0.0)
+        ma = torch.where(us[:, 1, None], mdc[:, 1], 0.0)
+        rawM = torch.where(mm < 0, -(mm * mm), mm * mm)
+        rawA = torch.where(ma < 0, -(ma * ma), ma * ma)
+        threv = self.threv_t[:n2]
+        a2 = torch.abs(rawM * thnor)
+        b2 = torch.abs(rawA * thnor)
+        hyp = torch.where(
+            rawM > 0,
+            torch.where(rawA > 0, a2 + b2,
+                        torch.where(mm > -ma, a2 - b2 * threv,
+                                    -(b2 - a2 * threv))),
+            torch.where(rawA < 0, -(a2 + b2),
+                        torch.where(-mm > ma, -(a2 - b2 * threv),
+                                    b2 - a2 * threv)))
+        floorsum = cur[:, 0] * cur[:, 0] + cur[:, 1] * cur[:, 1]
+        ve = torch.abs(hyp) / floorsum
+        mag_pt = torch.round(torch.sqrt(ve))
+        mag_pt = torch.where(hyp < 0, -mag_pt, mag_pt)
+        outM = torch.where(lossless, mag, mag_pt)
+        outA = torch.where(lossless, ang, 0.0)
+        any_used = us[:, 0] | us[:, 1]
+        outM = torch.where(any_used[:, None], outM, 0.0)
+        outA = torch.where(any_used[:, None], outA, 0.0)
+        return torch.stack([outM, outA], 1), any_used
+
+    # -- the full step -------------------------------------------------------
+    def encode_flat(self, flat, F, wb):
+        """The post-framing encode body: flat (F*ch, n) raw PCM frames
+        in frame-major (F, ch) order -> (packets (F, wb) uint8,
+        nbits (F,) int32).  Per-frame math only (no cross-frame
+        dependency)."""
+        ctx = self.ctx
+        md, logmdct, mask = ctx.analysis.full_mask(flat)
+        posts, used = ctx.floor(logmdct, mask)
+        return self.finish_from_posts(md, posts, used, F, wb)
+
+    def finish_from_posts(self, md, posts, used, F, wb):
+        """Post-fit encode body: raw fit posts -> packed packets."""
+        ctx = self.ctx
+        ch = self.ch
+        codes, qposts = self._floor_wrap(posts)
+        curve = ctx.floor.render(qposts, ctx.fromdB)
+        if self.res_type == 2:
+            out2, any_used = self._couple_quantize(md, curve, used, F)
+            # interleave the coupled pair: flat[i] = out2[:, i%2, i//2]
+            inter = out2.transpose(1, 2).reshape(F, -1)
+            pw = self._classify2(torch.abs(out2[:, 0]),
+                                 torch.abs(out2[:, 1]))
+            entries = self._vq_stages(inter, pw)
+            used_p = any_used.reshape(F, 1)
+        else:
+            res = torch.round(md / curve)
+            res = torch.where(used[:, None], res, 0.0)
+            pw = self._classify(res)
+            entries = self._vq_stages(res, pw)
+            used_p = used.reshape(F, ch)
+        fv, fl = self._floor_fields(codes, used)
+        # header: packet-type bit, mode, and (long blocks only) the
+        # lW/nW window-shape flags, 1/1 in an all-long stream
+        dev = md.device
+        hdr_v = torch.tensor([0, ctx.mode_idx, 1, 1], dtype=i64,
+                             device=dev).expand(F, 4)
+        hdr_l = self.hdr_l_t.expand(F, 4)
+        fv = fv.reshape(F, -1)
+        fl = fl.reshape(F, -1)
+        rc = self.res_ch
+        pw_p = pw.reshape(F, rc, -1)
+        ent_p = [e.reshape(F, rc, self.partvals, -1) for e in entries]
+        rv, rl = self._residue_fields(pw_p, ent_p, used_p)
+        vals = torch.cat([hdr_v, fv, rv], 1)
+        lens = torch.cat([hdr_l, fl, rl], 1)
+        mv, ml = merge_columns(vals, lens, self.gidx_t)
+        return pack_bits(mv, ml, wb)
+
+    def make_step(self, wb=None):
+        """Returns a callable pcm_chunk (ch, F*hop + hop) on the device
+        -> (packets (F, wb) uint8, nbits (F,) int32).  int16 PCM is
+        scaled by 1/32768 on the device."""
+        wb = wb or self.plan.wb
+        n, hop, ch = self.n, self.hop, self.ch
+
+        def step(pcm):
+            if pcm.dtype != torch.float32:
+                x = pcm.to(torch.float32) / 32768.0
+            else:
+                x = pcm
+            F = pcm.shape[1] // hop - 1
+            frames = x.unfold(1, n, hop)[:, :F]      # (ch, F, n) view
+            flat = frames.transpose(0, 1).reshape(F * ch, n)
+            return self.encode_flat(flat, F, wb)
+
+        return step
+
+    def get_step(self, wb=None):
+        wb = wb or self.plan.wb
+        if wb not in self._step_cache:
+            self._step_cache[wb] = self.make_step(wb)
+        return self._step_cache[wb]

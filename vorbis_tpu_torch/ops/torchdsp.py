@@ -1,0 +1,460 @@
+"""Torch counterpart of vorbis_tpu/ops/jaxdsp.py: the encoder's device
+analysis spine (window -> MDCT -> log spectrum -> bark noise fit ->
+tone mask -> stateless offset/mix), batched over frames and channels.
+
+Same formulas and float32 op order as the JAX module, in torch idiom:
+prefix sums are `torch.cumsum`, static index tables are tensor gathers,
+`segment_max` is `scatter_reduce(..., "amax")` and the one-hot
+curve-row matmul (a TPU workaround) is a plain row index.  Float
+results agree with JAX to float reassociation (the cumsum and FFT
+orders differ between backends); tests/test_torch_analysis.py states
+the bounds.
+
+Reference behavior being reproduced (file:line of the reference tree):
+- bark_noise_hybridmp least-squares noise fit: lib/psy.c:3480
+- noise companding: lib/psy.c _vp_noisemask
+- window + forward MDCT + log spectrum: lib/mdct.c, lib/scales.h:43-52
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from vorbis_tpu.ops import psy as PSY
+from vorbis_tpu.ops.window import hybrid_window
+
+from ..convert import device_tables
+from ..utils.scales import todB
+from .mdct import mdct_basis_np
+
+f32 = np.float32
+NEGINF = float(PSY.NEGINF)
+
+
+def _c(v) -> float:
+    """A float32-rounded constant as a Python scalar (torch casts it to
+    the tensor dtype exactly)."""
+    return float(f32(v))
+
+
+def log_spectrum(mdct_coef: torch.Tensor) -> torch.Tensor:
+    """logmdct = todB(mdct) + .345 (aoTuV M1 compensation add,
+    reference: lib/mapping0.c logmdct computation)."""
+    return todB(mdct_coef) + _c(0.345)
+
+
+def _ls_terms(N, X, XX, Y, XY, lo, hi, neg_lo):
+    """Windowed least-squares line-fit terms via prefix-sum gathers.
+    neg_lo: True for the low-clipped region (reference adds the
+    reflected prefix instead of subtracting)."""
+    if neg_lo:
+        tN = N[..., hi] + N[..., -lo]
+        tX = X[..., hi] - X[..., -lo]
+        tXX = XX[..., hi] + XX[..., -lo]
+        tY = Y[..., hi] + Y[..., -lo]
+        tXY = XY[..., hi] - XY[..., -lo]
+    else:
+        tN = N[..., hi] - N[..., lo]
+        tX = X[..., hi] - X[..., lo]
+        tXX = XX[..., hi] - XX[..., lo]
+        tY = Y[..., hi] - Y[..., lo]
+        tXY = XY[..., hi] - XY[..., lo]
+    A = tY * tXX - tX * tXY
+    B = tN * tXY - tX * tY
+    D = tN * tXX - tX * tX
+    return A, B, D
+
+
+def bark_fit(fvec, bark_lo, bark_hi, offset, fixed, i1, i2, j1, j2):
+    """Batched bark-windowed weighted LS line fit (reference:
+    lib/psy.c bark_noise_hybridmp).  fvec: (..., n) f32; bark_lo/hi
+    long index tensors on fvec's device; the region boundaries are
+    static."""
+    n = fvec.shape[-1]
+    dev = fvec.device
+    x = torch.arange(n, dtype=torch.float32, device=dev)
+    y = torch.clamp_min(fvec + _c(offset), 1.0)
+    w = y * y
+    w0_half = w[..., :1] * 0.5
+    wx = w * x
+    wxx = wx * x
+    wy = w * y
+    wxy = wx * y
+    zero = torch.zeros_like(w0_half)
+    N = torch.cumsum(torch.cat([w0_half, w[..., 1:]], -1), -1)
+    X = torch.cumsum(torch.cat([w0_half, wx[..., 1:]], -1), -1)
+    XX = torch.cumsum(torch.cat([zero, wxx[..., 1:]], -1), -1)
+    Y = torch.cumsum(torch.cat([w0_half * y[..., :1], wy[..., 1:]], -1),
+                     -1)
+    XY = torch.cumsum(torch.cat([zero, wxy[..., 1:]], -1), -1)
+
+    def fit_regions(lo, hi, k1, k2):
+        A1, B1, D1 = _ls_terms(N, X, XX, Y, XY, lo[:k1], hi[:k1], True)
+        A2, B2, D2 = _ls_terms(N, X, XX, Y, XY, lo[k1:k2], hi[k1:k2],
+                               False)
+        A = torch.cat([A1, A2], -1)
+        B = torch.cat([B1, B2], -1)
+        D = torch.cat([D1, D2], -1)
+        if k2 < n:
+            # extrapolate the last in-range fit across the tail
+            tail = A.shape[:-1] + (n - k2,)
+            Al = A[..., k2 - 1:k2] if k2 > 0 else zero
+            Bl = B[..., k2 - 1:k2] if k2 > 0 else zero
+            Dl = D[..., k2 - 1:k2] if k2 > 0 else torch.ones_like(zero)
+            A = torch.cat([A, Al.expand(tail)], -1)
+            B = torch.cat([B, Bl.expand(tail)], -1)
+            D = torch.cat([D, Dl.expand(tail)], -1)
+        return (A + x * B) / D
+
+    R = fit_regions(bark_lo, bark_hi, i1, i2)
+    noise = torch.clamp_min(R, 0.0) - _c(offset)
+    if fixed > 0:
+        idx = np.arange(n)
+        hi_f = torch.as_tensor(np.minimum(idx + fixed // 2, n - 1),
+                               device=dev)
+        lo_f = torch.as_tensor(idx + fixed // 2 - fixed, device=dev)
+        Rf = fit_regions(lo_f, hi_f, j1, j2)
+        noise = torch.minimum(noise, torch.clamp_min(Rf, 0.0) - _c(offset))
+    return noise
+
+
+class DeviceAnalysis:
+    """Batched encoder analysis spine on `device`: window -> MDCT ->
+    log spectrum -> two-pass bark noise fit -> companded noise mask.
+
+    Mirrors mapping0_forward's per-channel front half
+    (lib/mapping0.c + _vp_noisemask) for the long-block path.  Host
+    setup is line-aligned with jaxdsp.DeviceAnalysis.__init__."""
+
+    def __init__(self, setup, blocktype=3, rate=44100, W=1, device="cpu"):
+        self.device = torch.device(device)
+        bs = setup.vi.blocksizes
+        self.W = W
+        self.n = bs[W]
+        n2 = self.n // 2
+        self.n2 = n2
+        look = PSY.PsyLook(setup.psy_params[blocktype], setup.psy_global,
+                           n2, rate)
+        self.look = look
+        # aoTuV M4 (floor boost guard) static region + M1 scale factor
+        # (reference: psy.c _vp_offset_and_mix mp4 setup, psy.c:4304-4330
+        # and the M1 block psy.c:4434-4459)
+        vi_p = look.vi
+        ff = setup.floor_full
+        end_block = int(ff[W if len(ff) > 1 else 0]["n"])
+        hsrate = 0 if rate < 26000 else 1
+        m4_end_block = min(end_block + int(vi_p["normal_partition"]), n2)
+        if not hsrate:
+            m4_end = m4_end_block
+        else:
+            m4_end = look.tonecomp_endp
+        m4_start = int(vi_p["normal_start"])
+        if hsrate and vi_p["normal_thresh"] > 1.0:
+            m4_start = 9999
+        self.m4_start = m4_start
+        self.m4_end = m4_end
+        self.m4_thres = f32(look.tonecomp_thres)
+        self.m_val = f32(look.m_val)
+        self.hsrate = hsrate
+        tabs = {}
+        if W:
+            # windows for the 4 (lW, nW) neighbor shapes; index
+            # wid = lW*2 + nW selects per frame (block switching)
+            tabs["windows4"] = np.stack(
+                [hybrid_window(bs[0], bs[1], l, 1, nw)
+                 for l in (0, 1) for nw in (0, 1)]).astype(np.float32)
+            tabs["window"] = tabs["windows4"][3]
+        else:
+            tabs["window"] = np.asarray(
+                hybrid_window(bs[0], bs[1], 0, 0, 0), np.float32)
+        bark = np.asarray(look.bark)
+        tabs["bark_lo"] = (bark >> 16).astype(np.int64)
+        self.bark_hi_raw = (bark & 0xFFFF).astype(np.int32)
+        tabs["bark_hi"] = np.minimum(self.bark_hi_raw, n2 - 1).astype(
+            np.int64)
+        lo = (bark >> 16).astype(np.int64)
+        hi = self.bark_hi_raw.astype(np.int64)
+        i1 = 0
+        while i1 < n2 and lo[i1] < 0 and -lo[i1] < n2 and hi[i1] < n2:
+            i1 += 1
+        i2 = i1
+        while i2 < n2 and 0 <= lo[i2] < n2 and hi[i2] < n2:
+            i2 += 1
+        self.i1, self.i2 = i1, i2
+        fixed = int(look.vi["noisewindowfixed"])
+        self.fixed = fixed
+        idx = np.arange(n2)
+        hi_f = idx + fixed // 2
+        lo_f = hi_f - fixed
+        j1 = 0
+        while j1 < n2 and hi_f[j1] < n2 and lo_f[j1] < 0:
+            j1 += 1
+        j2 = j1
+        while j2 < n2 and hi_f[j2] < n2 and lo_f[j2] >= 0:
+            j2 += 1
+        self.j1, self.j2 = j1, j2
+        tabs["noisecompand"] = np.asarray(look.vi["noisecompand"],
+                                          np.float32)
+        tabs["noiseoffsets"] = np.asarray(look.noiseoffset,
+                                          np.float32)[:, :n2]
+        tabs["ath"] = np.asarray(look.ath, np.float32)
+        tabs["mdct_basis"] = mdct_basis_np(self.n)
+        # M4 region as a static bin mask
+        bins = np.arange(n2)
+        tabs["in_m4"] = (bins > m4_start) & (bins < m4_end)
+        vars(self).update(device_tables(tabs, self.device))
+        self.noiseoffset = self.noiseoffsets[1]
+        self.noisemaxsupp = _c(look.vi["noisemaxsupp"])
+        self.toneatts = [_c(a) for a in look.vi["tone_masteratt"]]
+        self.toneatt1 = self.toneatts[1]
+        self.tonemask = DeviceToneMask(look, self.device)
+
+    def windowed(self, frames):
+        return frames * self.window
+
+    def spectra(self, frames, with_fft=False):
+        """The per-frame DSP front: window -> MDCT -> log spectrum ->
+        two-pass bark noise fit.  Returns (md, logmdct, fit1, dB
+        [, logfft]): fit1 is the first fit exactly as _vp_noisemask
+        leaves its `work` buffer, dB the clipped compand index from the
+        second fit."""
+        w = self.windowed(frames)
+        md = torch.matmul(w, self.mdct_basis)     # (..., n/2)
+        logmdct = log_spectrum(md)
+        # pass 1: wide bark window, offset 140
+        mask = bark_fit(logmdct, self.bark_lo, self.bark_hi, 140.0, -1,
+                        self.i1, self.i2, self.j1, self.j2)
+        work = logmdct - mask
+        # pass 2: refit of the residual with the fixed window minimum
+        mask2 = bark_fit(work, self.bark_lo, self.bark_hi, 0.0,
+                         self.fixed, self.i1, self.i2, self.j1, self.j2)
+        fit1 = logmdct - work
+        # companding index (lib/psy.c: dB = logmask+.5 int index)
+        dB = torch.clamp((mask2 + 0.5).to(torch.int32), 0,
+                         PSY.NOISE_COMPAND_LEVELS - 1)
+        if not with_fft:
+            return md, logmdct, fit1, dB
+        return md, logmdct, fit1, dB, self.logfft(w)
+
+    def logfft(self, w):
+        """Tone-analysis log spectrum of the windowed frames
+        (reference uses drft; |rfft|^2 gives the same power)."""
+        sp = torch.fft.rfft(w, dim=-1)[..., :self.n2]
+        power = sp.real * sp.real + sp.imag * sp.imag
+        scale = f32(4.0 / self.n)
+        return (todB(power * float(scale * scale)) * 0.5
+                + _c(0.345) + _c(0.345))
+
+    def __call__(self, frames):
+        """frames: (..., n) f32 PCM -> (mdct, logmdct, noise_mask)."""
+        md, logmdct, fit1, dB = self.spectra(frames)
+        noise = fit1 + self.noisecompand[dB.long()]
+        return md, logmdct, noise + self.noiseoffset
+
+    def offset_and_mix(self, md, logmdct, noise, tone, select=1):
+        """The stateless core of _vp_offset_and_mix (psy.c:4274-4502)
+        for one offset_select: noise/tone mix with the aoTuV M4 floor
+        boost guard and (select 1 only) the M1 relative-MDCT scaling.
+        Returns (scaled_md, mask)."""
+        val = torch.clamp_max(noise + self.noiseoffsets[select],
+                              self.noisemaxsupp)
+        tval = tone + self.toneatts[select]
+        return self.mix_m4_m1(md, logmdct, val, tval, select)
+
+    def mix_m4_m1(self, md, logmdct, val, tval, select):
+        """M4 + (select 1) M1 tail of offset_and_mix."""
+        # M4 (psy.c:4411-4423): where the tone curve governs inside
+        # [m4_start, m4_end], pull it toward the noise val when the
+        # spectrum itself sits below it
+        adj = torch.where(logmdct < val,
+                          tval - (tval - val) * float(self.m4_thres),
+                          logmdct)
+        tval_m4 = torch.where(self.in_m4 & (logmdct < tval), adj, tval)
+        mask = torch.where(val > tval, val, tval_m4)
+        if select == 1:
+            # M1 (psy.c:4434-4459): scale the MDCT line by how far the
+            # mask sits above the spectrum
+            v2 = val - logmdct
+            m1c = _c(-17.2)
+            de_hi = 1.0 - (v2 - m1c) * float(f32(0.005) * self.m_val)
+            de_lo = 1.0 - (v2 - m1c) * float(f32(0.0003) * self.m_val)
+            de_hi = torch.where(de_hi < 0, _c(0.0001), de_hi)
+            de = torch.where(v2 > m1c, de_hi, de_lo)
+            md = md * de
+        return md, mask
+
+    def full_mask(self, frames):
+        """Complete fast-path masking chain: MDCT + FFT spectra, noise
+        fit, tone seeding, and the stateless _vp_offset_and_mix core
+        (offset_select=1 path with M1/M4).  Returns (mdct, logmdct,
+        final_mask)."""
+        md, logmdct, noise, tone = self.mask_components(frames)
+        md, mask = self.offset_and_mix(md, logmdct, noise, tone, 1)
+        return md, logmdct, mask
+
+    def mask_components(self, frames):
+        """(mdct, logmdct, noise_base, tone): noise_base excludes the
+        per-offset noiseoffset row."""
+        md, logmdct, fit1, dB, logfft = self.spectra(frames,
+                                                     with_fft=True)
+        noise = fit1 + self.noisecompand[dB.long()]
+        local_max = torch.clamp_max(logfft.amax(-1), 0.0)
+        global_max = local_max  # stateless: no cross-block ampmax decay
+        tone = self.tonemask(logfft, global_max, local_max)
+        return md, logmdct, noise, tone
+
+
+class DeviceToneMask:
+    """Batched fast-path tone masking (reference: lib/psy.c
+    _vp_tonemask / seed_loop / seed_chase / max_seeds); host setup is
+    line-aligned with jaxdsp.DeviceToneMask.__init__.
+
+      - per-octave-group spectral max  -> scatter_reduce amax
+      - curve seeding                  -> 56 static gathers + running
+        max (amplitude picks the curve row by a plain index)
+      - seed chase                     -> sliding-window max over
+        eighth-octave lines
+      - linear-domain windowed min     -> sparse-table range min + ATH
+    """
+
+    def __init__(self, look, device="cpu"):
+        self.device = torch.device(device)
+        self.look = look
+        n = look.n
+        octave = np.asarray(look.octave[:n], np.int64)
+        self.linesper = int(look.eighth_octave_lines)
+        self.total = int(look.total_octave_lines)
+        # octave groups (seed_loop's i runs over equal-octave spans)
+        group_id = np.concatenate([[0], np.cumsum(octave[1:]
+                                                  != octave[:-1])])
+        self.n_groups = int(group_id[-1]) + 1
+        first = np.searchsorted(group_id, np.arange(self.n_groups))
+        group_oc0 = octave[first]
+        # static per-(group, ehmer k) seed target lines; because group
+        # base lines are unique, the deposit is a static GATHER per k:
+        # line t takes its value from group g where
+        # t == base_g + (k-16)*linesper - linesper/2
+        oc_rel = group_oc0 - look.firstoc
+        line2group = np.full(self.total, -1, np.int64)
+        in_range = (oc_rel >= 0) & (oc_rel < self.total)
+        line2group[oc_rel[in_range]] = np.nonzero(in_range)[0]
+        ks = np.arange(PSY.EHMER_MAX)
+        offs = (ks - PSY.EHMER_OFFSET) * self.linesper \
+            - (self.linesper >> 1)
+        lines = np.arange(self.total)
+        src_line = lines[None, :] - offs[:, None]        # (E, T)
+        ok = (src_line >= 0) & (src_line < self.total) \
+            & (lines[None, :] > 0)
+        srcg = np.where(ok, line2group[np.clip(src_line, 0,
+                                               self.total - 1)], -1)
+        # curves: (P_BANDS, P_LEVELS, 2+EHMER) -> rows indexed by
+        # oc_band*P_LEVELS + level
+        oc_band = np.clip(group_oc0 >> look.shiftoc, 0, PSY.P_BANDS - 1)
+        curves = np.asarray(look.tonecurves, np.float32)
+        self.p_levels = curves.shape[1]
+        # linear-domain windows (max_seeds): reproduce the scalar walk
+        # statically
+        starts = np.empty(n, np.int64)
+        ends = np.empty(n, np.int64)
+        pos = octave[0] - look.firstoc - (self.linesper >> 1)
+        linpos = 0
+        while linpos + 1 < n:
+            end = ((octave[linpos] + octave[linpos + 1]) >> 1) \
+                - look.firstoc
+            seg_start = pos
+            pos = max(pos, min(end, self.total - 1))
+            end_oc = pos + look.firstoc
+            j = linpos
+            while j < n and octave[j] <= end_oc:
+                starts[j] = max(seg_start, 0)
+                ends[j] = max(pos, 0)
+                j += 1
+            linpos = j
+        starts[linpos:] = self.total - 1
+        ends[linpos:] = self.total - 1
+        self.win_start = starts
+        self.win_end = ends
+        # sparse-table plan (static): level k_j and the two lookups per
+        # bin
+        wlen = ends - starts + 1
+        self.kmax = int(np.floor(np.log2(wlen.max()))) if wlen.max() > 1 \
+            else 0
+        k_j = np.floor(np.log2(np.maximum(wlen, 1))).astype(np.int64)
+        self.levels_used = [k for k in range(self.kmax + 1)
+                            if (k_j == k).any()]
+        tabs = dict(
+            group_id=group_id.astype(np.int64),
+            group_first=first.astype(np.int64),
+            group_band=oc_band.astype(np.int64),
+            seed_src=np.clip(srcg, 0, None).astype(np.int64),  # (E, T)
+            seed_ok=srcg >= 0,
+            curve_rows=curves.reshape(-1, curves.shape[-1]),
+            ath=np.asarray(look.ath, np.float32),
+            k_mask=np.stack([k_j == k for k in range(self.kmax + 1)]),
+            win_lo=starts.astype(np.int64),
+            win_hi=np.stack([np.maximum(ends - (1 << k) + 1, 0)
+                             for k in range(self.kmax + 1)]),
+        )
+        vars(self).update(device_tables(tabs, self.device))
+        self.tone_abs_limit = _c(look.vi["tone_abs_limit"])
+        self.ath_adjatt = _c(look.vi["ath_adjatt"])
+        self.ath_maxatt = _c(look.vi["ath_maxatt"])
+        self.max_curve_dB = _c(look.vi["max_curve_dB"])
+
+    def __call__(self, logfft, global_specmax, local_specmax):
+        """logfft: (R, n); specmax (R,) tensors."""
+        att = torch.clamp_min(local_specmax + self.ath_adjatt,
+                              self.ath_maxatt)
+        flr = self.ath + att[..., None]
+        # per-group max
+        lead = logfft.shape[:-1]
+        gmax = torch.full(lead + (self.n_groups,), -float("inf"),
+                          dtype=torch.float32, device=logfft.device)
+        gmax = gmax.scatter_reduce(-1, self.group_id.expand(logfft.shape),
+                                   logfft, "amax", include_self=True)
+        dBoffset = self.max_curve_dB - global_specmax[..., None]
+        level = torch.clamp(((gmax + dBoffset - _c(PSY.P_LEVEL_0))
+                             * _c(0.1)).to(torch.int32),
+                            0, self.p_levels - 1)
+        rows = self.group_band * self.p_levels + level      # (R, G)
+        curves = self.curve_rows[rows]                      # (R, G, 2+E)
+        post0 = curves[..., 0].to(torch.int32)
+        post1 = curves[..., 1].to(torch.int32)
+        audible = gmax + 6.0 > flr[..., self.group_first]
+        # seed deposit: 56 static gathers + running max
+        seed = torch.full(lead + (self.total,), NEGINF,
+                          dtype=torch.float32, device=logfft.device)
+        for k in range(PSY.EHMER_MAX):
+            vk = gmax + curves[..., 2 + k]
+            act = (k >= post0) & (k < post1) & audible
+            vk = torch.where(act, vk, NEGINF)
+            contrib = vk[..., self.seed_src[k]]
+            contrib = torch.where(self.seed_ok[k], contrib, NEGINF)
+            seed = torch.maximum(seed, contrib)
+        # chase: extend seeds across one eighth-octave (sliding max)
+        ext = seed
+        for s in range(1, self.linesper):
+            shifted = torch.nn.functional.pad(seed[..., :-s], (s, 0),
+                                              value=NEGINF)
+            ext = torch.maximum(ext, shifted)
+        # windowed min over [start_j, end_j] back in the linear domain:
+        # sparse-table (dyadic) range-min
+        run = torch.where(ext > NEGINF, ext, float("inf"))
+        levels = [run]
+        for k in range(self.kmax):
+            prev = levels[-1]
+            sh = 1 << k
+            levels.append(torch.minimum(prev, torch.nn.functional.pad(
+                prev[..., sh:], (0, sh), value=float("inf"))))
+        minv = torch.full(flr.shape, float("inf"), dtype=torch.float32,
+                          device=logfft.device)
+        for k in self.levels_used:
+            a = levels[k][..., self.win_lo]
+            b = levels[k][..., self.win_hi[k]]
+            minv = torch.where(self.k_mask[k], torch.minimum(a, b), minv)
+        # seedless windows must stay at the ATH floor
+        minv = torch.where(torch.isfinite(minv),
+                           torch.clamp_max(minv, self.tone_abs_limit),
+                           NEGINF)
+        return torch.maximum(flr, minv)
