@@ -1,23 +1,32 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch + CUDA port (vorbis_tpu_torch) on one GPU.
 
-Run from the root of a checkout, on a machine with an NVIDIA Hopper card
-and the CUDA toolkit (nvcc); it needs no JAX and no network:
+Run from the root of a checkout, on a machine with an NVIDIA Hopper card,
+the CUDA toolkit (nvcc) and a host C compiler (cc); it needs no JAX, no
+vorbis_tpu and no network:
 
     python3 chip_smoke.py
 
 Phases (any failure raises and the script exits non-zero):
   1. device: the card, its name and power limit, the fp32 policy;
-  2. build: nvcc compiles csrc/floor_fit.cu into build/vorbis_tpu_torch/;
+  2. build: nvcc compiles csrc/floor_fit.cu and cc compiles
+     csrc/host_ogg.c (the Ogg page CRC) into build/vorbis_tpu_torch/, all
+     builds started together;
   3. kernel vs plain: the floor-fit kernel against its plain PyTorch
-     version, bitwise, on real spectra (B = 2048 rows, one chunk of the
-     main path) and on random correlated inputs (B = 4096), with both
-     times at B = 2048 from CUDA events;
+     version, bitwise, on real spectra of the main path (B = 2048, the
+     1074 rows of the last chunk, B = 1 and 3), on random correlated
+     inputs (B = 4096), on the short-block look (n = 128) and the long
+     look of q = -0.1 (n = 2048), and on synthetic looks of 48 and 65
+     posts (n = 1024) and of 65 posts at n = 2048; then its time at
+     B = 2048 from CUDA events (warm L2, as on the main path, where the
+     inputs were just written), its bound and share, and the plain
+     version's time;
   4. main path: FastEncoder(2, 44100, 0.5, switching=False,
      psy_state=False).encode of 60 s of 44.1 kHz stereo int16 (bench.py's
      signal, seed 0), from a CUDA tensor and from host numpy; the stream
-     decodes (vorbis_tpu.vorbisfile) to the exact length above an SNR
-     floor; the kernel's launch count shows the path went through it;
+     decodes with the port's own decoder (vorbis_tpu_torch.codec.decoder)
+     to the exact length above an SNR floor; the kernel's launch count
+     shows the path went through it;
   5. card vs CPU: the port's packets for a 2 s clip on the card and on
      the CPU, byte for byte.
 It prints the kernel record as one JSON line, then the result line.
@@ -28,6 +37,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -38,6 +48,38 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # port must come within SNR_MARGIN_DB of it.
 JAX_SNR_DB = 24.956
 SNR_MARGIN_DB = 0.25
+
+# The card's peaks for the kernel's bound (NVIDIA H100 SXM data sheet,
+# 132 SMs at 1.98 GHz): HBM bytes per second; float32 operations, 67e12
+# counting an FMA as two, and the kernel is built without FMAs; int32
+# operations, 64 integer lanes a SM against 128 float32 lanes.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12 / 2
+INT32_OPS_PER_S = 67e12 / 4
+# Operations of csrc/floor_fit.cu, counted from its source, once each
+# (not once a lane where the warp repeats a scalar step):
+#  - a bin of inspect: the range check, the two shared loads, the
+#    difference, the square-and-add, the over test (3 compares, 3
+#    logic ops, the offset add and the unsigned compare, or'ed in), the
+#    DDA step (2 adds, a compare, 2 conditional adds) and x += 32: 20;
+#  - every greedy step, new or memo: the next step's two table loads and
+#    bound test, 3 shuffles with their lane arithmetic, the link
+#    unpacking, two table loads and their x fields, two post_y (11
+#    each) and the memo test: 41;
+#  - a new step besides: the memo store 6, the two fits' operand
+#    selects, moment loads and packing 53, the DDA set-up 30, the
+#    verdict 8, unpacking and the degenerate cases 16, the three state
+#    updates 12, the propagation's ballots and link updates 20: 145
+#    integer operations, and each of its two fit_lines (and the one
+#    initial fit of a frame) 26 float32 operations: 5 differences, the
+#    denominator's 3, two numerators of 3, two divisions and two
+#    evaluations of multiply, add, round, max and min.
+# Left out: the row load's address arithmetic and the final walk (P
+# render_points a frame, under 1% of these).
+OPS_PER_BIN = 20
+OPS_PER_STEP = 41
+OPS_PER_NEW_STEP = 145
+F32_OPS_PER_FIT = 26
 
 
 def _signal(secs, rate, seed):
@@ -75,6 +117,103 @@ def _packets(dev, chunk):
             for f in range(len(nb))]
 
 
+def _random_spectra(n, B, seed):
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(seed)
+    lm = (rng.randn(B, n) * 20 - 60).astype(np.float32)
+    mk = (lm + rng.randn(B, n) * 6 - 3).astype(np.float32)
+    return torch.from_numpy(lm).cuda(), torch.from_numpy(mk).cuda()
+
+
+def _synthetic_look(base, posts, seed):
+    """A floor1 look with `posts` posts at seeded distinct x in (0, n),
+    with the fit constants of `base`."""
+    import numpy as np
+    from vorbis_tpu_torch.codec.floor1_codec import Floor1Look
+    from vorbis_tpu_torch.codec.headers import Floor1Info
+    n = base.n
+    b = base.info
+    xs = np.random.RandomState(seed).choice(np.arange(1, n), posts - 2,
+                                            replace=False)
+    info = Floor1Info(1, [0], [1], [0], [0], [[-1]], b.mult,
+                      b.rangebits, [0, n] + [int(x) for x in xs],
+                      maxover=b.maxover, maxunder=b.maxunder,
+                      maxerr=b.maxerr, twofitweight=b.twofitweight,
+                      twofitatten=b.twofitatten)
+    return Floor1Look(info)
+
+
+def _check(fit, name, quant, above, prefix):
+    """Kernel vs the plain version, bitwise."""
+    import torch
+    got = fit.fit(quant, above, prefix)
+    want = fit.fit_plain(quant, above, prefix)
+    torch.cuda.synchronize()
+    bad = int((got != want).sum())
+    err = int((got - want).abs().max()) if got.numel() else 0
+    B, n = quant.shape
+    print(f"[kernel] {name}: B={B} n={n} P={fit.posts} posts={got.numel()} "
+          f"mismatches={bad} max_abs_err={err}")
+    if bad:
+        raise RuntimeError(f"kernel != plain on {name}: {bad}")
+    return err
+
+
+def _bound(fit, quant, above, prefix):
+    """(bound_ms, bound_by, detail) of the fit on these inputs: the bytes
+    read and written over the HBM rate, against the operations that this
+    data needs over the rate of their type.  The work is counted by
+    replaying the plain version: a step whose neighbour pair was
+    inspected before (memo) changes nothing and needs only its lookup,
+    and a new step's scan needs its bins up to the first one over the
+    limits, or all of them."""
+    import torch
+    from vorbis_tpu_torch.ops.floor_device import _render_point
+    B, n = quant.shape
+    rows = torch.arange(B, device=quant.device)
+    memo = torch.full((B, n + 1), -1, dtype=torch.int32,
+                      device=quant.device)
+    work = {"new_steps": 0, "bins": 0}
+    x = fit.xg[None, :]
+    inspect = fit._inspect
+
+    def counting(q, a, lx, hx, ly, hy):
+        # posts have distinct x, so (lx, hx) names the neighbour pair
+        new = memo[rows, lx.long()] != hx
+        memo[rows, lx.long()] = hx
+        y = _render_point(lx[:, None], hx[:, None], ly[:, None],
+                          hy[:, None], x)
+        d = q - y
+        over = ((x >= lx[:, None]) & (x < hx[:, None]) & a
+                & ((x == lx[:, None]) | (q != 0))
+                & ((d > int(fit.maxover)) | (d < -int(fit.maxunder))))
+        end = torch.minimum(torch.where(over, x, n).amin(-1) + 1, hx)
+        work["new_steps"] += int(new.sum())
+        work["bins"] += int(torch.where(new, (end - lx).clamp_min(0),
+                                        0).sum())
+        return inspect(q, a, lx, hx, ly, hy)
+
+    fit._inspect = counting
+    try:
+        fit.fit_plain(quant, above, prefix)
+    finally:
+        del fit._inspect
+    nbytes = (quant.numel() * 4 + above.numel() + prefix.numel() * 4
+              + B * fit.posts * 4)
+    int_ops = (work["bins"] * OPS_PER_BIN
+               + B * (fit.posts - 2) * OPS_PER_STEP
+               + work["new_steps"] * OPS_PER_NEW_STEP)
+    f32_ops = (2 * work["new_steps"] + B) * F32_OPS_PER_FIT
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(int_ops / INT32_OPS_PER_S,
+                f32_ops / F32_OPS_PER_S) * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops), by, dict(
+        bytes=nbytes, bytes_us=t_bytes * 1e3, int_ops=int_ops,
+        f32_ops=f32_ops, ops_us=t_ops * 1e3, **work)
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "vorbis_tpu_torch")):
         raise SystemExit("chip_smoke.py: run it from the root of a "
@@ -98,21 +237,32 @@ def main():
     print(f"[device] {kind}  torch {torch.__version__} cuda "
           f"{torch.version.cuda}  count {torch.cuda.device_count()}")
 
-    # 2. build
+    # 2. build: one compiler process per source, all started together
+    from vorbis_tpu_torch import native
     from vorbis_tpu_torch.ops import floor_cuda
     t0 = time.perf_counter()
-    so, log = floor_cuda.build()
+    jobs = {"floor_fit.cu": floor_cuda.build,
+            "host_ogg.c": native.build_host}
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        futs = {k: ex.submit(f) for k, f in jobs.items()}
+        built = {k: f.result() for k, f in futs.items()}
     floor_cuda.load_library()
-    print(f"[build] {so.relative_to(HERE)} in "
+    native.host_library()
+    print(f"[build] {len(built)} libraries in "
           f"{time.perf_counter() - t0:.2f} s")
-    for line in log.splitlines():
-        if "registers" in line or "Compiling entry" in line:
-            print(f"[build] {line.strip()}")
+    for k, (so, log) in built.items():
+        print(f"[build] {k} -> {so.relative_to(HERE)}")
+        for line in log.splitlines():
+            if "registers" in line or "Compiling entry" in line:
+                print(f"[build]   {line.strip()}")
 
     # 3. kernel vs plain
+    from vorbis_tpu_torch.codec.encoder import Encoder
+    from vorbis_tpu_torch.models import encsetup
     from vorbis_tpu_torch.models.fastenc import FastEncoder
-    fe = FastEncoder(2, 44100, 0.5, switching=False, psy_state=False,
-                     device="cuda")
+    fe = FastEncoder(2, 44100, 0.5, switching=False, psy_state=False)
+    if fe.device.type != "cuda":
+        raise RuntimeError(f"FastEncoder defaults to {fe.device}")
     floor = fe.floor
     if not isinstance(floor, floor_cuda.DeviceFloorFitCuda):
         raise RuntimeError(f"main path floor is {type(floor).__name__}")
@@ -125,34 +275,65 @@ def main():
     flat = chunk.float().div(32768.0).unfold(1, fe.n, hop)[:, :CF] \
         .transpose(0, 1).reshape(CF * 2, fe.n)
     _, logmdct, mask = fe.analysis.full_mask(flat)
-    rng = np.random.RandomState(7)
-    lm = (rng.randn(4096, floor.n) * 20 - 60).astype(np.float32)
-    mk = (lm + rng.randn(4096, floor.n) * 6 - 3).astype(np.float32)
-    cases = {"real_B2048": (logmdct, mask),
-             "random_B4096": (torch.from_numpy(lm).cuda(),
-                              torch.from_numpy(mk).cuda())}
+    q05 = Encoder(encsetup.setup_vbr(2, 44100, 0.5)).floor_looks
+    qm01 = Encoder(encsetup.setup_vbr(2, 44100, -0.1)).floor_looks
+    short = next(lk for lk in q05 if lk.n == 128)
+    long2048 = next(lk for lk in qm01 if lk.n == 2048)
+    fits = {"main": floor,
+            "short": floor_cuda.DeviceFloorFitCuda(short, "cuda"),
+            "q-0.1": floor_cuda.DeviceFloorFitCuda(long2048, "cuda"),
+            "P48": floor_cuda.DeviceFloorFitCuda(
+                _synthetic_look(floor.look, 48, 1), "cuda"),
+            "P65": floor_cuda.DeviceFloorFitCuda(
+                _synthetic_look(floor.look, 65, 2), "cuda"),
+            "P65_n2048": floor_cuda.DeviceFloorFitCuda(
+                _synthetic_look(long2048, 65, 3), "cuda")}
+    cases = [("real_B2048", "main", (logmdct, mask)),
+             ("real_B1074", "main", (logmdct[:1074], mask[:1074])),
+             ("real_B1", "main", (logmdct[:1], mask[:1])),
+             ("real_B3", "main", (logmdct[:3], mask[:3])),
+             ("random_B4096", "main", _random_spectra(floor.n, 4096, 7)),
+             ("short_n128", "short", _random_spectra(short.n, 2048, 8)),
+             ("q-0.1_n2048", "q-0.1", _random_spectra(2048, 2048, 9)),
+             ("synthetic_P48", "P48", _random_spectra(floor.n, 2048, 10)),
+             ("synthetic_P65", "P65", _random_spectra(floor.n, 2048, 11)),
+             # more than 48 KB of shared memory a block: the opt-in path
+             ("synthetic_P65_n2048", "P65_n2048",
+              _random_spectra(2048, 2048, 12))]
     max_err = 0
     prepared = {}
-    for name, (a, b) in cases.items():
-        quant, above, prefix, used = floor.prepare(a, b)
-        got = floor.fit(quant, above, prefix)
-        want = floor.fit_plain(quant, above, prefix)
-        torch.cuda.synchronize()
-        bad = int((got != want).sum())
-        err = int((got - want).abs().max())
-        max_err = max(max_err, err)
-        print(f"[kernel] {name}: B={quant.shape[0]} posts={got.numel()} "
-              f"mismatches={bad} max_abs_err={err}")
-        if bad:
-            raise RuntimeError(f"kernel != plain on {name}: {bad}")
+    for name, which, (a, b) in cases:
+        fit = fits[which]
+        quant, above, prefix, _ = fit.prepare(a.contiguous(),
+                                              b.contiguous())
+        max_err = max(max_err, _check(fit, name, quant, above, prefix))
         prepared[name] = (quant, above, prefix)
     q, a, p = prepared["real_B2048"]
-    ms = _cuda_ms(lambda: floor.fit(q, a, p), 50)
+    ms = _cuda_ms(lambda: floor.fit(q, a, p), 200)
     plain_ms = _cuda_ms(lambda: floor.fit_plain(q, a, p), 5)
+    bound_ms, bound_by, w = _bound(floor, q, a, p)
+    share = bound_ms / ms
     print(f"[kernel] floor fit B=2048 n={floor.n} P={floor.posts}: kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms ({smi})")
+          f"{ms:.5f} ms, plain {plain_ms:.4f} ms ({smi})")
+    print(f"[kernel] bytes {w['bytes']} = {w['bytes_us']:.3f} us; "
+          f"operations {w['int_ops']} int32 + {w['f32_ops']} float32 "
+          f"({w['new_steps']} new steps of {q.shape[0] * (floor.posts - 2)}"
+          f", {w['bins']} bins) = {w['ops_us']:.3f} us; bound "
+          f"{bound_ms * 1e3:.3f} us by {bound_by}, share "
+          f"{100 * share:.1f}%")
+    # time against B: at small B each warp runs alone and the time is one
+    # frame's dependent chain; at large B the warps share the SMs' issue
+    sweep = []
+    for nb in (128, 512, 1024, 2048, 4096):
+        rep = -(-nb // q.shape[0])
+        qs, as_, ps = (t.repeat((rep,) + (1,) * (t.dim() - 1))[:nb]
+                       .contiguous() for t in (q, a, p))
+        ms_b = _cuda_ms(lambda: floor.fit(qs, as_, ps), 100)
+        sweep.append(f"B={nb} {ms_b:.5f}")
+    print("[kernel] time against B (ms): " + ", ".join(sweep))
 
     # 4. main path at real size
+    from vorbis_tpu_torch.codec.decoder import decode_ogg
     secs = pcm16.shape[1] / 44100
     pcm_dev = torch.from_numpy(pcm16).cuda()
     fe.encode(pcm_dev)                              # warm-up
@@ -173,8 +354,9 @@ def main():
     if ogg_host != ogg:
         raise RuntimeError("host-staged stream differs from the "
                            "device-resident one")
-    from vorbis_tpu.vorbisfile import OggVorbisFile
-    out = OggVorbisFile(ogg).read_all_float()
+    t0 = time.perf_counter()
+    out, _ = decode_ogg(ogg)
+    t_dec = time.perf_counter() - t0
     x = pcm16.astype(np.float64) / 32768.0
     if out.shape != pcm16.shape:
         raise RuntimeError(f"decoded shape {out.shape} != {pcm16.shape}")
@@ -182,8 +364,9 @@ def main():
         raise RuntimeError("non-finite decoded samples")
     snr = 10 * np.log10(np.sum(x ** 2) / np.sum((out - x) ** 2))
     print(f"[encode] 60 s stereo: {len(ogg)} bytes, {nchunks} chunks, "
-          f"floor launches {launches}, decoded {out.shape}, "
-          f"SNR {snr:.3f} dB (JAX {JAX_SNR_DB:.3f} dB)")
+          f"floor launches {launches}, decoded {out.shape} in "
+          f"{t_dec:.2f} s (host decoder), SNR {snr:.3f} dB "
+          f"(JAX {JAX_SNR_DB:.3f} dB)")
     if snr < JAX_SNR_DB - SNR_MARGIN_DB:
         raise RuntimeError(f"SNR {snr:.3f} dB below the floor")
     print(f"[encode] warm encode from device {t_dev:.4f} s = "
@@ -208,7 +391,8 @@ def main():
         "source": "vorbis_tpu_torch/csrc/floor_fit.cu",
         "replaces": "vorbis_tpu/ops/floor_pallas.py:289",
         "launches": launches, "max_abs_err": max_err,
-        "ms": ms, "plain_ms": plain_ms}]}))
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "share": share, "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -109,7 +109,7 @@ def _pallas_posts(look, quant, above, prefix):
 
 
 def test_moments_close(look):
-    tf = TFit(look)
+    tf = TFit(look, "cpu")
     lm, mk = _random(look, 16, 3)
     quant, above, prefix, used = tf.prepare(torch.from_numpy(lm),
                                             torch.from_numpy(mk))
@@ -157,12 +157,12 @@ def test_greedy_fit_vs_pallas_same_inputs(look, captures, source):
         lm = np.stack([c[1] for c in items])[:64]
         mk = np.stack([c[2] for c in items])[:64]
         lm, mk = lm[:len(lm) // 8 * 8], mk[:len(mk) // 8 * 8]
-    tf = TFit(look)
+    tf = TFit(look, "cpu")
     quant, above, prefix, used = tf.prepare(torch.from_numpy(lm),
                                             torch.from_numpy(mk))
     want = _pallas_posts(look, quant.numpy(), above.numpy(),
                          prefix.numpy())
-    fma = _FmaFit(look).fit(quant, above, prefix).numpy()
+    fma = _FmaFit(look, "cpu").fit(quant, above, prefix).numpy()
     assert np.array_equal(fma, want)
     got = tf.fit(quant, above, prefix).numpy()
     assert got.shape == want.shape == (len(lm), look.posts)
@@ -185,7 +185,8 @@ def test_fit_matches_jax_and_exact_on_captures(captures):
         lm = np.stack([i[1] for i in items])
         mk = np.stack([i[2] for i in items])
         pj, uj = map(np.asarray, jax.jit(JFit(lk))(lm, mk))
-        pt, ut = TFit(lk)(torch.from_numpy(lm), torch.from_numpy(mk))
+        pt, ut = TFit(lk, "cpu")(torch.from_numpy(lm),
+                                 torch.from_numpy(mk))
         pt, ut = pt.numpy(), ut.numpy()
         assert np.array_equal(ut, uj)
         d = np.abs((pt & 0x7FFF) - (pj & 0x7FFF))
@@ -217,7 +218,7 @@ def test_quantize_and_render_bitwise(captures):
                          ).astype(np.int32)
         if not len(posts):
             continue
-        jf, tf = JFit(lk), TFit(lk)
+        jf, tf = JFit(lk), TFit(lk, "cpu")
         qj = np.asarray(jax.jit(jf.quantize_posts)(posts))
         qt = tf.quantize_posts(torch.from_numpy(posts)).numpy()
         assert np.array_equal(qt, qj)
@@ -235,13 +236,13 @@ def test_kernel_wrapper_on_cpu_tensors_is_the_plain_version(look):
     kf = DeviceFloorFitCuda(look, "cpu")
     lm, mk = _random(look, 8, 11)
     pk, uk = kf(torch.from_numpy(lm), torch.from_numpy(mk))
-    pp, up = TFit(look)(torch.from_numpy(lm), torch.from_numpy(mk))
+    pp, up = TFit(look, "cpu")(torch.from_numpy(lm), torch.from_numpy(mk))
     assert torch.equal(pk, pp) and torch.equal(uk, up)
     assert kf.launches == 0
 
 
 def test_floor_tables_bitwise(look):
-    jf, tf = JFit(look), TFit(look)
+    jf, tf = JFit(look), TFit(look, "cpu")
     pal = DeviceFloorFitPallas(look, block_frames=8, interpret=True)
     P = look.posts
     assert np.array_equal(tf.seg_mat.numpy(), jf._seg_mat_np())

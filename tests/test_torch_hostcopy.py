@@ -1,0 +1,177 @@
+"""The port's own copies of the host layers (vorbis_tpu_torch/bitstream,
+codec, models/encsetup+modes, ops/psy+window+mdct, utils/scales, data/)
+against the originals in vorbis_tpu, and the Ogg CRC in the port's host C
+(csrc/host_ogg.c) against the Python loop.  numpy only: every comparison
+is exact (bytes, integers, float32 arrays bit for bit)."""
+
+import filecmp
+import os
+
+import numpy as np
+import pytest
+
+import vorbis_tpu.bitstream.oggfile as J_ogg
+import vorbis_tpu.codec.decoder as J_dec
+import vorbis_tpu.codec.encoder as J_enc
+import vorbis_tpu.models.encsetup as J_setup
+import vorbis_tpu.ops.mdct as J_mdct
+import vorbis_tpu_torch.bitstream.oggfile as T_ogg
+import vorbis_tpu_torch.codec.decoder as T_dec
+import vorbis_tpu_torch.codec.encoder as T_enc
+import vorbis_tpu_torch.models.encsetup as T_setup
+import vorbis_tpu_torch.ops.mdct as T_mdct
+from tests import oracle
+from vorbis_tpu.vorbisfile import OggVorbisFile
+from vorbis_tpu_torch.models.fastenc import FastEncoder
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+DATA = ("books.npz", "books_meta.json.gz", "floor_tables.npz",
+        "modes.json.gz", "psy_tables.npz", "windows.npz")
+CONFIGS = [(2, 44100, 0.5), (2, 44100, -0.1), (1, 8000, 0.2),
+           (6, 48000, 0.4)]
+
+
+def _same(a, b):
+    """Equal values, types and shapes, arrays bit for bit."""
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        a, b = np.asarray(a), np.asarray(b)
+        return (a.dtype == b.dtype and a.shape == b.shape
+                and a.tobytes() == b.tobytes())
+    if isinstance(a, (list, tuple)):
+        return (type(a) is type(b) and len(a) == len(b)
+                and all(_same(x, y) for x, y in zip(a, b)))
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a)
+    return type(a) is type(b) and a == b
+
+
+def _book_fields(book):
+    if book is None:
+        return None
+    return (book.dim, book.entries, book.codewords, book.lengths,
+            book.values)
+
+
+@pytest.fixture(scope="module", params=CONFIGS,
+                ids=[f"{c}ch-{r}-q{q}" for c, r, q in CONFIGS])
+def encoders(request):
+    ch, rate, q = request.param
+    return (J_enc.Encoder(J_setup.setup_vbr(ch, rate, q)),
+            T_enc.Encoder(T_setup.setup_vbr(ch, rate, q)))
+
+
+def test_data_files_are_byte_copies():
+    for name in DATA:
+        assert filecmp.cmp(os.path.join(ROOT, "vorbis_tpu", "data", name),
+                           os.path.join(ROOT, "vorbis_tpu_torch", "data",
+                                        name), shallow=False), name
+
+
+def test_header_packets_byte_equal(encoders):
+    je, te = encoders
+    jh, th = je.header_packets(), te.header_packets()
+    assert len(th) == 3 and all(a == b for a, b in zip(jh, th))
+    assert je.header_packets(["A=b"]) == te.header_packets(["A=b"])
+
+
+def test_floor_and_residue_looks_equal(encoders):
+    je, te = encoders
+    assert len(je.floor_looks) == len(te.floor_looks) > 0
+    for jl, tl in zip(je.floor_looks, te.floor_looks):
+        assert _same(vars(jl.info), vars(tl.info))
+        for k in ("posts", "n", "quant_q", "forward_index", "sorted_x",
+                  "loneighbor", "hineighbor"):
+            assert _same(getattr(jl, k), getattr(tl, k)), k
+    assert len(je.residue_looks) == len(te.residue_looks) > 0
+    for jl, tl in zip(je.residue_looks, te.residue_looks):
+        assert _same(vars(jl.info), vars(tl.info))
+        for k in ("dim", "partvals", "decodemap", "stages"):
+            assert _same(getattr(jl, k), getattr(tl, k)), k
+        assert _same(_book_fields(jl.phrasebook),
+                     _book_fields(tl.phrasebook))
+        assert _same([list(map(_book_fields, r)) for r in jl.partbooks],
+                     [list(map(_book_fields, r)) for r in tl.partbooks])
+
+
+def test_psy_looks_equal(encoders):
+    je, te = encoders
+    assert len(je.psy_looks) == len(te.psy_looks) > 0
+    for jl, tl in zip(je.psy_looks, te.psy_looks):
+        jv, tv = vars(jl), vars(tl)
+        assert jv.keys() == tv.keys()
+        for k in jv:
+            assert _same(jv[k], tv[k]), k
+
+
+@pytest.mark.parametrize("n", [256, 2048])
+def test_mdct_and_imdct_bitwise(n):
+    rng = np.random.RandomState(n)
+    x = rng.randn(4, n).astype(np.float32)
+    spec = rng.randn(4, n // 2).astype(np.float32)
+    assert _same(T_mdct.mdct_forward(x, n), J_mdct.mdct_forward(x, n))
+    assert _same(T_mdct.imdct(spec, n), J_mdct.imdct(spec, n))
+
+
+def test_ogg_crc_host_c_equals_python_loop():
+    rng = np.random.RandomState(3)
+    for size in (0, 1, 27, 255, 4300, 65307):
+        page = rng.bytes(size)
+        want = T_ogg.ogg_crc_plain(page)
+        assert T_ogg.ogg_crc(page) == want == J_ogg.ogg_crc(page)
+        assert T_ogg.ogg_crc(page, 0x1234ABCD) == T_ogg.ogg_crc_plain(
+            page, 0x1234ABCD)
+
+
+def test_ogg_writer_pages_byte_equal():
+    rng = np.random.RandomState(4)
+    jw, tw = J_ogg.OggStreamWriter(99), T_ogg.OggStreamWriter(99)
+    for k in range(300):
+        pkt = rng.bytes(int(rng.choice([0, 1, 254, 255, 256, 510, 4000])))
+        for w in (jw, tw):
+            w.packetin(pkt, 1000 * k, eos=k == 299)
+            if k % 7 == 0:
+                w.flush()
+    jw.flush()
+    tw.flush()
+    out = tw.pageout_all()
+    assert out == jw.pageout_all() and len(out) > 100_000
+    got = [p for p, _, _ in T_ogg.OggStreamReader(out).packets()]
+    assert got == [p for p, _, _ in J_ogg.OggStreamReader(out).packets()]
+
+
+def test_decode_ogg_of_port_stream_bitwise():
+    pcm = oracle.make_test_signal(seconds=0.5)
+    fe = FastEncoder(2, 44100, 0.5, switching=False, psy_state=False,
+                     device="cpu")
+    ogg = fe.encode(pcm)
+    got, tvi = T_dec.decode_ogg(ogg)
+    want, jvi = J_dec.decode_ogg(ogg)
+    assert _same(got, want)
+    assert (tvi.channels, tvi.rate) == (jvi.channels, jvi.rate)
+    assert got.shape == OggVorbisFile(ogg).read_all_float().shape \
+        == pcm.shape
+
+
+def test_decoder_refuses_floor0():
+    vi = T_dec.H.parse_headers(
+        FastEncoder(2, 44100, 0.5, switching=False, psy_state=False,
+                    device="cpu").enc.header_packets())
+    vi.floor_types = [0] * len(vi.floor_types)
+    with pytest.raises(NotImplementedError, match="1.11"):
+        T_dec.Decoder(vi)
+
+
+def test_ogg_crc_has_no_python_fallback(monkeypatch):
+    """A missing host compiler raises; the CRC never falls back to the
+    Python loop."""
+    from vorbis_tpu_torch import native
+    native.host_library.cache_clear()
+    monkeypatch.setenv("CC", "")
+    monkeypatch.setattr(native.shutil, "which", lambda _: None)
+    monkeypatch.setattr(native, "BUILD_DIR",
+                        native.BUILD_DIR.parent / "no-such-build")
+    try:
+        with pytest.raises(RuntimeError, match="host C compiler"):
+            T_ogg.ogg_crc(b"OggS")
+    finally:
+        native.host_library.cache_clear()

@@ -1,11 +1,16 @@
-"""The port imports no JAX: its package and chip_smoke.py never name
-jax, and a process in which `import jax` fails can still import the
-port's encoder and encode on the CPU (the GPU machine has no JAX)."""
+"""The port stands alone: its package and chip_smoke.py import neither jax
+nor the JAX package vorbis_tpu, and a process in which both imports fail
+can still encode with the port on the CPU and decode with the port's own
+decoder (the GPU machine has no JAX).  The encoder runs on the card
+unless the caller asks for the CPU."""
 
 import os
 import re
 import subprocess
 import sys
+
+import pytest
+import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -13,20 +18,25 @@ PROBE = r"""
 import sys
 preloaded = {{m for m in sys.modules if m == "jax" or m.startswith("jax.")}}
 sys.modules["jax"] = None          # any `import jax` now raises
+sys.modules["vorbis_tpu"] = None   # and so does `import vorbis_tpu...`
 sys.path.insert(0, {root!r})
 import numpy as np
+from vorbis_tpu_torch.codec.decoder import decode_ogg
 from vorbis_tpu_torch.models.fastenc import FastEncoder
-from vorbis_tpu.vorbisfile import OggVorbisFile
 fe = FastEncoder(2, 44100, 0.5, switching=False, psy_state=False,
                  device="cpu")
 t = np.arange(8820) / 44100
 pcm = np.stack([0.3 * np.sin(2 * np.pi * 440 * t),
                 0.3 * np.sin(2 * np.pi * 660 * t)]).astype(np.float32)
-out = OggVorbisFile(fe.encode(pcm)).read_all_float()
+out, vi = decode_ogg(fe.encode(pcm))
 assert out.shape == pcm.shape, out.shape
+assert np.isfinite(out).all()
 bad = sorted(m for m in sys.modules if m.startswith("jax.")
              and m not in preloaded)
 assert not bad, bad
+ref = sorted(m for m in sys.modules if m.startswith("vorbis_tpu.")
+             and sys.modules[m] is not None)
+assert not ref, ref
 print("ok", out.shape)
 """
 
@@ -40,10 +50,24 @@ def test_port_runs_without_jax():
 
 
 def test_port_sources_never_import_jax():
-    pat = re.compile(r"^\s*(import jax|from jax)", re.M)
+    """Neither jax nor vorbis_tpu (vorbis_tpu_torch is the port)."""
+    pat = re.compile(r"^\s*(import|from) (jax|vorbis_tpu)(\.|\s|$)", re.M)
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "vorbis_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
-    assert len(files) > 10
+    assert len(files) > 20
     hits = [f for f in files if pat.search(open(f).read())]
     assert not hits, hits
+    assert pat.search("from vorbis_tpu.codec import x\n")
+    assert pat.search("import vorbis_tpu\n")
+    assert not pat.search("from vorbis_tpu_torch.codec import x\n")
+
+
+def test_fast_encoder_defaults_to_the_card():
+    from vorbis_tpu_torch.models.fastenc import FastEncoder
+    if torch.cuda.is_available():
+        fe = FastEncoder(2, 44100, 0.5, switching=False, psy_state=False)
+        assert fe.device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        FastEncoder(2, 44100, 0.5, switching=False, psy_state=False)

@@ -3,10 +3,13 @@
 The JAX package `vorbis_tpu` stays the reference; this package mirrors
 its layout and names (`ops/torchdsp.py` is the counterpart of
 `ops/jaxdsp.py`, `ops/floor_cuda.py` of `ops/floor_pallas.py`, and so
-on) and imports only its jax-free host layers (bitstream, the scalar
-codec, encsetup, psy tables, vorbisfile).  Device code is plain torch on
-an explicit device; the one hand-written kernel (the floor1 greedy fit,
-`csrc/floor_fit.cu`) is built with nvcc at first use.
+on) and imports nothing of it: the host layers it runs (bitstream, the
+codec's headers, codebooks, floor1/residue decode and decoder, encsetup,
+the psy tables, window, the numpy MDCT, data/) are its own line-aligned
+copies.  Device code is plain torch on an explicit device; the one
+hand-written kernel (the floor1 greedy fit, `csrc/floor_fit.cu`) is built
+with nvcc and the host C (the Ogg CRC, `csrc/host_ogg.c`) with cc at
+first use (`native.py`).
 
 Importing the package sets the fp32 policy the reference runs under:
 the JAX side computes its matmuls at Precision.HIGHEST, so TF32 is off

@@ -1,0 +1,203 @@
+"""Residue bit codec (types 0/1/2), decode side.
+
+Reference semantics: lib/res0.c _01inverse / res2_inverse with the
+vector-add flavors of lib/codebook.c (decodevs_add stride-interleaved
+for type 0, decodev_add sequential for type 1, decodevv_add
+channel-interleaved for type 2).  Bits for stage s of all partitions
+are grouped after stage s-1 (phrase words interleave with stage 0).
+A truncated packet mid-residue is a normal stop: everything decoded so
+far is kept.
+
+Copy of vorbis_tpu/codec/residue_codec.py :1-200, kept line-aligned with
+it: the decode side and `_enc_book_fields`, which the device lattice VQ
+reads; the scalar encoder's search and packing stay behind.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..bitstream.bitpack import BitReader, EndOfPacket, ilog
+from .headers import ResidueInfo
+
+
+class ResidueLook:
+    def __init__(self, info: ResidueInfo, books):
+        self.info = info
+        self.books = books
+        self.phrasebook = books[info.groupbook]
+        self.dim = self.phrasebook.dim
+        self.partvals = info.partvals
+        # partition-class digit expansion of a phrase word, MSD first
+        pv = np.arange(self.partvals, dtype=np.int64)
+        digits = []
+        mult = self.partvals // info.partitions
+        val = pv.copy()
+        for _ in range(self.dim):
+            digits.append(val // mult)
+            val = val - (val // mult) * mult
+            mult //= info.partitions
+        self.decodemap = np.stack(digits, axis=1)  # (partvals, dim)
+        # stage books per partition class
+        self.stages = max((ilog(s) for s in info.secondstages), default=0)
+        self.partbooks = [[None] * self.stages for _ in range(info.partitions)]
+        acc = 0
+        for j in range(info.partitions):
+            st = ilog(info.secondstages[j])
+            for k in range(st):
+                if info.secondstages[j] & (1 << k):
+                    self.partbooks[j][k] = books[info.booklist[acc]]
+                    acc += 1
+
+
+def _decodev_add(book, a, offset, n, r):
+    """decodev_add: sequential add (residue type 1).  The whole run of
+    same-book codewords decodes in one decode_run call."""
+    dim = book.dim
+    count = (n + dim - 1) // dim
+    ents, got = book.decode_run(r, count)
+    if got:
+        v = book.values[ents[:got]].reshape(-1)[:min(got * dim, n)]
+        a[offset:offset + len(v)] += v
+    if got < count:
+        raise EndOfPacket
+
+
+def _decodevs_add(book, a, offset, n, r):
+    """decodevs_add: stride-interleaved add (residue type 0).  All
+    step codewords are read first, then scattered."""
+    step = n // book.dim
+    entries, got = book.decode_run(r, step)
+    if got < step:
+        raise EndOfPacket
+    v = book.values[entries]          # (step, dim)
+    for d in range(book.dim):
+        o = offset + d * step
+        a[o:o + step] += v[:, d]
+
+
+def decode_residue(r: BitReader, look: ResidueLook, spec: np.ndarray,
+                   do_not_decode: np.ndarray, n2: int, restype: int) -> None:
+    """Decode one submap's residue into spec (ch, n2) float32.
+
+    spec rows are the channels of this submap bundle (already filtered
+    to chmux==submap); do_not_decode marks channels whose floor was
+    unused (they still participate in res2's single interleaved
+    vector).
+    """
+    info = look.info
+    ch = spec.shape[0]
+    if restype == 2:
+        if not np.any(~do_not_decode):
+            return
+        maxv = n2 * ch
+        end = min(info.end, maxv)
+        n = end - info.begin
+        if n <= 0:
+            return
+        partvals = n // info.grouping
+        flat = spec.T.reshape(-1)     # channel-interleaved view (copy)
+        try:
+            _res2_decode(r, look, flat, partvals, ch)
+        except EndOfPacket:
+            pass
+        spec[:] = flat.reshape(-1, ch).T
+        return
+
+    # types 0/1: per-channel vectors, excluding do-not-decode channels
+    used = np.where(~do_not_decode)[0]
+    if len(used) == 0:
+        return
+    end = min(info.end, n2)
+    n = end - info.begin
+    if n <= 0:
+        return
+    partvals = n // info.grouping
+    ppw = look.dim
+    partwords = (partvals + ppw - 1) // ppw
+    partword = np.zeros((len(used), partwords, ppw), dtype=np.int64)
+    decodefn = _decodevs_add if restype == 0 else _decodev_add
+    try:
+        for s in range(look.stages):
+            i = 0
+            l = 0
+            while i < partvals:
+                if s == 0:
+                    for j in range(len(used)):
+                        temp = look.phrasebook.decode(r)
+                        if temp >= look.partvals:
+                            raise EndOfPacket
+                        partword[j, l] = look.decodemap[temp]
+                k = 0
+                while k < ppw and i < partvals:
+                    for j, cj in enumerate(used):
+                        offset = info.begin + i * info.grouping
+                        pcls = int(partword[j, l, k])
+                        if info.secondstages[pcls] & (1 << s):
+                            book = look.partbooks[pcls][s]
+                            if book is not None:
+                                decodefn(book, spec[cj], offset,
+                                         info.grouping, r)
+                    k += 1
+                    i += 1
+                l += 1
+    except EndOfPacket:
+        pass
+
+
+def _res2_decode(r: BitReader, look: ResidueLook, flat: np.ndarray,
+                 partvals: int, ch: int) -> None:
+    info = look.info
+    ppw = look.dim
+    partwords = (partvals + ppw - 1) // ppw
+    partword = np.zeros((partwords, ppw), dtype=np.int64)
+    vals_tbl = None
+    for s in range(look.stages):
+        i = 0
+        l = 0
+        while i < partvals:
+            if s == 0:
+                temp = look.phrasebook.decode(r)
+                if temp >= look.partvals:
+                    raise EndOfPacket
+                partword[l] = look.decodemap[temp]
+            k = 0
+            while k < ppw and i < partvals:
+                pcls = int(partword[l, k])
+                if info.secondstages[pcls] & (1 << s):
+                    book = look.partbooks[pcls][s]
+                    if book is not None:
+                        offset = info.begin + i * info.grouping
+                        # decodevv_add: starts at (offset/ch)*ch and ends
+                        # at ((offset+n)/ch)*ch (C integer-division walk)
+                        j = (offset // ch) * ch
+                        end = ((offset + info.grouping) // ch) * ch
+                        cnt = (end - j + book.dim - 1) // book.dim
+                        ents, got = book.decode_run(r, cnt)
+                        if got:
+                            v = book.values[ents[:got]].reshape(-1)
+                            v = v[:min(got * book.dim, end - j)]
+                            flat[j:j + len(v)] += v
+                        if got < cnt:
+                            raise EndOfPacket
+                k += 1
+                i += 1
+            l += 1
+
+
+# ---------------------------------------------------------------------------
+# encode side (reference: res0.c _01class/_2class/_01forward/_encodepart/
+# local_book_besterror; encoder book fields per sharedbook.c
+# vorbis_book_init_encode)
+# ---------------------------------------------------------------------------
+
+def _enc_book_fields(book):
+    """minval/delta/quantvals for the integer lattice fast path."""
+    if not hasattr(book, "_enc_fields"):
+        from .codebook import float32_unpack, maptype1_quantvals
+        sb = book.sb
+        minval = int(np.rint(np.float64(float32_unpack(sb.q_min))))
+        delta = int(np.rint(np.float64(float32_unpack(sb.q_delta))))
+        qv = maptype1_quantvals(sb.entries, sb.dim)
+        book._enc_fields = (minval, delta, qv)
+    return book._enc_fields

@@ -21,23 +21,22 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from vorbis_tpu.bitstream.bitpack import ilog
-from vorbis_tpu.bitstream.oggfile import OggStreamWriter
-from vorbis_tpu.codec.encoder import Encoder
-from vorbis_tpu.codec.floor1_codec import fromdB_lookup
-from vorbis_tpu.models import encsetup
-
+from ..bitstream.bitpack import ilog
+from ..bitstream.oggfile import OggStreamWriter
+from ..codec.encoder import Encoder
+from ..codec.floor1_codec import fromdB_lookup
 from ..convert import device_tables
 from ..ops.floor_cuda import make_floor_fit
 from ..ops.residue_device import DeviceResidueVQ
 from ..ops.torchdsp import DeviceAnalysis
+from . import encsetup
 
 
 def _couple_params(setup, blocktype, blockflag, n2, blob=7):
     """Static stereo-coupling constants for the fast path (reference:
     _vp_couple_quantize_normalize's threshold setup; blob 7 is the
     unmanaged middle, the managed pass builds all 15)."""
-    from vorbis_tpu.ops.psy import _tables
+    from ..ops.psy import _tables
     t = _tables()
     g = setup.psy_global
     pv = setup.psy_params[blocktype]
@@ -84,8 +83,8 @@ class FastEncoder:
                  switching: bool = True, coupling: bool | None = None,
                  bitrate: tuple | None = None, psy_state: bool = True,
                  device=None):
-        """Unmanaged VBR at `quality` on `device` (default: the first
-        CUDA device when there is one, else the CPU).  The JAX
+        """Unmanaged VBR at `quality` on `device` (default: "cuda"; with
+        no card that raises, and the CPU takes device="cpu").  The JAX
         encoder's defaults are kept; `encode` raises NotImplementedError
         for switching=True and psy_state=True until those slices land,
         so this slice runs as FastEncoder(..., switching=False,
@@ -94,7 +93,12 @@ class FastEncoder:
             raise NotImplementedError(
                 "managed ABR/CBR (bitrate=): ROADMAP §1.9")
         if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "FastEncoder runs on the card by default and no CUDA "
+                    "device is available: pass device=\"cpu\" to encode "
+                    "on the CPU")
+            device = "cuda"
         self.device = torch.device(device)
         self.managed = False
         b = encsetup.setup_vbr_staged(ch, rate, quality)

@@ -33,8 +33,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from vorbis_tpu.bitstream.bitpack import ilog
-
+from ..bitstream.bitpack import ilog
 from ..convert import device_tables
 
 f32 = np.float32

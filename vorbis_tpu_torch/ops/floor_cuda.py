@@ -2,21 +2,19 @@
 vorbis_tpu/ops/floor_pallas.py).
 
 `csrc/floor_fit.cu` runs the greedy loop + final walk of
-`DeviceFloorFit.fit` with one 128-thread block per frame; the moments
-(the bin -> segment matmul) and the render stay plain torch, as they
-stay XLA around the Pallas kernel.  The library is compiled by nvcc at
-first use into build/vorbis_tpu_torch/ (keyed by a hash of the source
-and flags) and bound with ctypes.  On a CUDA tensor the kernel is the
-only path: a failed build or launch raises.
+`DeviceFloorFit.fit` with one warp per frame, four frames a block; the
+moments (the bin -> segment matmul) and the render stay plain torch, as
+they stay XLA around the Pallas kernel.  The library is compiled by nvcc
+at first use into build/vorbis_tpu_torch/ (keyed by a hash of the source
+and flags, vorbis_tpu_torch.native) and bound with ctypes.  On a CUDA
+tensor the kernel is the only path: a failed build or launch raises.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import shutil
-import subprocess
 from functools import lru_cache
 from pathlib import Path
 
@@ -24,16 +22,15 @@ import numpy as np
 import torch
 
 from ..convert import device_tables
+from ..native import PKG, build_library
 from .floor_device import DeviceFloorFit
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "floor_fit.cu"
-BUILD_DIR = _PKG.parent / "build" / "vorbis_tpu_torch"
+SOURCE = PKG / "csrc" / "floor_fit.cu"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
 
-def _nvcc() -> str:
+def nvcc() -> str:
     for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin",
                               "nvcc"),
                  "/usr/local/cuda/bin/nvcc", shutil.which("nvcc") or ""):
@@ -42,27 +39,11 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME)")
 
 
-def library_path() -> Path:
-    h = hashlib.sha256(SOURCE.read_bytes()
-                       + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"libfloorfit-{h}.so"
-
-
 def build() -> tuple[Path, str]:
     """Compile the kernel library unless this source's build exists.
     Returns (path, ptxas report); the report is empty when cached."""
-    so = library_path()
-    if so.exists():
-        return so, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas=-v", "-o", str(tmp), str(SOURCE)]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}): {' '.join(cmd)}"
-                           f"\n{r.stdout}{r.stderr}")
-    os.replace(tmp, so)
-    return so, r.stdout + r.stderr
+    return build_library(SOURCE, nvcc, NVCC_FLAGS, "libfloorfit",
+                         extra=("-Xptxas=-v",))
 
 
 @lru_cache(maxsize=None)
@@ -79,8 +60,15 @@ class DeviceFloorFitCuda(DeviceFloorFit):
     """DeviceFloorFit whose greedy fit + final walk is the CUDA kernel.
     `launches` counts kernel launches (and nothing else)."""
 
-    def __init__(self, look, device="cuda"):
+    def __init__(self, look, device):
         super().__init__(look, device)
+        for name, v in (("maxover", self.maxover),
+                        ("maxunder", self.maxunder)):
+            # the kernel's over test is an integer range check
+            if not (0 <= v < 2 ** 20 and float(v).is_integer()):
+                raise ValueError(
+                    f"floor fit kernel: {name}={v} must be integral in "
+                    f"[0, 2^20) (every floor1 template uses 60 and 30)")
         P = self.posts
         tabs = np.zeros((5, P), np.int32)
         tabs[0] = self.reverse_index

@@ -20,8 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from vorbis_tpu.codec.floor1_codec import Floor1Look
-
+from ..codec.floor1_codec import Floor1Look
 from ..convert import device_tables
 
 f32 = np.float32
@@ -48,7 +47,7 @@ def _render_point(x0, x1, y0, y1, x):
 
 
 class DeviceFloorFit:
-    def __init__(self, look: Floor1Look, device="cpu"):
+    def __init__(self, look: Floor1Look, device):
         self.device = torch.device(device)
         info = look.info
         self.look = look

@@ -19,8 +19,8 @@ f32 = np.float32
 class DeviceLatticeBook:
     """One maptype-1 lattice book prepared for device encode."""
 
-    def __init__(self, book, device="cpu"):
-        from vorbis_tpu.codec.residue_codec import _enc_book_fields
+    def __init__(self, book, device):
+        from ..codec.residue_codec import _enc_book_fields
         self.device = torch.device(device)
         self.dim = int(book.dim)
         self.entries = int(book.entries)
@@ -81,7 +81,7 @@ class DeviceResidueVQ:
     """Multi-stage partitioned VQ over a flat residue vector
     (res01_forward's encodepart cascade, batched)."""
 
-    def __init__(self, info, books, partbooks, device="cpu"):
+    def __init__(self, info, books, partbooks, device):
         """info: ResidueInfo; partbooks: [partition][stage] book or
         None (from ResidueLook.partbooks)."""
         self.device = torch.device(device)

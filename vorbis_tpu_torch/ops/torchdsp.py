@@ -21,12 +21,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from vorbis_tpu.ops import psy as PSY
-from vorbis_tpu.ops.window import hybrid_window
-
 from ..convert import device_tables
 from ..utils.scales import todB
+from . import psy as PSY
 from .mdct import mdct_basis_np
+from .window import hybrid_window
 
 f32 = np.float32
 NEGINF = float(PSY.NEGINF)
@@ -127,7 +126,7 @@ class DeviceAnalysis:
     (lib/mapping0.c + _vp_noisemask) for the long-block path.  Host
     setup is line-aligned with jaxdsp.DeviceAnalysis.__init__."""
 
-    def __init__(self, setup, blocktype=3, rate=44100, W=1, device="cpu"):
+    def __init__(self, setup, blocktype=3, rate=44100, W=1, *, device):
         self.device = torch.device(device)
         bs = setup.vi.blocksizes
         self.W = W
@@ -318,7 +317,7 @@ class DeviceToneMask:
       - linear-domain windowed min     -> sparse-table range min + ATH
     """
 
-    def __init__(self, look, device="cpu"):
+    def __init__(self, look, device):
         self.device = torch.device(device)
         self.look = look
         n = look.n

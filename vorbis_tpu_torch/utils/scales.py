@@ -1,4 +1,10 @@
-"""Torch counterpart of the jnp branch of vorbis_tpu/utils/scales.py.
+"""Scale conversions: dB, Bark, octave (reference: lib/scales.h).
+
+The numpy half is a copy of vorbis_tpu/utils/scales.py, kept
+line-aligned with it: the todB constants and the init-time scalar
+conversions (`toBARK`, `toOC`, `fromOC`) that the psy tables
+(ops/psy.py) are built from.  The array functions are the port's own,
+on torch tensors:
 
 todB is the IEEE-754 bit-cast linear approximation (lib/scales.h), not
 20log10: reinterpret |x| as an integer, then u * 7.17711438e-7f -
@@ -9,9 +15,12 @@ rounds exactly like the reference's uint32 -> float32 one.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from vorbis_tpu.utils.scales import _TODB_BIAS, _TODB_SCALE
+_TODB_SCALE = np.float32(7.17711438e-7)
+_TODB_BIAS = np.float32(764.6161886)
+
 
 # float32-representable Python scalars: torch casts a Python scalar to
 # the tensor's dtype, so these reproduce the np.float32 constants
@@ -29,3 +38,38 @@ def unitnorm(x: torch.Tensor) -> torch.Tensor:
     """+-1 with the sign of x (bit trick: sign bit | 1.0f)."""
     u = x.to(torch.float32).view(torch.int32)
     return ((u & -0x80000000) | 0x3F800000).view(torch.float32)
+
+
+# Init-time scalar versions.  The C macros use f-suffixed float
+# constants promoted into double expressions (scales.h); reproduce the
+# float32-rounded constant values exactly.
+_C = lambda v: float(np.float32(v))
+
+
+def toBARK(n) -> float:
+    """C macro semantics: with an integer argument, each atan argument
+    is a float-const*int product computed (and rounded) in float32;
+    the atans and the final sum are double."""
+    import math
+    if isinstance(n, (int, np.integer)):
+        # float-const * int: the int converts to float32 first, then a
+        # single-precision multiply
+        nf = np.float32(int(n))
+        a1 = float(np.float32(0.00074) * nf)
+        a2 = float(np.float32(np.float32(int(n) * int(n)))
+                   * np.float32(1.85e-8))
+        a3 = float(np.float32(1e-4) * nf)
+        return (_C(13.1) * math.atan(a1) + _C(2.24) * math.atan(a2) + a3)
+    return (_C(13.1) * math.atan(_C(0.00074) * n)
+            + _C(2.24) * math.atan(n * n * _C(1.85e-8)) + _C(1e-4) * n)
+
+
+def toOC(n: float) -> float:
+    import math
+    return math.log(n) * _C(1.442695) - _C(5.965784)
+
+
+def fromOC(o: float) -> float:
+    import math
+    return math.exp((o + _C(5.965784)) * _C(0.693147))
+
