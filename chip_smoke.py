@@ -27,8 +27,25 @@ Phases (any failure raises and the script exits non-zero):
      decodes with the port's own decoder (vorbis_tpu_torch.codec.decoder)
      to the exact length above an SNR floor; the kernel's launch count
      shows the path went through it;
+  4b. stateful encode: FastEncoder(2, 44100, 0.5, switching=False) with
+     the cross-frame psy state (the default) encodes the same 60 s from
+     a CUDA tensor and from host int16, byte-equal; the port's decoder
+     reads it to the exact length within SNR_MARGIN_DB of the JAX
+     package's stateful stream; the floor kernel (long and short looks)
+     launches at least once a finish batch; the phase times
+     (last_profile) and x-realtime are printed;
+  4c. multi-stream: encode_batch of 16 streams (_signal(60, 44100, s),
+     s = 0..15, CUDA tensors) at the default B_long=2048: total
+     x-realtime and launches; every stream's last page granulepos is its
+     length; streams 0 and 15 decode to the exact length;
   5. card vs CPU: the port's packets for a 2 s clip on the card and on
-     the CPU, byte for byte.
+     the CPU, byte for byte;
+  5b. card vs CPU, stateful: the stateful packets of a 2 s clip
+     (encode_batch at B_long=64), >= 90% identical; the count at encode's
+     B_long=1024 and the stateless encode_batch's are printed beside it.
+Phases 4b and 4c then run once more under torch.profiler and print the
+device's busy share.  Launch counts are set to 0 just before each main
+path (4, 4b, 4c) and read just after it.
 It prints the kernel record as one JSON line, then the result line.
 """
 
@@ -48,6 +65,12 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # port must come within SNR_MARGIN_DB of it.
 JAX_SNR_DB = 24.956
 SNR_MARGIN_DB = 0.25
+# The same for phase 4b: the JAX package's stateful stream
+# (vorbis_tpu FastEncoder(2, 44100, 0.5, switching=False).encode of
+# _signal(60, 44100, 0), psy_state at its default, decoded by
+# vorbis_tpu.vorbisfile; JAX 0.9.0 on the CPU; reference_snr.py)
+# measures 25.04790 dB.
+JAX_STATEFUL_SNR_DB = 25.0479
 
 # The card's peaks for the kernel's bound (NVIDIA H100 SXM data sheet,
 # 132 SMs at 1.98 GHz): HBM bytes per second; float32 operations, 67e12
@@ -115,6 +138,67 @@ def _packets(dev, chunk):
     nb = nb.cpu().numpy()
     return [pk[f, :(nb[f] + 7) // 8].tobytes() + bytes([nb[f] % 8])
             for f in range(len(nb))]
+
+
+def _floors(fe):
+    """The floor-fit kernels of an encoder's main path: the long look's
+    and, once built, the short look's (a long-only stream opens with one
+    short block)."""
+    out = [fe.floor]
+    if fe._short_ctx is not None:
+        out.append(fe._short_ctx.floor)
+    return out
+
+
+def _launches(fe):
+    return sum(f.launches for f in _floors(fe))
+
+
+def _reset_launches(fe):
+    for f in _floors(fe):
+        f.launches = 0
+
+
+def _snr(pcm16, out):
+    import numpy as np
+    x = pcm16.astype(np.float64) / 32768.0
+    if out.shape != pcm16.shape:
+        raise RuntimeError(f"decoded shape {out.shape} != {pcm16.shape}")
+    if not np.isfinite(out).all():
+        raise RuntimeError("non-finite decoded samples")
+    return 10 * np.log10(np.sum(x ** 2) / np.sum((out - x) ** 2))
+
+
+def _audio_packets(ogg):
+    from vorbis_tpu_torch.bitstream.oggfile import OggStreamReader
+    return [p for p, _, _ in OggStreamReader(ogg).packets()][3:]
+
+
+def _last_granulepos(ogg):
+    import struct
+    at = ogg.rfind(b"OggS")
+    return struct.unpack_from("<q", ogg, at + 6)[0]
+
+
+def _busy_share(fn, wall_s):
+    """Device time of one profiled call of fn (the kernels' time, summed
+    over the profiler's device-side events only: its CPU-op rows repeat
+    the time of the kernels they launch) over the unprofiled wall time
+    wall_s; and the largest kernels by name."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in kern)
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
+    rows = [f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f} ms "
+            f"x{e.count}" for e in top]
+    return dev_us / 1e6 / wall_s, dev_us / 1e3, rows
 
 
 def _random_spectra(n, B, seed):
@@ -373,6 +457,82 @@ def main():
           f"{secs / t_dev:.2f}x realtime; from host {t_host:.4f} s = "
           f"{secs / t_host:.2f}x realtime ({smi})")
 
+    # 4b. the stateful encode (psy_state at its default)
+    fs = FastEncoder(2, 44100, 0.5, switching=False)
+    if not fs.psy_state:
+        raise RuntimeError("psy_state is not the default")
+    fs.encode(pcm_dev)                              # warm-up
+    torch.cuda.synchronize()
+    _reset_launches(fs)
+    t0 = time.perf_counter()
+    ogg_s = fs.encode(pcm_dev)
+    torch.cuda.synchronize()
+    t_sdev = time.perf_counter() - t0
+    launches_s = _launches(fs)
+    prof_s = dict(fs.last_profile)
+    t0 = time.perf_counter()
+    if fs.encode(pcm16) != ogg_s:
+        raise RuntimeError("stateful: host int16 stream differs from the "
+                           "device-resident one")
+    t_shost = time.perf_counter() - t0
+    npk = len(_audio_packets(ogg_s))
+    batches = -(-(npk - 1) // 1024) + 1     # long batches + the short one
+    if launches_s < batches:
+        raise RuntimeError(f"stateful: floor kernel launched {launches_s} "
+                           f"times for {batches} finish batches")
+    out_s, _ = decode_ogg(ogg_s)
+    snr_s = _snr(pcm16, out_s)
+    print(f"[stateful] 60 s stereo: {len(ogg_s)} bytes, {npk} packets, "
+          f"{batches} finish batches, floor launches {launches_s}, SNR "
+          f"{snr_s:.3f} dB (JAX stateful {JAX_STATEFUL_SNR_DB:.3f} dB)")
+    if abs(snr_s - JAX_STATEFUL_SNR_DB) > SNR_MARGIN_DB:
+        raise RuntimeError(f"stateful SNR {snr_s:.3f} dB not within "
+                           f"{SNR_MARGIN_DB} dB of the JAX stream")
+    print("[stateful] last_profile (s): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in prof_s.items()))
+    print(f"[stateful] warm encode from device {t_sdev:.4f} s = "
+          f"{secs / t_sdev:.2f}x realtime; from host {t_shost:.4f} s = "
+          f"{secs / t_shost:.2f}x realtime ({smi})")
+    busy, dev_ms, rows = _busy_share(lambda: fs.encode(pcm_dev), t_sdev)
+    print(f"[stateful] profiled: device {dev_ms:.3f} ms, busy "
+          f"{100 * busy:.1f}% of the unprofiled {t_sdev:.4f} s; top: "
+          + "; ".join(rows))
+
+    # 4c. multi-stream encode_batch, 16 x 60 s
+    S = 16
+    streams = [torch.from_numpy(_signal(60, 44100, k)).cuda()
+               for k in range(S)]
+    fs.encode_batch(streams[:2])                    # warm-up at B=2048
+    torch.cuda.synchronize()
+    _reset_launches(fs)
+    t0 = time.perf_counter()
+    oggs = fs.encode_batch(streams)
+    torch.cuda.synchronize()
+    t_batch = time.perf_counter() - t0
+    launches_b = _launches(fs)
+    prof_b = dict(fs.last_profile)
+    if launches_b == 0:
+        raise RuntimeError("multi-stream: the floor kernel never launched")
+    for k, o in enumerate(oggs):
+        if _last_granulepos(o) != streams[k].shape[1]:
+            raise RuntimeError(f"stream {k}: last granulepos "
+                               f"{_last_granulepos(o)}")
+    for k in (0, S - 1):
+        out_k, _ = decode_ogg(oggs[k])
+        snr_k = _snr(streams[k].cpu().numpy(), out_k)
+        print(f"[batch] stream {k}: {len(oggs[k])} bytes, decoded "
+              f"{out_k.shape}, SNR {snr_k:.3f} dB")
+    print(f"[batch] {S} x 60 s: {t_batch:.4f} s = "
+          f"{S * secs / t_batch:.2f}x realtime, floor launches "
+          f"{launches_b}; last_profile (s): " + ", ".join(
+              f"{k} {v:.4f}" for k, v in prof_b.items()) + f" ({smi})")
+    busy, dev_ms, rows = _busy_share(lambda: fs.encode_batch(streams),
+                                     t_batch)
+    print(f"[batch] profiled: device {dev_ms:.3f} ms, busy "
+          f"{100 * busy:.1f}% of the unprofiled {t_batch:.4f} s; top: "
+          + "; ".join(rows))
+    del streams
+
     # 5. card vs CPU
     fe_cpu = FastEncoder(2, 44100, 0.5, switching=False, psy_state=False,
                          device="cpu")
@@ -386,11 +546,43 @@ def main():
     if same < 0.9 * len(on_card):
         raise RuntimeError("card and CPU packets differ in more than 10%")
 
+    # 5b. card vs CPU, stateful: encode_batch of the clip at B_long=64
+    # (the CPU side's batch need not be padded to 1024 rows); encode's
+    # own B_long=1024 is printed beside it with the stateless
+    # encode_batch of the same clip (the GEMMs round by batch shape)
+    fs_cpu = FastEncoder(2, 44100, 0.5, switching=False, device="cpu")
+    clip16 = np.ascontiguousarray(pcm16[:, :2 * 44100])
+    clip_dev = torch.from_numpy(clip16).cuda()
+
+    def card_vs_cpu(B, psy_state=True):
+        fs.psy_state = fs_cpu.psy_state = psy_state
+        try:
+            a = _audio_packets(fs.encode_batch([clip_dev], B_long=B)[0])
+            b = _audio_packets(fs_cpu.encode_batch([clip16], B_long=B)[0])
+        finally:
+            fs.psy_state = fs_cpu.psy_state = True
+        if len(a) != len(b):
+            raise RuntimeError(f"card {len(a)} packets, CPU {len(b)}")
+        return [i for i, (x, y) in enumerate(zip(a, b)) if x != y], len(a)
+
+    diff, tot = card_vs_cpu(64)
+    diff_e, _ = card_vs_cpu(1024)
+    diff_0, _ = card_vs_cpu(1024, psy_state=False)
+    same = tot - len(diff)
+    print(f"[card-vs-cpu] stateful: identical packets {same}/{tot} "
+          f"(B_long=64, differing {diff}); at B_long=1024 "
+          f"{tot - len(diff_e)}/{tot} (differing {diff_e}), stateless "
+          f"encode_batch {tot - len(diff_0)}/{tot} (differing {diff_0})")
+    if same < 0.9 * tot:
+        raise RuntimeError("stateful card and CPU packets differ in more "
+                           "than 10%")
+
     print(json.dumps({"kernels": [{
         "name": "floor1_greedy_fit", "route": "cuda",
         "source": "vorbis_tpu_torch/csrc/floor_fit.cu",
         "replaces": "vorbis_tpu/ops/floor_pallas.py:289",
-        "launches": launches, "max_abs_err": max_err,
+        "launches": launches + launches_s + launches_b,
+        "max_abs_err": max_err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "share": share, "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {

@@ -151,7 +151,8 @@ def test_mask_components_and_call(pair, frames):
 
 
 ANALYSIS_TABLES = ["window", "windows4", "bark_lo", "bark_hi",
-                   "noisecompand", "noiseoffsets", "ath"]
+                   "noisecompand", "noiseoffsets", "noiseoffsets_alt",
+                   "ath"]
 TONE_TABLES = ["group_id", "group_first", "group_band", "curve_rows",
                "ath"]
 

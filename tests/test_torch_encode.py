@@ -267,7 +267,8 @@ def _jax_tables(jfe, jd):
             "gidx": np.where(jd.plan.gidx < 0, jd.plan.n_cols,
                              jd.plan.gidx),
             "ph_cw": jd.ph_cw, "ph_cl": jd.ph_cl,
-            "thr1": jfe.couple["thr1"], "threv": jfe.couple["threv"]}
+            "thr1": jfe.couple["thr1"], "thr2": jfe.couple["thr2"],
+            "threv": jfe.couple["threv"]}
     for s, st in enumerate(jd.stage_tabs):
         tabs[f"cw{s}"], tabs[f"cl{s}"] = st["cw"], st["cl"]
         for c, d in enumerate(jd.res_books[s]):
@@ -283,7 +284,8 @@ def _jax_tables(jfe, jd):
 
 def _port_tables(tfe, td):
     tabs = {"fromdB": tfe.fromdB, "gidx": td.gidx_t, "ph_cw": td.ph_cw_t,
-            "ph_cl": td.ph_cl_t, "thr1": td.thr1_t, "threv": td.threv_t}
+            "ph_cl": td.ph_cl_t, "thr1": td.thr1_t, "thr2": td.thr2_t,
+            "threv": td.threv_t}
     for s, st in enumerate(td.stage_tabs):
         tabs[f"cw{s}"], tabs[f"cl{s}"] = st["t"]["cw"], st["t"]["cl"]
         for c, d in enumerate(td.res_books[s]):

@@ -1,7 +1,8 @@
 """The port stands alone: its package and chip_smoke.py import neither jax
 nor the JAX package vorbis_tpu, and a process in which both imports fail
-can still encode with the port on the CPU and decode with the port's own
-decoder (the GPU machine has no JAX).  The encoder runs on the card
+can still encode with the port on the CPU (stateless and with the
+default cross-frame psy state) and decode with the port's own decoder
+(the GPU machine has no JAX).  The encoder runs on the card
 unless the caller asks for the CPU."""
 
 import os
@@ -29,6 +30,11 @@ t = np.arange(8820) / 44100
 pcm = np.stack([0.3 * np.sin(2 * np.pi * 440 * t),
                 0.3 * np.sin(2 * np.pi * 660 * t)]).astype(np.float32)
 out, vi = decode_ogg(fe.encode(pcm))
+assert out.shape == pcm.shape, out.shape
+assert np.isfinite(out).all()
+# the default encoder: the cross-frame psy state (encode_batch)
+fs = FastEncoder(2, 44100, 0.5, switching=False, device="cpu")
+out, vi = decode_ogg(fs.encode(pcm))
 assert out.shape == pcm.shape, out.shape
 assert np.isfinite(out).all()
 bad = sorted(m for m in sys.modules if m.startswith("jax.")

@@ -1,9 +1,10 @@
 """Whole streams from the port's encoder (vorbis_tpu_torch FastEncoder,
-long-only stateless slice) on the CPU: the stock libvorbis decodes them
-to the exact input length, the quality gate of tests/test_fastenc.py:37
-holds, and the paths later slices port raise NotImplementedError naming
-their ROADMAP item.  No JAX on this side: the slice's packet-level
-comparison with the JAX package is tests/test_torch_encode.py."""
+long-only slices, stateless and with the cross-frame psy state) on the
+CPU: the stock libvorbis decodes them to the exact input length, the
+quality gate of tests/test_fastenc.py:37 holds, and the paths later
+slices port raise NotImplementedError naming their ROADMAP item.  No
+JAX on this side: the packet-level comparisons with the JAX package are
+tests/test_torch_encode.py (stateless) and test_torch_psystate.py."""
 
 import copy
 
@@ -38,9 +39,14 @@ def test_stream_decodes_to_exact_length(tfe, tmp_path):
     assert tfe.encode(p16) == tfe.encode(torch.from_numpy(p16))
 
 
-def test_quality_on_tonal_content(tfe, tmp_path):
-    """tests/test_fastenc.py:37's gate for the port: on steady tonal
-    content the stream is within 1.2x the golden encoder's RMS error."""
+@pytest.fixture(scope="module")
+def stateful():
+    return TFE(2, 44100, 0.5, switching=False, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def tonal(tmp_path_factory):
+    """Steady tonal content and the golden encoder's RMS error on it."""
     from vorbis_tpu.codec.encoder import encode_vbr_stream
     t = np.arange(44100) / 44100
     pcm = np.stack([
@@ -48,26 +54,82 @@ def test_quality_on_tonal_content(tfe, tmp_path):
         + 0.2 * np.sin(2 * np.pi * 1873 * t),
         0.4 * np.sin(2 * np.pi * 523 * t)
         + 0.2 * np.sin(2 * np.pi * 2093 * t)]).astype(np.float32)
-    pf = str(tmp_path / "f.ogg")
-    pg = str(tmp_path / "g.ogg")
-    with open(pf, "wb") as f:
-        f.write(tfe.encode(pcm))
+    pg = str(tmp_path_factory.mktemp("golden") / "g.ogg")
     with open(pg, "wb") as f:
         f.write(encode_vbr_stream(pcm, 44100, 0.5))
-    gf, _ = oracle.decode_float(pf)
     gg, _ = oracle.decode_float(pg)
-    ef = np.sqrt(np.mean((gf - pcm[:, :gf.shape[1]]) ** 2))
-    eg = np.sqrt(np.mean((gg - pcm[:, :gg.shape[1]]) ** 2))
+    return pcm, np.sqrt(np.mean((gg - pcm[:, :gg.shape[1]]) ** 2))
+
+
+def _rms_error(fe, pcm, path):
+    with open(path, "wb") as f:
+        f.write(fe.encode(pcm))
+    gf, _ = oracle.decode_float(path)
+    assert gf.shape == pcm.shape
+    return np.sqrt(np.mean((gf - pcm) ** 2))
+
+
+def test_quality_on_tonal_content(tfe, tonal, tmp_path):
+    """tests/test_fastenc.py:37's gate for the port: on steady tonal
+    content the stream is within 1.2x the golden encoder's RMS error."""
+    pcm, eg = tonal
+    ef = _rms_error(tfe, pcm, str(tmp_path / "f.ogg"))
     assert ef < 1.2 * eg, (ef, eg)
 
 
-def test_unported_paths_raise(tfe):
+def test_stateful_quality_on_tonal_content(stateful, tonal, tmp_path):
+    """The same gate for the default encoder, whose encode runs the
+    two-phase pipeline (encode_batch at B_long=1024) with the
+    cross-frame psy state (measured: 0.00315 against the golden
+    0.00302)."""
+    pcm, eg = tonal
+    stateful.last_profile = None
+    ef = _rms_error(stateful, pcm, str(tmp_path / "s.ogg"))
+    assert stateful.last_profile.keys() == {
+        "probe_dispatch", "probe_wait", "host_midpass", "finish"}
+    print(f"RMS error stateful {ef:.6g}, golden {eg:.6g}")
+    assert ef < 1.2 * eg, (ef, eg)
+
+
+def test_stateful_encode_input_kinds_agree(stateful):
+    """Host int16 and a tensor give the same stateful stream, which
+    the port's own decoder reads to the exact length."""
+    from vorbis_tpu_torch.codec.decoder import decode_ogg
+    pcm = oracle.make_test_signal(seconds=0.7)
+    p16 = np.clip(np.rint(pcm * 32767), -32768, 32767).astype(np.int16)
+    ogg = stateful.encode_batch([p16], B_long=64)[0]
+    assert ogg == stateful.encode_batch([torch.from_numpy(p16)],
+                                        B_long=64)[0]
+    out, _ = decode_ogg(ogg)
+    assert out.shape == pcm.shape and np.isfinite(out).all()
+
+
+def test_stateful_single_blocksize_template(tmp_path):
+    """8 kHz mono has one block size: every frame runs the short-mode
+    psy state (ntfix_short, no M9); the stock libvorbis reads the
+    stream to the exact length (tests/test_fastenc.py:150's template)."""
+    fe = TFE(1, 8000, 0.2, switching=False, device="cpu")
+    assert fe.W_main == 0
+    pcm = oracle.make_test_signal(rate=8000, seconds=0.5, ch=1)
+    path = str(tmp_path / "s8k.ogg")
+    with open(path, "wb") as f:
+        f.write(fe.encode(pcm))
+    got, rate = oracle.decode_float(path)
+    assert rate == 8000 and got.shape == pcm.shape
+    assert np.isfinite(got).all()
+
+
+def test_unported_paths_raise(tfe, stateful):
     pcm = np.zeros((2, 4410), np.float32)
     with pytest.raises(NotImplementedError, match="1.7"):
         tfe.encode(pcm, switching=True)
-    stateful = copy.copy(tfe)
-    stateful.psy_state = True
-    with pytest.raises(NotImplementedError, match="1.6"):
-        stateful.encode(pcm)
+    with pytest.raises(NotImplementedError, match="1.7"):
+        stateful.encode(pcm, switching=True)
+    with pytest.raises(NotImplementedError, match="1.7"):
+        stateful.encode_batch([pcm], switching=True)
+    switching = copy.copy(stateful)
+    switching.switching = True
+    with pytest.raises(NotImplementedError, match="1.7"):
+        switching.encode_batch([pcm])
     with pytest.raises(NotImplementedError, match="1.9"):
         TFE(2, 44100, bitrate=(192000, 128000, 64000), device="cpu")

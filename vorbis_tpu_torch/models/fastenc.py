@@ -1,18 +1,21 @@
 """Torch counterpart of vorbis_tpu/models/fastenc.py: the batched fast
-encoder, long-only stateless slice.
+encoder, long-only slices.
 
 All DSP decisions (masking, floor fit, coupling, residue VQ, codeword
-lookup, bit packing) run on `device` for a chunk of frames at a time
-(ops/encdevice.py); the host only slices the packed packets and frames
-Ogg pages.  The output is a valid Vorbis stream, not byte-identical to
-aoTuV (see the JAX module's docstring); for byte-identical output use
-vorbis_tpu.codec.encoder.Encoder.
+lookup, bit packing) run on `device` for a batch of frames at a time
+(ops/encdevice.py); the host runs the cross-frame psy recurrences
+(ops/psydevice.py), slices the packed packets and pages Ogg in its own
+host C (csrc/host_ogg.c).  The output is a valid Vorbis stream, not
+byte-identical to aoTuV (see the JAX module's docstring); for
+byte-identical output use vorbis_tpu.codec.encoder.Encoder.
 
-Ported here: `FastEncoder.__init__` (host setup), `ctx`, `dev`,
-`_device_pad` and the stateless long-only branch of `encode`.  Paths of
-the JAX encoder that later slices port raise NotImplementedError naming
-their ROADMAP item: block switching (§1.7), the cross-frame psy state
-(§1.6), managed bitrate (§1.9) and the multi-submap 5.1 layouts
+Ported here: `FastEncoder.__init__` (host setup), `ctx`, `dev`, the
+stateless long-only `encode` (psy_state=False), and the long-only
+`encode_batch` with its two-phase cross-frame psy state (probe -> host
+recurrences -> finish, `_run_two_phase`), which `encode` runs by default
+(psy_state=True).  Paths of the JAX encoder that later slices port
+raise NotImplementedError naming their ROADMAP item: block switching
+(§1.7), managed bitrate (§1.9) and the multi-submap 5.1 layouts
 (§1.10).
 """
 
@@ -21,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import native
 from ..bitstream.bitpack import ilog
 from ..bitstream.oggfile import OggStreamWriter
 from ..codec.encoder import Encoder
@@ -30,6 +34,45 @@ from ..ops.floor_cuda import make_floor_fit
 from ..ops.residue_device import DeviceResidueVQ
 from ..ops.torchdsp import DeviceAnalysis
 from . import encsetup
+
+
+class _ShortCtx:
+    """Per-mode device components for the short-block (W=0) frames: a
+    long-only schedule opens every stream with one short block, as the
+    reference's blockout does (W starts 0)."""
+
+    def __init__(self, fe):
+        vi = fe.vi
+        self.n = vi.blocksizes[0]
+        self.mode_idx = next(i for i, m in enumerate(vi.modes)
+                             if m.blockflag == 0)
+        minfo = vi.modes[self.mode_idx]
+        mapping = vi.maps[minfo.mapping]
+        self.mapping = mapping
+        # impulse psy params (blocktype 0) for every short block; the
+        # finish step's trans flag selects the padding noise bias
+        self.analysis = DeviceAnalysis(fe.setup, blocktype=0,
+                                       rate=fe.rate, W=0, device=fe.device)
+        fl_idx = mapping.floorsubmap[mapping.chmuxlist[0]]
+        self.fl_look = fe.enc.floor_looks[fl_idx]
+        self.floor = make_floor_fit(self.fl_look, fe.device)
+        self.fromdB = fe.fromdB
+        res_idx = mapping.residuesubmap[mapping.chmuxlist[0]]
+        self.res_look = fe.enc.residue_looks[res_idx]
+        self.res_type = vi.residue_types[res_idx]
+        assert self.res_type in (0, 1, 2)
+        self.dvq = DeviceResidueVQ(self.res_look.info,
+                                   self.res_look.books,
+                                   self.res_look.partbooks, fe.device)
+        pv = fe.setup.psy_params[0]
+        self.normal = dict(
+            partition=int(pv["normal_partition"]) if pv["normal_p"]
+            else 16,
+            start=int(pv["normal_start"]),
+            thresh=float(pv.get("normal_thresh", 9999.0)))
+        if self.res_type == 2:
+            self.couple = _couple_params(fe.setup, 0, 0, self.n // 2)
+            self.couple["tonefix_end"] = self.analysis.look.tonefix_end
 
 
 def _couple_params(setup, blocktype, blockflag, n2, blob=7):
@@ -85,10 +128,16 @@ class FastEncoder:
                  device=None):
         """Unmanaged VBR at `quality` on `device` (default: "cuda"; with
         no card that raises, and the CPU takes device="cpu").  The JAX
-        encoder's defaults are kept; `encode` raises NotImplementedError
-        for switching=True and psy_state=True until those slices land,
-        so this slice runs as FastEncoder(..., switching=False,
-        psy_state=False)."""
+        encoder's defaults are kept; `encode` and `encode_batch` raise
+        NotImplementedError for switching=True until block switching
+        lands, so these slices run as FastEncoder(..., switching=False).
+
+        psy_state=True (default) threads the reference's cross-frame
+        psychoacoustic state through the batched pipeline -- ampmax
+        decay, lastmdct (M9), the M5 compand latch, M2 post-echo, M7
+        ntfix, M6 lossless promotion and the M8 noise-normalize budgets
+        (ops/psydevice); False selects the stateless single-pass
+        pipeline."""
         if bitrate is not None:
             raise NotImplementedError(
                 "managed ABR/CBR (bitrate=): ROADMAP §1.9")
@@ -162,6 +211,9 @@ class FastEncoder:
                 self.setup, self.blocktype, self.W_main, n2)
             self.couple["tonefix_end"] = self.analysis.look.tonefix_end
         self._dev = None
+        self._short_ctx = None
+        self._dev_short = None
+        self._step_caches = {}
         # block switching (envelope-driven 256/2048) — on by default
         # when the mode set has two block sizes
         self.switching = bool(switching) and (
@@ -171,11 +223,15 @@ class FastEncoder:
 
     def ctx(self, W: int = 1):
         """Per-mode component bundle; the long ctx is the encoder
-        itself (analysis/floor/dvq attributes)."""
+        itself (analysis/floor/dvq attributes), the short ctx is
+        built lazily."""
         if W or self.W_main == 0:
+            # single-blocksize templates have one mode: the encoder
+            # itself is the only ctx
             return self
-        raise NotImplementedError(
-            "short-block ctx (block switching): ROADMAP §1.7")
+        if self._short_ctx is None:
+            self._short_ctx = _ShortCtx(self)
+        return self._short_ctx
 
     @property
     def dev(self):
@@ -196,12 +252,700 @@ class FastEncoder:
         tail = total - ns - hop
         return torch.nn.functional.pad(pcm_dev, (hop, tail))
 
+    # -- host-side Ogg paging ----------------------------------------------
+    @staticmethod
+    def _write_audio_pages(w, rows_for, sizes, gps, eos_last=True,
+                           per_page=16):
+        """Emit audio packets onto pages directly, one 16-packet page
+        per pass: the plain version of the host C pager
+        (native.ogg_pages, which _page_stream runs), held against it by
+        tests/test_torch_psystate.py.  w: an OggStreamWriter that
+        already emitted the header pages."""
+        import struct
+
+        from ..bitstream.oggfile import ogg_crc
+        npkt = len(sizes)
+        serialno = w.serialno
+        pageno = w.pageno
+        pages = w._pages
+        i0 = 0
+        while i0 < npkt:
+            lacing = bytearray()
+            body = bytearray()
+            hi = i0
+            while hi < npkt and hi - i0 < per_page:
+                nsz = int(sizes[hi])
+                need = nsz // 255 + 1
+                if lacing and len(lacing) + need > 255:
+                    break                 # lacing table is full
+                body += rows_for(hi)
+                while nsz >= 255:
+                    lacing.append(255)
+                    nsz -= 255
+                lacing.append(nsz)
+                hi += 1
+            eos = eos_last and hi == npkt
+            htype = 4 if eos else 0
+            hdr = struct.pack(
+                "<4sBBqIIIB", b"OggS", 0, htype, int(gps[hi - 1]),
+                serialno & 0xFFFFFFFF, pageno, 0, len(lacing))
+            page = bytearray(hdr + bytes(lacing) + bytes(body))
+            crc = ogg_crc(bytes(page))
+            page[22:26] = struct.pack("<I", crc)
+            pages.append(bytes(page))
+            pageno += 1
+            i0 = hi
+        w.pageno = pageno
+
+    # -- per-mode device steps ---------------------------------------------
+    def _dev_for(self, W):
+        """DeviceFastEncode per block mode (cached)."""
+        if W or self.W_main == 0:
+            return self.dev
+        if self._dev_short is None:
+            from ..ops.encdevice import DeviceFastEncode
+            self._dev_short = DeviceFastEncode(self, W=0)
+        return self._dev_short
+
+    def _cached_step(self, kind, W, B, wb, make):
+        """One plain callable per (kind, W, B, wb), built once."""
+        key = (kind, W, B, wb)
+        if key not in self._step_caches:
+            self._step_caches[key] = make()
+        return self._step_caches[key]
+
+    def _gather_step(self, W, B, wb=None):
+        return self._cached_step("gather", W, B, wb, lambda: self._dev_for(
+            W).make_gather_step(B, wb))
+
+    def _probe_step(self, W, B):
+        return self._cached_step("probe", W, B, None, lambda: self._dev_for(
+            W).make_probe_step(B, self.n // 2))
+
+    def _finish_step(self, W, B, wb=None):
+        return self._cached_step("finish", W, B, wb, lambda: self._dev_for(
+            W).make_finish_step(B, wb))
+
+    def _edge_pads(self, pcm, hop, tail, src=None):
+        """LPC stream-edge extensions for the lap pads (reference:
+        block.c:438-477 pre-extrapolation, 497-537 eof tail): the
+        front pad continues the signal BACKWARD (order 16), the tail
+        pad FORWARD (order 32, capped at 3 long blocks like the
+        reference), so the psy model sees a smooth lead-in/out instead
+        of zero-pad edges.  Returns host arrays in the input dtype.
+        src: the (head, tail) edge slices already on the host (a
+        device-resident pcm sends only these 4*n-sample edges)."""
+        from ..utils.lpc import lpc_extrapolate
+        ch, ns = pcm.shape
+        n1 = self.n
+        w = int(min(ns, 4 * n1))
+        if src is not None:
+            head = np.asarray(src[0])
+            tsrc = np.asarray(src[1])
+        else:
+            head = np.asarray(pcm[:, :w])
+            tsrc = np.asarray(pcm[:, ns - w:])
+        dt = head.dtype
+        i16 = dt == np.int16
+        sc = np.float32(1.0 / 32768.0) if i16 else np.float32(1.0)
+        front = np.stack([
+            lpc_extrapolate(head[c, ::-1].astype(np.float32) * sc,
+                            16, hop)[::-1] for c in range(ch)])
+        text = int(min(tail, 3 * n1))
+        tl = np.stack([
+            lpc_extrapolate(tsrc[c].astype(np.float32) * sc, 32, text)
+            for c in range(ch)])
+        if i16:
+            front = np.clip(np.rint(front * 32768.0), -32768, 32767)
+            tl = np.clip(np.rint(tl * 32768.0), -32768, 32767)
+        tailbuf = np.zeros((ch, tail), dt)
+        tailbuf[:, :text] = tl.astype(dt)
+        return front.astype(dt), tailbuf
+
+    def _schedule(self, marks, ns):
+        """Envelope marks -> block schedule (centers, Ws, impulse) in
+        padded-stream coordinates (front pad = hop), through the host C
+        blockout state machine (native.schedule; its plain version is
+        _schedule_plain).  Single-blocksize templates have one mode and
+        a fixed hop."""
+        n1 = self.n
+        n0 = self.vi.blocksizes[0]
+        hop = n1 // 2
+        if n0 == n1:
+            # single-blocksize template: one mode; keep the "main"
+            # label the batched pipeline keys on
+            k = (hop + ns - 1 - hop) // hop + 1
+            cs = hop + hop * np.arange(k + 1, dtype=np.int64)
+            return (cs, np.ones(k + 1, np.int64),
+                    np.zeros(k + 1, bool))
+        return native.schedule(np.asarray(marks, bool), ns, n0, n1)
+
+    @staticmethod
+    def _schedule_plain(marks, ns, n0, n1):
+        """The blockout / envelope_search state machine in Python
+        (block.c:557-812, envelope.c:569-735): W starts 0, a persistent
+        scan cursor walks the mark array, a mark strictly after the
+        current center and before testW = center + bs[W]/4 + bs[1]/2 +
+        bs[0]/4 makes the NEXT block short, and the SAME mark keeps
+        blocks short until the center passes it.  The impulse flag
+        mirrors envelope_mark (span marks or the consumed curmark).
+        Mark-free long-long stretches bulk-emit arithmetically.  The
+        plain version native.schedule is held against
+        (tests/test_torch_psystate.py)."""
+        bs = (n0, n1)
+        hop = n1 // 2
+        marks = np.asarray(marks, bool)
+        nmk = len(marks)
+        end_c = hop + ns
+        mpos = np.flatnonzero(marks).astype(np.int64) * 64
+        mc = np.concatenate([[0], np.cumsum(marks.astype(np.int64))])
+        limit = 64 * nmk
+        K_long = 3 * (n1 // 4) + n0 // 4
+
+        def anymark(b_abs, e_abs):
+            b = max(0, min(b_abs // 64, nmk))
+            e = max(0, min((e_abs + 63) // 64, nmk))
+            return e > b and mc[e] > mc[b]
+
+        segs_c, segs_W, segs_I = [], [], []
+        centerW = hop
+        W = 0                      # _vds_shared_init starts W=0
+        cursor = hop               # EnvelopeLookup: blocksizes[1]//2
+        curmark = 0
+        one = np.ones(1, np.int64)
+        while True:
+            # bulk: long steady state with the next mark out of reach
+            if W == 1 and centerW < end_c:
+                j0 = max(cursor, centerW + 64)
+                mi = int(np.searchsorted(mpos, j0))
+                m_abs = int(mpos[mi]) if mi < len(mpos) else None
+                cap = (m_abs if m_abs is not None else limit) - K_long
+                cap = min(cap, end_c - 1)
+                if cap >= centerW + hop:
+                    k = (cap - centerW) // hop + 1
+                    arr = centerW + hop * np.arange(k, dtype=np.int64)
+                    segs_c.append(arr)
+                    segs_W.append(np.ones(k, np.int64))
+                    segs_I.append(np.zeros(k, bool))
+                    last_testW = int(arr[-1]) + K_long
+                    cursor = max(cursor,
+                                 ((last_testW - 1) // 64) * 64)
+                    centerW = int(arr[-1]) + hop
+                    continue
+            # serial: envelope_search in absolute coordinates
+            testW = centerW + bs[W] // 4 + n1 // 2 + n0 // 4
+            mi = int(np.searchsorted(mpos, cursor))
+            m_abs = None
+            while mi < len(mpos):
+                if mpos[mi] > centerW:
+                    m_abs = int(mpos[mi])
+                    break
+                mi += 1
+            if m_abs is not None and m_abs < testW:
+                bp = 0
+                cursor = m_abs
+                curmark = m_abs
+            elif testW <= limit:
+                bp = 1
+                cursor = max(cursor, ((testW - 1) // 64) * 64)
+            else:
+                bp = -1            # end of analyzable data -> short
+                cursor = max(cursor, ((limit - 1) // 64) * 64)
+            nW = 1 if bp == 1 else 0
+            if W == 0:
+                b0 = centerW - n0 // 4 - n0 // 4
+                e0 = centerW + n0 // 4 + n0 // 4
+                imp = anymark(b0, e0) or (b0 <= curmark < e0)
+            else:
+                imp = False
+            segs_c.append(np.array([centerW], np.int64))
+            segs_W.append(one * W)
+            segs_I.append(np.array([imp]))
+            if centerW >= end_c:
+                break
+            centerW = centerW + bs[W] // 4 + bs[nW] // 4
+            W = nW
+        return (np.concatenate(segs_c), np.concatenate(segs_W),
+                np.concatenate(segs_I))
+
+    # -- stateful two-phase pipeline ----------------------------------------
+    @staticmethod
+    def _host_compact(pkb, sizes):
+        """Concatenate the used prefixes of padded packet rows into
+        (blob, off): one dense byte buffer + exclusive byte offsets
+        (a row-major boolean mask keeps exactly those prefixes, in
+        order)."""
+        sizes = np.asarray(sizes, np.int64)
+        off = np.cumsum(sizes) - sizes
+        keep = np.arange(pkb.shape[1])[None, :] < sizes[:, None]
+        return pkb[keep], off
+
+    @staticmethod
+    def _pad_to(a, B, fill=0):
+        if len(a) >= B:
+            return np.asarray(a)
+        return np.concatenate(
+            [np.asarray(a),
+             np.full((B - len(a),) + np.shape(a)[1:], fill,
+                     np.asarray(a).dtype)])
+
+    def _drain(self, pend, redo, wb, F):
+        """Fetch every batch's (packets, nbits) in one wave, redo a
+        batch holding an oversized packet at the static worst-case
+        budget, and host-compact the rows.  pend: [(pk, nb)] on the
+        device; redo(bi) -> the batch's (pk, nb) at the worst-case
+        budget.  Returns (blob, off, nbits) for the first F packets."""
+        if not pend:
+            return (np.zeros(0, np.uint8), np.zeros(0, np.int64),
+                    np.zeros(0, np.int64))
+        pk_all = torch.stack([pk for pk, _ in pend]).cpu().numpy()
+        nb_all = torch.stack([nb for _, nb in pend]).cpu().numpy()
+        blobs, offs, nbs = [], [], []
+        base = 0
+        for bi in range(len(pend)):
+            pkb, nbb = pk_all[bi], nb_all[bi]
+            if (nbb > wb * 8).any():
+                pk, nb = redo(bi)
+                pkb, nbb = pk.cpu().numpy(), nb.cpu().numpy()
+            blob_b, off_b = self._host_compact(pkb, (nbb + 7) >> 3)
+            blobs.append(blob_b)
+            offs.append(off_b + base)
+            nbs.append(nbb.astype(np.int64))
+            base += len(blob_b)
+        return (np.concatenate(blobs), np.concatenate(offs)[:F],
+                np.concatenate(nbs)[:F])
+
+    def _run_two_phase(self, x64, per, B_long, B_short, managed=False):
+        """The cross-frame-state encode: probe pass -> host scalar
+        recurrences -> finish pass.  per: per-stream dicts from
+        _prepare_switched (cs, Ws, impulse, li, si, lofs, sofs, starts,
+        wid).  Returns ((blob, off, nbits) longs, (blob, off, nbits)
+        shorts): packet i's bytes are blob[off[i]:off[i] +
+        ((nbits[i]+7)>>3)] -- the stateless gather runner's contract.
+        Phase times land in `last_profile`.  A long-only schedule
+        still opens each stream with one short (padding) block."""
+        if managed:
+            raise NotImplementedError(
+                "managed 15-packetblob finish (bitrate=): ROADMAP §1.9")
+        import time as _time
+
+        from ..ops import psydevice as PD
+        ch = self.ch
+        n2L = self.n // 2
+        hsrate = self.rate >= 26000
+        dev = self.device
+
+        # --- per-stream annotations (batched across streams) +
+        # per-frame probe metadata
+        S = len(per)
+        Fmax = max(len(r["Ws"]) for r in per)
+        Ws_p = np.ones((S, Fmax), np.int64)
+        imp_p = np.zeros((S, Fmax), bool)
+        for sidx, rec in enumerate(per):
+            F = len(rec["Ws"])
+            Ws_p[sidx, :F] = rec["Ws"]
+            imp_p[sidx, :F] = rec["impulse"]
+        ann_nd = PD.annotate_frames_nd(Ws_p, imp_p)
+        anns = []
+        for sidx, rec in enumerate(per):
+            F = len(rec["Ws"])
+            ann = {k: v[sidx, :F] for k, v in ann_nd.items()}
+            anns.append(ann)
+            rec["ann"] = ann
+        # lmode per frame: how THIS frame's logmdct resamples into its
+        # successor's lastmdct (psy.c:4462-4501)
+        gl_lm, gs_lm = [], []
+        gl_tr = []
+        for rec, ann in zip(per, anns):
+            Ws = rec["Ws"]
+            lmode = np.where(Ws == 1, np.where(ann["nW"] == 0, 2, 0),
+                             np.where(ann["nW"] == 1, 1, 0))
+            gl_lm.append(lmode[rec["li"]])
+            gs_lm.append(lmode[rec["si"]])
+            gl_tr.append(ann["bm"][rec["li"]] == 2)
+        lm_l = np.concatenate(gl_lm).astype(np.int32)
+        lm_s = np.concatenate(gs_lm).astype(np.int32)
+        tr_l = np.concatenate(gl_tr).astype(bool)
+
+        # --- phase A: probe all batches (longs then shorts); one upload
+        # of every batch's (starts, wid, lmode) rows, pads at starts 0,
+        # wid 3, lmode 0
+        def run_probe(W, starts, wids, lmodes, B):
+            F = len(starts)
+            nbat = -(-F // B)
+            sv = np.zeros((3, nbat * B), np.int32)
+            sv[1] = 3
+            sv[0, :F] = starts
+            if wids is not None:
+                sv[1, :F] = wids
+            sv[2, :F] = lmodes
+            svd = torch.from_numpy(np.ascontiguousarray(
+                sv.reshape(3, nbat, B).transpose(1, 0, 2))).to(dev)
+            step = self._probe_step(W, B)
+            return [step(x64, svd[b]) for b in range(nbat)]
+
+        prof = self.last_profile = {}
+        _t0 = _time.perf_counter()
+        st_l = np.concatenate([r["starts"][r["li"]] for r in per])
+        wd_l = np.concatenate([r["wid"][r["li"]] for r in per])
+        st_s = np.concatenate([r["starts"][r["si"]] for r in per])
+        pa_l = run_probe(1, st_l, wd_l, lm_l, B_long)
+        pa_s = run_probe(0, st_s, None, lm_s, B_short)
+        prof["probe_dispatch"] = _time.perf_counter() - _t0
+        _t0 = _time.perf_counter()
+
+        # --- host mid-pass: the per-row reductions of every batch in
+        # one fetch, then the scalar recurrences in stream order
+        red = torch.cat([torch.stack([o[k] for k in (6, 7, 8, 9)])
+                         for o in pa_l + pa_s], 1).cpu().numpy()
+        NLrows = len(pa_l) * B_long * ch
+        lam_l, hi_l, up_l, un_l = red[:, :NLrows]
+        lam_s = red[0, NLrows:]
+        prof["probe_wait"] = _time.perf_counter() - _t0
+        _t0 = _time.perf_counter()
+        nlong = len(st_l)
+        nshort = len(st_s)
+        zrow = NLrows + len(pa_s) * B_short * ch
+
+        look_mnt = []
+        for bt in range(4):
+            bi = min(bt, len(self.setup.psy_params) - 1)
+            pv = self.setup.psy_params[bi]
+            mv = self.analysis.look.m_val
+            look_mnt.append((mv, float(pv.get("normal_thresh", 1.0))))
+
+        amp_l = np.full(nlong, -9999.0, np.float32)
+        amp_s = np.full(nshort, -9999.0, np.float32)
+        lc_l = np.full(nlong * ch, -1.0, np.float32)
+        lc_s = np.full(nshort * ch, -1.0, np.float32)
+        po_l = np.full(nlong * ch, -1.0, np.float32)
+        prev_l = np.full(nlong * ch, zrow, np.int64)
+        prev_s = np.full(nshort * ch, zrow, np.int64)
+
+        # padded (S, Fmax) / (S, ch, Fmax) layouts so ONE vectorized
+        # recurrence covers every stream (ampmax/lowcomp lanes evolve
+        # independently; pad frames trail the real ones and are never
+        # read back)
+        lam_p = np.full((S, Fmax), -9999.0, np.float32)
+        hi_p = np.zeros((S, ch, Fmax), np.float32)
+        up_p = np.zeros((S, ch, Fmax), np.float32)
+        un_p = np.zeros((S, ch, Fmax), np.float32)
+        gls, gss = [], []
+        for sidx, rec in enumerate(per):
+            li, si = rec["li"], rec["si"]
+            F = len(rec["Ws"])
+            # global row index per (frame, ch)
+            rowf = np.empty((F, ch), np.int64)
+            gl = rec["lofs"] + np.arange(len(li))
+            gs = rec["sofs"] + np.arange(len(si))
+            gls.append(gl)
+            gss.append(gs)
+            for c in range(ch):
+                rowf[li, c] = gl * ch + c
+                rowf[si, c] = NLrows + gs * ch + c
+            prev = np.concatenate([[[zrow] * ch], rowf[:-1]])
+            for c in range(ch):
+                prev_l[gl * ch + c] = prev[li, c]
+                prev_s[gs * ch + c] = prev[si, c]
+            # lam per frame = max over channels
+            lamf = np.empty(F, np.float32)
+            lamf[li] = np.max(
+                lam_l[(gl * ch)[:, None] + np.arange(ch)], -1) \
+                if len(li) else 0
+            if len(si):
+                lamf[si] = np.max(
+                    lam_s[(gs * ch)[:, None] + np.arange(ch)], -1)
+            lam_p[sidx, :F] = lamf
+            for c in range(ch):
+                if len(li):
+                    hi_p[sidx, c, li] = hi_l[gl * ch + c]
+                    up_p[sidx, c, li] = up_l[gl * ch + c]
+                    un_p[sidx, c, li] = un_l[gl * ch + c]
+        amp_all = PD.ampmax_seq_nd(
+            lam_p, Ws_p, self.vi.blocksizes, self.rate,
+            self.setup.psy_global["ampmax_att_per_sec"])
+        bm_r = np.repeat(ann_nd["bm"], ch, 0)        # (S*ch, Fmax)
+        lWbm_r = np.repeat(ann_nd["lW_bm"], ch, 0)
+        lc_all = PD.lowcomp_seq_nd(hi_p.reshape(S * ch, Fmax),
+                                   bm_r, lWbm_r, look_mnt)
+        po_all = PD.poste_seq(up_p.reshape(S * ch, Fmax),
+                              un_p.reshape(S * ch, Fmax),
+                              {"bm": bm_r, "lW_bm": lWbm_r}, self.n)
+        for sidx, rec in enumerate(per):
+            li, si = rec["li"], rec["si"]
+            gl, gs = gls[sidx], gss[sidx]
+            amp_l[gl] = amp_all[sidx, li]
+            amp_s[gs] = amp_all[sidx, si]
+            for c in range(ch):
+                r = sidx * ch + c
+                lc_l[gl * ch + c] = lc_all[r, li]
+                lc_s[gs * ch + c] = lc_all[r, si]
+                po_l[gl * ch + c] = po_all[r, li]
+        # M3 acts on impulse short blocks only (sw = bm == 0), which
+        # only block switching schedules
+        if nshort and hsrate and any(
+                (a["bm"][r["si"]] == 0).any() for a, r in zip(anns, per)):
+            raise NotImplementedError(
+                "M3 on impulse short blocks (block switching): "
+                "ROADMAP §1.7")
+
+        # --- the global lastmdct-contribution buffer: every batch's
+        # rows plus one zero row at index zrow; it stays on the device
+        L_all = torch.cat([o[5] for o in pa_l + pa_s]
+                          + [torch.zeros((1, n2L), dtype=torch.float32,
+                                         device=dev)], 0)
+
+        # --- phase B: finish all batches, then drain
+        def run_finish(W, outs, B, amp, lc, po, tr, prevrows, wids):
+            devW = self._dev_for(W)
+            nbat = len(outs)
+            F = len(amp)
+            if not F:
+                return self._drain([], None, devW.plan.wb, 0)
+
+            def rows(a, fill):
+                return self._pad_to(a, nbat * B * (len(a) // F),
+                                    fill).reshape(nbat, -1)
+            # per-batch state, one upload each for all batches: fstate
+            # [ampmax (B), lowcomp (B*ch), poste (B*ch), trans (B),
+            # wid (B)] padded at -9999 / -1 / -1 / 0 / 3, and the
+            # lastmdct rows to gather (pads point at the zero row)
+            fsd = torch.from_numpy(np.concatenate([
+                rows(amp, -9999.0), rows(lc, -1.0), rows(po, -1.0),
+                rows(tr.astype(np.float32), 0.0),
+                rows((wids if wids is not None
+                      else np.zeros(F, np.int64)).astype(np.float32),
+                     3.0)], 1).astype(np.float32)).to(dev)
+            prevd = torch.from_numpy(rows(prevrows, zrow)).to(dev)
+
+            def args(bi):
+                o = outs[bi]
+                lastm = (L_all.index_select(0, prevd[bi]) if hsrate
+                         else torch.zeros((B * ch, n2L),
+                                          dtype=torch.float32,
+                                          device=dev))
+                return (o[0], o[1], o[2], o[3], o[4], lastm, o[6],
+                        fsd[bi])
+
+            step = self._finish_step(W, B)
+            pend = [step(*args(bi)) for bi in range(nbat)]
+            return self._drain(
+                pend, lambda bi: self._finish_step(
+                    W, B, devW.plan.worst_bytes)(*args(bi)),
+                devW.plan.wb, F)
+
+        prof["host_midpass"] = _time.perf_counter() - _t0
+        _t0 = _time.perf_counter()
+        res_l = run_finish(1, pa_l, B_long, amp_l, lc_l, po_l, tr_l,
+                           prev_l, wd_l)
+        # per-frame blocktype flag for shorts: padding (bm==1) selects
+        # the alternate noise-bias curve
+        pad_s = np.concatenate(
+            [a["bm"][r["si"]] for a, r in zip(anns, per)]) == 1
+        res_s = run_finish(0, pa_s, B_short, amp_s, lc_s,
+                           np.full(nshort * ch, -1.0, np.float32), pad_s,
+                           prev_s, None)
+        prof["finish"] = _time.perf_counter() - _t0
+        return res_l, res_s
+
+    def _run_gather_batches(self, W, x64d, starts, wids, B=1024):
+        """Run the mode-W gather step over all frames (padded to B per
+        dispatch); returns (blob uint8, off (F,) byte offsets,
+        nbits (F,)) -- packet i is blob[off[i]:off[i] +
+        ((nbits[i]+7)>>3)]."""
+        devW = self._dev_for(W)
+        step = self._gather_step(W, B)
+        F = len(starts)
+        nbat = -(-F // B)
+        sw = np.zeros((2, nbat * B), np.int32)
+        sw[0, :F] = starts
+        if wids is not None:
+            sw[1] = 3
+            sw[1, :F] = wids
+        swd = torch.from_numpy(np.ascontiguousarray(
+            sw.reshape(2, nbat, B).transpose(1, 0, 2))).to(self.device)
+        pend = [step(x64d, swd[b, 0], swd[b, 1]) for b in range(nbat)]
+        big = lambda bi: self._gather_step(W, B, devW.plan.worst_bytes)(
+            x64d, swd[bi, 0], swd[bi, 1])
+        return self._drain(pend, big, devW.plan.wb, F)
+
+    def encode_batch(self, pcms, serialnos=None, comments=None,
+                     switching=None, B_long=2048, B_short=256):
+        """Encode S independent streams through ONE device pipeline:
+        all streams' frames ride the same batched steps, so device
+        occupancy no longer depends on single-stream length, and the
+        host does only the per-stream recurrences and Ogg paging.
+
+        pcms: list of (ch, ns) int16/float32 arrays or tensors (a
+        tensor stays on the device; only its edges go to the host for
+        the LPC pads); lengths may differ.  Returns a list of Ogg byte
+        strings (one per stream)."""
+        sw = self.switching if switching is None else switching
+        if sw:
+            raise NotImplementedError(
+                "block switching (switching=True): ROADMAP §1.7")
+        if serialnos is None:
+            serialnos = [778 + i for i in range(len(pcms))]
+        x64, per = self._prepare_switched(pcms, sw)
+        gl_st = [r["starts"][r["li"]] for r in per]
+        gl_wd = [r["wid"][r["li"]] for r in per]
+        gs_st = [r["starts"][r["si"]] for r in per]
+
+        # the batched device pipelines, ALL streams together
+        if self.psy_state:
+            (bl_l, of_l, nb_l), (bl_s, of_s, nb_s) = \
+                self._run_two_phase(x64, per, B_long, B_short)
+        else:
+            bl_l, of_l, nb_l = self._run_gather_batches(
+                1, x64, np.concatenate(gl_st), np.concatenate(gl_wd),
+                B=B_long)
+            bl_s, of_s, nb_s = self._run_gather_batches(
+                0, x64, np.concatenate(gs_st), None, B=B_short)
+
+        # per-stream Ogg paging
+        outs = []
+        for rec, serialno in zip(per, serialnos):
+            sizes = np.empty(len(rec["cs"]), np.int64)
+            rows = rec["rows"]
+            li, si = rec["li"], rec["si"]
+            sizes[li] = (nb_l[rows[li]] + 7) >> 3
+            if len(si):
+                sizes[si] = (nb_s[rows[si]] + 7) >> 3
+            ilk = np.zeros(len(rec["cs"]), np.int64)
+            ilk[li] = of_l[rows[li]]
+            if len(si):
+                ilk[si] = of_s[rows[si]]
+            outs.append(self._page_stream(rec, serialno, comments,
+                                          bl_l, bl_s, ilk, sizes))
+        return outs
+
+    def _prepare_switched(self, pcms, sw):
+        """encode_batch's set-up: the concatenated padded 64-row device
+        layout (per-stream LPC edge pads keep gathers from ever crossing
+        streams) and the per-stream block schedules.  Returns
+        (x64 (ch, R, 64), per) where each per-stream record carries
+        cs/Ws/li/si/starts/wid/impulse/rows and the global long/short
+        offsets.  The envelope pass of switching=True comes with
+        ROADMAP §1.7."""
+        if sw:
+            raise NotImplementedError(
+                "block switching (envelope marks): ROADMAP §1.7")
+        ch = self.ch
+        hop = self.n // 2
+        n0 = self.vi.blocksizes[0]
+        dev = self.device
+        srcs = []
+        for pcm in pcms:
+            if torch.is_tensor(pcm):
+                pcm = pcm.to(dev)
+                if pcm.dtype != torch.int16:
+                    pcm = pcm.to(torch.float32)
+            elif pcm.dtype != np.int16:
+                pcm = np.asarray(pcm, np.float32)
+            srcs.append(pcm)
+        # every device-resident stream's two edge slices go to the host
+        # in one wave (non-blocking copies into pinned buffers, one
+        # synchronize) before any LPC pad is computed
+        edges = []
+        for pcm in srcs:
+            if not torch.is_tensor(pcm):
+                edges.append(None)
+                continue
+            ns = int(pcm.shape[1])
+            w = int(min(ns, 4 * self.n))
+            e = torch.cat([pcm[:, :w], pcm[:, ns - w:]], 1)
+            if e.is_cuda:
+                h = torch.empty(e.shape, dtype=e.dtype, pin_memory=True)
+                h.copy_(e, non_blocking=True)
+                e = h
+            edges.append((e, w))
+        if any(e is not None and e[0].is_pinned() for e in edges):
+            torch.cuda.synchronize(dev)
+        metas, parts = [], []
+        base = 0
+        for pcm, edge in zip(srcs, edges):
+            assert pcm.shape[0] == ch
+            ns = int(pcm.shape[1])
+            Si = ((ns + hop + 4 * hop + 63) // 64) * 64 + 64
+            tail = Si - ns - hop
+            if edge is not None:
+                e, w = edge
+                e = e.numpy()
+                front, tailbuf = self._edge_pads(
+                    pcm, hop, tail, src=(e[:, :w], e[:, w:]))
+                # both pads in one upload, joined around the resident
+                # body on the device
+                pads = torch.from_numpy(
+                    np.concatenate([front, tailbuf], 1)).to(dev)
+                xd = torch.cat([pads[:, :hop], pcm, pads[:, hop:]], 1)
+            else:
+                front, tailbuf = self._edge_pads(pcm, hop, tail)
+                xd = torch.from_numpy(
+                    np.concatenate([front, pcm, tailbuf], 1)).to(dev)
+            parts.append(xd.reshape(ch, Si // 64, 64))
+            metas.append((ns, base, Si))
+            base += Si // 64
+        if len({p.dtype for p in parts}) > 1:
+            # mixed int16/float32 inputs: promote to the f32 domain the
+            # gather step would produce anyway (x/32768)
+            parts = [p.to(torch.float32) / 32768.0
+                     if p.dtype != torch.float32 else p for p in parts]
+        x64 = parts[0] if len(parts) == 1 else torch.cat(parts, 1)
+
+        # per-stream block schedule -> global frame lists
+        per = []
+        nlong = nshort = 0
+        for ns, brow, Si in metas:
+            cs, Ws, impulse = self._schedule(
+                np.zeros(Si // 64 - 1, bool), ns)
+            lW = np.concatenate([[1], Ws[:-1]])
+            nW = np.concatenate([Ws[1:], [Ws[-1]]])
+            bsz = np.where(Ws == 1, self.n, n0)
+            starts = cs - bsz // 2 + brow * 64
+            wid = (lW * 2 + nW).astype(np.int64)
+            li = np.where(Ws == 1)[0]
+            si = np.where(Ws == 0)[0]
+            rows = np.zeros(len(cs), np.int64)   # global packet rows
+            rows[li] = nlong + np.arange(len(li))
+            rows[si] = nshort + np.arange(len(si))
+            per.append(dict(cs=cs, Ws=Ws, li=li, si=si, ns=ns,
+                            lofs=nlong, sofs=nshort, starts=starts,
+                            wid=wid, impulse=impulse, rows=rows))
+            nlong += len(li)
+            nshort += len(si)
+        return x64, per
+
+    def _page_stream(self, rec, serialno, comments, bl_l, bl_s, ilk,
+                     sizes):
+        """Assemble one stream's Ogg from dense packet blobs: ilk =
+        per-packet byte offset into bl_l/bl_s (the host C pager reads
+        pk + ilk[i]*width, so width=1 + byte offsets address the blobs
+        directly), sizes = final packet bytes."""
+        cs, Ws, ns = rec["cs"], rec["Ws"], rec["ns"]
+        hop = self.n // 2
+        w = OggStreamWriter(serialno)
+        h1, h2, h3 = self.enc.header_packets(comments)
+        w.packetin(h1, 0)
+        w.flush()
+        w.packetin(h2, 0)
+        w.packetin(h3, 0)
+        w.flush()
+        gps = cs - hop
+        gps[-1] = ns
+        blob, w.pageno = native.ogg_pages(
+            bl_l, bl_s, ilk, (Ws == 0).astype(np.uint8), sizes, gps,
+            serialno, w.pageno)
+        w._pages.append(blob)
+        return w.pageout_all()
+
     # -- host side ---------------------------------------------------------
     def encode(self, pcm, serialno=778, comments=None,
                switching=None) -> bytes:
         """Full VBR fast encode of (ch, samples) -> Ogg bytes.
 
-        The whole per-packet pipeline runs on the device a chunk of
+        With psy_state (the default) this is encode_batch of the one
+        stream at B_long=1024.  Without, the whole per-packet pipeline
+        runs on the device a chunk of
         `dev.chunk_packets` packets at a time (the last chunk is cut to
         the packets it holds); the host slices the packed packets and
         frames Ogg pages.  pcm may be a numpy array, float32 (reference
@@ -213,8 +957,10 @@ class FastEncoder:
             raise NotImplementedError(
                 "block switching (switching=True): ROADMAP §1.7")
         if self.psy_state:
-            raise NotImplementedError(
-                "cross-frame psy state (psy_state=True): ROADMAP §1.6")
+            # the stateful pipeline runs through the batch path (an
+            # all-long schedule when switching is off)
+            return self.encode_batch([pcm], [serialno], comments,
+                                     switching=False, B_long=1024)[0]
         is_dev = torch.is_tensor(pcm)
         ch, ns = pcm.shape
         if ch != self.ch:

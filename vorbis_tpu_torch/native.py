@@ -4,7 +4,8 @@ vorbis_tpu/native.py).
 Every source under `csrc/` is compiled at first use into
 build/vorbis_tpu_torch/ beside the package, under a name keyed by a hash
 of the source and the flags, and bound with ctypes: the host C
-(`csrc/host_ogg.c`, the Ogg page CRC) with `cc`, the CUDA kernels
+(`csrc/host_ogg.c`: the Ogg page CRC, the audio pager and the blockout
+schedule) with `cc`, the CUDA kernels
 (`ops/floor_cuda.py`) with `nvcc`.  There is no fall-back: a missing
 compiler or a failed build raises.
 """
@@ -18,6 +19,8 @@ import shutil
 import subprocess
 from functools import lru_cache
 from pathlib import Path
+
+import numpy as np
 
 PKG = Path(__file__).resolve().parent
 BUILD_DIR = PKG.parent / "build" / "vorbis_tpu_torch"
@@ -69,6 +72,15 @@ def host_library() -> ctypes.CDLL:
     lib.vtt_ogg_crc.restype = ctypes.c_uint32
     lib.vtt_ogg_crc.argtypes = [ctypes.c_char_p, ctypes.c_long,
                                 ctypes.c_uint32]
+    u8 = np.ctypeslib.ndpointer(np.uint8, flags="C")
+    i64 = np.ctypeslib.ndpointer(np.int64, flags="C")
+    lib.vtt_ogg_pages.restype = ctypes.c_long
+    lib.vtt_ogg_pages.argtypes = [
+        u8, ctypes.c_long, u8, ctypes.c_long, i64, u8, i64, i64,
+        ctypes.c_long, ctypes.c_uint32, ctypes.c_int, ctypes.c_int, u8, i64]
+    lib.vtt_schedule.restype = ctypes.c_long
+    lib.vtt_schedule.argtypes = [u8, ctypes.c_long, ctypes.c_long,
+                                 ctypes.c_long, ctypes.c_long, i64, i64, u8]
     return lib
 
 
@@ -77,3 +89,45 @@ def ogg_crc(data: bytes, crc: int = 0) -> int:
     no final xor) in the host C."""
     data = bytes(data)
     return int(host_library().vtt_ogg_crc(data, len(data), crc))
+
+
+def ogg_pages(pk_l, pk_s, ilk, isshort, sizes, gps, serialno, pageno,
+              per_page=16, eos_last=True):
+    """Assemble one stream's audio pages in one host C call.
+
+    pk_l (Fl, wl) / pk_s (Fs, ws) uint8 packet rows (or 1-D blobs with
+    byte offsets in ilk); per-packet ilk / isshort / sizes / gps.
+    Returns (pages_bytes, next_pageno)."""
+    pk_l = np.ascontiguousarray(pk_l, np.uint8)
+    pk_s = np.ascontiguousarray(pk_s, np.uint8)
+    ilk = np.ascontiguousarray(ilk, np.int64)
+    iss = np.ascontiguousarray(isshort, np.uint8)
+    sizes = np.ascontiguousarray(sizes, np.int64)
+    gps = np.ascontiguousarray(gps, np.int64)
+    npkt = len(sizes)
+    cap = int(sizes.sum()) + npkt * (27 + 255) + 64
+    out = np.empty(cap, np.uint8)
+    pgio = np.array([pageno], np.int64)
+    wl = pk_l.shape[1] if pk_l.ndim == 2 and pk_l.shape[0] else 1
+    ws = pk_s.shape[1] if pk_s.ndim == 2 and pk_s.shape[0] else 1
+    n = host_library().vtt_ogg_pages(
+        pk_l, wl, pk_s, ws, ilk, iss, sizes, gps, npkt,
+        serialno & 0xFFFFFFFF, per_page, 1 if eos_last else 0, out, pgio)
+    return out[:n].tobytes(), int(pgio[0])
+
+
+def schedule(marks, ns, n0, n1):
+    """Envelope marks -> block schedule via the host C blockout state
+    machine (reference: block.c:557-812).  Returns (centers, Ws,
+    impulse)."""
+    marks = np.ascontiguousarray(marks, np.uint8)
+    nmk = len(marks)
+    hop = n1 // 2
+    cap = (hop + int(ns) - hop) // (n0 // 2) + 3
+    centers = np.empty(cap, np.int64)
+    Ws = np.empty(cap, np.int64)
+    imp = np.empty(cap, np.uint8)
+    cnt = host_library().vtt_schedule(marks, nmk, int(ns), int(n0),
+                                      int(n1), centers, Ws, imp)
+    assert 0 < cnt <= cap, (cnt, cap)
+    return centers[:cnt], Ws[:cnt], imp[:cnt].astype(bool)

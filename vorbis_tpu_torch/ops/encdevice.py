@@ -10,9 +10,12 @@ oggpack_write):
   columns -> LSB-first bit packing
 
 The host receives only (packed packet bytes, bit counts).  This port
-covers the single-submap long-only stateless step (`make_step`);
-multi-submap 5.1 layouts, the two-phase psy-state steps, the managed
-pass and the switching gather step raise NotImplementedError.
+covers the single-submap steps: the stateless step
+(`make_step`), the frame-gather step (`make_gather_step`) and the
+two-phase psy-state steps (`make_probe_step`, `make_finish_step`, with
+M6/M9 coupling and the noise-normalize promotion, without M3's impulse
+terms).  Multi-submap 5.1 layouts (§1.10) and the managed pass (§1.9)
+raise NotImplementedError.
 
 Differences from the JAX module, all exact:
   * bit fields ride int64 (torch has no uint32 shifts/comparisons on
@@ -155,11 +158,6 @@ class DeviceFastEncode:
             raise NotImplementedError(
                 "multi-submap / multi-step coupling layouts (5.1): "
                 "ROADMAP §1.10")
-        nm = getattr(self.ctx, "normal", None)
-        if nm is not None and nm["thresh"] < 9000.0:
-            raise NotImplementedError(
-                "noise-normalize promotion (_normalize_promote) at this "
-                "rung: ROADMAP §1.6")
         self._prepare_floor()
         self._prepare_residue()
         self._prepare_columns()
@@ -383,9 +381,25 @@ class DeviceFastEncode:
                     hdr_l=np.array([1, self.fe.modebits,
                                     1 if self.W else 0,
                                     1 if self.W else 0], np.int32))
+        n2 = self.n // 2
+        bins = np.arange(n2)
+        nm = getattr(self.ctx, "normal", None)
+        if nm is not None:
+            # noise-normalize promotion region (coupled: above the
+            # point limit too)
+            inreg = bins >= nm["start"]
+            if self.res_type == 2:
+                inreg &= bins >= self.ctx.couple["limit"]
+            tabs["nm_inreg"] = inreg
         if self.res_type == 2:
             cp = self.ctx.couple
+            # M6 runs on the partitions that start below tonefix_end
+            part = cp["partition"]
+            npt = (n2 + part - 1) // part
+            tabs["m6_gate"] = np.arange(npt) * part < int(
+                cp.get("tonefix_end", 0))
             tabs["thr1"] = np.asarray(cp["thr1"], np.float32)
+            tabs["thr2"] = np.asarray(cp["thr2"], np.float32)
             tabs["threv"] = np.asarray(cp["threv"], np.float32)
         vars(self).update({f"{k}_t": v for k, v in
                            device_tables(tabs, dev).items()})
@@ -671,15 +685,68 @@ class DeviceFastEncode:
             k = torch.where(ok, kk, k)
         return k
 
-    def _couple_quantize(self, md, curve, used, F):
+    def _m6_promote(self, rM, rA, reM, reA, flagm1, F):
+        """aoTuV M6 dynamic lossless promotion (psy.c:5007-5047), one
+        coupling step: per partition below tonefix_end, count
+        sign-opposed vs parallel active bins and the mean |res|
+        imbalance; an EMA of the imbalance across partitions (the
+        side_resdef carry) promotes flag==-1 bins to lossless when the
+        imbalance exceeds 1 or the opposed fraction exceeds prae (0.34
+        for single-step stereo; the multi-step 5.1 coupling's 0.825
+        comes with ROADMAP §1.10).
+        The JAX side carries the EMA through a lax.scan whose carry is
+        only the previous partition's temp_def (or -1 when that
+        partition is off), so here it is one shifted where with the
+        same float operations.  rM/rA: the pair's residue values
+        (F, n2); reM/reA the signed raw energies; flagm1: (F, n2) bins
+        flagged -1 on either channel.  Returns promoted (F, n2)."""
+        cp = self.ctx.couple
+        n2 = rM.shape[-1]
+        if int(cp.get("tonefix_end", 0)) <= 0:
+            return torch.zeros((F, n2), dtype=torch.bool, device=rM.device)
+        part = cp["partition"]
+        npt = (n2 + part - 1) // part
+        padn = npt * part - n2
+
+        def p4(a):
+            return torch.nn.functional.pad(a, (0, padn)) if padn else a
+        active = (torch.abs(rM) >= 0.5) | (torch.abs(rA) >= 0.5)
+        opposed = ((reM > 0) & (reA < 0)) | ((reA > 0) & (reM < 0))
+        imb = torch.abs(torch.abs(rM) - torch.abs(rA))
+        act_p = p4(active.to(torch.float32)).reshape(F, npt, part)
+        opp_p = p4((active & opposed).to(torch.float32)) \
+            .reshape(F, npt, part)
+        imb_p = p4(torch.where(active, imb, 0.0)).reshape(F, npt, part)
+        ap = act_p.sum(-1)
+        rp = opp_p.sum(-1)
+        rdsum = imb_p.sum(-1)
+        temp_def = rdsum / torch.clamp_min(ap, 1.0)
+        nz = (ap > 0) & self.m6_gate_t[:npt]
+        carry = torch.nn.functional.pad(
+            torch.where(nz, temp_def, -1.0)[:, :-1], (1, 0), value=-1.0)
+        rdef = torch.where(carry > 0, temp_def * 0.5 + carry * 0.5,
+                           temp_def)
+        rdef = torch.where(nz, rdef, 0.0)
+        c1 = nz & (rdef > 1.0)
+        c2 = nz & (rp / torch.clamp_min(ap, 1.0) >= float(f32(0.34)))
+        c1b = torch.repeat_interleave(c1, part, dim=-1)[:, :n2]
+        c2b = torch.repeat_interleave(c2, part, dim=-1)[:, :n2]
+        return flagm1 & (c1b | (c2b & opposed))
+
+    def _couple_quantize(self, md, curve, used, F, epeak=None,
+                         npeak=None):
         """Stereo channel coupling + quantization (reference:
-        _vp_couple_quantize_normalize, psy.c:4858-5142), stateless fast
-        path: per-bin lossless flags from the stereo point thresholds,
-        integer mag/ang lossless transform, min_indemnity_dipole_hypot
-        point fold with energy requantization.  md/curve: (F*2, n2);
-        returns integer-valued (F, 2, n2) float32 residues.  The M6/M9
-        history terms and the noise-normalize promotion belong to the
-        psy-state slice (ROADMAP §1.6)."""
+        _vp_couple_quantize_normalize, psy.c:4858-5142): per-bin
+        lossless flags from the stereo point thresholds, integer
+        mag/ang lossless transform, min_indemnity_dipole_hypot point
+        fold with energy requantization, and (at rungs where
+        normal_thresh enables it) the noise-normalize promotion.
+        epeak (F*2, n2) / npeak (F*2, nparts): the psy-state path's M9
+        peak store (lowers the lossless threshold, feeds the M6
+        promotion) and M8 partition store (gates the promotion
+        budget).  md/curve: (F*2, n2); returns integer-valued
+        (F, 2, n2) float32 residues."""
+        cp = self.ctx.couple
         n2 = md.shape[-1]
         mdc = md.reshape(F, 2, n2)
         us = used.reshape(F, 2)
@@ -688,9 +755,31 @@ class DeviceFastEncode:
         res = torch.where(us[..., None], mdc / cur, 0.0)
         thr1 = self.thr1_t[:n2]
         r = torch.abs(res)
-        f1M = r[:, 0] >= thr1
-        f1A = r[:, 1] >= thr1
+        if epeak is not None:
+            # M9: the stored post-echo peaks lower the lossless
+            # threshold per bin (flag_lossless's point1 -= enpeak,
+            # clamped at prepoint)
+            prep = float(f32(cp["prepoint"]))
+            ep = epeak.reshape(F, 2, n2)
+            thrM = torch.clamp_min(thr1 - ep[:, 0], prep)
+            thrA = torch.clamp_min(thr1 - ep[:, 1], prep)
+        else:
+            thrM = thrA = thr1
+        f1M = r[:, 0] >= thrM
+        f1A = r[:, 1] >= thrA
         lossless = f1M | f1A
+        if epeak is not None and int(cp.get("tonefix_end", 0)) > 0:
+            # flag -1 (point2 threshold) feeds the M6 promotion
+            thr2 = self.thr2_t[:n2]
+            flagm1 = ((~f1M) & (r[:, 0] >= thr2)) \
+                | ((~f1A) & (r[:, 1] >= thr2))
+            rawM = torch.where(mdc[:, 0] < 0, -(mdc[:, 0] * mdc[:, 0]),
+                               mdc[:, 0] * mdc[:, 0])
+            rawA = torch.where(mdc[:, 1] < 0, -(mdc[:, 1] * mdc[:, 1]),
+                               mdc[:, 1] * mdc[:, 1])
+            promoted = self._m6_promote(res[:, 0], res[:, 1], rawM,
+                                        rawA, flagm1 & ~lossless, F)
+            lossless = lossless | promoted
         qi = torch.round(res)
         qiM, qiA = qi[:, 0], qi[:, 1]
         # integer lossless mag/ang (psy.c lossless_coupling)
@@ -726,9 +815,71 @@ class DeviceFastEncode:
         outM = torch.where(lossless, mag, mag_pt)
         outA = torch.where(lossless, ang, 0.0)
         any_used = us[:, 0] | us[:, 1]
+        nm = getattr(self.ctx, "normal", None)
+        if nm is not None and nm["thresh"] < 9000.0:
+            inreg = self.nm_inreg_t[:n2]
+            cand = (~lossless) & (ve < float(f32(0.25))) & inreg \
+                & any_used[:, None]
+            npk_m = None
+            if npeak is not None:
+                # point-coupled partitions take the pairwise npeak
+                # merge (negative wins)
+                npk2 = npeak.reshape(F, 2, -1)
+                neg = (npk2[:, 0] < -0.5) | (npk2[:, 1] < -0.5)
+                npk_m = torch.where(neg, -1.0,
+                                    torch.minimum(npk2[:, 0], npk2[:, 1]))
+            outM = self._normalize_promote(outM, ve, torch.abs(hyp),
+                                           cand, hyp, npeak=npk_m)
         outM = torch.where(any_used[:, None], outM, 0.0)
         outA = torch.where(any_used[:, None], outA, 0.0)
         return torch.stack([outM, outA], 1), any_used
+
+    def _normalize_promote(self, out, ve, qe, cand, sgn, npeak=None):
+        """noise_normalize's energy-budget promotion (psy.c:4732-4854),
+        batched per partition: candidate bins (sub-unity energy) sort
+        by raw energy descending; while the accumulated energy budget
+        exceeds normal_thresh, the next-largest candidate becomes +-1
+        (one unit of energy each); the rest stay 0.  npeak (F, nparts):
+        the M8 per-partition store -- negative disables the partition,
+        positive boosts its budget (acc += acc*npeak^2).  Both sorts
+        are stable, as jnp.argsort is: candidates of equal energy rank
+        by bin."""
+        nm = self.ctx.normal
+        thresh = float(f32(nm["thresh"]))
+        part = nm["partition"]
+        F, n2 = out.shape
+        npad = (-n2) % part
+        if npad:
+            def pad(a, v):
+                return torch.nn.functional.pad(a, (0, npad), value=v)
+            out2, ve2 = pad(out, 0.0), pad(ve, 0.0)
+            qe2, c2 = pad(qe, 0.0), pad(cand, False)
+            s2 = pad(sgn, 0.0)
+        else:
+            out2, ve2, qe2, c2, s2 = out, ve, qe, cand, sgn
+        np_ = out2.shape[-1] // part
+        if npeak is not None:
+            npk = npeak[:, :np_]
+            if npk.shape[-1] < np_:
+                npk = torch.nn.functional.pad(
+                    npk, (0, np_ - npk.shape[-1]))
+            gate = torch.repeat_interleave(
+                npk > -0.5, part, dim=-1)[:, :out2.shape[-1]]
+            c2 = c2 & gate
+        vp = torch.where(c2, ve2, 0.0).reshape(F, np_, part)
+        acc = vp.sum(-1)
+        if npeak is not None:
+            acc = acc + acc * npk * npk
+        npro = torch.where(acc >= thresh,
+                           torch.floor(acc - thresh).to(i32) + 1, 0)
+        npro = torch.minimum(npro, acc.to(i32) + 1)
+        key = torch.where(c2, qe2, -float("inf")).reshape(F, np_, part)
+        order = torch.argsort(-key, dim=-1, stable=True)
+        rank = torch.argsort(order, dim=-1, stable=True)
+        sel = (rank < npro[..., None]) & c2.reshape(F, np_, part)
+        sel = sel.reshape(F, -1)[:, :n2]
+        unit = torch.where(s2[:, :n2] < 0, -1.0, 1.0)
+        return torch.where(sel, unit, out)
 
     # -- the full step -------------------------------------------------------
     def encode_flat(self, flat, F, wb):
@@ -741,14 +892,21 @@ class DeviceFastEncode:
         posts, used = ctx.floor(logmdct, mask)
         return self.finish_from_posts(md, posts, used, F, wb)
 
-    def finish_from_posts(self, md, posts, used, F, wb):
-        """Post-fit encode body: raw fit posts -> packed packets."""
+    def finish_from_posts(self, md, posts, used, F, wb, wid=None,
+                          epeak=None, npeak=None):
+        """Post-fit encode body: raw fit posts -> packed packets.
+        wid (F*ch,): per-row window-shape id (lW*2+nW) for the header
+        flags; epeak/npeak: the psy-state path's M9 peak store
+        (F*ch, n2) and M8 partition store (F*ch, nparts) feeding
+        flag_lossless, M6 and the noise-normalize budget."""
         ctx = self.ctx
         ch = self.ch
         codes, qposts = self._floor_wrap(posts)
         curve = ctx.floor.render(qposts, ctx.fromdB)
         if self.res_type == 2:
-            out2, any_used = self._couple_quantize(md, curve, used, F)
+            out2, any_used = self._couple_quantize(md, curve, used, F,
+                                                   epeak=epeak,
+                                                   npeak=npeak)
             # interleave the coupled pair: flat[i] = out2[:, i%2, i//2]
             inter = out2.transpose(1, 2).reshape(F, -1)
             pw = self._classify2(torch.abs(out2[:, 0]),
@@ -756,17 +914,36 @@ class DeviceFastEncode:
             entries = self._vq_stages(inter, pw)
             used_p = any_used.reshape(F, 1)
         else:
-            res = torch.round(md / curve)
+            rr = md / curve
+            res = torch.round(rr)
             res = torch.where(used[:, None], res, 0.0)
+            nm = getattr(ctx, "normal", None)
+            if nm is not None and nm["thresh"] < 9000.0:
+                # per-channel noise_normalize promotion (active rungs)
+                ve = rr * rr
+                cand = (ve < float(f32(0.25))) & self.nm_inreg_t \
+                    & used[:, None]
+                res = self._normalize_promote(res, ve, torch.abs(md * md),
+                                              cand, rr, npeak=npeak)
             pw = self._classify(res)
             entries = self._vq_stages(res, pw)
             used_p = used.reshape(F, ch)
         fv, fl = self._floor_fields(codes, used)
         # header: packet-type bit, mode, and (long blocks only) the
-        # lW/nW window-shape flags, 1/1 in an all-long stream
+        # lW/nW window-shape flags -- the frame's neighbour flags when
+        # the caller passes wid, else 1/1 (all-long stream).  Bit
+        # fields ride int64 (no uint32 shifts in torch).
         dev = md.device
-        hdr_v = torch.tensor([0, ctx.mode_idx, 1, 1], dtype=i64,
-                             device=dev).expand(F, 4)
+        if self.W and wid is not None:
+            wf = wid.reshape(F, ch)[:, 0].to(i64)
+            lw_v = (wf >> 1) & 1
+            nw_v = wf & 1
+        else:
+            lw_v = torch.ones((F,), dtype=i64, device=dev)
+            nw_v = lw_v
+        hdr_v = torch.stack([torch.zeros_like(lw_v),
+                             torch.full_like(lw_v, ctx.mode_idx),
+                             lw_v, nw_v], 1)
         hdr_l = self.hdr_l_t.expand(F, 4)
         fv = fv.reshape(F, -1)
         fl = fl.reshape(F, -1)
@@ -795,6 +972,150 @@ class DeviceFastEncode:
             frames = x.unfold(1, n, hop)[:, :F]      # (ch, F, n) view
             flat = frames.transpose(0, 1).reshape(F * ch, n)
             return self.encode_flat(flat, F, wb)
+
+        return step
+
+    def _gather_frames(self, x64, starts, F):
+        """(ch, R, 64) PCM rows + (F,) 64-aligned sample offsets ->
+        flat (F*ch, n) float32 frames in frame-major (F, ch) order;
+        int16 PCM is scaled by 1/32768."""
+        n, ch = self.n, self.ch
+        rows = (torch.div(starts.long(), 64, rounding_mode="floor")[:, None]
+                + torch.arange(n // 64, device=x64.device)[None, :])
+        fr = x64[:, rows]                          # (ch, F, n/64, 64)
+        if fr.dtype != torch.float32:
+            fr = fr.to(torch.float32) / 32768.0
+        return fr.reshape(ch, F, n).transpose(0, 1).reshape(F * ch, n)
+
+    def make_gather_step(self, F, wb=None):
+        """Returns a callable (x64, starts, wid) -> (packets, nbits):
+        frames gathered at arbitrary 64-sample-aligned offsets from the
+        device-resident stream (encode_batch's stateless path).  x64:
+        (ch, R, 64) PCM (f32 or i16/32768), starts: (F,) int32 sample
+        offsets (64-aligned), wid: (F,) int32 window-shape id (lW*2+nW,
+        long mode only)."""
+        wb = wb or self.plan.wb
+        ch = self.ch
+
+        def step(x64, starts, wid):
+            flat = self._gather_frames(x64, starts, F)
+            w = torch.repeat_interleave(wid, ch) if self.W else None
+            md, logmdct, mask = self.ctx.analysis.full_mask(flat, w)
+            posts, used = self.ctx.floor(logmdct, mask)
+            return self.finish_from_posts(md, posts, used, F, wb, wid=w)
+
+        return step
+
+    # -- stateful two-phase pipeline (cross-frame psy state) ---------------
+    def make_probe_step(self, F, n2L):
+        """Phase A of the stateful path: frames -> spectra plus the
+        per-frame reductions the host recurrences need and the frame's
+        lastmdct contribution row (resampled per lmode: 0 identity,
+        1 repeat x8 (short, nW long), 2 min-pool /8 (long, nW short);
+        psy.c:4462-4501).
+
+        step(x64, svec): svec (3, F) int32 = (starts, wid, lmode).
+        Returns (keep on the device..., fetch to the host...):
+          md, logmdct, logfft, fit1, dB   (F*ch, n2)   device
+          L                                (F*ch, n2L)  device
+          lam, hi_th, upt, unt             (F*ch,)      host
+        """
+        n, ch = self.n, self.ch
+        n2 = n // 2
+        da = self.ctx.analysis
+        look = da.look
+
+        def step(x64, svec):
+            starts, wid, lmode = svec[0], svec[1], svec[2]
+            flat = self._gather_frames(x64, starts, F)
+            w = torch.repeat_interleave(wid, ch) if self.W else None
+            md, logmdct, fit1, dB, logfft = da.spectra(flat, w,
+                                                       with_fft=True)
+            lam = torch.clamp_max(logfft.amax(-1), 0.0)
+            # M5 probe: clamped band average (lb_loudnoise_fix)
+            seg = logmdct[:, look.n25p:look.n75p]
+            hi_th = torch.clamp_min(seg, -130.0).sum(-1) \
+                / float(f32(look.n))
+            # M2 probe: |pcm| segment sums on the raw frames
+            sn = n >> 2
+            ab = torch.abs(flat)
+            upt = ab[:, sn:2 * sn].sum(-1)
+            unt = ab[:, 2 * sn:sn + (n >> 1)].sum(-1)
+            # lastmdct contribution row.  The reference resamples with
+            # a FIXED mag=8 (psy.c:4462-4501) because the machinery is
+            # gated to hsrate templates whose block ratio IS 8
+            # (256/2048); low-rate templates never consume lastmdct, so
+            # their rows pass through as identity.
+            lm = torch.repeat_interleave(lmode, ch)
+            if not self.W and n2 * 8 == n2L:
+                # short mode, ratio 8: identity | repeat x8
+                ident = torch.nn.functional.pad(logmdct, (0, n2L - n2))
+                rep = torch.repeat_interleave(logmdct, 8, dim=-1)
+                L = torch.where((lm == 1)[:, None], rep, ident)
+            elif self.W and n2 == n2L and n2 % 8 == 0:
+                # long mode: identity | min-pool /8
+                n8 = n2 // 8
+                minp = logmdct.reshape(-1, n8, 8).amin(-1)
+                minp = torch.nn.functional.pad(minp, (0, n2L - n8))
+                L = torch.where((lm == 2)[:, None], minp, logmdct)
+            else:
+                # non-hsrate ratios: rows are never read back
+                L = torch.nn.functional.pad(logmdct, (0, n2L - n2))
+            return md, logmdct, logfft, fit1, dB, L, lam, hi_th, \
+                upt, unt
+
+        return step
+
+    def make_finish_step(self, F, wb=None):
+        """Phase B of the stateful path: spectra + per-frame state ->
+        packed packets.  step(md, logmdct, logfft, fit1, dB, lastmdct,
+        lam, fstate): per-row inputs (F*ch) lastmdct (gathered from the
+        global L buffer) and lam; fstate packs [ampmax (F),
+        lowcomp (F*ch), poste (F*ch), trans (F), wid (F)] as ONE
+        float32 vector per batch (trans: block_mode==2 in long mode,
+        a padding block (bm==1) in short mode).  M3 (the short-mode
+        tempmdct scan and apply) is left out: it changes only impulse
+        short blocks, which the caller never passes until block
+        switching lands (ROADMAP §1.7)."""
+        wb = wb or self.plan.wb
+        ch = self.ch
+        da = self.ctx.analysis
+        look = da.look
+        from . import psydevice as PD
+
+        def step(md, logmdct, logfft, fit1, dB, lastmdct, lam, fstate):
+            o = 0
+            ampmax = fstate[o:o + F]
+            o += F
+            lowcomp = fstate[o:o + F * ch]
+            o += F * ch
+            poste = fstate[o:o + F * ch]
+            o += F * ch
+            trans = fstate[o:o + F] > 0.5
+            o += F
+            wid = fstate[o:o + F].to(i32)
+            kind = "long" if self.W else "short"
+            trans_r = torch.repeat_interleave(trans, ch)
+            logmask, epeak, npeak = PD.noisemask_tail(
+                look, logmdct, fit1, dB, lowcomp, poste, lastmdct,
+                kind, trans_active=trans_r if self.W else None)
+            amp_rows = torch.repeat_interleave(ampmax, ch)
+            tone = da.tonemask(logfft, amp_rows, lam)
+            # per-frame blocktype: trans flags transitional longs
+            # (blocktype 2 vs 3) / padding shorts (1 vs 0); the noise
+            # bias curve is the only psy param that differs between the
+            # paired blocktypes in every reference template
+            noff = torch.where(trans_r[:, None], da.noiseoffsets_alt[1],
+                               da.noiseoffsets[1])
+            val = torch.clamp_max(logmask + noff, da.noisemaxsupp)
+            tval = tone + da.toneatt1
+            tval = PD.lowcompand_tval(look, tval, lowcomp, 1)
+            md2, mask = da.mix_m4_m1(md, logmdct, val, tval, 1)
+            w = torch.repeat_interleave(wid, ch) if self.W else None
+            posts, used = self.ctx.floor(logmdct, mask)
+            return self.finish_from_posts(md2, posts, used, F, wb,
+                                          wid=w, epeak=epeak,
+                                          npeak=npeak)
 
         return step
 

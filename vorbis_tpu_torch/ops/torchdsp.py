@@ -197,6 +197,21 @@ class DeviceAnalysis:
                                           np.float32)
         tabs["noiseoffsets"] = np.asarray(look.noiseoffset,
                                           np.float32)[:, :n2]
+        # per-frame blocktype support: the ONLY psy param that differs
+        # between the paired blocktypes (impulse vs padding,
+        # transition vs long) in EVERY reference template is the
+        # noise-bias curve, so mixed-blocktype batches reduce to
+        # selecting between two noiseoffset rows per frame (the
+        # trans/impulse flag rides the finish step)
+        alt_bt = {0: 1, 1: 0, 2: 3, 3: 2}.get(blocktype, blocktype)
+        alt_bt = min(alt_bt, len(setup.psy_params) - 1)
+        if alt_bt != blocktype:
+            alt_look = PSY.PsyLook(setup.psy_params[alt_bt],
+                                   setup.psy_global, n2, rate)
+            tabs["noiseoffsets_alt"] = np.asarray(
+                alt_look.noiseoffset, np.float32)[:, :n2]
+        else:
+            tabs["noiseoffsets_alt"] = tabs["noiseoffsets"]
         tabs["ath"] = np.asarray(look.ath, np.float32)
         tabs["mdct_basis"] = mdct_basis_np(self.n)
         # M4 region as a static bin mask
@@ -209,17 +224,28 @@ class DeviceAnalysis:
         self.toneatt1 = self.toneatts[1]
         self.tonemask = DeviceToneMask(look, self.device)
 
-    def windowed(self, frames):
-        return frames * self.window
+    def windowed(self, frames, wid=None):
+        """wid: optional per-row window-shape id (lW*2+nW, long mode)."""
+        if wid is None:
+            return frames * self.window
+        return frames * self.windows4[wid.long()]
 
-    def spectra(self, frames, with_fft=False):
+    def mdct(self, w):
+        """Forward MDCT of windowed frames as one fp32 GEMM against the
+        basis (TF32 off); the JAX module runs the butterfly, which
+        rounds otherwise (tests/test_torch_analysis.py bounds the
+        difference)."""
+        return torch.matmul(w, self.mdct_basis)
+
+    def spectra(self, frames, wid=None, with_fft=False):
         """The per-frame DSP front: window -> MDCT -> log spectrum ->
         two-pass bark noise fit.  Returns (md, logmdct, fit1, dB
         [, logfft]): fit1 is the first fit exactly as _vp_noisemask
         leaves its `work` buffer, dB the clipped compand index from the
-        second fit."""
-        w = self.windowed(frames)
-        md = torch.matmul(w, self.mdct_basis)     # (..., n/2)
+        second fit.  The stateful finish pass
+        (ops/psydevice.noisemask_tail) consumes these."""
+        w = self.windowed(frames, wid)
+        md = self.mdct(w)                          # (..., n/2)
         logmdct = log_spectrum(md)
         # pass 1: wide bark window, offset 140
         mask = bark_fit(logmdct, self.bark_lo, self.bark_hi, 140.0, -1,
@@ -283,19 +309,20 @@ class DeviceAnalysis:
             md = md * de
         return md, mask
 
-    def full_mask(self, frames):
+    def full_mask(self, frames, wid=None):
         """Complete fast-path masking chain: MDCT + FFT spectra, noise
         fit, tone seeding, and the stateless _vp_offset_and_mix core
-        (offset_select=1 path with M1/M4).  Returns (mdct, logmdct,
+        (offset_select=1 path with M1/M4).  wid: optional per-row
+        window-shape id (long mode).  Returns (mdct, logmdct,
         final_mask)."""
-        md, logmdct, noise, tone = self.mask_components(frames)
+        md, logmdct, noise, tone = self.mask_components(frames, wid)
         md, mask = self.offset_and_mix(md, logmdct, noise, tone, 1)
         return md, logmdct, mask
 
-    def mask_components(self, frames):
+    def mask_components(self, frames, wid=None):
         """(mdct, logmdct, noise_base, tone): noise_base excludes the
         per-offset noiseoffset row."""
-        md, logmdct, fit1, dB, logfft = self.spectra(frames,
+        md, logmdct, fit1, dB, logfft = self.spectra(frames, wid,
                                                      with_fft=True)
         noise = fit1 + self.noisecompand[dB.long()]
         local_max = torch.clamp_max(logfft.amax(-1), 0.0)
