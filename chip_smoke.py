@@ -9,9 +9,9 @@ vorbis_tpu and no network:
 
 Phases (any failure raises and the script exits non-zero):
   1. device: the card, its name and power limit, the fp32 policy;
-  2. build: nvcc compiles csrc/floor_fit.cu and cc compiles
-     csrc/host_ogg.c (the Ogg page CRC) into build/vorbis_tpu_torch/, all
-     builds started together;
+  2. build: nvcc compiles csrc/floor_fit.cu and csrc/m3_scan.cu and cc
+     compiles csrc/host_ogg.c (Ogg CRC and pager, rescue walk, schedule)
+     into build/vorbis_tpu_torch/, all builds started together;
   3. kernel vs plain: the floor-fit kernel against its plain PyTorch
      version, bitwise, on real spectra of the main path (B = 2048, the
      1074 rows of the last chunk, B = 1 and 3), on random correlated
@@ -21,6 +21,12 @@ Phases (any failure raises and the script exits non-zero):
      B = 2048 from CUDA events (warm L2, as on the main path, where the
      inputs were just written), its bound and share, and the plain
      version's time;
+  3b. M3 kernel vs plain: the tempmdct scan kernel against its plain
+     PyTorch version, bitwise, on the real short batches of 20 s of the
+     click train (F = 256, through the port's own probe), on seeded random
+     inputs at F = 1, 3 and 256, and at n = 256 (freq_bfn256); then its
+     time at F = 256 from CUDA events, its roofline and dependent-chain
+     bounds, and the plain version's time;
   4. main path: FastEncoder(2, 44100, 0.5, switching=False,
      psy_state=False).encode of 60 s of 44.1 kHz stereo int16 (bench.py's
      signal, seed 0), from a CUDA tensor and from host numpy; the stream
@@ -38,14 +44,29 @@ Phases (any failure raises and the script exits non-zero):
      s = 0..15, CUDA tensors) at the default B_long=2048: total
      x-realtime and launches; every stream's last page granulepos is its
      length; streams 0 and 15 decode to the exact length;
+  4d. the default main path: FastEncoder(2, 44100, 0.5) (block switching
+     and the psy state on) encode_batch of 16 x 60 s of bench.py's signal
+     and of its click train (_click_train), from CUDA tensors:
+     x-realtime, last_profile, the warm time of _prepare_switched alone
+     (envelope, rescue, schedule), long and short frames, the floor and
+     M3 kernels' launches, every last granulepos, streams 0 and 15
+     decoded with SNR (stream 0 within SNR_MARGIN_DB of the JAX stream)
+     and stream 0's short blocks beside JAX's; once more under
+     torch.profiler for the busy share (the click train on 2 streams:
+     the profiler's cost grows with its ~1M kernels);
+  4e. encode (B_long = 1024) of one 60 s click-train stream: x-realtime
+     and the SNR check;
   5. card vs CPU: the port's packets for a 2 s clip on the card and on
      the CPU, byte for byte;
   5b. card vs CPU, stateful: the stateful packets of a 2 s clip
      (encode_batch at B_long=64), >= 90% identical; the count at encode's
-     B_long=1024 and the stateless encode_batch's are printed beside it.
-Phases 4b and 4c then run once more under torch.profiler and print the
-device's busy share.  Launch counts are set to 0 just before each main
-path (4, 4b, 4c) and read just after it.
+     B_long=1024 and the stateless encode_batch's are printed beside it;
+  5c. card vs CPU, switched: a 2 s click-train clip at B_long = 64: the
+     envelope marks and the schedule equal, >= 90% of packets identical.
+Phase 4b then runs once more under torch.profiler and prints the
+device's busy share (4d profiles the same 16-stream batch as 4c, with
+switching).  Launch counts are set to 0 just before each main
+path (4, 4b, 4c, 4d, 4e) and read just after it.
 It prints the kernel record as one JSON line, then the result line.
 """
 
@@ -71,6 +92,14 @@ SNR_MARGIN_DB = 0.25
 # vorbis_tpu.vorbisfile; JAX 0.9.0 on the CPU; reference_snr.py)
 # measures 25.04790 dB.
 JAX_STATEFUL_SNR_DB = 25.0479
+# And for phases 4d and 4e: the JAX package's default encoder (block
+# switching and the psy state on) on stream 0 of each 4d leg,
+# FastEncoder(2, 44100, 0.5).encode, decoded by vorbis_tpu.vorbisfile:
+# SNR in dB and short blocks (JAX 0.9.0 on the CPU;
+# `JAX_PLATFORMS=cpu python3 reference_snr.py --switching`; bytes
+# 1,210,928 and 887,288).
+JAX_SWITCHED_SNR_DB = {"signal": 25.04687, "click_train": 10.74682}
+JAX_SWITCHED_SHORTS = {"signal": 9, "click_train": 4678}
 
 # The card's peaks for the kernel's bound (NVIDIA H100 SXM data sheet,
 # 132 SMs at 1.98 GHz): HBM bytes per second; float32 operations, 67e12
@@ -103,6 +132,18 @@ OPS_PER_BIN = 20
 OPS_PER_STEP = 41
 OPS_PER_NEW_STEP = 145
 F32_OPS_PER_FIT = 26
+# Operations of csrc/m3_scan.cu a (frame, channel, bin), counted from its
+# source: each spread shift j the product, the difference, two compares,
+# the select and the add (6); besides, the reset select and the base
+# subtraction, the trigger's three compares, add and two ands, and the
+# carry select (9).  Its dependent chain a frame: the base subtraction,
+# one add a shift, the noise-center add, the compare and two selects,
+# at 4 cycles each (an fp32 add's latency) at the 1.98 GHz boost clock.
+M3_OPS_PER_SHIFT = 6
+M3_OPS_PER_BIN = 9
+M3_CHAIN_OPS = 5
+CYCLES_PER_DEP_OP = 4
+CLOCK_HZ = 1.98e9
 
 
 def _signal(secs, rate, seed):
@@ -113,6 +154,25 @@ def _signal(secs, rate, seed):
     pcmf = (0.30 * np.sin(2 * np.pi * (440 + 7 * seed) * t)[None, :]
             + 0.10 * np.sin(2 * np.pi * 1873 * t)[None, :]
             + 0.02 * rng.randn(2, int(secs * rate)))
+    return np.clip(np.rint(pcmf * 32768.0), -32768,
+                   32767).astype(np.int16)
+
+
+def _click_train(secs, rate, seed):
+    """bench.py's transient leg: a decaying click every ~90 ms over a
+    quiet tonal bed, int16 stereo (every click lands an envelope mark,
+    so the schedule mixes short and long blocks throughout)."""
+    import numpy as np
+    n = int(secs * rate)
+    t = np.arange(n) / rate
+    rng = np.random.RandomState(1000 + seed)
+    x = 0.05 * np.sin(2 * np.pi * (330 + 11 * seed) * t)
+    step = int(0.09 * rate)
+    for o in range(step // 2, n - 400, step):
+        dur = 256
+        env = np.exp(-np.arange(dur) / 40.0)
+        x[o:o + dur] += 0.75 * env * rng.randn(dur)
+    pcmf = np.stack([x, np.roll(x, 7)])
     return np.clip(np.rint(pcmf * 32768.0), -32768,
                    32767).astype(np.int16)
 
@@ -298,7 +358,161 @@ def _bound(fit, quant, above, prefix):
         f32_ops=f32_ops, ops_us=t_ops * 1e3, **work)
 
 
+def _m3_random(n, F, seed, dev):
+    """Seeded M3 scan inputs (logmdct, lastmdct rows of 1024, val,
+    tval) with triggers firing, and (sw, reset, noise_center) from the
+    port's m3_param_seq on a seeded switched frame sequence."""
+    import numpy as np
+    import torch
+    from vorbis_tpu_torch.ops import psydevice as PD
+    rng = np.random.RandomState(seed)
+    lm = (rng.randn(F, 2, n) * 15 - 60).astype(np.float32)
+    last = (rng.randn(F, 2, 1024) * 15 - 75).astype(np.float32)
+    val = (lm + rng.randn(F, 2, n) * 8 + 6).astype(np.float32)
+    tval = (lm + rng.randn(F, 2, n) * 8 - 6).astype(np.float32)
+    Ws = np.where(rng.rand(1, F) < 0.7, 0, 1)
+    imp = (rng.rand(1, F) < 0.6) & (Ws == 0)
+    ann = PD.annotate_frames_nd(Ws, imp)
+    pr = PD.m3_param_seq({k: v[0] for k, v in ann.items()}, n, 6.0, True)
+    args = [torch.from_numpy(a).to(dev) for a in (lm, last, val, tval)]
+    prm = {k: torch.from_numpy(np.asarray(pr[k])).to(dev)
+           for k in ("sw", "reset", "noise_center")}
+    return args, prm
+
+
+def _m3_check(scan, name, args, prm):
+    """M3 kernel vs its plain version, bitwise."""
+    import torch
+    got = scan(*args, prm)
+    want = scan.plain(*args, prm)
+    torch.cuda.synchronize()
+    bad = int((got != want).sum())
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    F, ch, n = args[0].shape
+    sw = prm["sw"]
+    runs = int((sw[1:] & sw[:-1]).sum()) if F > 1 else 0
+    print(f"[m3] {name}: F={F} ch={ch} n={n} sw={int(sw.sum())} "
+          f"reset={int(prm['reset'].sum())} consecutive={runs} "
+          f"mismatches={bad} max_abs_err={err}")
+    if bad:
+        raise RuntimeError(f"m3 kernel != plain on {name}: {bad}")
+    return err
+
+
+def _m3_bound(scan, F, ch, n):
+    """(bound_ms, bound_by, chain_ms, detail) of the scan at (F, ch, n):
+    the bytes (four input rows, the per-frame scalars and the output,
+    each once) over the HBM rate against its operations over the fp32
+    rate; and the frames' dependent chain at CYCLES_PER_DEP_OP."""
+    shifts = sum(min(scan.maxnb - 1, t) for t in range(n))
+    nbytes = 5 * F * ch * n * 4 + 3 * F * 4
+    ops = F * ch * (shifts * M3_OPS_PER_SHIFT + n * M3_OPS_PER_BIN)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    chain_ms = (F * (scan.maxnb - 1 + M3_CHAIN_OPS) * CYCLES_PER_DEP_OP
+                / CLOCK_HZ * 1e3)
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops), by, chain_ms, dict(
+        bytes=nbytes, bytes_us=t_bytes * 1e3, ops=ops, ops_us=t_ops * 1e3)
+
+
+def _kernels_of(fe):
+    """The path's kernel wrappers: the floor fits (long, and short once
+    built) and the short look's M3 scan."""
+    ks = _floors(fe)
+    if fe._short_ctx is not None:
+        ks.append(fe._short_ctx.m3_scan)
+    return ks
+
+
+def _switched_metas(fe, pcms):
+    """encode_batch's (ns, base_row, Si) per stream with switching:
+    each stream padded to at least one envelope chunk."""
+    hop = fe.n // 2
+    metas, base = [], 0
+    for pcm in pcms:
+        ns = pcm.shape[1]
+        Si = max(((ns + 5 * hop + 63) // 64) * 64 + 64,
+                 (fe._ENV_STEPS + 1) * 64)
+        metas.append((ns, base, Si))
+        base += Si // 64
+    return metas
+
+
+def _switched_marks(fe, pcms):
+    """(marks per stream, per-stream schedule records) of the switched
+    set-up: the envelope pass plus the exact stretch rescue, then the
+    schedule, as _prepare_switched runs them."""
+    x64, per = fe._prepare_switched(pcms, True)
+    metas = _switched_metas(fe, pcms)
+    marks = fe._envelope_marks_multi(x64, metas)
+    fe._stretch_rescue(x64, metas, marks)
+    return marks, per
+
+
+def _prepare_times(fe, pcms):
+    """Warm times (s) of the switched set-up alone -- _prepare_switched
+    whole, then its envelope pass and its stretch rescue on their own --
+    and the long and short frame counts of its schedule."""
+    import torch
+    metas = _switched_metas(fe, pcms)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x64, per = fe._prepare_switched(pcms, True)
+    torch.cuda.synchronize()
+    t_prep = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    marks = fe._envelope_marks_multi(x64, metas)
+    t_env = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fe._stretch_rescue(x64, metas, marks)
+    t_res = time.perf_counter() - t0
+    nlong = sum(len(r["li"]) for r in per)
+    nshort = sum(len(r["si"]) for r in per)
+    return (dict(prepare=t_prep, envelope=t_env, rescue=t_res), nlong,
+            nshort, per)
+
+
+def _m3_carry_cuts(fe, per, B_short=256):
+    """How often the M3 scan's carry, which starts at zero on every
+    short finish batch, cuts a run of impulse frames: over the batch's
+    short frames in global order, the impulse frames (sw), those that
+    continue a run (sw and not reset: their carry is the previous
+    frame's buffer), the batches, the batch starts that fall on such a
+    frame, and how many of those are a stream's first short frame."""
+    import numpy as np
+    from vorbis_tpu_torch.ops import psydevice as PD
+    sw, rs, first = [], [], []
+    toneatt1 = float(fe.analysis.look.vi["tone_masteratt"][1])
+    for r in per:
+        ann = PD.annotate_frames(r["Ws"], r["impulse"])
+        pr = PD.m3_param_seq(ann, fe.vi.blocksizes[0] // 2, toneatt1, True)
+        sw.append(pr["sw"][r["si"]])
+        rs.append(pr["reset"][r["si"]])
+        first.append(np.arange(len(r["si"])) == 0)
+    sw, rs, first = map(np.concatenate, (sw, rs, first))
+    run = sw & ~rs
+    start = np.arange(len(sw)) % B_short == 0
+    start[:1] = False
+    return dict(short=len(sw), impulse=int(sw.sum()),
+                continuing=int(run.sum()), batches=-(-len(sw) // B_short),
+                cut=int((run & start).sum()),
+                cut_first=int((run & start & first).sum()))
+
+
+def _lap(t_start, phase):
+    print(f"[time] {phase} done at {time.perf_counter() - t_start:.1f} s")
+
+
+def _short_blocks(fe, ogg):
+    """Short (blockflag 0) audio packets of a stream."""
+    short = {i for i, m in enumerate(fe.vi.modes) if m.blockflag == 0}
+    mask = (1 << fe.modebits) - 1
+    return sum((p[0] >> 1) & mask in short for p in _audio_packets(ogg))
+
+
 def main():
+    t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(HERE, "vorbis_tpu_torch")):
         raise SystemExit("chip_smoke.py: run it from the root of a "
                          "checkout (vorbis_tpu_torch/ not found)")
@@ -323,14 +537,16 @@ def main():
 
     # 2. build: one compiler process per source, all started together
     from vorbis_tpu_torch import native
-    from vorbis_tpu_torch.ops import floor_cuda
+    from vorbis_tpu_torch.ops import floor_cuda, m3_cuda
     t0 = time.perf_counter()
     jobs = {"floor_fit.cu": floor_cuda.build,
+            "m3_scan.cu": m3_cuda.build,
             "host_ogg.c": native.build_host}
     with ThreadPoolExecutor(len(jobs)) as ex:
         futs = {k: ex.submit(f) for k, f in jobs.items()}
         built = {k: f.result() for k, f in futs.items()}
     floor_cuda.load_library()
+    m3_cuda.load_library()
     native.host_library()
     print(f"[build] {len(built)} libraries in "
           f"{time.perf_counter() - t0:.2f} s")
@@ -415,6 +631,67 @@ def main():
         ms_b = _cuda_ms(lambda: floor.fit(qs, as_, ps), 100)
         sweep.append(f"B={nb} {ms_b:.5f}")
     print("[kernel] time against B (ms): " + ", ".join(sweep))
+    _lap(t_start, "3")
+
+    # 3b. the M3 scan kernel vs its plain version: the real short
+    # batches of the click train through the port's own probe (the
+    # default encoder's short finish batches, F = 256), then seeded
+    # random inputs
+    import types
+    fsw = FastEncoder(2, 44100, 0.5)
+    if not (fsw.switching and fsw.psy_state):
+        raise RuntimeError("switching and psy_state are not the defaults")
+    m3 = fsw.ctx(0).m3_scan
+    if not isinstance(m3, m3_cuda.M3ScanCuda):
+        raise RuntimeError(f"main path M3 scan is {type(m3).__name__}")
+    recorded = []
+
+    def record(*a):
+        recorded.append(a)
+        return m3(*a)
+
+    fsw._short_ctx.m3_scan = record
+    try:
+        fsw.encode_batch([torch.from_numpy(_click_train(20, 44100, 0))
+                          .cuda()])
+    finally:
+        fsw._short_ctx.m3_scan = m3
+    m3_err = 0.0
+    full = None
+    for i, (lm3, last3, v3, tv3, prm3) in enumerate(recorded):
+        sub = {k: prm3[k] for k in ("sw", "reset", "noise_center")}
+        m3_err = max(m3_err, _m3_check(m3, f"click-train batch {i}",
+                                       (lm3, last3, v3, tv3), sub))
+        sw = sub["sw"]
+        if (full is None and lm3.shape[0] == 256 and bool(sw.any())
+                and bool(sub["reset"].any())
+                and int((sw[1:] & sw[:-1]).sum()) >= 2):
+            full = ((lm3, last3, v3, tv3), sub)
+    if full is None:
+        raise RuntimeError("no F = 256 click-train batch with sw, reset "
+                           "and consecutive impulse frames")
+    look = fsw.ctx(0).analysis.look
+    m3_256 = m3_cuda.M3ScanCuda(types.SimpleNamespace(
+        n=256, m3n=look.m3n, vi=look.vi), "cuda")
+    for F_, n_, seed in ((1, 128, 1), (3, 128, 2), (256, 128, 3),
+                         (256, 256, 4)):
+        args, prm = _m3_random(n_, F_, seed, "cuda")
+        m3_err = max(m3_err, _m3_check(m3 if n_ == 128 else m3_256,
+                                       f"random F={F_} n={n_}", args,
+                                       prm))
+    args, prm = full
+    m3_ms = _cuda_ms(lambda: m3(*args, prm), 200)
+    m3_plain_ms = _cuda_ms(lambda: m3.plain(*args, prm), 3)
+    m3_bound_ms, m3_by, m3_chain_ms, mw = _m3_bound(m3, *args[0].shape)
+    m3_share = m3_bound_ms / m3_ms
+    print(f"[m3] scan F=256 ch=2 n={m3.n}: kernel {m3_ms:.5f} ms, plain "
+          f"{m3_plain_ms:.4f} ms ({smi}); bytes {mw['bytes']} = "
+          f"{mw['bytes_us']:.3f} us, operations {mw['ops']} float32 = "
+          f"{mw['ops_us']:.3f} us: bound {m3_bound_ms * 1e3:.3f} us by "
+          f"{m3_by}, share {100 * m3_share:.2f}%; dependent chain "
+          f"{m3_chain_ms * 1e3:.2f} us ({100 * m3_chain_ms / m3_ms:.1f}% "
+          f"of the kernel's time)")
+    _lap(t_start, "3b")
 
     # 4. main path at real size
     from vorbis_tpu_torch.codec.decoder import decode_ogg
@@ -457,6 +734,8 @@ def main():
           f"{secs / t_dev:.2f}x realtime; from host {t_host:.4f} s = "
           f"{secs / t_host:.2f}x realtime ({smi})")
 
+    _lap(t_start, "4")
+
     # 4b. the stateful encode (psy_state at its default)
     fs = FastEncoder(2, 44100, 0.5, switching=False)
     if not fs.psy_state:
@@ -498,6 +777,8 @@ def main():
           f"{100 * busy:.1f}% of the unprofiled {t_sdev:.4f} s; top: "
           + "; ".join(rows))
 
+    _lap(t_start, "4b")
+
     # 4c. multi-stream encode_batch, 16 x 60 s
     S = 16
     streams = [torch.from_numpy(_signal(60, 44100, k)).cuda()
@@ -526,12 +807,108 @@ def main():
           f"{S * secs / t_batch:.2f}x realtime, floor launches "
           f"{launches_b}; last_profile (s): " + ", ".join(
               f"{k} {v:.4f}" for k, v in prof_b.items()) + f" ({smi})")
-    busy, dev_ms, rows = _busy_share(lambda: fs.encode_batch(streams),
-                                     t_batch)
-    print(f"[batch] profiled: device {dev_ms:.3f} ms, busy "
-          f"{100 * busy:.1f}% of the unprofiled {t_batch:.4f} s; top: "
-          + "; ".join(rows))
     del streams
+    _lap(t_start, "4c")
+
+    # 4d. the default main path (block switching + psy state), 16 x 60 s
+    # of the tonal signal and of the click train, from CUDA tensors
+    launches_sw = {}
+    for leg, gen in (("signal", _signal), ("click_train", _click_train)):
+        streams = [torch.from_numpy(gen(60, 44100, k)).cuda()
+                   for k in range(S)]
+        fsw.encode_batch(streams[:2])               # warm-up
+        torch.cuda.synchronize()
+        for k in _kernels_of(fsw):
+            k.launches = 0
+        t0 = time.perf_counter()
+        oggs = fsw.encode_batch(streams)
+        torch.cuda.synchronize()
+        t_sw = time.perf_counter() - t0
+        fl_long = fsw.floor.launches
+        fl_short = fsw._short_ctx.floor.launches
+        m3_n = fsw._short_ctx.m3_scan.launches
+        prof_sw = dict(fsw.last_profile)
+        times, nlong, nshort, per = _prepare_times(fsw, streams)
+        if fl_long == 0 or (nshort and fl_short == 0):
+            raise RuntimeError(f"{leg}: floor kernel launches {fl_long} "
+                               f"long, {fl_short} short")
+        if leg == "click_train" and m3_n == 0:
+            raise RuntimeError("click train: the M3 kernel never launched")
+        for k, o in enumerate(oggs):
+            if _last_granulepos(o) != streams[k].shape[1]:
+                raise RuntimeError(f"{leg} stream {k}: last granulepos "
+                                   f"{_last_granulepos(o)}")
+        for k in (0, S - 1):
+            out_k, _ = decode_ogg(oggs[k])
+            snr_k = _snr(streams[k].cpu().numpy(), out_k)
+            line = (f"[switched] {leg} stream {k}: {len(oggs[k])} bytes, "
+                    f"{_short_blocks(fsw, oggs[k])} short blocks, decoded "
+                    f"{out_k.shape}, SNR {snr_k:.3f} dB")
+            if k == 0:
+                line += (f" (JAX {JAX_SWITCHED_SNR_DB[leg]:.3f} dB, "
+                         f"{JAX_SWITCHED_SHORTS[leg]} short blocks)")
+            print(line)
+            if k == 0 and abs(snr_k - JAX_SWITCHED_SNR_DB[leg]) \
+                    > SNR_MARGIN_DB:
+                raise RuntimeError(f"{leg}: SNR {snr_k:.3f} dB not within "
+                                   f"{SNR_MARGIN_DB} dB of the JAX stream")
+        print(f"[switched] {leg} {S} x 60 s: {t_sw:.4f} s = "
+              f"{S * secs / t_sw:.2f}x realtime; {nlong} long + {nshort} "
+              f"short frames; launches: floor {fl_long} long + {fl_short} "
+              f"short, m3 {m3_n}; last_profile (s): " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in prof_sw.items())
+              + "; _prepare_switched alone (s): " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in times.items()) + f" ({smi})")
+        # the profiler's own cost grows with the kernel count: the click
+        # train (~1M kernels at 16 streams) is profiled on 2 streams,
+        # against the unprofiled wall of the same 2 streams
+        prof_streams = streams if leg == "signal" else streams[:2]
+        t_prof = t_sw
+        if leg != "signal":
+            t0 = time.perf_counter()
+            fsw.encode_batch(prof_streams)
+            torch.cuda.synchronize()
+            t_prof = time.perf_counter() - t0
+        cuts = _m3_carry_cuts(fsw, per)
+        print(f"[switched] {leg} M3 carry over the short batches: "
+              + ", ".join(f"{k} {v}" for k, v in cuts.items()))
+        busy, dev_ms, rows = _busy_share(
+            lambda: fsw.encode_batch(prof_streams), t_prof)
+        print(f"[switched] {leg} profiled ({len(prof_streams)} streams): "
+              f"device {dev_ms:.3f} ms, busy {100 * busy:.1f}% of the "
+              f"unprofiled {t_prof:.4f} s; top: " + "; ".join(rows))
+        _lap(t_start, f"4d {leg}")
+        launches_sw[leg] = (fl_long + fl_short, m3_n)
+        click0 = streams[0]
+        del streams, oggs
+
+    # 4e. encode of one 60 s click-train stream (B_long = 1024)
+    fsw.encode(click0)                              # warm-up
+    torch.cuda.synchronize()
+    for k in _kernels_of(fsw):
+        k.launches = 0
+    t0 = time.perf_counter()
+    ogg_e = fsw.encode(click0)
+    torch.cuda.synchronize()
+    t_e = time.perf_counter() - t0
+    launches_sw["encode"] = (fsw.floor.launches
+                             + fsw._short_ctx.floor.launches,
+                             fsw._short_ctx.m3_scan.launches)
+    out_e, _ = decode_ogg(ogg_e)
+    snr_e = _snr(click0.cpu().numpy(), out_e)
+    print(f"[switched] encode click train 60 s: {t_e:.4f} s = "
+          f"{secs / t_e:.2f}x realtime, {len(ogg_e)} bytes, "
+          f"{_short_blocks(fsw, ogg_e)} short blocks, launches floor "
+          f"{launches_sw['encode'][0]}, m3 {launches_sw['encode'][1]}, SNR "
+          f"{snr_e:.3f} dB (JAX {JAX_SWITCHED_SNR_DB['click_train']:.3f} "
+          f"dB); last_profile (s): " + ", ".join(
+              f"{k} {v:.4f}" for k, v in fsw.last_profile.items())
+          + f" ({smi})")
+    if abs(snr_e - JAX_SWITCHED_SNR_DB["click_train"]) > SNR_MARGIN_DB:
+        raise RuntimeError(f"encode: SNR {snr_e:.3f} dB not within "
+                           f"{SNR_MARGIN_DB} dB of the JAX stream")
+    del click0
+    _lap(t_start, "4e")
 
     # 5. card vs CPU
     fe_cpu = FastEncoder(2, 44100, 0.5, switching=False, psy_state=False,
@@ -577,14 +954,52 @@ def main():
         raise RuntimeError("stateful card and CPU packets differ in more "
                            "than 10%")
 
+    _lap(t_start, "5, 5b")
+
+    # 5c. card vs CPU, switched: a 2 s click-train clip at B_long = 64
+    fsw_cpu = FastEncoder(2, 44100, 0.5, device="cpu")
+    clipc = np.ascontiguousarray(_click_train(2, 44100, 0))
+    clipc_dev = torch.from_numpy(clipc).cuda()
+    (mk_card,), per_card = _switched_marks(fsw, [clipc_dev])
+    (mk_cpu,), per_cpu = _switched_marks(fsw_cpu, [clipc])
+    flips = int((mk_card != mk_cpu).sum())
+    sched = all(np.array_equal(per_card[0][k], per_cpu[0][k])
+                for k in ("cs", "Ws", "impulse"))
+    a = _audio_packets(fsw.encode_batch([clipc_dev], B_long=64)[0])
+    b = _audio_packets(fsw_cpu.encode_batch([clipc], B_long=64)[0])
+    if len(a) != len(b):
+        raise RuntimeError(f"switched: card {len(a)} packets, CPU {len(b)}")
+    diff = [i for i, (x, y) in enumerate(zip(a, b)) if x != y]
+    print(f"[card-vs-cpu] switched: marks {int(mk_card.sum())} card, "
+          f"{int(mk_cpu.sum())} CPU, {flips} differ; schedule "
+          f"{'equal' if sched else 'DIFFERS'} "
+          f"({int((per_card[0]['Ws'] == 0).sum())} short blocks); identical "
+          f"packets {len(a) - len(diff)}/{len(a)} (B_long=64, differing "
+          f"{diff})")
+    if flips or not sched:
+        raise RuntimeError("switched: card and CPU marks or schedule differ")
+    if len(a) - len(diff) < 0.9 * len(a):
+        raise RuntimeError("switched card and CPU packets differ in more "
+                           "than 10%")
+
+    print(f"[time] {time.perf_counter() - t_start:.1f} s of command time")
     print(json.dumps({"kernels": [{
         "name": "floor1_greedy_fit", "route": "cuda",
         "source": "vorbis_tpu_torch/csrc/floor_fit.cu",
         "replaces": "vorbis_tpu/ops/floor_pallas.py:289",
-        "launches": launches + launches_s + launches_b,
+        "launches": launches + launches_s + launches_b + sum(
+            v[0] for v in launches_sw.values()),
         "max_abs_err": max_err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "share": share, "library_ms": None}]}))
+        "bound_by": bound_by, "share": share, "library_ms": None}, {
+        "name": "m3_tempmdct_scan", "route": "cuda",
+        "source": "vorbis_tpu_torch/csrc/m3_scan.cu",
+        "replaces": "vorbis_tpu/ops/psydevice.py:498",
+        "launches": sum(v[1] for v in launches_sw.values()),
+        "max_abs_err": m3_err,
+        "ms": m3_ms, "plain_ms": m3_plain_ms, "bound_ms": m3_bound_ms,
+        "bound_by": m3_by, "share": m3_share,
+        "chain_bound_ms": m3_chain_ms, "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

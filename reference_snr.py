@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
-"""SNR of the JAX package's own stream of chip_smoke.py's signal: the
-constants chip_smoke.py holds the port's streams to (JAX_SNR_DB and
-JAX_STATEFUL_SNR_DB).
+"""SNR of the JAX package's own stream of chip_smoke.py's signals: the
+constants chip_smoke.py holds the port's streams to (JAX_SNR_DB,
+JAX_STATEFUL_SNR_DB and the JAX_SWITCHED_* values).
 
 Runs the JAX reference (vorbis_tpu) on the CPU, so it needs JAX and is
 never run on the card:
 
     JAX_PLATFORMS=cpu python3 reference_snr.py            # psy_state=True
     JAX_PLATFORMS=cpu python3 reference_snr.py --stateless
+    JAX_PLATFORMS=cpu python3 reference_snr.py --switching
 
-It encodes 60 s of _signal(60, 44100, 0) with
-vorbis_tpu FastEncoder(2, 44100, 0.5, switching=False), decodes the
-stream with vorbis_tpu.vorbisfile and prints the SNR against the input
-in dB, with the jax version.
+The first two encode 60 s of _signal(60, 44100, 0) with vorbis_tpu
+FastEncoder(2, 44100, 0.5, switching=False); --switching encodes
+_signal(60, 44100, 0) and _click_train(60, 44100, 0) with the default
+FastEncoder(2, 44100, 0.5) (block switching and the psy state on).  Each
+stream is decoded with vorbis_tpu.vorbisfile; the script prints its SNR
+against the input in dB, its bytes, its short-block count and the jax
+version.
 """
 
 import argparse
@@ -26,26 +30,43 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--stateless", action="store_true",
                     help="psy_state=False (chip_smoke.py's JAX_SNR_DB)")
+    ap.add_argument("--switching", action="store_true",
+                    help="the default encoder (switching=True) on both "
+                         "signals (chip_smoke.py's JAX_SWITCHED_*)")
     args = ap.parse_args()
     sys.path.insert(0, HERE)
     import jax
     import numpy as np
 
-    from chip_smoke import _signal
+    from chip_smoke import _click_train, _signal
+    from vorbis_tpu.bitstream.oggfile import OggStreamReader
     from vorbis_tpu.models.fastenc import FastEncoder
     from vorbis_tpu.vorbisfile import OggVorbisFile
 
-    pcm16 = _signal(60, 44100, 0)
-    fe = FastEncoder(2, 44100, 0.5, switching=False,
-                     psy_state=not args.stateless)
-    ogg = fe.encode(pcm16)
-    out = OggVorbisFile(ogg).read_all_float()
-    x = pcm16.astype(np.float64) / 32768.0
-    assert out.shape == x.shape, (out.shape, x.shape)
-    snr = 10 * np.log10(np.sum(x ** 2) / np.sum((out - x) ** 2))
-    print(f"psy_state={not args.stateless} bytes={len(ogg)} "
-          f"SNR {snr:.5f} dB (jax {jax.__version__}, "
-          f"{jax.devices()[0].platform})")
+    if args.switching:
+        fe = FastEncoder(2, 44100, 0.5)
+        runs = [("signal", _signal(60, 44100, 0)),
+                ("click_train", _click_train(60, 44100, 0))]
+    else:
+        fe = FastEncoder(2, 44100, 0.5, switching=False,
+                         psy_state=not args.stateless)
+        runs = [("signal", _signal(60, 44100, 0))]
+    for name, pcm16 in runs:
+        ogg = fe.encode(pcm16)
+        out = OggVorbisFile(ogg).read_all_float()
+        x = pcm16.astype(np.float64) / 32768.0
+        assert out.shape == x.shape, (out.shape, x.shape)
+        snr = 10 * np.log10(np.sum(x ** 2) / np.sum((out - x) ** 2))
+        # a short packet's mode number picks a blockflag-0 mode
+        pk = [p for p, _, _ in OggStreamReader(ogg).packets()][3:]
+        short_modes = {i for i, m in enumerate(fe.vi.modes)
+                       if m.blockflag == 0}
+        shorts = sum((p[0] >> 1) & ((1 << fe.modebits) - 1) in short_modes
+                     for p in pk)
+        print(f"{name}: switching={fe.switching} psy_state={fe.psy_state} "
+              f"bytes={len(ogg)} packets={len(pk)} short_blocks={shorts} "
+              f"SNR {snr:.5f} dB (jax {jax.__version__}, "
+              f"{jax.devices()[0].platform})")
 
 
 if __name__ == "__main__":

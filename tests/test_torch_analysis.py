@@ -39,6 +39,12 @@ from vorbis_tpu.utils import scales as S
 from vorbis_tpu_torch.ops import torchdsp as T
 from vorbis_tpu_torch.utils import scales as TS
 
+# The suite runs under pytest-xdist with several workers to the host's
+# cores; one torch thread a worker keeps torch's OpenMP pools from
+# oversubscribing them (the port's test files took 672 s with 6 workers
+# on 8 cores at torch's default, 70 s at one thread).
+torch.set_num_threads(1)
+
 N = 2048
 HOP = 1024
 

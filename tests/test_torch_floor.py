@@ -43,6 +43,12 @@ from vorbis_tpu_torch.ops.floor_cuda import (DeviceFloorFitCuda,
                                               make_floor_fit)
 from vorbis_tpu_torch.ops.floor_device import DeviceFloorFit as TFit
 
+# The suite runs under pytest-xdist with several workers to the host's
+# cores; one torch thread a worker keeps torch's OpenMP pools from
+# oversubscribing them (the port's test files took 672 s with 6 workers
+# on 8 cores at torch's default, 70 s at one thread).
+torch.set_num_threads(1)
+
 EPS = np.finfo(np.float32).eps
 
 

@@ -1,8 +1,10 @@
 """The port's own copies of the host layers (vorbis_tpu_torch/bitstream,
-codec, models/encsetup+modes, ops/psy+window+mdct, utils/scales, data/)
-against the originals in vorbis_tpu, and the Ogg CRC in the port's host C
-(csrc/host_ogg.c) against the Python loop.  numpy only: every comparison
-is exact (bytes, integers, float32 arrays bit for bit)."""
+codec, models/encsetup+modes, ops/psy+window+mdct+envelope, utils/scales,
+data/) against the originals in vorbis_tpu, and the port's host C
+(csrc/host_ogg.c: the Ogg CRC against the Python loop, the stretch-rescue
+walk against vorbis_tpu's native/vorbisnative.c vn_rescue_walk).  numpy
+only: every comparison is exact (bytes, integers, float32 arrays bit for
+bit)."""
 
 import filecmp
 import os
@@ -14,11 +16,14 @@ import vorbis_tpu.bitstream.oggfile as J_ogg
 import vorbis_tpu.codec.decoder as J_dec
 import vorbis_tpu.codec.encoder as J_enc
 import vorbis_tpu.models.encsetup as J_setup
+import vorbis_tpu.native as J_native
+import vorbis_tpu.ops.envelope as J_env
 import vorbis_tpu.ops.mdct as J_mdct
 import vorbis_tpu_torch.bitstream.oggfile as T_ogg
 import vorbis_tpu_torch.codec.decoder as T_dec
 import vorbis_tpu_torch.codec.encoder as T_enc
 import vorbis_tpu_torch.models.encsetup as T_setup
+import vorbis_tpu_torch.ops.envelope as T_env
 import vorbis_tpu_torch.ops.mdct as T_mdct
 from tests import oracle
 from vorbis_tpu.vorbisfile import OggVorbisFile
@@ -112,6 +117,40 @@ def test_mdct_and_imdct_bitwise(n):
     assert _same(T_mdct.imdct(spec, n), J_mdct.imdct(spec, n))
 
 
+def test_envelope_constants_line_aligned_copy():
+    """ops/envelope.py holds lines 22-32 of its source, at the same
+    lines, with the same values."""
+    lines = [open(os.path.join(ROOT, pkg, "ops", "envelope.py")).read()
+             .splitlines()[21:32]
+             for pkg in ("vorbis_tpu", "vorbis_tpu_torch")]
+    assert lines[0] == lines[1] and lines[0][0] == "VE_PRE = 16"
+    names = [ln.split(" = ")[0] for ln in lines[0] if " = " in ln]
+    assert len(names) == 10
+    for k in names:
+        assert _same(getattr(T_env, k), getattr(J_env, k)), k
+
+
+def test_rescue_walk_host_c_equals_vorbisnative():
+    """vtt_rescue_walk (the port's csrc/host_ogg.c) against vn_rescue_walk
+    through vorbis_tpu.native, or against the lockstep Python walk where
+    that library is absent, on the same random tables: stretch resets,
+    triggers at both window edges, retrig clusters, empty windows."""
+    from vorbis_tpu_torch import native
+    from vorbis_tpu_torch.models.fastenc import FastEncoder as TFE
+    rng = np.random.RandomState(11)
+    for C, Lw, dens in ((1, 1, 0.5), (7, 64, 0.05), (50, 700, 0.02),
+                        (30, 200, 0.3)):
+        T1 = rng.rand(13, C, Lw) < dens
+        T2 = rng.rand(13, C, Lw) < dens
+        wlen = rng.randint(0, Lw + 1, C)
+        got = native.rescue_walk(T1, T2, wlen, 24)
+        want = J_native.rescue_walk(T1, T2, wlen, 24)
+        if want is None:
+            want = TFE._rescue_walk_plain(T1, T2, wlen, 24)
+        assert all(_same(g, w) for g, w in zip(got, want)), (C, Lw)
+    assert got[0].any() and got[1].any()
+
+
 def test_ogg_crc_host_c_equals_python_loop():
     rng = np.random.RandomState(3)
     for size in (0, 1, 27, 255, 4300, 65307):
@@ -173,5 +212,22 @@ def test_ogg_crc_has_no_python_fallback(monkeypatch):
     try:
         with pytest.raises(RuntimeError, match="host C compiler"):
             T_ogg.ogg_crc(b"OggS")
+    finally:
+        native.host_library.cache_clear()
+
+
+def test_rescue_walk_has_no_python_fallback(monkeypatch):
+    """A missing host compiler raises; the stretch-rescue walk never falls
+    back to its plain lockstep version."""
+    from vorbis_tpu_torch import native
+    native.host_library.cache_clear()
+    monkeypatch.setenv("CC", "")
+    monkeypatch.setattr(native.shutil, "which", lambda _: None)
+    monkeypatch.setattr(native, "BUILD_DIR",
+                        native.BUILD_DIR.parent / "no-such-build")
+    T = np.zeros((13, 2, 8), bool)
+    try:
+        with pytest.raises(RuntimeError, match="host C compiler"):
+            native.rescue_walk(T, T, np.array([8, 3]), 24)
     finally:
         native.host_library.cache_clear()

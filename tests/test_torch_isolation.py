@@ -1,7 +1,7 @@
 """The port stands alone: its package and chip_smoke.py import neither jax
 nor the JAX package vorbis_tpu, and a process in which both imports fail
-can still encode with the port on the CPU (stateless and with the
-default cross-frame psy state) and decode with the port's own decoder
+can still encode with the port on the CPU (stateless, and the default
+encoder with block switching and the cross-frame psy state) and decode with the port's own decoder
 (the GPU machine has no JAX).  The encoder runs on the card
 unless the caller asks for the CPU."""
 
@@ -12,6 +12,12 @@ import sys
 
 import pytest
 import torch
+
+# The suite runs under pytest-xdist with several workers to the host's
+# cores; one torch thread a worker keeps torch's OpenMP pools from
+# oversubscribing them (the port's test files took 672 s with 6 workers
+# on 8 cores at torch's default, 70 s at one thread).
+torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -32,8 +38,9 @@ pcm = np.stack([0.3 * np.sin(2 * np.pi * 440 * t),
 out, vi = decode_ogg(fe.encode(pcm))
 assert out.shape == pcm.shape, out.shape
 assert np.isfinite(out).all()
-# the default encoder: the cross-frame psy state (encode_batch)
-fs = FastEncoder(2, 44100, 0.5, switching=False, device="cpu")
+# the default encoder: block switching and the cross-frame psy state
+fs = FastEncoder(2, 44100, 0.5, device="cpu")
+assert fs.switching and fs.psy_state
 out, vi = decode_ogg(fs.encode(pcm))
 assert out.shape == pcm.shape, out.shape
 assert np.isfinite(out).all()
@@ -50,7 +57,8 @@ print("ok", out.shape)
 def test_port_runs_without_jax():
     r = subprocess.run([sys.executable, "-c", PROBE.format(root=ROOT)],
                        capture_output=True, text=True, timeout=300,
-                       env={**os.environ, "JAX_PLATFORMS": "cpu"})
+                       env={**os.environ, "JAX_PLATFORMS": "cpu",
+                            "OMP_NUM_THREADS": "1"})
     assert r.returncode == 0, r.stderr[-4000:]
     assert r.stdout.strip().endswith("ok (2, 8820)"), r.stdout
 

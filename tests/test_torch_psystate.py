@@ -60,6 +60,12 @@ from vorbis_tpu_torch.models.fastenc import FastEncoder as TFE
 from vorbis_tpu_torch.ops import psydevice as TPD
 from vorbis_tpu_torch.utils import lpc as T_lpc
 
+# The suite runs under pytest-xdist with several workers to the host's
+# cores; one torch thread a worker keeps torch's OpenMP pools from
+# oversubscribing them (the port's test files took 672 s with 6 workers
+# on 8 cores at torch's default, 70 s at one thread).
+torch.set_num_threads(1)
+
 B = 64
 
 

@@ -1,11 +1,12 @@
-/* Host C of the port: the Ogg page CRC, the one-call audio pager and
- * the blockout schedule.
+/* Host C of the port: the Ogg page CRC, the one-call audio pager, the
+ * stretch-rescue walk and the blockout schedule.
  *
  * Copies of vn_ogg_crc (native/vorbisnative.c:138-156), vn_ogg_pages
- * (:187-272) and vn_schedule (:2088-2160), so that the port's Ogg paging
- * (vorbis_tpu_torch/bitstream/oggfile.py ogg_crc, models/fastenc.py
- * _page_stream) and block scheduling (models/fastenc.py _schedule) need
- * no library of the JAX package.  Built at first use by
+ * (:187-272), vn_rescue_walk (:2046-2078) and vn_schedule (:2088-2160),
+ * so that the port's Ogg paging (vorbis_tpu_torch/bitstream/oggfile.py
+ * ogg_crc, models/fastenc.py _page_stream), envelope rescue
+ * (models/fastenc.py _rescue_walk_batch) and block scheduling
+ * (models/fastenc.py _schedule) need no library of the JAX package.  Built at first use by
  * vorbis_tpu_torch/native.py with `cc -O3 -fPIC -shared` and bound with
  * ctypes; the entry points have plain C linkage.
  *
@@ -106,6 +107,49 @@ long vtt_ogg_pages(const uint8_t *pk_l, long wl, const uint8_t *pk_s,
     }
     *pageno_io = pageno;
     return o;
+}
+
+/* Stretch-rescue lockstep walk (the serial half of the fast encoder's
+ * envelope rescue; reference state machine: envelope.c:569-681
+ * _ve_envelope_search).  T1/T2 are device-built boolean trigger
+ * tables, shape (smax/2 + 1, C, Lw) C-order, indexed
+ * [stretch>>1, cluster, window step]; wlen[c] is cluster c's live
+ * window length.  Writes newmk (C, Lw+2) and retrig (C,), both
+ * zeroed by the caller.  The per-step feedback (stretch resets to -1
+ * on a pre-echo trigger, saturates at smax) is the only serial state,
+ * so the walk is a table scan. */
+long vtt_rescue_walk(const uint8_t *T1, const uint8_t *T2,
+                     long C, long Lw, const int32_t *wlen, int smax,
+                     uint8_t *newmk, uint8_t *retrig)
+{
+    long c, k;
+    for (c = 0; c < C; c++) {
+        const long wl = wlen[c];
+        uint8_t *nm = newmk + c * (Lw + 2);
+        int stretch = smax;
+        int rt = 0;
+        for (k = 0; k < wl; k++) {
+            long s2;
+            uint8_t t1, t2;
+            stretch = stretch + 1 < smax ? stretch + 1 : smax;
+            s2 = (long)(stretch >> 1);
+            t1 = T1[(s2 * C + c) * Lw + k];
+            t2 = T2[(s2 * C + c) * Lw + k];
+            if (t1 | t2)
+                nm[k] = 1;
+            if (t1)
+                nm[k + 1] = 1;
+            if (t2 && k > 0)
+                nm[k - 1] = 1;
+            if (t1) {
+                if (k >= wl - (smax + 2))
+                    rt = 1;
+                stretch = -1;
+            }
+        }
+        retrig[c] = (uint8_t)rt;
+    }
+    return 0;
 }
 
 /* Envelope marks -> block schedule: the exact blockout /

@@ -1,5 +1,5 @@
 """Torch counterpart of vorbis_tpu/models/fastenc.py: the batched fast
-encoder, long-only slices.
+encoder.
 
 All DSP decisions (masking, floor fit, coupling, residue VQ, codeword
 lookup, bit packing) run on `device` for a batch of frames at a time
@@ -10,12 +10,15 @@ byte-identical to aoTuV (see the JAX module's docstring); for
 byte-identical output use vorbis_tpu.codec.encoder.Encoder.
 
 Ported here: `FastEncoder.__init__` (host setup), `ctx`, `dev`, the
-stateless long-only `encode` (psy_state=False), and the long-only
+stateless long-only `encode` (switching=False, psy_state=False),
 `encode_batch` with its two-phase cross-frame psy state (probe -> host
-recurrences -> finish, `_run_two_phase`), which `encode` runs by default
-(psy_state=True).  Paths of the JAX encoder that later slices port
-raise NotImplementedError naming their ROADMAP item: block switching
-(§1.7), managed bitrate (§1.9) and the multi-submap 5.1 layouts
+recurrences -> finish, `_run_two_phase`), and the envelope-driven
+256/2048 block switching that both run by default: the batched envelope
+marks, the exact stretch rescue (device trigger tables, host C walk),
+the switched schedule, and M3 on impulse short blocks (`encode` is then
+`encode_batch` of one stream, `_encode_switched`).  Paths of the JAX
+encoder that later slices port raise NotImplementedError naming their
+ROADMAP item: managed bitrate (§1.9) and the multi-submap 5.1 layouts
 (§1.10).
 """
 
@@ -31,10 +34,12 @@ from ..codec.encoder import Encoder
 from ..codec.floor1_codec import fromdB_lookup
 from ..convert import device_tables
 from ..ops.floor_cuda import make_floor_fit
+from ..ops.m3_cuda import make_m3_scan
 from ..ops.residue_device import DeviceResidueVQ
 from ..ops.torchdsp import DeviceAnalysis
 from . import encsetup
 
+f32 = np.float32
 
 class _ShortCtx:
     """Per-mode device components for the short-block (W=0) frames: a
@@ -56,6 +61,9 @@ class _ShortCtx:
         fl_idx = mapping.floorsubmap[mapping.chmuxlist[0]]
         self.fl_look = fe.enc.floor_looks[fl_idx]
         self.floor = make_floor_fit(self.fl_look, fe.device)
+        # M3's tempmdct scan on impulse short blocks (the CUDA kernel
+        # csrc/m3_scan.cu on the card)
+        self.m3_scan = make_m3_scan(self.analysis.look, fe.device)
         self.fromdB = fe.fromdB
         res_idx = mapping.residuesubmap[mapping.chmuxlist[0]]
         self.res_look = fe.enc.residue_looks[res_idx]
@@ -128,9 +136,8 @@ class FastEncoder:
                  device=None):
         """Unmanaged VBR at `quality` on `device` (default: "cuda"; with
         no card that raises, and the CPU takes device="cpu").  The JAX
-        encoder's defaults are kept; `encode` and `encode_batch` raise
-        NotImplementedError for switching=True until block switching
-        lands, so these slices run as FastEncoder(..., switching=False).
+        encoder's defaults are kept: switching=True drives 256/2048
+        block switching from the envelope pass (False forces long-only).
 
         psy_state=True (default) threads the reference's cross-frame
         psychoacoustic state through the batched pipeline -- ampmax
@@ -325,6 +332,405 @@ class FastEncoder:
     def _finish_step(self, W, B, wb=None):
         return self._cached_step("finish", W, B, wb, lambda: self._dev_for(
             W).make_finish_step(B, wb))
+
+    # -- block switching (envelope-driven 256/2048) -----------------------
+    _ENV_STEPS = 8192        # envelope chunk, in 64-sample steps
+    _ENV_HIST = 32           # history overlap (nearDC window + stretch)
+    _ENV_NC = 8              # env chunks per dispatch (batch mode)
+
+    def _env_chunk_step(self, NC):
+        """(x64 (ch, R, 64), starts (NC,) row offsets) -> (NC, E) bool
+        marks.  Row-gathers envelope chunks from the concatenated
+        multi-stream array so one dispatch covers chunks of MANY
+        streams (encode_batch's envelope pass)."""
+        if not hasattr(self, "_env_steps_cache"):
+            self._env_steps_cache = {}
+        if NC not in self._env_steps_cache:
+            env = self._env_obj()
+            E = self._ENV_STEPS
+            ch = self.ch
+
+            def step(x64, starts):
+                rows = (starts.long()[:, None]
+                        + torch.arange(E + 1, device=x64.device)[None, :])
+                sl = x64[:, rows]                    # (ch, NC, E+1, 64)
+                x = sl.reshape(ch, NC, (E + 1) * 64)
+                if x.dtype != torch.float32:
+                    x = x.to(torch.float32) / 32768.0
+                return env.marks_nd(x)
+
+            self._env_steps_cache[NC] = step
+        return self._env_steps_cache[NC]
+
+    @staticmethod
+    def _to_host(tensors):
+        """Device tensors -> host numpy arrays: one non-blocking copy
+        into pinned memory each, then one synchronize (a CPU tensor is
+        read as it is)."""
+        outs = []
+        for t in tensors:
+            if t.is_cuda:
+                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                h.copy_(t, non_blocking=True)
+                t = h
+            outs.append(t)
+        if any(t.is_pinned() for t in outs):
+            torch.cuda.synchronize()
+        return [t.numpy() for t in outs]
+
+    def _envelope_marks_multi(self, x64, metas):
+        """Batched envelope pass over the concatenated stream array.
+        metas: [(ns, base_row, Si)] per stream (Si >= one envelope
+        chunk).  Returns per-stream bool mark arrays."""
+        E, H = self._ENV_STEPS, self._ENV_HIST
+        plans = []            # (stream, dst_step, lo, take, abs_row)
+        for si, (ns, base, Si) in enumerate(metas):
+            nsteps = Si // 64 - 1
+            s = 0
+            while s < nsteps:
+                s0 = min(max(0, s - H), max(0, Si // 64 - (E + 1)))
+                lo = s - s0
+                take = min(E - lo, nsteps - s)
+                plans.append((si, s, lo, take, base + s0))
+                s += take
+        # eager steps need no fixed shape: a group of fewer chunks than
+        # _ENV_NC runs at its own size (each chunk's marks are its own)
+        NC = min(self._ENV_NC, len(plans))
+        step = self._env_chunk_step(NC)
+        st = np.zeros((-(-len(plans) // NC), NC), np.int32)
+        st.reshape(-1)[:len(plans)] = [g[4] for g in plans]
+        std = torch.from_numpy(st).to(x64.device)
+        outs = self._to_host([step(x64, std[o]) for o in range(len(st))])
+        marks = [np.zeros(Si // 64 - 1, bool) for (_, _, Si) in metas]
+        for o, dn in enumerate(outs):
+            for j, (si, s, lo, take, _) in enumerate(
+                    plans[o * NC:(o + 1) * NC]):
+                marks[si][s:s + take] = dn[j, lo:lo + take]
+        return marks
+
+    _RESCUE_PAD = 30     # steps: stretch re-saturates after 24
+                         # trigger-free steps, plus mark spill margin
+
+    def _env_obj(self):
+        if not hasattr(self, "_env_rescue_obj"):
+            from ..ops.torchdsp import DeviceEnvelope
+            self._env_rescue_obj = DeviceEnvelope(
+                self.setup.psy_global, self.ch, device=self.device)
+        return self._env_rescue_obj
+
+    _RESCUE_G = 128     # clusters per trigger-table dispatch
+
+    def _rescue_trig_step(self, G, Lmax, Lw):
+        """(x64, rows (G, Lmax) i32, nr (G,), ofs (G,)) -> (T1, T2)
+        (MAXSTRETCH+1, G, Lw/8) uint8 bit-packed trigger tables, the
+        ENTIRE per-cluster envelope replay on the device: gather the
+        cluster's 64-sample rows, recompute the 12-band amplitudes
+        (DeviceEnvelope.band_amps, the math of marks_nd), build the
+        sliding pre-window extrema for every distinct (stretch-window,
+        penalty) combo and compare against the pre/post-echo
+        thresholds.  Only these tables reach the host, which is left
+        with pure boolean indexing.  Reference walk:
+        envelope.c:569-681."""
+        if not hasattr(self, "_rescue_trig_cache"):
+            self._rescue_trig_cache = {}
+        key = (G, Lmax, Lw)
+        if key not in self._rescue_trig_cache:
+            from ..ops import envelope as ENV
+            env = self._env_obj()
+            gi = self.setup.psy_global
+            sp_pen = float(gi["stretch_penalty"])
+            pre_t = np.asarray(gi["preecho_thresh"], np.float32)
+            post_t = np.asarray(gi["postecho_thresh"], np.float32)
+            MNS = ENV.VE_MINSTRETCH
+            MXS = ENV.VE_MAXSTRETCH
+            zpad = MXS + 2
+            ch = self.ch
+            Lacc = Lmax - 1
+            Lp = zpad + Lacc
+            dev = self.device
+            # the distinct (window, penalty) combos and their thresholds
+            combos, which = {}, []
+            for s2 in range(MXS + 1):
+                su = max(MNS, s2)
+                pen = f32(min(max(sp_pen - (s2 - MNS), 0.0), sp_pen))
+                ck = (su, float(pen))
+                if ck not in combos:
+                    combos[ck] = tuple(torch.from_numpy(t).to(dev) for t in (
+                        pre_t + pen, post_t - pen))
+                which.append(ck)
+            wts = torch.tensor([1, 2, 4, 8, 16, 32, 64, 128],
+                               dtype=torch.int32, device=dev)
+            steps = torch.arange(Lmax, device=dev)
+            wsteps = torch.arange(Lw, device=dev)
+
+            def step(x64, rows, nr, ofs):
+                sl = x64[:, rows.long().reshape(-1)].reshape(ch, G, Lmax, 64)
+                if sl.dtype != torch.float32:
+                    sl = sl.to(torch.float32) / 32768.0
+                # zero rows at/past each cluster's end (the scalar's
+                # zero-initialized ampbuf history semantics)
+                valid = steps[None, :] < nr[:, None]
+                sl = sl * valid[None, :, :, None].to(torch.float32)
+                frames = torch.cat([sl[:, :, :-1], sl[:, :, 1:]], -1)
+                acc = env.band_amps(frames)          # (ch, G, Lacc, 12)
+                accp = torch.nn.functional.pad(acc, (0, 0, zpad, 0))
+                pos = torch.clamp(zpad + ofs.long()[:, None]
+                                  + wsteps[None, :], 0, Lp - 1)  # (G, Lw)
+
+                def take(a, idx):
+                    return torch.gather(a, 2, idx[None, :, :, None].expand(
+                        ch, G, Lw, a.shape[-1]))
+
+                cur = take(accp, pos)
+                prv = take(accp, torch.clamp_min(pos - 1, 0))
+                postmax = torch.maximum(cur, prv)
+                postmin = torch.minimum(cur, prv)
+                res = {}
+                for (su, pen), (pre_thr, post_thr) in combos.items():
+                    pmx = accp[:, :, :Lp - su + 1]
+                    pmn = pmx
+                    for s in range(1, su):
+                        seg = accp[:, :, s:s + Lp - su + 1]
+                        pmx = torch.maximum(pmx, seg)
+                        pmn = torch.minimum(pmn, seg)
+                    pw = torch.clamp(pos - 1 - su, 0, Lp - su)
+                    t1 = ((postmax - take(pmx, pw)) > pre_thr).any(-1).any(0)
+                    t2 = ((postmin - take(pmn, pw)) < post_thr).any(-1).any(0)
+                    res[(su, pen)] = (t1, t2)
+
+                # bit-pack along the step axis (8 steps a byte, LSB
+                # first): 8x fewer bytes cross to the host
+                def pack(ts):
+                    s = torch.stack(ts).to(torch.int32)
+                    s = s.reshape(s.shape[0], G, Lw // 8, 8)
+                    return (s * wts).sum(-1).to(torch.uint8)
+
+                return (pack([res[ck][0] for ck in which]),
+                        pack([res[ck][1] for ck in which]))
+
+            self._rescue_trig_cache[key] = step
+        return self._rescue_trig_cache[key]
+
+    def _rescue_trig_tables(self, x64, jobs):
+        """Device trigger tables for a list of rescue jobs: bucket
+        clusters by padded row length, dispatch every group before
+        fetching any (one non-blocking copy a group, one synchronize),
+        and scatter the per-group results into (MAXSTRETCH+1, C, Lwmax)
+        host bool arrays indexed [stretch//2, cluster, window step]."""
+        from ..ops import envelope as ENV
+        MXS = ENV.VE_MAXSTRETCH
+        R = int(x64.shape[1])
+        C = len(jobs)
+        nrs = [j[8] for j in jobs]
+        wls = [j[5] - j[4] for j in jobs]
+        Lwmax = max(wls)
+
+        def bucket(n):
+            b = 128
+            while b < n:
+                b *= 2
+            return b
+
+        order = sorted(range(C), key=lambda i: bucket(nrs[i]))
+        T1 = np.zeros((MXS + 1, C, Lwmax), bool)
+        T2 = np.zeros((MXS + 1, C, Lwmax), bool)
+        groups, pend = [], []
+        i = 0
+        while i < len(order):
+            Lb = bucket(nrs[order[i]])
+            grp = [order[i]]
+            i += 1
+            while (i < len(order) and len(grp) < self._RESCUE_G
+                   and bucket(nrs[order[i]]) == Lb):
+                grp.append(order[i])
+                i += 1
+            G = self._RESCUE_G if len(grp) > 8 else 8
+            # rows (G, Lb), nr and ofs in one upload
+            arg = np.zeros((G, Lb + 2), np.int32)
+            for g, ji in enumerate(grp):
+                _, _, base, _, w0, _, _, r0, nrj = jobs[ji]
+                arg[g, :nrj] = np.minimum(base + r0 + np.arange(nrj),
+                                          R - 1)
+                arg[g, Lb] = nrj
+                arg[g, Lb + 1] = w0 - r0
+            argd = torch.from_numpy(arg).to(x64.device)
+            step = self._rescue_trig_step(G, Lb, Lb)
+            d1, d2 = step(x64, argd[:, :Lb], argd[:, Lb], argd[:, Lb + 1])
+            groups.append(grp)
+            pend.append(torch.stack([d1, d2]))
+        for grp, d in zip(groups, self._to_host(pend)):
+            h1 = np.unpackbits(d[0], axis=-1, bitorder="little")
+            h2 = np.unpackbits(d[1], axis=-1, bitorder="little")
+            for g, ji in enumerate(grp):
+                wl = min(wls[ji], h1.shape[2])
+                T1[:, ji, :wl] = h1[:, g, :wl]
+                T2[:, ji, :wl] = h2[:, g, :wl]
+        return T1, T2
+
+    def _stretch_rescue(self, x64, metas, marks):
+        """Exact envelope `stretch` hysteresis around candidate marks.
+
+        The batched detector runs at the steady-state stretch and
+        penalty (envelope.c's serial feedback would serialize 8k tiny
+        steps per chunk), which over-triggers right after an impulse.
+        Steady regions (>= 24 trigger-free steps) ARE exact, and any
+        trigger is itself a steady-state candidate, so only candidate
+        neighborhoods need fixing: dilate candidate clusters, replay
+        the per-(stretch, penalty) trigger decisions ON THE DEVICE
+        (_rescue_trig_tables: only boolean trigger tables reach the
+        host), then advance the reference's serial walk
+        (_ve_envelope_search: stretch grows to 2*VE_MAXSTRETCH, resets
+        on a pre-echo trigger; the pre-window and penalty follow
+        stretch//2) over the tables, replacing the marks.
+
+        The walk runs in lockstep across clusters in the host C
+        (_rescue_walk_batch).  Clusters whose stretch state leaks past
+        the window end (a trigger within SMAX+2 steps of it) take the
+        per-cluster serial path with window extension
+        (_rescue_cluster_serial), interleaved in job order so
+        overlapping extended windows overwrite exactly like the
+        all-serial walk does."""
+        PAD = self._RESCUE_PAD
+        K_long = 3 * (self.n // 4) + self.vi.blocksizes[0] // 4
+        lead = 17 + 14       # nearDC window + pre-window lead-in
+
+        # --- phase 1: cluster discovery across ALL streams
+        jobs = []
+        for (ns, base, Si), mk in zip(metas, marks):
+            nst = len(mk)
+            # marks past the schedule's look-ahead horizon (tail pad
+            # territory) can't change any block decision
+            reach = min(nst,
+                        (self.n // 2 + ns + K_long) // 64 + PAD)
+            cand = np.flatnonzero(mk[:reach])
+            if not len(cand):
+                continue
+            clusters = []
+            a = b = int(cand[0])
+            for c in cand[1:]:
+                if c - b <= 2 * PAD:
+                    b = int(c)
+                else:
+                    clusters.append((a, b))
+                    a = b = int(c)
+            clusters.append((a, b))
+            for a, b in clusters:
+                w0 = max(0, a - PAD)
+                w1 = min(nst, b + PAD)
+                r0 = max(0, w0 - lead)
+                rhi = min(Si // 64, w1 + 2)
+                jobs.append([mk, nst, base, Si, w0, w1, b, r0,
+                             rhi - r0])
+        if not jobs:
+            return
+        T1, T2 = self._rescue_trig_tables(x64, jobs)
+
+        if getattr(self, "_rescue_force_serial", False):
+            # test hook: the all-serial walk the lockstep batch is
+            # held bitwise-equal to (tests/test_torch_switching.py)
+            for ci, job in enumerate(jobs):
+                self._rescue_cluster_serial(
+                    x64, job, T1[:, ci], T2[:, ci])
+            return
+
+        # --- phase 2: lockstep walk over every cluster at once
+        newmk, retrig = self._rescue_walk_batch(T1, T2, jobs)
+        for ci, job in enumerate(jobs):
+            mk, nst, w0, w1 = job[0], job[1], job[4], job[5]
+            if retrig[ci] and w1 < nst:
+                # stretch state leaks past the window end: replay
+                # this cluster serially with window extension
+                self._rescue_cluster_serial(
+                    x64, job, T1[:, ci], T2[:, ci])
+                continue
+            wl = w1 - w0
+            mk[w0:w1] = newmk[ci, :wl]
+            if w1 < nst and newmk[ci, wl]:
+                mk[w1] = True
+
+    def _rescue_walk_batch(self, T1, T2, jobs):
+        """Phase 2 of _stretch_rescue: the serial stretch state machine
+        advanced across the cluster axis over the device-built trigger
+        tables, in the host C (native.rescue_walk, no fall-back; its
+        plain version is _rescue_walk_plain).  Returns (newmk (C, Lw+2)
+        bool, retrig (C,) bool); marks are written by the caller (or
+        the serial path for retrig clusters)."""
+        from ..ops import envelope as ENV
+        wlen = np.asarray([j[5] - j[4] for j in jobs])  # w1 - w0
+        return native.rescue_walk(T1, T2, wlen, 2 * ENV.VE_MAXSTRETCH)
+
+    @staticmethod
+    def _rescue_walk_plain(T1, T2, wlen, smax):
+        """The lockstep walk in numpy (the JAX module's fall-back): only
+        the per-step stretch counter is serial state, so all clusters
+        advance together through one boolean-indexing state machine.
+        The plain version native.rescue_walk is held against
+        (tests/test_torch_switching.py)."""
+        C = len(wlen)
+        Lw = T1.shape[2]
+        cidx = np.arange(C)
+        newmk = np.zeros((C, Lw + 2), bool)
+        stretch = np.full(C, smax, np.int64)
+        retrig = np.zeros(C, bool)
+        for k in range(Lw):
+            act = k < wlen
+            stretch = np.minimum(stretch + 1, smax)
+            s2 = stretch >> 1
+            t1 = T1[s2, cidx, k] & act
+            t2 = T2[s2, cidx, k] & act
+            newmk[:, k] |= t1 | t2
+            newmk[:, k + 1] |= t1
+            if k > 0:
+                newmk[:, k - 1] |= t2
+            retrig |= t1 & (k >= wlen - (smax + 2))
+            stretch = np.where(t1, -1, stretch)
+        return newmk, retrig
+
+    def _rescue_cluster_serial(self, x64, job, T1c, T2c):
+        """The per-cluster reference walk (window extends while a
+        trigger lands within SMAX+2 steps of its end): the exact
+        serial replay of _ve_envelope_search over one cluster, over
+        the SAME device-built trigger tables as the lockstep batch
+        (T1c/T2c: (VE_MAXSTRETCH+1, >= w1-w0) bool, indexed
+        [stretch//2, window step])."""
+        from ..ops import envelope as ENV
+        PAD = self._RESCUE_PAD
+        SMAX = 2 * ENV.VE_MAXSTRETCH
+        while True:
+            mk, nst, _, Si, w0, w1 = job[:6]
+            newmk = np.zeros(w1 - w0 + 2, bool)
+            stretch = SMAX
+            retrig_tail = False
+            for j in range(w0, w1):
+                stretch = min(stretch + 1, SMAX)
+                s2 = stretch >> 1
+                k = j - w0
+                if T1c[s2, k]:
+                    newmk[k] = True
+                    newmk[k + 1] = True
+                if T2c[s2, k]:
+                    newmk[k] = True
+                    if k > 0:
+                        newmk[k - 1] = True
+                if T1c[s2, k]:
+                    stretch = -1
+                    if j >= w1 - (SMAX + 2):
+                        retrig_tail = True
+            if retrig_tail and w1 < nst:
+                # trigger near the window end: stretch state leaks —
+                # extend the window and rebuild this cluster's tables
+                # on the device (same math as the batch pass)
+                b = w1 + PAD
+                job[5] = w1 = min(nst, b + PAD)
+                job[6] = b
+                job[8] = min(Si // 64, w1 + 2) - job[7]
+                Tn1, Tn2 = self._rescue_trig_tables(x64, [job])
+                T1c, T2c = Tn1[:, 0], Tn2[:, 0]
+                continue
+            mk[w0:w1] = newmk[:w1 - w0]
+            if w1 < nst and newmk[w1 - w0]:
+                mk[w1] = True
+            break
 
     def _edge_pads(self, pcm, hop, tail, src=None):
         """LPC stream-edge extensions for the lap pads (reference:
@@ -523,7 +929,8 @@ class FastEncoder:
         shorts): packet i's bytes are blob[off[i]:off[i] +
         ((nbits[i]+7)>>3)] -- the stateless gather runner's contract.
         Phase times land in `last_profile`.  A long-only schedule
-        still opens each stream with one short (padding) block."""
+        still opens each stream with one short (padding) block; either
+        list of frames may be empty."""
         if managed:
             raise NotImplementedError(
                 "managed 15-packetblob finish (bitrate=): ROADMAP §1.9")
@@ -681,13 +1088,23 @@ class FastEncoder:
                 lc_l[gl * ch + c] = lc_all[r, li]
                 lc_s[gs * ch + c] = lc_all[r, si]
                 po_l[gl * ch + c] = po_all[r, li]
-        # M3 acts on impulse short blocks only (sw = bm == 0), which
-        # only block switching schedules
-        if nshort and hsrate and any(
-                (a["bm"][r["si"]] == 0).any() for a, r in zip(anns, per)):
-            raise NotImplementedError(
-                "M3 on impulse short blocks (block switching): "
-                "ROADMAP §1.7")
+        # M3 params for all streams' short frames (global short order
+        # IS stream order: gs = sofs + arange), as the finish step's
+        # (6, F) m3vec rows [sw, noise_rate, noise_center, tone_rate,
+        # reset, impad_zero]; M3 acts on impulse short blocks only
+        # (sw = bm == 0), which only block switching schedules
+        m3 = None
+        if nshort and hsrate:
+            sub = {k: np.concatenate(
+                [a[k][r["si"]] for a, r in zip(anns, per)])
+                for k in ("bm", "lW_bm", "lW_no", "impadnum")}
+            toneatt1 = float(self.analysis.look.vi["tone_masteratt"][1])
+            pr = PD.m3_param_seq(sub, self.vi.blocksizes[0] // 2,
+                                 toneatt1, True, managed=managed)
+            m3 = np.stack([pr["sw"], pr["noise_rate"],
+                           pr["noise_center"], pr["tone_rate"],
+                           pr["reset"], sub["impadnum"] == 0]
+                          ).astype(np.float32)
 
         # --- the global lastmdct-contribution buffer: every batch's
         # rows plus one zero row at index zrow; it stays on the device
@@ -696,7 +1113,8 @@ class FastEncoder:
                                          device=dev)], 0)
 
         # --- phase B: finish all batches, then drain
-        def run_finish(W, outs, B, amp, lc, po, tr, prevrows, wids):
+        def run_finish(W, outs, B, amp, lc, po, tr, prevrows, wids,
+                       m3=None):
             devW = self._dev_for(W)
             nbat = len(outs)
             F = len(amp)
@@ -717,6 +1135,10 @@ class FastEncoder:
                       else np.zeros(F, np.int64)).astype(np.float32),
                      3.0)], 1).astype(np.float32)).to(dev)
             prevd = torch.from_numpy(rows(prevrows, zrow)).to(dev)
+            # short mode: every batch's (6, B) M3 rows, pads at 0
+            m3d = None if m3 is None else torch.from_numpy(
+                np.ascontiguousarray(self._pad_to(m3.T, nbat * B).reshape(
+                    nbat, B, 6).transpose(0, 2, 1))).to(dev)
 
             def args(bi):
                 o = outs[bi]
@@ -725,7 +1147,7 @@ class FastEncoder:
                                           dtype=torch.float32,
                                           device=dev))
                 return (o[0], o[1], o[2], o[3], o[4], lastm, o[6],
-                        fsd[bi])
+                        fsd[bi], None if m3d is None else m3d[bi])
 
             step = self._finish_step(W, B)
             pend = [step(*args(bi)) for bi in range(nbat)]
@@ -744,7 +1166,7 @@ class FastEncoder:
             [a["bm"][r["si"]] for a, r in zip(anns, per)]) == 1
         res_s = run_finish(0, pa_s, B_short, amp_s, lc_s,
                            np.full(nshort * ch, -1.0, np.float32), pad_s,
-                           prev_s, None)
+                           prev_s, None, m3)
         prof["finish"] = _time.perf_counter() - _t0
         return res_l, res_s
 
@@ -781,9 +1203,6 @@ class FastEncoder:
         the LPC pads); lengths may differ.  Returns a list of Ogg byte
         strings (one per stream)."""
         sw = self.switching if switching is None else switching
-        if sw:
-            raise NotImplementedError(
-                "block switching (switching=True): ROADMAP §1.7")
         if serialnos is None:
             serialnos = [778 + i for i in range(len(pcms))]
         x64, per = self._prepare_switched(pcms, sw)
@@ -825,15 +1244,14 @@ class FastEncoder:
         streams) and the per-stream block schedules.  Returns
         (x64 (ch, R, 64), per) where each per-stream record carries
         cs/Ws/li/si/starts/wid/impulse/rows and the global long/short
-        offsets.  The envelope pass of switching=True comes with
-        ROADMAP §1.7."""
-        if sw:
-            raise NotImplementedError(
-                "block switching (envelope marks): ROADMAP §1.7")
+        offsets.  With sw, the batched envelope marks and the exact
+        stretch rescue drive each stream's schedule (every stream is
+        padded to at least one envelope chunk)."""
         ch = self.ch
         hop = self.n // 2
         n0 = self.vi.blocksizes[0]
         dev = self.device
+        minS = (self._ENV_STEPS + 1) * 64 if sw else 0
         srcs = []
         for pcm in pcms:
             if torch.is_tensor(pcm):
@@ -844,33 +1262,27 @@ class FastEncoder:
                 pcm = np.asarray(pcm, np.float32)
             srcs.append(pcm)
         # every device-resident stream's two edge slices go to the host
-        # in one wave (non-blocking copies into pinned buffers, one
-        # synchronize) before any LPC pad is computed
-        edges = []
+        # in one wave before any LPC pad is computed
+        ws, cuts = [], []
         for pcm in srcs:
-            if not torch.is_tensor(pcm):
-                edges.append(None)
-                continue
-            ns = int(pcm.shape[1])
-            w = int(min(ns, 4 * self.n))
-            e = torch.cat([pcm[:, :w], pcm[:, ns - w:]], 1)
-            if e.is_cuda:
-                h = torch.empty(e.shape, dtype=e.dtype, pin_memory=True)
-                h.copy_(e, non_blocking=True)
-                e = h
-            edges.append((e, w))
-        if any(e is not None and e[0].is_pinned() for e in edges):
-            torch.cuda.synchronize(dev)
+            if torch.is_tensor(pcm):
+                ns = int(pcm.shape[1])
+                w = int(min(ns, 4 * self.n))
+                ws.append(w)
+                cuts.append(torch.cat([pcm[:, :w], pcm[:, ns - w:]], 1))
+        host = iter(zip(self._to_host(cuts), ws))
+        edges = [next(host) if torch.is_tensor(pcm) else None
+                 for pcm in srcs]
         metas, parts = [], []
         base = 0
         for pcm, edge in zip(srcs, edges):
             assert pcm.shape[0] == ch
             ns = int(pcm.shape[1])
             Si = ((ns + hop + 4 * hop + 63) // 64) * 64 + 64
+            Si = max(Si, minS)
             tail = Si - ns - hop
             if edge is not None:
                 e, w = edge
-                e = e.numpy()
                 front, tailbuf = self._edge_pads(
                     pcm, hop, tail, src=(e[:, :w], e[:, w:]))
                 # both pads in one upload, joined around the resident
@@ -892,12 +1304,19 @@ class FastEncoder:
                      if p.dtype != torch.float32 else p for p in parts]
         x64 = parts[0] if len(parts) == 1 else torch.cat(parts, 1)
 
+        # envelope marks (all streams batched) + exact-stretch rescue
+        # around candidate clusters
+        if sw:
+            marks = self._envelope_marks_multi(x64, metas)
+            self._stretch_rescue(x64, metas, marks)
+        else:
+            marks = [np.zeros(Si // 64 - 1, bool) for (_, _, Si) in metas]
+
         # per-stream block schedule -> global frame lists
         per = []
         nlong = nshort = 0
-        for ns, brow, Si in metas:
-            cs, Ws, impulse = self._schedule(
-                np.zeros(Si // 64 - 1, bool), ns)
+        for (ns, brow, Si), mk in zip(metas, marks):
+            cs, Ws, impulse = self._schedule(mk, ns)
             lW = np.concatenate([[1], Ws[:-1]])
             nW = np.concatenate([Ws[1:], [Ws[-1]]])
             bsz = np.where(Ws == 1, self.n, n0)
@@ -939,6 +1358,10 @@ class FastEncoder:
         return w.pageout_all()
 
     # -- host side ---------------------------------------------------------
+    def _encode_switched(self, pcm, serialno, comments):
+        return self.encode_batch([pcm], [serialno], comments,
+                                 switching=True, B_long=1024)[0]
+
     def encode(self, pcm, serialno=778, comments=None,
                switching=None) -> bytes:
         """Full VBR fast encode of (ch, samples) -> Ogg bytes.
@@ -954,8 +1377,7 @@ class FastEncoder:
         """
         sw = self.switching if switching is None else switching
         if sw:
-            raise NotImplementedError(
-                "block switching (switching=True): ROADMAP §1.7")
+            return self._encode_switched(pcm, serialno, comments)
         if self.psy_state:
             # the stateful pipeline runs through the batch path (an
             # all-long schedule when switching is off)

@@ -4,8 +4,8 @@ vorbis_tpu/native.py).
 Every source under `csrc/` is compiled at first use into
 build/vorbis_tpu_torch/ beside the package, under a name keyed by a hash
 of the source and the flags, and bound with ctypes: the host C
-(`csrc/host_ogg.c`: the Ogg page CRC, the audio pager and the blockout
-schedule) with `cc`, the CUDA kernels
+(`csrc/host_ogg.c`: the Ogg page CRC, the audio pager, the stretch-rescue
+walk and the blockout schedule) with `cc`, the CUDA kernels
 (`ops/floor_cuda.py`) with `nvcc`.  There is no fall-back: a missing
 compiler or a failed build raises.
 """
@@ -78,6 +78,10 @@ def host_library() -> ctypes.CDLL:
     lib.vtt_ogg_pages.argtypes = [
         u8, ctypes.c_long, u8, ctypes.c_long, i64, u8, i64, i64,
         ctypes.c_long, ctypes.c_uint32, ctypes.c_int, ctypes.c_int, u8, i64]
+    i32 = np.ctypeslib.ndpointer(np.int32, flags="C")
+    lib.vtt_rescue_walk.restype = ctypes.c_long
+    lib.vtt_rescue_walk.argtypes = [u8, u8, ctypes.c_long, ctypes.c_long,
+                                    i32, ctypes.c_int, u8, u8]
     lib.vtt_schedule.restype = ctypes.c_long
     lib.vtt_schedule.argtypes = [u8, ctypes.c_long, ctypes.c_long,
                                  ctypes.c_long, ctypes.c_long, i64, i64, u8]
@@ -114,6 +118,28 @@ def ogg_pages(pk_l, pk_s, ilk, isshort, sizes, gps, serialno, pageno,
         pk_l, wl, pk_s, ws, ilk, iss, sizes, gps, npkt,
         serialno & 0xFFFFFFFF, per_page, 1 if eos_last else 0, out, pgio)
     return out[:n].tobytes(), int(pgio[0])
+
+
+def rescue_walk(T1, T2, wlen, smax):
+    """Stretch-rescue lockstep walk over the device-built trigger tables
+    (T1/T2: (smax//2+1, C, Lw) bool, wlen: (C,) window lengths) in the
+    host C.  Returns (newmk (C, Lw+2) bool, retrig (C,) bool).
+    Reference state machine: envelope.c:569-681."""
+    T1 = np.ascontiguousarray(T1, np.uint8)
+    T2 = np.ascontiguousarray(T2, np.uint8)
+    _, Cc, Lw = T1.shape
+    wlen = np.ascontiguousarray(wlen, np.int32)
+    # the walk reads T[stretch >> 1, c, k] for k < wlen[c]
+    if (T2.shape != T1.shape or T1.shape[0] <= int(smax) >> 1
+            or wlen.shape != (Cc,) or (wlen > Lw).any()):
+        raise ValueError(f"rescue walk: tables {T1.shape} / {T2.shape}, "
+                         f"wlen {wlen.shape} (max {wlen.max(initial=0)}), "
+                         f"smax {smax}")
+    newmk = np.zeros((Cc, Lw + 2), np.uint8)
+    retrig = np.zeros(Cc, np.uint8)
+    host_library().vtt_rescue_walk(T1, T2, Cc, Lw, wlen, int(smax), newmk,
+                                   retrig)
+    return newmk.astype(bool), retrig.astype(bool)
 
 
 def schedule(marks, ns, n0, n1):

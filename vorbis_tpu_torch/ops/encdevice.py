@@ -1069,21 +1069,23 @@ class DeviceFastEncode:
     def make_finish_step(self, F, wb=None):
         """Phase B of the stateful path: spectra + per-frame state ->
         packed packets.  step(md, logmdct, logfft, fit1, dB, lastmdct,
-        lam, fstate): per-row inputs (F*ch) lastmdct (gathered from the
-        global L buffer) and lam; fstate packs [ampmax (F),
-        lowcomp (F*ch), poste (F*ch), trans (F), wid (F)] as ONE
-        float32 vector per batch (trans: block_mode==2 in long mode,
-        a padding block (bm==1) in short mode).  M3 (the short-mode
-        tempmdct scan and apply) is left out: it changes only impulse
-        short blocks, which the caller never passes until block
-        switching lands (ROADMAP §1.7)."""
+        lam, fstate, m3vec=None): per-row inputs (F*ch) lastmdct
+        (gathered from the global L buffer) and lam; fstate packs
+        [ampmax (F), lowcomp (F*ch), poste (F*ch), trans (F), wid (F)]
+        as ONE float32 vector per batch (trans: block_mode==2 in long
+        mode, a padding block (bm==1) in short mode); m3vec (6, F)
+        likewise packs the short-mode M3 fields [sw, noise_rate,
+        noise_center, tone_rate, reset, impad_zero]: the tempmdct scan
+        (the short ctx's m3_scan, the CUDA kernel on the card) and
+        m3_apply run on it."""
         wb = wb or self.plan.wb
         ch = self.ch
         da = self.ctx.analysis
         look = da.look
         from . import psydevice as PD
 
-        def step(md, logmdct, logfft, fit1, dB, lastmdct, lam, fstate):
+        def step(md, logmdct, logfft, fit1, dB, lastmdct, lam, fstate,
+                 m3vec=None):
             o = 0
             ampmax = fstate[o:o + F]
             o += F
@@ -1110,6 +1112,24 @@ class DeviceFastEncode:
             val = torch.clamp_max(logmask + noff, da.noisemaxsupp)
             tval = tone + da.toneatt1
             tval = PD.lowcompand_tval(look, tval, lowcomp, 1)
+            if not self.W and m3vec is not None:
+                m3 = dict(sw=m3vec[0] > 0.5, noise_rate=m3vec[1],
+                          noise_center=m3vec[2], tone_rate=m3vec[3],
+                          reset=m3vec[4] > 0.5,
+                          impad_zero=m3vec[5] > 0.5)
+                n2 = look.n
+                shp = (F, ch, n2)
+                lm3 = logmdct[:, :n2].reshape(shp)
+                last3 = lastmdct.reshape(F, ch, -1)
+                temps = self.ctx.m3_scan(lm3, last3, val.reshape(shp),
+                                         tval.reshape(shp), m3)
+                v2, t2, npk2 = PD.m3_apply(
+                    look, val.reshape(shp), tval.reshape(shp), lm3, last3,
+                    temps, npeak.reshape((F, ch, -1)), m3,
+                    m3["impad_zero"])
+                val = v2.reshape(F * ch, n2)
+                tval = t2.reshape(F * ch, n2)
+                npeak = npk2.reshape(F * ch, -1)
             md2, mask = da.mix_m4_m1(md, logmdct, val, tval, 1)
             w = torch.repeat_interleave(wid, ch) if self.W else None
             posts, used = self.ctx.floor(logmdct, mask)

@@ -32,10 +32,10 @@ couplings:
      op order, up to the reduction order of a few sums
      (tests/test_torch_psystate.py counts the decisions that flip).
 
-M3's tempmdct scan and apply act only on impulse short blocks, which
-only block switching (ROADMAP §1.7) produces; a long-only stream's
-short blocks are padding blocks, where M3 changes nothing, and the
-finish step leaves it out.
+M3 (m3_tempmdct_scan, m3_apply) acts on the impulse short blocks that
+block switching schedules: the scan's plain version is here, and the
+short finish step runs it through ops/m3_cuda.make_m3_scan (the CUDA
+kernel csrc/m3_scan.cu on the card).
 """
 
 from __future__ import annotations
@@ -516,6 +516,146 @@ def m9_epeak(look, logmdct, epeak_base, lastmdct, active):
     ep = torch.where((temp >= 12.0) & (mi >= 1), mi, 0.0)
     inend = _const(look, "m9_end", np.arange(n) < end, logmdct.device)
     return torch.where(inend & active[..., None], ep, 0.0)
+
+
+def m3_tables(look):
+    """Static M3 spread tables of a short look: (bfn (n,) int, cell
+    (n,) f32, incr (n,) f32, base f32) as set_m3p builds them."""
+    n = look.n
+    t = PSY._tables()
+    bfn = np.asarray(t["freq_bfn128"] if n == 128 else t["freq_bfn256"],
+                     np.int64)
+    cell = (f32(75.0) / bfn.astype(np.float32)).astype(np.float32)
+    base = f32(5.0) if n == 128 else f32(10.0)   # set_m3p constants
+    incr_tab = (base / bfn.astype(np.float32)).astype(np.float32)
+    return bfn, cell, incr_tab, base
+
+
+def m3_tempmdct_scan(look, logmdct, lastmdct, val, tval, params):
+    """Sequential M3 echo buffer over a batch of short frames in
+    stream order (set_m3p's tempmdct maintenance + the main loop's
+    write-back).  logmdct/val/tval: (F, ch, n), lastmdct (F, ch, >=n);
+    params: sw, reset (F,) bool and noise_center (F,) f32 tensors.
+    Returns tempmdct (F, ch, n) as each frame's main loop sees it.
+
+    The plain version of the scan: a Python loop over the frames, the
+    spread's 24 (n = 128) or 50 (n = 256) shifted compares per frame in
+    the JAX module's order, the carry starting at zero on every call
+    (ops/m3_cuda.py holds the CUDA kernel to it).
+
+    Deviation from the C: the spread update's conditions are evaluated
+    against the pre-update buffer (the C applies them bin-serially);
+    increments are fractions of a dB."""
+    n = look.n
+    bfn, cell, incr_tab, base = m3_tables(look)
+    maxnb = int(bfn.max())
+    dev = logmdct.device
+    F, ch, _ = logmdct.shape
+    js = np.arange(1, maxnb)
+    # per shift j: cell[i]*j rounded once (the JAX product) and j < bfn[i]
+    cellj = _const(look, "m3_cellj",
+                   (cell[None, :] * js[:, None].astype(np.float32))
+                   .astype(np.float32), dev)
+    jlt = _const(look, "m3_jlt", js[:, None] < bfn[None, :], dev)
+    incr_j = _const(look, "m3_incr", incr_tab, dev)
+    base = float(base)
+
+    def spread(temp, lm):
+        # for j in 1..maxnb-1: temp[i+j] += base/bfn[i+j]
+        #   if temp[i+j] < lm[i] - cell[i]*j  (and j < bfn[i]),
+        # the conditions on the pre-update buffer; the increments land
+        # on the buffer one by one in j order, as XLA:CPU compiles the
+        # JAX module's `temp + add` (its adds fold onto temp)
+        out = temp.clone()
+        for j in range(1, maxnb):
+            freq = lm[..., :-j] - cellj[j - 1, :-j]
+            cond = (temp[..., j:] < freq) & jlt[j - 1, :-j]
+            out[..., j:] += torch.where(cond, incr_j[j:], 0.0)
+        return out
+
+    sw = params["sw"].to(dev)
+    reset = params["reset"].to(dev)
+    ncen = params["noise_center"].to(dev)
+    carry = torch.zeros((ch, n), dtype=torch.float32, device=dev)
+    outs = []
+    for f in range(F):
+        lm, last = logmdct[f], lastmdct[f, :, :n]
+        tm = torch.where(reset[f], last - base, carry - base)
+        tm = spread(tm, lm)
+        trig = sw[f] & (val[f] > tval[f]) & (val[f] > last) \
+            & (lm > tm + ncen[f])
+        tm = torch.where(trig, lm, tm)
+        carry = torch.where(sw[f], tm, carry)
+        outs.append(carry)
+    return torch.stack(outs) if outs else torch.zeros_like(logmdct)
+
+
+def m3_apply(look, val, tval, logmdct, lastmdct, tempmdct, npeak,
+             params, impad_zero):
+    """The M3 main loop (psy.c:4345-4400) applied elementwise over a
+    batch of short frames.  Returns (val', tval', npeak').
+    impad_zero: (F,) bool — impadnum==0 (the tone-accent branch only
+    runs then)."""
+    n = look.n
+    m3n = look.m3n
+    part = _part(look)
+    dev = val.device
+    sw = params["sw"][:, None, None]
+    nrate = params["noise_rate"][:, None, None]
+    ncen = params["noise_center"][:, None, None]
+    trate = params["tone_rate"][:, None, None]
+    iz = impad_zero[:, None, None]
+
+    last = lastmdct[..., :n]
+    m3cond = sw & (val > tval) & (val > last) \
+        & (logmdct > tempmdct + ncen)
+    # rate_mod by region (noise_rate_low is always 0 in set_m3p)
+    rate_mod = torch.where(logmdct > last, nrate, 0.0)
+    # tone accent (only when impadnum==0, low bins, sharp rise)
+    dBsub = logmdct - last
+    toneac = m3cond & iz & _const(look, "m3_tonecomp",
+                                  np.arange(n) < look.tonecomp_endp, dev) \
+        & (val - last > 20.0) & (dBsub > 25.0)
+    tr_cur = torch.where(dBsub < 35.0,
+                         trate * ((35.0 - dBsub) * float(f32(0.1))), trate)
+    tv_ac = torch.clamp_min(tval - tr_cur, -100.0)
+    tv_ac = torch.where(logmdct - tv_ac > 48.0, logmdct - 48.0, tv_ac)
+    apply_ac = toneac & (tval > -100.0) & (logmdct - tval < 48.0)
+    tval2 = torch.where(apply_ac, tv_ac, tval)
+    # regional main threshold
+    b = np.arange(n)
+    mainth = _const(look, "m3_mainth", np.where(
+        b > int(m3n[0]), f32(30.0),
+        np.where(b > int(m3n[1]), f32(20.0), f32(10.0))), dev)
+    rmod = torch.where(
+        _const(look, "m3_hi", b > int(m3n[1]), dev), rate_mod,
+        torch.where(_const(look, "m3_mid", b > int(m3n[2]), dev),
+                    rate_mod * 0.5, rate_mod * float(f32(0.3))))
+    diff = val - tval2
+    valmask = torch.where(diff > mainth,
+                          ((diff - mainth) * float(f32(0.1)) + mainth) * rmod,
+                          diff * rmod)
+    vnew = torch.maximum(val - valmask, last)
+    # tone-accent post pull-down
+    temp2 = vnew - torch.clamp_min(last, -140.0)
+    vnew = torch.where(toneac & (temp2 > 20.0),
+                       vnew - (temp2 - 20.0) * float(f32(0.2)), vnew)
+    val_out = torch.where(m3cond, vnew, val)
+    tval_out = torch.where(m3cond, tval2, tval)
+    # npeak: -1 where any toneac bin in the partition; else 0 where
+    # any m3 bin hit and npeak>0
+    nparts = npeak.shape[-1]
+    kmax = min(nparts, n // part)
+    ta = toneac            # npeak -1 follows toneac alone (psy.c)
+    ta_p = ta[..., :kmax * part].reshape(
+        ta.shape[:-1] + (kmax, part)).any(-1)
+    hit_p = m3cond[..., :kmax * part].reshape(
+        m3cond.shape[:-1] + (kmax, part)).any(-1)
+    cur = npeak[..., :kmax]
+    cur = torch.where(hit_p & (cur > 0), 0.0, cur)
+    cur = torch.where(ta_p, -1.0, cur)
+    npeak = torch.cat([cur, npeak[..., kmax:]], -1)
+    return val_out, tval_out, npeak
 
 
 def lowcompand_tval(look, tval, lowcomp, select):

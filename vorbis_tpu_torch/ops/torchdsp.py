@@ -484,3 +484,123 @@ class DeviceToneMask:
                            torch.clamp_max(minv, self.tone_abs_limit),
                            NEGINF)
         return torch.maximum(flr, minv)
+
+
+def block_cumsum(x, base=16):
+    """Prefix sum over the last axis in the summation order of the JAX
+    package's `jnp.cumsum` on the CPU (XLA rewrites the cumulative
+    reduce-window into blocks of `base`): a sequential sum inside each
+    block, the blocks' totals scanned the same way recursively, and
+    each block's exclusive prefix added to its elements.  Written as
+    explicit adds, so the card rounds exactly as the CPU does (a
+    library scan would sum in its own order)."""
+    n = x.shape[-1]
+    if n == 0:
+        return x
+    m = -(-n // base) * base
+    blk = torch.nn.functional.pad(x, (0, m - n)).reshape(
+        x.shape[:-1] + (m // base, base))
+    cols = [blk[..., 0]]
+    for k in range(1, base):
+        cols.append(cols[-1] + blk[..., k])
+    inner = torch.stack(cols, -1)
+    if m // base > 1:
+        pre = block_cumsum(inner[..., -1], base)
+        excl = torch.nn.functional.pad(pre[..., :-1], (1, 0))
+        inner = inner + excl[..., None]
+    return inner.reshape(x.shape[:-1] + (m,))[..., :n]
+
+
+class DeviceEnvelope:
+    """Batched transient detector for the fast encoder's block
+    switching (reference: lib/envelope.c _ve_envelope_search/_ve_amp),
+    counterpart of jaxdsp.DeviceEnvelope (`__init__`, `marks`,
+    `marks_nd`; host setup line for line).
+
+    Per 64-sample step: a sin^2-windowed 128-point MDCT per channel
+    (one fp32 GEMM against the basis, TF32 off), 12 weighted bands
+    through pre/post-echo threshold triggers, at the FIXED
+    steady-state stretch (VE_MAXSTRETCH) and its penalty; the exact
+    serial stretch is restored around candidate marks by
+    FastEncoder._stretch_rescue."""
+
+    def __init__(self, gi, ch, *, device):
+        from .envelope import (BAND_BEGIN, BAND_END, VE_BANDS,
+                               VE_MAXSTRETCH, VE_NEARDC)
+        import math as _m
+        self.device = torch.device(device)
+        self.ch = ch
+        n = 128
+        i = np.arange(n)
+        t = np.sin(i / (n - 1.0) * _m.pi).astype(np.float32)
+        tabs = {"mdct_win": (t * t).astype(np.float32),
+                "mdct_basis": mdct_basis_np(n)}
+        # band matrix (32 sp bins -> 12 bands, weights * 1/total)
+        Bm = np.zeros((32, VE_BANDS), np.float32)
+        for j in range(VE_BANDS):
+            bn = BAND_END[j]
+            wv = np.sin((np.arange(bn) + 0.5) / bn * _m.pi)
+            Bm[BAND_BEGIN[j]:BAND_BEGIN[j] + bn, j] = \
+                (wv / wv.sum()).astype(np.float32)
+        tabs["Bm"] = Bm
+        self.minV = _c(gi["preecho_minenergy"])
+        self.stretch = VE_MAXSTRETCH
+        pen = max(0.0, float(gi["stretch_penalty"])
+                  - (VE_MAXSTRETCH - 2))
+        tabs["pre_thr"] = (np.asarray(gi["preecho_thresh"], np.float32)
+                           + f32(pen))
+        tabs["post_thr"] = (np.asarray(gi["postecho_thresh"], np.float32)
+                            - f32(pen))
+        vars(self).update(device_tables(tabs, self.device))
+        self.neardc = VE_NEARDC
+
+    def marks(self, x):
+        """x: (ch, S) f32 PCM (S multiple of 64) -> (S//64 - 1,) bool
+        mark flags, one per 64-sample search window."""
+        return self.marks_nd(x[:, None, :])[0]
+
+    def band_amps(self, frames):
+        """Per-step band amplitudes: frames (..., steps, 128) f32 ->
+        (..., steps, 12), the math of jaxdsp's marks_nd up to its band
+        einsum (the stretch rescue's trigger tables reuse it)."""
+        vec = torch.matmul(frames * self.mdct_win, self.mdct_basis)
+        temp = (vec[..., 0] * vec[..., 0]
+                + _c(0.7) * vec[..., 1] * vec[..., 1]
+                + _c(0.2) * vec[..., 2] * vec[..., 2])
+        cs = block_cumsum(temp)
+        w = self.neardc + 1
+        win = cs - torch.nn.functional.pad(cs[..., :-w], (w, 0))
+        decay = todB(win * _c(1.0 / w)) * _c(0.5) - _c(15.0)
+        pairs = (vec[..., 0::2] * vec[..., 0::2]
+                 + vec[..., 1::2] * vec[..., 1::2])[..., :32]
+        kk = torch.arange(32, dtype=torch.float32, device=frames.device)
+        d = decay[..., None] - 8.0 * kk
+        sp = torch.clamp_min(torch.maximum(todB(pairs) * _c(0.5), d),
+                             self.minV)
+        return torch.matmul(sp, self.Bm)
+
+    def marks_nd(self, x):
+        """Batched variant: x (ch, NC, S) -> (NC, S//64 - 1) bool.
+        The chunk axis lets one dispatch cover every envelope window
+        of a whole batch of streams (encode_batch)."""
+        ch, NC, S = x.shape
+        x64 = x.reshape(ch, NC, S // 64, 64)
+        frames = torch.cat([x64[..., :-1, :], x64[..., 1:, :]], -1)
+        acc = self.band_amps(frames)                    # (ch,NC,st,12)
+        prev = torch.nn.functional.pad(acc[:, :, :-1], (0, 0, 1, 0),
+                                       value=-99999.0)
+        postmax = torch.maximum(acc, prev)
+        postmin = torch.minimum(acc, prev)
+        premax = torch.full_like(acc, -99999.0)
+        premin = torch.full_like(acc, 99999.0)
+        for s in range(2, 2 + self.stretch):
+            sh = torch.nn.functional.pad(acc[:, :, :-s], (0, 0, s, 0),
+                                         value=-99999.0)
+            premax = torch.maximum(premax, sh)
+            premin = torch.minimum(premin, torch.where(
+                sh <= -99998.0, 99999.0, sh))
+        trig1 = ((postmax - premax) > self.pre_thr).any(-1).any(0)
+        trig2 = ((postmin - premin) < self.post_thr).any(-1).any(0)
+        t1p = torch.nn.functional.pad(trig1[:, :-1], (1, 0))
+        t2n = torch.nn.functional.pad(trig2[:, 1:], (0, 1))
+        return trig1 | t1p | trig2 | t2n
