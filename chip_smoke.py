@@ -22,11 +22,20 @@ Phases (any failure raises and the script exits non-zero):
      inputs were just written), its bound and share, and the plain
      version's time;
   3b. M3 kernel vs plain: the tempmdct scan kernel against its plain
-     PyTorch version, bitwise, on the real short batches of 20 s of the
-     click train (F = 256, through the port's own probe), on seeded random
-     inputs at F = 1, 3 and 256, and at n = 256 (freq_bfn256); then its
-     time at F = 256 from CUDA events, its roofline and dependent-chain
-     bounds, and the plain version's time;
+     PyTorch version, by bit pattern, on the real short batches of 20 s
+     of the click train (F = 256, through the port's own probe), and on
+     the cases of tests/test_torch_m3.py (m3_case): seeded inputs at
+     F = 1, 3 and 256, and at n = 256 (freq_bfn256), and the segment
+     schedule's edge cases at F = 256, n = 128 and 256 (one chain, a
+     reset on every impulse frame, no sw, reset flags without sw, a
+     batch opening inside a run, triggers on -0.0), each with its
+     segment count and longest segment; the device kernels of one
+     main-path call (one) and its host time; then its times from CUDA
+     graphs on the real batch and on the recorded batch with the longest
+     segment, on the one-chain worst case and on 256 frames without sw
+     (the staging pipeline alone), at n = 128 and 256 (in turns with the
+     first design, commit 185cdeb's, with --m3-baseline), its roofline
+     and segment-chain bounds, and the plain version's time;
   4. main path: FastEncoder(2, 44100, 0.5, switching=False,
      psy_state=False).encode of 60 s of 44.1 kHz stereo int16 (bench.py's
      signal, seed 0), from a CUDA tensor and from host numpy; the stream
@@ -49,7 +58,8 @@ Phases (any failure raises and the script exits non-zero):
      and of its click train (_click_train), from CUDA tensors:
      x-realtime, last_profile, the warm time of _prepare_switched alone
      (envelope, rescue, schedule), long and short frames, the floor and
-     M3 kernels' launches, every last granulepos, streams 0 and 15
+     M3 kernels' launches (M3's must equal the short finish batches),
+     every last granulepos, streams 0 and 15
      decoded with SNR (stream 0 within SNR_MARGIN_DB of the JAX stream)
      and stream 0's short blocks beside JAX's; once more under
      torch.profiler for the busy share (the click train on 2 streams:
@@ -132,14 +142,16 @@ OPS_PER_BIN = 20
 OPS_PER_STEP = 41
 OPS_PER_NEW_STEP = 145
 F32_OPS_PER_FIT = 26
-# Operations of csrc/m3_scan.cu a (frame, channel, bin), counted from its
-# source: each spread shift j the product, the difference, two compares,
-# the select and the add (6); besides, the reset select and the base
-# subtraction, the trigger's three compares, add and two ands, and the
-# carry select (9).  Its dependent chain a frame: the base subtraction,
-# one add a shift, the noise-center add, the compare and two selects,
-# at 4 cycles each (an fp32 add's latency) at the 1.98 GHz boost clock.
-M3_OPS_PER_SHIFT = 6
+# Operations of the M3 scan that a frame with sw needs a (channel, bin),
+# counted from csrc/m3_scan.cu: each spread shift that applies to the bin
+# (j <= t and j < bfn[t-j]) the difference, the compare and the count
+# (3); one add an increment counted (k); besides, the reset select and
+# the base subtraction, the trigger's three compares, add and two ands,
+# and the carry select (9).  A frame without sw only passes the carry.
+# Its dependent chain a frame with sw: the base subtraction, the compare,
+# k adds, and the trigger's add, compare and select (5 + k), at 4 cycles
+# a step (an fp32 add's latency) at the 1.98 GHz boost clock.
+M3_OPS_PER_SHIFT = 3
 M3_OPS_PER_BIN = 9
 M3_CHAIN_OPS = 5
 CYCLES_PER_DEP_OP = 4
@@ -358,62 +370,339 @@ def _bound(fit, quant, above, prefix):
         f32_ops=f32_ops, ops_us=t_ops * 1e3, **work)
 
 
-def _m3_random(n, F, seed, dev):
-    """Seeded M3 scan inputs (logmdct, lastmdct rows of 1024, val,
-    tval) with triggers firing, and (sw, reset, noise_center) from the
-    port's m3_param_seq on a seeded switched frame sequence."""
+def _m3_cases():
+    """tests/test_torch_m3.py, the one definition of the M3 scan's seeded
+    inputs and the segment schedule's edge cases (`m3_case`, `KINDS`),
+    loaded by its path: another installed package may be named `tests`."""
+    import importlib.util
+    mod = sys.modules.get("test_torch_m3")
+    if mod is None:
+        spec = importlib.util.spec_from_file_location(
+            "test_torch_m3", os.path.join(HERE, "tests", "test_torch_m3.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        sys.modules["test_torch_m3"] = mod
+    return mod
+
+
+def _m3_case(kind, n, F):
+    """A kind of case of `_m3_cases()` at n bins and F frames as CUDA
+    tensors: ([logmdct, lastmdct, val, tval], params)."""
     import numpy as np
     import torch
-    from vorbis_tpu_torch.ops import psydevice as PD
-    rng = np.random.RandomState(seed)
-    lm = (rng.randn(F, 2, n) * 15 - 60).astype(np.float32)
-    last = (rng.randn(F, 2, 1024) * 15 - 75).astype(np.float32)
-    val = (lm + rng.randn(F, 2, n) * 8 + 6).astype(np.float32)
-    tval = (lm + rng.randn(F, 2, n) * 8 - 6).astype(np.float32)
-    Ws = np.where(rng.rand(1, F) < 0.7, 0, 1)
-    imp = (rng.rand(1, F) < 0.6) & (Ws == 0)
-    ann = PD.annotate_frames_nd(Ws, imp)
-    pr = PD.m3_param_seq({k: v[0] for k, v in ann.items()}, n, 6.0, True)
-    args = [torch.from_numpy(a).to(dev) for a in (lm, last, val, tval)]
-    prm = {k: torch.from_numpy(np.asarray(pr[k])).to(dev)
-           for k in ("sw", "reset", "noise_center")}
-    return args, prm
+    args, pr = _m3_cases().m3_case(kind, n, F)
+    return ([torch.from_numpy(a).cuda() for a in args],
+            {k: torch.from_numpy(np.asarray(v)).cuda()
+             for k, v in pr.items()})
+
+
+def _m3_segments(prm):
+    """(segments, longest) of a batch: a segment starts at frame 0 and
+    at every frame with sw and reset (csrc/m3_scan.cu)."""
+    import torch
+    start = prm["sw"].bool() & prm["reset"].bool()
+    start[0] = True
+    idx = torch.nonzero(start).flatten().tolist() + [start.numel()]
+    lens = [b - a for a, b in zip(idx, idx[1:])]
+    return len(lens), max(lens)
 
 
 def _m3_check(scan, name, args, prm):
-    """M3 kernel vs its plain version, bitwise."""
+    """M3 kernel vs its plain version, by bit pattern (a -0.0 against a
+    +0.0 or another NaN payload is a mismatch).  Returns (max_abs_err,
+    the plain output, segments, longest segment)."""
     import torch
     got = scan(*args, prm)
     want = scan.plain(*args, prm)
     torch.cuda.synchronize()
-    bad = int((got != want).sum())
+    bad = int((got.view(torch.int32) != want.view(torch.int32)).sum())
     err = float((got - want).abs().max()) if got.numel() else 0.0
     F, ch, n = args[0].shape
     sw = prm["sw"]
     runs = int((sw[1:] & sw[:-1]).sum()) if F > 1 else 0
+    segs, longest = _m3_segments(prm)
     print(f"[m3] {name}: F={F} ch={ch} n={n} sw={int(sw.sum())} "
           f"reset={int(prm['reset'].sum())} consecutive={runs} "
-          f"mismatches={bad} max_abs_err={err}")
+          f"segments={segs} longest={longest} mismatches={bad} "
+          f"max_abs_err={err}")
     if bad:
         raise RuntimeError(f"m3 kernel != plain on {name}: {bad}")
-    return err
+    return err, want, segs, longest
 
 
-def _m3_bound(scan, F, ch, n):
-    """(bound_ms, bound_by, chain_ms, detail) of the scan at (F, ch, n):
-    the bytes (four input rows, the per-frame scalars and the output,
-    each once) over the HBM rate against its operations over the fp32
-    rate; and the frames' dependent chain at CYCLES_PER_DEP_OP."""
-    shifts = sum(min(scan.maxnb - 1, t) for t in range(n))
-    nbytes = 5 * F * ch * n * 4 + 3 * F * 4
-    ops = F * ch * (shifts * M3_OPS_PER_SHIFT + n * M3_OPS_PER_BIN)
+def _m3_bound(scan, args, prm, want):
+    """(bound_ms, bound_by, chain_ms, detail) of the scan on these
+    inputs.  The roofline: the bytes the function needs, each once --
+    every frame's sw flag and output row; a frame with sw besides its
+    reset flag, noise_center and four input rows (a frame without sw
+    only passes the carry on) -- over the HBM rate, against the
+    operations this data needs over the fp32 rate.  The chain: the
+    longest (segment, channel, bin) column's dependent steps at
+    CYCLES_PER_DEP_OP, counted from the batch's own reset flags and
+    spread counts k (replayed from the plain output `want`, whose frame
+    f - 1 is frame f's carry)."""
+    import torch
+    lm, last = args[0], args[1]
+    F, ch, n = lm.shape
+    tab = scan.tabs
+    J = tab.shape[0] - 1
+    sw = prm["sw"].bool()
+    rs = prm["reset"].bool()
+    prev = torch.cat([torch.zeros_like(want[:1]), want[:-1]])
+    tm = torch.where(rs[:, None, None], last[..., :n], prev) - scan.base
+    k = torch.zeros((F, ch, n), dtype=torch.int64, device=lm.device)
+    shifts = 0
+    for j in range(1, J + 1):
+        k[..., j:] += tm[..., j:] < lm[..., :-j] - tab[j - 1, j:]
+        shifts += int(torch.isfinite(tab[j - 1, j:]).sum())
+    k = torch.where(sw[:, None, None], k, 0)
+    steps = torch.where(sw[:, None, None], M3_CHAIN_OPS + k, 0)
+    start = sw & rs
+    start[0] = True
+    seg = torch.cumsum(start.long(), 0) - 1
+    per = torch.zeros((int(seg[-1]) + 1, ch, n), dtype=torch.int64,
+                      device=lm.device).index_add_(0, seg, steps)
+    chain_steps = int(per.max())
+    nsw = int(sw.sum())
+    nbytes = (4 * nsw + F) * ch * n * 4 + F + nsw * 5
+    ops = (nsw * ch * (shifts * M3_OPS_PER_SHIFT + n * M3_OPS_PER_BIN)
+           + int(k.sum()))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
-    chain_ms = (F * (scan.maxnb - 1 + M3_CHAIN_OPS) * CYCLES_PER_DEP_OP
-                / CLOCK_HZ * 1e3)
+    chain_ms = chain_steps * CYCLES_PER_DEP_OP / CLOCK_HZ * 1e3
     by = "bytes" if t_bytes >= t_ops else "operations"
     return max(t_bytes, t_ops), by, chain_ms, dict(
-        bytes=nbytes, bytes_us=t_bytes * 1e3, ops=ops, ops_us=t_ops * 1e3)
+        bytes=nbytes, bytes_us=t_bytes * 1e3, ops=ops, ops_us=t_ops * 1e3,
+        chain_steps=chain_steps, k=int(k.sum()))
+
+
+def _device_kernels(fn):
+    """Names of the device kernels that one call of fn runs, from
+    torch.profiler's device-side events."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == DeviceType.CUDA]
+
+
+def _graph_ms(fn, reps=50, rounds=4):
+    """ms a call of fn from CUDA events around replays of a CUDA graph
+    of `reps` calls: a kernel of a few microseconds launched from Python
+    would time the host's launch rate."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(rounds):
+        g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * rounds)
+
+
+# sha256 of the first design's csrc/m3_scan.cu (commit 185cdeb), the
+# one earlier version whose C interface _M3Baseline knows
+M3_BASELINE_SHA256 = ("fabfacccb97f62edc84ee41b8fd001428e6757980"
+                      "2f8bfd8bf936c1995cf8466")
+
+
+class _M3Baseline:
+    """The first design's csrc/m3_scan.cu (one thread per column over all
+    frames: `git show 185cdeb:vorbis_tpu_torch/csrc/m3_scan.cu`), built
+    from `source` for timing in turns.  Its entry point takes the
+    per-frame parameters as one (3, F) float32 block and a (3, n) table
+    [bfn, cell, incr]; any other source is refused (its hash differs),
+    since it would read another table.  `launch` as M3ScanCuda.launch,
+    with the block."""
+
+    def __init__(self, source, scan):
+        import ctypes
+        import hashlib
+        from pathlib import Path
+        import numpy as np
+        import torch
+        from vorbis_tpu_torch.native import build_library
+        from vorbis_tpu_torch.ops import floor_cuda
+        from vorbis_tpu_torch.ops.psydevice import m3_tables
+        digest = hashlib.sha256(Path(source).read_bytes()).hexdigest()
+        if digest != M3_BASELINE_SHA256:
+            raise RuntimeError(f"--m3-baseline {source} is not commit "
+                               f"185cdeb's m3_scan.cu (sha256 {digest})")
+        so, _ = build_library(Path(source), floor_cuda.nvcc,
+                              floor_cuda.NVCC_FLAGS, "libm3scan_baseline")
+        self.fn = ctypes.CDLL(str(so)).vtt_m3_scan
+        self.fn.restype = ctypes.c_int
+        self.fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+                            + [ctypes.c_float, ctypes.c_void_p])
+        bfn, cell, incr, _ = m3_tables(scan.look)
+        self.tabs = torch.from_numpy(np.stack(
+            [bfn.astype(np.float32), cell, incr])).cuda()
+        self.scan = scan
+
+    def launch(self, logmdct, lastmdct, val, tval, prm, out):
+        import torch
+        F, ch, n = logmdct.shape
+        rc = self.fn(logmdct.data_ptr(), lastmdct.data_ptr(),
+                     val.data_ptr(), tval.data_ptr(), prm.data_ptr(),
+                     self.tabs.data_ptr(), out.data_ptr(), F, ch, n,
+                     lastmdct.shape[-1], self.scan.maxnb, self.scan.base,
+                     torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"baseline m3 launch failed: {rc}")
+
+
+def _m3_turns(scan, base, args, prm):
+    """Kernel times (ms) in turns on one input: this kernel, the
+    baseline, the baseline, this kernel (this kernel twice without a
+    baseline); the baseline's output must equal this kernel's."""
+    import torch
+    rows = scan.param_rows(prm, args[0].shape[0])
+    out = torch.empty_like(args[0])
+    out_b = torch.empty_like(args[0])
+    mine = lambda: scan.launch(*args, *rows, out)        # noqa: E731
+    order = [mine, mine]
+    if base is not None:
+        block = torch.stack([r.to(torch.float32) for r in rows])
+        theirs = lambda: base.launch(*args, block, out_b)  # noqa: E731
+        order = [mine, theirs, theirs, mine]
+    ms = [_graph_ms(fn) for fn in order]
+    if base is not None and not torch.equal(out.view(torch.int32),
+                                            out_b.view(torch.int32)):
+        raise RuntimeError("baseline m3 kernel differs from this one")
+    return ms
+
+
+def _phase_m3(fsw, smi, baseline=None):
+    """Phase 3b: the M3 scan kernel vs its plain version, by bit
+    pattern, on the real short batches of 20 s of the click train (the
+    default encoder's short finish batches, F = 256, through the port's
+    own probe), on the seeded cases and the segment schedule's edge
+    cases of tests/test_torch_m3.py; one main-path call's kernels and
+    host time; then its times (CUDA graphs, in turns with `baseline`, a
+    path to commit 185cdeb's source) on the real batch and on the
+    recorded batch with the longest segment, on one 256-frame chain
+    (the worst case) and on 256 frames without sw (the
+    staging pipeline alone: every frame only passes the carry), at
+    n = 128 and 256, its bounds and the plain version's time.  Returns
+    the M3 record's fields for the kernels' JSON line."""
+    import types
+    import torch
+    from vorbis_tpu_torch.ops import m3_cuda
+    m3 = fsw.ctx(0).m3_scan
+    if not isinstance(m3, m3_cuda.M3ScanCuda):
+        raise RuntimeError(f"main path M3 scan is {type(m3).__name__}")
+    recorded = []
+
+    def record(*a):
+        recorded.append(a)
+        return m3(*a)
+
+    fsw._short_ctx.m3_scan = record
+    try:
+        fsw.encode_batch([torch.from_numpy(_click_train(20, 44100, 0))
+                          .cuda()])
+    finally:
+        fsw._short_ctx.m3_scan = m3
+    m3_err = 0.0
+    full = None
+    slowest = (0, None)     # the recorded batch with the longest segment
+    for i, (lm3, last3, v3, tv3, prm3) in enumerate(recorded):
+        sub = {k: prm3[k] for k in ("sw", "reset", "noise_center")}
+        args = (lm3, last3, v3, tv3)
+        err, want, segs, longest = _m3_check(m3, f"click-train batch {i}",
+                                             args, sub)
+        m3_err = max(m3_err, err)
+        if longest > slowest[0]:
+            slowest = (longest, (m3, args, sub))
+        sw = sub["sw"]
+        if (full is None and lm3.shape[0] == 256 and bool(sw.any())
+                and bool(sub["reset"].any())
+                and int((sw[1:] & sw[:-1]).sum()) >= 2):
+            full = (args, sub, want, segs, longest)
+    if full is None:
+        raise RuntimeError("no F = 256 click-train batch with sw, reset "
+                           "and consecutive impulse frames")
+    look = fsw.ctx(0).analysis.look
+    m3_256 = m3_cuda.M3ScanCuda(types.SimpleNamespace(
+        n=256, m3n=look.m3n, vi=look.vi), "cuda")
+    kinds = _m3_cases().KINDS
+    timed = {"real, longest segment": slowest[1]}
+    cases = [("seeded", 128, 1), ("seeded", 128, 3), ("seeded", 128, 256),
+             ("seeded", 256, 256)] + [(kind, n_, 256) for n_ in (128, 256)
+                                      for kind in kinds if kind != "seeded"]
+    for kind, n_, F_ in cases:
+        scan = m3 if n_ == 128 else m3_256
+        args, prm = _m3_case(kind, n_, F_)
+        m3_err = max(m3_err, _m3_check(scan, f"{kind} F={F_} n={n_}", args,
+                                       prm)[0])
+        if (kind, F_) in (("chain", 256), ("no_sw", 256)) or (
+                kind, n_, F_) == ("seeded", 256, 256):
+            timed[f"{kind} n={n_}"] = (scan, args, prm)
+    args, prm, want, segs, longest = full
+    # one wrapper call as the main path makes it (its params as the
+    # finish step passes them): the device kernels it runs, and its time
+    # on the host's clock (checks, rows, allocation, launch)
+    kerns = _device_kernels(lambda: m3(*args, prm))
+    if len(kerns) > 1:
+        raise RuntimeError(f"one m3 scan call ran {len(kerns)} kernels: "
+                           f"{kerns}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        m3(*args, prm)
+    torch.cuda.synchronize()
+    call_us = (time.perf_counter() - t0) / 200 * 1e6
+    print(f"[m3] one main-path call: device kernels {kerns}; "
+          f"{call_us:.2f} us a call from the host, 200 calls")
+    bases = {}
+    if baseline:
+        bases = {128: _M3Baseline(baseline, m3),
+                 256: _M3Baseline(baseline, m3_256)}
+    rows = {}
+    for name, (scan, a, p) in [("real", (m3, args, prm))] + list(
+            timed.items()):
+        rows[name] = _m3_turns(scan, bases.get(scan.n), a, p)
+        print(f"[m3] time {name} (F={a[0].shape[0]} n={scan.n}, "
+              f"{_m3_segments(p)[0]} segments, longest "
+              f"{_m3_segments(p)[1]}): " + ", ".join(
+                  f"{t:.5f}" for t in rows[name])
+              + (" ms (this, baseline, baseline, this)" if baseline
+                 else " ms (two turns)") + f" ({smi})")
+    m3_ms = (rows["real"][0] + rows["real"][-1]) / 2
+    worst_ms = (rows["chain n=128"][0] + rows["chain n=128"][-1]) / 2
+    m3_plain_ms = _cuda_ms(lambda: m3.plain(*args, prm), 3)
+    bound_ms, by, chain_ms, mw = _m3_bound(m3, args, prm, want)
+    share = max(bound_ms, chain_ms) / m3_ms
+    wa, wp = timed["chain n=128"][1:]
+    _, _, wchain_ms, ww = _m3_bound(m3, wa, wp, m3.plain(*wa, wp))
+    print(f"[m3] scan F=256 ch=2 n={m3.n} (real batch, {segs} segments, "
+          f"longest {longest}): kernel {m3_ms:.5f} ms, plain "
+          f"{m3_plain_ms:.4f} ms ({smi}); bytes {mw['bytes']} = "
+          f"{mw['bytes_us']:.3f} us, operations {mw['ops']} float32 = "
+          f"{mw['ops_us']:.3f} us: roofline {bound_ms * 1e3:.3f} us by "
+          f"{by}; segment chain {mw['chain_steps']} steps = "
+          f"{chain_ms * 1e3:.3f} us (k = {mw['k']} adds in all); share "
+          f"{100 * share:.2f}% of the larger; worst case (one chain) "
+          f"{worst_ms:.5f} ms against its chain {ww['chain_steps']} steps "
+          f"= {wchain_ms * 1e3:.3f} us")
+    return {"max_abs_err": m3_err, "ms": m3_ms, "plain_ms": m3_plain_ms,
+            "bound_ms": bound_ms, "bound_by": by, "share": share,
+            "chain_bound_ms": chain_ms, "segments": segs,
+            "longest_segment": longest, "worst_ms": worst_ms,
+            "worst_chain_bound_ms": wchain_ms, "call_us": call_us}
 
 
 def _kernels_of(fe):
@@ -512,6 +801,13 @@ def _short_blocks(fe, ogg):
 
 
 def main():
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--m3-baseline", metavar="SOURCE",
+                    help="the first design's csrc/m3_scan.cu (git show 185cdeb:"
+                         "vorbis_tpu_torch/csrc/m3_scan.cu, checked by its "
+                         "hash) to time in turns with this one in phase 3b")
+    args = ap.parse_args()
     t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(HERE, "vorbis_tpu_torch")):
         raise SystemExit("chip_smoke.py: run it from the root of a "
@@ -633,64 +929,11 @@ def main():
     print("[kernel] time against B (ms): " + ", ".join(sweep))
     _lap(t_start, "3")
 
-    # 3b. the M3 scan kernel vs its plain version: the real short
-    # batches of the click train through the port's own probe (the
-    # default encoder's short finish batches, F = 256), then seeded
-    # random inputs
-    import types
+    # 3b. the M3 scan kernel vs its plain version, times and bounds
     fsw = FastEncoder(2, 44100, 0.5)
     if not (fsw.switching and fsw.psy_state):
         raise RuntimeError("switching and psy_state are not the defaults")
-    m3 = fsw.ctx(0).m3_scan
-    if not isinstance(m3, m3_cuda.M3ScanCuda):
-        raise RuntimeError(f"main path M3 scan is {type(m3).__name__}")
-    recorded = []
-
-    def record(*a):
-        recorded.append(a)
-        return m3(*a)
-
-    fsw._short_ctx.m3_scan = record
-    try:
-        fsw.encode_batch([torch.from_numpy(_click_train(20, 44100, 0))
-                          .cuda()])
-    finally:
-        fsw._short_ctx.m3_scan = m3
-    m3_err = 0.0
-    full = None
-    for i, (lm3, last3, v3, tv3, prm3) in enumerate(recorded):
-        sub = {k: prm3[k] for k in ("sw", "reset", "noise_center")}
-        m3_err = max(m3_err, _m3_check(m3, f"click-train batch {i}",
-                                       (lm3, last3, v3, tv3), sub))
-        sw = sub["sw"]
-        if (full is None and lm3.shape[0] == 256 and bool(sw.any())
-                and bool(sub["reset"].any())
-                and int((sw[1:] & sw[:-1]).sum()) >= 2):
-            full = ((lm3, last3, v3, tv3), sub)
-    if full is None:
-        raise RuntimeError("no F = 256 click-train batch with sw, reset "
-                           "and consecutive impulse frames")
-    look = fsw.ctx(0).analysis.look
-    m3_256 = m3_cuda.M3ScanCuda(types.SimpleNamespace(
-        n=256, m3n=look.m3n, vi=look.vi), "cuda")
-    for F_, n_, seed in ((1, 128, 1), (3, 128, 2), (256, 128, 3),
-                         (256, 256, 4)):
-        args, prm = _m3_random(n_, F_, seed, "cuda")
-        m3_err = max(m3_err, _m3_check(m3 if n_ == 128 else m3_256,
-                                       f"random F={F_} n={n_}", args,
-                                       prm))
-    args, prm = full
-    m3_ms = _cuda_ms(lambda: m3(*args, prm), 200)
-    m3_plain_ms = _cuda_ms(lambda: m3.plain(*args, prm), 3)
-    m3_bound_ms, m3_by, m3_chain_ms, mw = _m3_bound(m3, *args[0].shape)
-    m3_share = m3_bound_ms / m3_ms
-    print(f"[m3] scan F=256 ch=2 n={m3.n}: kernel {m3_ms:.5f} ms, plain "
-          f"{m3_plain_ms:.4f} ms ({smi}); bytes {mw['bytes']} = "
-          f"{mw['bytes_us']:.3f} us, operations {mw['ops']} float32 = "
-          f"{mw['ops_us']:.3f} us: bound {m3_bound_ms * 1e3:.3f} us by "
-          f"{m3_by}, share {100 * m3_share:.2f}%; dependent chain "
-          f"{m3_chain_ms * 1e3:.2f} us ({100 * m3_chain_ms / m3_ms:.1f}% "
-          f"of the kernel's time)")
+    m3_rec = _phase_m3(fsw, smi, args.m3_baseline)
     _lap(t_start, "3b")
 
     # 4. main path at real size
@@ -832,8 +1075,10 @@ def main():
         if fl_long == 0 or (nshort and fl_short == 0):
             raise RuntimeError(f"{leg}: floor kernel launches {fl_long} "
                                f"long, {fl_short} short")
-        if leg == "click_train" and m3_n == 0:
-            raise RuntimeError("click train: the M3 kernel never launched")
+        cuts = _m3_carry_cuts(fsw, per)
+        if m3_n != cuts["batches"] or (leg == "click_train" and m3_n == 0):
+            raise RuntimeError(f"{leg}: the M3 kernel launched {m3_n} "
+                               f"times for {cuts['batches']} short batches")
         for k, o in enumerate(oggs):
             if _last_granulepos(o) != streams[k].shape[1]:
                 raise RuntimeError(f"{leg} stream {k}: last granulepos "
@@ -869,7 +1114,6 @@ def main():
             fsw.encode_batch(prof_streams)
             torch.cuda.synchronize()
             t_prof = time.perf_counter() - t0
-        cuts = _m3_carry_cuts(fsw, per)
         print(f"[switched] {leg} M3 carry over the short batches: "
               + ", ".join(f"{k} {v}" for k, v in cuts.items()))
         busy, dev_ms, rows = _busy_share(
@@ -996,10 +1240,7 @@ def main():
         "source": "vorbis_tpu_torch/csrc/m3_scan.cu",
         "replaces": "vorbis_tpu/ops/psydevice.py:498",
         "launches": sum(v[1] for v in launches_sw.values()),
-        "max_abs_err": m3_err,
-        "ms": m3_ms, "plain_ms": m3_plain_ms, "bound_ms": m3_bound_ms,
-        "bound_by": m3_by, "share": m3_share,
-        "chain_bound_ms": m3_chain_ms, "library_ms": None}]}))
+        **m3_rec, "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
