@@ -36,6 +36,14 @@ Phases (any failure raises and the script exits non-zero):
      (the staging pipeline alone), at n = 128 and 256 (in turns with the
      first design, commit 185cdeb's, with --m3-baseline), its roofline
      and segment-chain bounds, and the plain version's time;
+  3f. managed kernels: FastEncoder(2, 44100, bitrate=(-1, 128000, -1))
+     encodes 20 s of the click train at B = 256 with the finish step's
+     arguments recorded; its first long and first short batch run again:
+     the stacked floor fit of the three offset_select masks (one launch
+     of 3*B*ch rows) bitwise against the plain fit and three separate
+     launches, the short batch's three M3 calls by bit pattern against
+     their plain version, and the 15-blob finish on the card against the
+     same step on the CPU in >= 90% of the (F, 15) rows;
   4. main path: FastEncoder(2, 44100, 0.5, switching=False,
      psy_state=False).encode of 60 s of 44.1 kHz stereo int16 (bench.py's
      signal, seed 0), from a CUDA tensor and from host numpy; the stream
@@ -66,17 +74,33 @@ Phases (any failure raises and the script exits non-zero):
      the profiler's cost grows with its ~1M kernels);
   4e. encode (B_long = 1024) of one 60 s click-train stream: x-realtime
      and the SNR check;
+  4f. bench.py's managed transient leg: the ABR 128 kbps encoder of 3f,
+     encode_managed_batch of 8 x 30 s click trains (_click_train(30,
+     44100, s), s = 0..7) from CUDA tensors, warm, then timed:
+     x-realtime, last_profile, long and short frames and finish batches,
+     the floor launches (one a finish batch) and M3's (three a short
+     batch), oversized redos, truncates and pads, each stream's audio
+     kbps (100-165), every last granulepos, streams 0 and 7 decoded with
+     SNR within SNR_MARGIN_DB of the JAX package's managed streams;
+     the busy share of 2 streams under torch.profiler; one 30 s CBR
+     stream (bitrate=(128000,)*3): its truncates and pads, decoded to
+     the exact length; the long-only managed paths (switching=False,
+     stateful and stateless) on 10 s of stream 0, decoded to the exact
+     length;
   5. card vs CPU: the port's packets for a 2 s clip on the card and on
      the CPU, byte for byte;
   5b. card vs CPU, stateful: the stateful packets of a 2 s clip
      (encode_batch at B_long=64), >= 90% identical; the count at encode's
      B_long=1024 and the stateless encode_batch's are printed beside it;
   5c. card vs CPU, switched: a 2 s click-train clip at B_long = 64: the
-     envelope marks and the schedule equal, >= 90% of packets identical.
+     envelope marks and the schedule equal, >= 90% of packets identical;
+  5d. card vs CPU, managed: the same clip through the ABR encoder at
+     B_long = B_short = 64: marks and schedule equal, the chosen blobs
+     equal printed, >= 85% of packets identical.
 Phase 4b then runs once more under torch.profiler and prints the
 device's busy share (4d profiles the same 16-stream batch as 4c, with
 switching).  Launch counts are set to 0 just before each main
-path (4, 4b, 4c, 4d, 4e) and read just after it.
+path (4, 4b, 4c, 4d, 4e, 4f) and read just after it.
 It prints the kernel record as one JSON line, then the result line.
 """
 
@@ -110,6 +134,12 @@ JAX_STATEFUL_SNR_DB = 25.0479
 # 1,210,928 and 887,288).
 JAX_SWITCHED_SNR_DB = {"signal": 25.04687, "click_train": 10.74682}
 JAX_SWITCHED_SHORTS = {"signal": 9, "click_train": 4678}
+# And for phase 4f: the JAX package's managed encoder, FastEncoder(2,
+# 44100, bitrate=(-1, 128000, -1)).encode of _click_train(30, 44100, s)
+# for streams s = 0 and 7, decoded by vorbis_tpu.vorbisfile (JAX 0.9.0 on
+# the CPU; `JAX_PLATFORMS=cpu python3 reference_snr.py --managed`;
+# audio 128.316 and 128.374 kbps, 2337 and 2345 short blocks).
+JAX_MANAGED_SNR_DB = {0: 7.82215, 7: 8.09780}
 
 # The card's peaks for the kernel's bound (NVIDIA H100 SXM data sheet,
 # 132 SMs at 1.98 GHz): HBM bytes per second; float32 operations, 67e12
@@ -800,6 +830,268 @@ def _short_blocks(fe, ogg):
     return sum((p[0] >> 1) & mask in short for p in _audio_packets(ogg))
 
 
+def _rows_equal(pa, na, pb, nb):
+    """Rows of (F, 15) packet variants (host arrays) with equal bit
+    counts and bytes."""
+    F, NB = na.shape
+    return sum(bool(na[f, k] == nb[f, k]) and
+               (pa[f, k, :(na[f, k] + 7) // 8]
+                == pb[f, k, :(nb[f, k] + 7) // 8]).all()
+               for f in range(F) for k in range(NB))
+
+
+def _phase_managed_kernels(fm, fm_cpu, smi):
+    """Phase 3f: one long and one short managed finish batch at B = 256
+    (the first of each in 20 s of the click train, as encode_managed_batch
+    runs them through the port's own probe and host recurrences, args
+    recorded): the stacked floor fit of the three offset_select masks
+    (one launch of 3*B*ch rows) against the plain fit and three separate
+    launches, bitwise; each of the short batch's three M3 calls against
+    its plain version by bit pattern; the whole 15-blob finish on the
+    card against the same step on the CPU, >= 90% of the (F, 15) rows.
+    Returns (floor max_abs_err, m3 max_abs_err)."""
+    import torch
+    from vorbis_tpu_torch.ops import floor_cuda
+    B = 256
+    calls = {}
+    step_of = fm._managed_finish_step
+
+    def spy(W, B_, wb=None):
+        step = step_of(W, B_, wb)
+
+        def rec(*a):
+            calls.setdefault(W, a)
+            return step(*a)
+        return rec
+
+    fm._managed_finish_step = spy
+    try:
+        fm.encode_managed_batch([torch.from_numpy(
+            _click_train(20, 44100, 0)).cuda()], B_long=B, B_short=B)
+    finally:
+        del fm._managed_finish_step
+    floor_err = m3_err = 0.0
+    for W in (1, 0):
+        ctx = fm.ctx(W)
+        fl = ctx.floor
+        fits, scans, stage_args = [], [], {}
+        m3 = fm.ctx(0).m3_scan
+        mdev = fm._managed_dev_for(W)
+        for name in ("ladder_rows", "blob_rows"):
+            def stage(*a, _f=getattr(mdev, name), _n=name):
+                stage_args[_n] = a
+                return _f(*a)
+            setattr(mdev, name, stage)
+
+        def fit(q, a, p):
+            fits.append((q, a, p))
+            return floor_cuda.DeviceFloorFitCuda.fit(fl, q, a, p)
+
+        def scan(*a):
+            scans.append(a)
+            return m3(*a)
+
+        fl.fit = fit
+        fm._short_ctx.m3_scan = scan
+        fl.launches = 0
+        try:
+            pk, nb = step_of(W, B)(*calls[W])
+            torch.cuda.synchronize()
+        finally:
+            del fl.fit, mdev.ladder_rows, mdev.blob_rows
+            fm._short_ctx.m3_scan = m3
+        if len(fits) != 1 or fl.launches != 1:
+            raise RuntimeError(f"managed W={W}: {len(fits)} floor fits, "
+                               f"{fl.launches} launches (one expected)")
+        q, a, p = fits[0]
+        R = q.shape[0] // 3
+        got = fl.fit(q, a, p)
+        sep = torch.cat([fl.fit(q[k * R:(k + 1) * R], a[k * R:(k + 1) * R],
+                                p[k * R:(k + 1) * R]) for k in range(3)])
+        plain = fl.fit_plain(q, a, p)
+        torch.cuda.synchronize()
+        bad = int((got != plain).sum()) + int((got != sep).sum())
+        floor_err = max(floor_err, float((got - plain).abs().max()))
+        print(f"[managed] W={W} stacked floor fit: {q.shape[0]} rows "
+              f"(3 x {R}) in one launch; mismatches against the plain fit "
+              f"and three launches {bad}")
+        if bad:
+            raise RuntimeError(f"managed W={W}: stacked floor fit differs")
+        if W == 0:
+            if len(scans) != 3:
+                raise RuntimeError(f"managed short batch: {len(scans)} M3 "
+                                   f"calls, 3 expected")
+            for k, (lm3, last3, v3, tv3, prm3) in enumerate(scans):
+                sub = {key: prm3[key]
+                       for key in ("sw", "reset", "noise_center")}
+                m3_err = max(m3_err, _m3_check(
+                    m3, f"managed short batch, select call {k}",
+                    (lm3, last3, v3, tv3), sub)[0])
+        # the managed-only stages, plain PyTorch (ROADMAP 2.12): device
+        # kernels a call and time at this batch's shapes
+        choices = torch.zeros(B, dtype=torch.int64, device=pk.device)
+        stages = {"ladder": lambda: mdev.ladder_rows(*stage_args[
+                      "ladder_rows"]),
+                  "blob rows": lambda: mdev.blob_rows(*stage_args[
+                      "blob_rows"]),
+                  "gather": lambda: mdev.gather(pk, choices)}
+        print(f"[managed] W={W} plain managed-only stages at B={B}: " + "; "
+              .join(f"{k} {len(_device_kernels(f))} kernels "
+                    f"{_cuda_ms(f, 20):.4f} ms" for k, f in stages.items())
+              + f" ({smi})")
+        pc, nc = fm_cpu._managed_finish_step(W, B)(
+            *(None if t is None else t.cpu() for t in calls[W]))
+        same = _rows_equal(pk.cpu().numpy(), nb.cpu().numpy(), pc.numpy(),
+                           nc.numpy())
+        print(f"[managed] W={W} 15-blob finish, card vs CPU: {same}/"
+              f"{nc.numel()} rows equal in bits and bytes; bits "
+              f"{int(nb.sum())} card, {int(nc.sum())} CPU ({smi})")
+        if same < 0.9 * nc.numel():
+            raise RuntimeError(f"managed W={W}: card and CPU rows differ "
+                               f"in more than 10%")
+    return floor_err, m3_err
+
+
+def _audio_kbps(ogg, ns, rate=44100):
+    return sum(map(len, _audio_packets(ogg))) * 8 / (ns / rate) / 1000
+
+
+def _phase_managed_leg(fm, smi):
+    """Phase 4f: bench.py's managed transient leg, encode_managed_batch
+    of 8 x 30 s click trains from CUDA tensors at ABR 128 kbps, warm,
+    then timed; then one 30 s CBR stream.  Returns the (floor, M3)
+    launches of the timed run."""
+    import numpy as np
+    import torch
+    from vorbis_tpu_torch.codec.decoder import decode_ogg
+    from vorbis_tpu_torch.models.fastenc import FastEncoder
+    S, secs = 8, 30
+    streams = [torch.from_numpy(_click_train(secs, 44100, k)).cuda()
+               for k in range(S)]
+    fm.encode_managed_batch(streams[:2])            # warm-up
+    torch.cuda.synchronize()
+    for k in _kernels_of(fm):
+        k.launches = 0
+    t0 = time.perf_counter()
+    oggs = fm.encode_managed_batch(streams)
+    torch.cuda.synchronize()
+    t_m = time.perf_counter() - t0
+    fl = fm.floor.launches + fm._short_ctx.floor.launches
+    m3_n = fm._short_ctx.m3_scan.launches
+    lm = dict(fm.last_managed)
+    prof = dict(fm.last_profile)
+    batches = lm["long_batches"] + lm["short_batches"]
+    redos = lm["redos_long"] + lm["redos_short"]
+    if fl != batches + redos or m3_n != 3 * (lm["short_batches"]
+                                             + lm["redos_short"]):
+        raise RuntimeError(f"managed: floor launches {fl}, M3 {m3_n} for "
+                           f"{batches} finish batches and {redos} redos")
+    for k, o in enumerate(oggs):
+        if _last_granulepos(o) != streams[k].shape[1]:
+            raise RuntimeError(f"managed stream {k}: last granulepos "
+                               f"{_last_granulepos(o)}")
+    kbps = [_audio_kbps(o, streams[k].shape[1]) for k, o in enumerate(oggs)]
+    snrs = {}
+    for k in (0, S - 1):
+        out_k, _ = decode_ogg(oggs[k])
+        snrs[k] = _snr(streams[k].cpu().numpy(), out_k)
+        print(f"[managed] stream {k}: {len(oggs[k])} bytes, "
+              f"{_short_blocks(fm, oggs[k])} short blocks, decoded "
+              f"{out_k.shape}, SNR {snrs[k]:.3f} dB (JAX "
+              f"{JAX_MANAGED_SNR_DB[k]:.3f} dB)")
+        if abs(snrs[k] - JAX_MANAGED_SNR_DB[k]) > SNR_MARGIN_DB:
+            raise RuntimeError(f"managed stream {k}: SNR {snrs[k]:.3f} dB "
+                               f"not within {SNR_MARGIN_DB} dB of the JAX "
+                               f"stream")
+    print(f"[managed] ABR 128 kbps {S} x {secs} s click train: {t_m:.4f} s "
+          f"= {S * secs / t_m:.2f}x realtime; {lm['long']} long + "
+          f"{lm['short']} short frames in {lm['long_batches']} + "
+          f"{lm['short_batches']} finish batches; launches: floor {fl}, "
+          f"m3 {m3_n}; oversized redos {lm['redos_long']} long + "
+          f"{lm['redos_short']} short; truncates {lm['truncates']}, pads "
+          f"{lm['pads']}; audio kbps " + ", ".join(f"{v:.2f}" for v in kbps)
+          + "; last_profile (s): " + ", ".join(
+              f"{k} {v:.4f}" for k, v in prof.items()) + f" ({smi})")
+    if not all(100 <= v <= 165 for v in kbps):
+        raise RuntimeError(f"managed: a stream outside 100-165 kbps: {kbps}")
+    # the profiler's cost grows with the kernel count: 2 streams, against
+    # the unprofiled wall of the same 2 streams
+    t0 = time.perf_counter()
+    fm.encode_managed_batch(streams[:2])
+    torch.cuda.synchronize()
+    t_prof = time.perf_counter() - t0
+    busy, dev_ms, rows = _busy_share(
+        lambda: fm.encode_managed_batch(streams[:2]), t_prof)
+    print(f"[managed] profiled (2 streams): device {dev_ms:.3f} ms, busy "
+          f"{100 * busy:.1f}% of the unprofiled {t_prof:.4f} s; top: "
+          + "; ".join(rows))
+    # one 30 s CBR stream: the floater on its walls
+    fc = FastEncoder(2, 44100, bitrate=(128000, 128000, 128000))
+    t0 = time.perf_counter()
+    ogg_c = fc.encode_managed_batch([streams[0]])[0]
+    torch.cuda.synchronize()
+    t_c = time.perf_counter() - t0
+    out_c, _ = decode_ogg(ogg_c)
+    snr_c = _snr(streams[0].cpu().numpy(), out_c)
+    lc = fc.last_managed
+    print(f"[managed] CBR 128 kbps 30 s click train (cold): {t_c:.4f} s, "
+          f"{len(ogg_c)} bytes, audio "
+          f"{_audio_kbps(ogg_c, streams[0].shape[1]):.2f} kbps, truncates "
+          f"{lc['truncates']}, pads {lc['pads']}, redos "
+          f"{lc['redos_long'] + lc['redos_short']}, decoded {out_c.shape}, "
+          f"SNR {snr_c:.3f} dB")
+    # the long-only managed paths (switching=False), stateful and
+    # stateless, on the first 10 s of stream 0
+    clip = streams[0][:, :10 * 44100]
+    for psy_state in (True, False):
+        fm.psy_state = psy_state
+        try:
+            t0 = time.perf_counter()
+            ogg_l = fm.encode_managed(clip, switching=False)
+            torch.cuda.synchronize()
+            t_l = time.perf_counter() - t0
+        finally:
+            fm.psy_state = True
+        out_l, _ = decode_ogg(ogg_l)
+        snr_l = _snr(clip.cpu().numpy(), out_l)
+        print(f"[managed] long-only psy_state={psy_state} 10 s (cold): "
+              f"{t_l:.4f} s, {len(ogg_l)} bytes, audio "
+              f"{_audio_kbps(ogg_l, clip.shape[1]):.2f} kbps, decoded "
+              f"{out_l.shape}, SNR {snr_l:.3f} dB")
+    return fl, m3_n
+
+
+def _phase_managed_card_vs_cpu(fm, fm_cpu, clip, clip_dev):
+    """Phase 5d: the clip through the ABR encoder on the card and on the
+    CPU at B_long = B_short = 64: the envelope marks and the schedule
+    equal, the chosen blobs equal printed, >= 85% of packets
+    identical."""
+    import numpy as np
+    (mk_card,), per_card = _switched_marks(fm, [clip_dev])
+    (mk_cpu,), per_cpu = _switched_marks(fm_cpu, [clip])
+    sched = all(np.array_equal(per_card[0][k], per_cpu[0][k])
+                for k in ("cs", "Ws", "impulse"))
+    a = _audio_packets(fm.encode_managed_batch([clip_dev], B_long=64,
+                                               B_short=64)[0])
+    cho_card = fm.last_managed["choices"][0]
+    b = _audio_packets(fm_cpu.encode_managed_batch([clip], B_long=64,
+                                                   B_short=64)[0])
+    cho_cpu = fm_cpu.last_managed["choices"][0]
+    if len(a) != len(b):
+        raise RuntimeError(f"managed: card {len(a)} packets, CPU {len(b)}")
+    same = sum(x == y for x, y in zip(a, b))
+    print(f"[card-vs-cpu] managed: marks {int(mk_card.sum())} card, "
+          f"{int(mk_cpu.sum())} CPU, {int((mk_card != mk_cpu).sum())} "
+          f"differ; schedule {'equal' if sched else 'DIFFERS'}; chosen "
+          f"blobs equal {int((cho_card == cho_cpu).sum())}/{len(cho_cpu)}; "
+          f"identical packets {same}/{len(a)} (B=64)")
+    if (mk_card != mk_cpu).any() or not sched:
+        raise RuntimeError("managed: card and CPU marks or schedule differ")
+    if same < 0.85 * len(a):
+        raise RuntimeError("managed card and CPU packets differ in more "
+                           "than 15%")
+
+
 def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -935,6 +1227,15 @@ def main():
         raise RuntimeError("switching and psy_state are not the defaults")
     m3_rec = _phase_m3(fsw, smi, args.m3_baseline)
     _lap(t_start, "3b")
+
+    # 3f. the managed finish: stacked floor fit, M3 calls, card vs CPU
+    abr = (-1, 128000, -1)
+    fm = FastEncoder(2, 44100, bitrate=abr)
+    fm_cpu = FastEncoder(2, 44100, bitrate=abr, device="cpu")
+    fl_err_m, m3_err_m = _phase_managed_kernels(fm, fm_cpu, smi)
+    max_err = max(max_err, fl_err_m)
+    m3_rec["max_abs_err"] = max(m3_rec["max_abs_err"], m3_err_m)
+    _lap(t_start, "3f")
 
     # 4. main path at real size
     from vorbis_tpu_torch.codec.decoder import decode_ogg
@@ -1154,6 +1455,10 @@ def main():
     del click0
     _lap(t_start, "4e")
 
+    # 4f. bench.py's managed transient leg: ABR 128 kbps, 8 x 30 s
+    launches_sw["managed"] = _phase_managed_leg(fm, smi)
+    _lap(t_start, "4f")
+
     # 5. card vs CPU
     fe_cpu = FastEncoder(2, 44100, 0.5, switching=False, psy_state=False,
                          device="cpu")
@@ -1225,6 +1530,10 @@ def main():
     if len(a) - len(diff) < 0.9 * len(a):
         raise RuntimeError("switched card and CPU packets differ in more "
                            "than 10%")
+    _lap(t_start, "5c")
+
+    # 5d. card vs CPU, managed: the 2 s click-train clip at B = 64
+    _phase_managed_card_vs_cpu(fm, fm_cpu, clipc, clipc_dev)
 
     print(f"[time] {time.perf_counter() - t_start:.1f} s of command time")
     print(json.dumps({"kernels": [{

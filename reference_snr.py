@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """SNR of the JAX package's own stream of chip_smoke.py's signals: the
 constants chip_smoke.py holds the port's streams to (JAX_SNR_DB,
-JAX_STATEFUL_SNR_DB and the JAX_SWITCHED_* values).
+JAX_STATEFUL_SNR_DB, the JAX_SWITCHED_* and the JAX_MANAGED_* values).
 
 Runs the JAX reference (vorbis_tpu) on the CPU, so it needs JAX and is
 never run on the card:
@@ -9,14 +9,18 @@ never run on the card:
     JAX_PLATFORMS=cpu python3 reference_snr.py            # psy_state=True
     JAX_PLATFORMS=cpu python3 reference_snr.py --stateless
     JAX_PLATFORMS=cpu python3 reference_snr.py --switching
+    JAX_PLATFORMS=cpu python3 reference_snr.py --managed
 
 The first two encode 60 s of _signal(60, 44100, 0) with vorbis_tpu
 FastEncoder(2, 44100, 0.5, switching=False); --switching encodes
 _signal(60, 44100, 0) and _click_train(60, 44100, 0) with the default
-FastEncoder(2, 44100, 0.5) (block switching and the psy state on).  Each
-stream is decoded with vorbis_tpu.vorbisfile; the script prints its SNR
-against the input in dB, its bytes, its short-block count and the jax
-version.
+FastEncoder(2, 44100, 0.5) (block switching and the psy state on);
+--managed encodes streams 0 and 7 of bench.py's managed transient leg,
+_click_train(30, 44100, s), with FastEncoder(2, 44100, bitrate=(-1,
+128000, -1)).encode_managed (switching, the psy state and the reservoir
+floater on).  Each stream is decoded with vorbis_tpu.vorbisfile; the
+script prints its SNR against the input in dB, its bytes, the audio
+packets' rate, its short-block count and the jax version.
 """
 
 import argparse
@@ -33,6 +37,9 @@ def main():
     ap.add_argument("--switching", action="store_true",
                     help="the default encoder (switching=True) on both "
                          "signals (chip_smoke.py's JAX_SWITCHED_*)")
+    ap.add_argument("--managed", action="store_true",
+                    help="ABR 128 kbps on the click train, streams 0 and 7 "
+                         "(chip_smoke.py's JAX_MANAGED_*)")
     args = ap.parse_args()
     sys.path.insert(0, HERE)
     import jax
@@ -43,7 +50,11 @@ def main():
     from vorbis_tpu.models.fastenc import FastEncoder
     from vorbis_tpu.vorbisfile import OggVorbisFile
 
-    if args.switching:
+    if args.managed:
+        fe = FastEncoder(2, 44100, bitrate=(-1, 128000, -1))
+        runs = [(f"click_train {s}", _click_train(30, 44100, s))
+                for s in (0, 7)]
+    elif args.switching:
         fe = FastEncoder(2, 44100, 0.5)
         runs = [("signal", _signal(60, 44100, 0)),
                 ("click_train", _click_train(60, 44100, 0))]
@@ -52,7 +63,7 @@ def main():
                          psy_state=not args.stateless)
         runs = [("signal", _signal(60, 44100, 0))]
     for name, pcm16 in runs:
-        ogg = fe.encode(pcm16)
+        ogg = fe.encode(pcm16)      # encode_managed when managed
         out = OggVorbisFile(ogg).read_all_float()
         x = pcm16.astype(np.float64) / 32768.0
         assert out.shape == x.shape, (out.shape, x.shape)
@@ -63,8 +74,10 @@ def main():
                        if m.blockflag == 0}
         shorts = sum((p[0] >> 1) & ((1 << fe.modebits) - 1) in short_modes
                      for p in pk)
+        kbps = sum(map(len, pk)) * 8 / (x.shape[1] / 44100) / 1000
         print(f"{name}: switching={fe.switching} psy_state={fe.psy_state} "
-              f"bytes={len(ogg)} packets={len(pk)} short_blocks={shorts} "
+              f"managed={fe.managed} bytes={len(ogg)} packets={len(pk)} "
+              f"audio_kbps={kbps:.3f} short_blocks={shorts} "
               f"SNR {snr:.5f} dB (jax {jax.__version__}, "
               f"{jax.devices()[0].platform})")
 

@@ -29,3 +29,9 @@ if not os.environ.get("VORBIS_TPU_TESTS"):
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips without one "
+        "(tests/test_torch_cuda.py)")

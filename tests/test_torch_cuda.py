@@ -1,0 +1,170 @@
+"""Tests that need the card: the port's CUDA kernels (csrc/floor_fit.cu,
+csrc/m3_scan.cu) against their plain PyTorch versions, and the managed
+15-blob finish on the card against the same step on the CPU.  A CUDA
+kernel has no CPU mode, so each test here skips without a card.
+
+The GPU machine has no JAX, so this file imports neither jax nor
+vorbis_tpu (test_torch_isolation.py checks) and builds every input from
+the port alone.  On the card (tests/conftest.py imports jax unless
+VORBIS_TPU_TESTS is set):
+
+    VORBIS_TPU_TESTS=1 python -m pytest tests/test_torch_cuda.py \\
+        tests/test_torch_m3.py -m cuda
+
+Tolerances: each kernel against its plain version bitwise (M3 by bit
+pattern: a -0.0 against a +0.0 differs); the stacked floor fit of the
+managed path against three fits and the plain fit bitwise; the managed
+finish on the card against the CPU on the same inputs in >= 90% of the
+(F, 15) rows, the bound of chip_smoke.py's card-vs-CPU phases (cuBLAS
+and the CPU sum the floor moments in other orders).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from chip_smoke import _click_train, _rows_equal
+from vorbis_tpu_torch.codec.encoder import Encoder
+from vorbis_tpu_torch.models import encsetup
+from vorbis_tpu_torch.models.fastenc import FastEncoder as TFE
+from vorbis_tpu_torch.ops import psydevice as TPD
+from vorbis_tpu_torch.ops.floor_cuda import make_floor_fit
+from vorbis_tpu_torch.ops.m3_cuda import M3ScanCuda
+from vorbis_tpu_torch.ops.managed import floor3
+
+# one torch thread a pytest-xdist worker (see test_torch_switching.py)
+torch.set_num_threads(1)
+
+pytestmark = pytest.mark.cuda
+
+B = 32
+
+
+@pytest.fixture
+def cuda():
+    """Decided in the test, never at import: every xdist worker must
+    collect the same tests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+
+
+@pytest.fixture(scope="module")
+def look():
+    """The long-block floor of FastEncoder(2, 44100, 0.5)."""
+    setup = encsetup.setup_vbr_staged(2, 44100, 0.5).init()
+    vi = setup.vi
+    mode = next(m for m in vi.modes if m.blockflag == 1)
+    mapping = vi.maps[mode.mapping]
+    return Encoder(setup).floor_looks[
+        mapping.floorsubmap[mapping.chmuxlist[0]]]
+
+
+def _random(look, B, seed):
+    rng = np.random.RandomState(seed)
+    lm = (rng.randn(B, look.n) * 20 - 60).astype(np.float32)
+    mk = (lm + rng.randn(B, look.n) * 6 - 3).astype(np.float32)
+    return lm, mk
+
+
+def _m3_inputs(F, n, seed):
+    """Seeded (logmdct, lastmdct, val, tval) with M3 triggers firing, and
+    params from m3_param_seq on a switched frame sequence."""
+    rng = np.random.RandomState(seed)
+    lm = (rng.randn(F, 2, n) * 15 - 60).astype(np.float32)
+    last = (rng.randn(F, 2, 1024) * 15 - 75).astype(np.float32)
+    val = (lm + rng.randn(F, 2, n) * 8 + 6).astype(np.float32)
+    tval = (lm + rng.randn(F, 2, n) * 8 - 6).astype(np.float32)
+    Ws = np.where(rng.rand(1, F) < 0.7, 0, 1)
+    imp = (rng.rand(1, F) < 0.6) & (Ws == 0)
+    ann = TPD.annotate_frames_nd(Ws, imp)
+    pr = TPD.m3_param_seq({k: v[0] for k, v in ann.items()}, n, 2.0, True)
+    return lm, last, val, tval, pr
+
+
+def test_kernel_matches_plain_on_cuda(cuda, look):
+    """csrc/floor_fit.cu against the plain version, bitwise."""
+    kf = make_floor_fit(look, "cuda")
+    for B_, seed in ((4096, 7), (37, 8)):
+        lm, mk = _random(look, B_, seed)
+        q, a, p, _ = kf.prepare(torch.from_numpy(lm).cuda(),
+                                torch.from_numpy(mk).cuda())
+        assert torch.equal(kf.fit(q, a, p), kf.fit_plain(q, a, p))
+    assert kf.launches == 2
+
+
+def test_m3_scan_on_cuda(cuda):
+    """csrc/m3_scan.cu against the plain scan by bit pattern."""
+    look = TFE(2, 44100, 0.5, device="cpu").ctx(0).analysis.look
+    scan = M3ScanCuda(look, "cuda")
+    lm, last, val, tval, pr = _m3_inputs(256, look.n, 1)
+    args = [torch.from_numpy(a).cuda() for a in (lm, last, val, tval)]
+    prm = {k: torch.from_numpy(np.asarray(pr[k])).cuda()
+           for k in ("sw", "reset", "noise_center")}
+    got = scan(*args, prm)
+    torch.cuda.synchronize()
+    assert scan.launches == 1
+    want = scan.plain(*args, prm)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_managed_finish15_on_cuda(cuda):
+    """A long and a short 15-blob finish batch of a 1 s click train
+    through the port's own probe on the card: the three offset_select
+    fits run as one launch that equals three launches and the plain fit;
+    a short batch launches the M3 kernel once a select; the finish on the
+    card equals the CPU step on the same inputs in >= 90% of rows."""
+    abr = (-1, 128000, -1)
+    fc = TFE(2, 44100, bitrate=abr)
+    fp = TFE(2, 44100, bitrate=abr, device="cpu")
+    pcm = _click_train(1.0, 44100, 0)
+    x64, per = fc._prepare_switched([torch.from_numpy(pcm).cuda()], True)
+    rec = per[0]
+    ann = TPD.annotate_frames(rec["Ws"], rec["impulse"])
+    for W, idx in ((1, rec["li"][:B]), (0, rec["si"][:B])):
+        assert len(idx) == B
+        wd = rec["wid"][idx] if W else np.zeros(B, np.int64)
+        sv = torch.from_numpy(np.stack([rec["starts"][idx], wd,
+                                        np.zeros(B)]).astype(np.int32))
+        o = fc._probe_step(W, B)(x64, sv.cuda())
+        # the stacked fits on this batch's real masks
+        ctx = fc.ctx(W)
+        fl = ctx.floor
+        masks = [ctx.analysis.offset_and_mix(o[0], o[1], o[1] - 6.0,
+                                             o[1] - 3.0, s)[1]
+                 for s in (0, 1, 2)]
+        fl.launches = 0
+        ps, us = floor3(fl, o[1], masks)
+        torch.cuda.synchronize()
+        assert fl.launches == 1
+        for m, p in zip(masks, ps):
+            q, a, pf, _ = fl.prepare(o[1], m)
+            assert torch.equal(p, fl.fit(q, a, pf))
+            assert torch.equal(p, fl.fit_plain(q, a, pf))
+        # the finish, card against CPU on the same inputs
+        lastm = torch.cat([torch.zeros_like(o[5][:2]), o[5][:-2]])
+        amp = o[6].reshape(B, 2).amax(1)
+        tr = torch.from_numpy(ann["bm"][idx] == (2 if W else 1)).cuda()
+        fstate = torch.cat([amp, torch.full((4 * B,), -1.0, device="cuda"),
+                            tr.float(), torch.from_numpy(wd).cuda().float()])
+        m3vec = None
+        if not W:
+            sub = {k: ann[k][idx]
+                   for k in ("bm", "lW_bm", "lW_no", "impadnum")}
+            pr = TPD.m3_param_seq(sub, 128, 2.0, True, managed=True)
+            m3vec = torch.from_numpy(np.stack(
+                [pr["sw"], pr["noise_rate"], pr["noise_center"],
+                 pr["tone_rate"], pr["reset"], sub["impadnum"] == 0]
+            ).astype(np.float32)).cuda()
+            fc.ctx(0).m3_scan.launches = 0
+        args = (*o[:5], lastm, o[6], fstate, m3vec)
+        fl.launches = 0
+        pk, nb = (t.cpu().numpy()
+                  for t in fc._managed_finish_step(W, B)(*args))
+        assert fl.launches == 1
+        if not W:
+            assert fc.ctx(0).m3_scan.launches == 3
+        pc, nc = (t.numpy() for t in fp._managed_finish_step(W, B)(
+            *(None if a is None else a.cpu() for a in args)))
+        same = _rows_equal(pk, nb, pc, nc)
+        print(f"finish15 W={W} card vs CPU: {same}/{nb.size} rows equal")
+        assert same >= 0.9 * nb.size

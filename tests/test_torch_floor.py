@@ -21,9 +21,9 @@ Tolerances and why:
     posts, none by more than one quantum.
   * quantize_posts / render: integer math and an exact f32 divide ->
     bitwise.
-The kernel itself (csrc/floor_fit.cu) needs a CUDA device: its test
-skips here and runs on the card (`pytest tests/test_torch_floor.py -k
-on_cuda`); chip_smoke.py holds it to the plain version on every run.
+The kernel itself (csrc/floor_fit.cu) needs a CUDA device: its test is
+in test_torch_cuda.py, which imports no JAX (the GPU machine has none);
+chip_smoke.py holds it to the plain version on every run.
 """
 
 import numpy as np
@@ -258,17 +258,3 @@ def test_floor_tables_bitwise(look):
     assert np.array_equal(tf.xg.numpy(), np.asarray(jf.xg))
     kf = DeviceFloorFitCuda(look, "cpu")
     assert np.array_equal(kf.kernel_tabs.numpy(), pal._tabs[:, :P])
-
-
-def test_kernel_matches_plain_on_cuda(look, captures):
-    """csrc/floor_fit.cu against the plain version, bitwise, on the card
-    (skips without one)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    kf = make_floor_fit(look, "cuda")
-    for B, seed in ((4096, 7), (37, 8)):
-        lm, mk = _random(look, B, seed)
-        q, a, p, _ = kf.prepare(torch.from_numpy(lm).cuda(),
-                                torch.from_numpy(mk).cuda())
-        assert torch.equal(kf.fit(q, a, p), kf.fit_plain(q, a, p))
-    assert kf.launches == 2

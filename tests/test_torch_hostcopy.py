@@ -1,8 +1,9 @@
 """The port's own copies of the host layers (vorbis_tpu_torch/bitstream,
-codec, models/encsetup+modes, ops/psy+window+mdct+envelope, utils/scales,
-data/) against the originals in vorbis_tpu, and the port's host C
-(csrc/host_ogg.c: the Ogg CRC against the Python loop, the stretch-rescue
-walk against vorbis_tpu's native/vorbisnative.c vn_rescue_walk).  numpy
+codec, models/encsetup+modes, ops/psy+window+mdct+envelope, the
+ReservoirChooser of ops/managed, utils/scales, data/) against the
+originals in vorbis_tpu, and the port's host C (csrc/host_ogg.c: the Ogg
+CRC against the Python loop, the stretch-rescue walk against vorbis_tpu's
+native/vorbisnative.c vn_rescue_walk).  numpy
 only: every comparison is exact (bytes, integers, float32 arrays bit for
 bit)."""
 
@@ -128,6 +129,22 @@ def test_envelope_constants_line_aligned_copy():
     assert len(names) == 10
     for k in names:
         assert _same(getattr(T_env, k), getattr(J_env, k)), k
+
+
+def test_reservoir_chooser_line_aligned_copy():
+    """ops/managed.py holds ReservoirChooser (the floater of
+    lib/bitrate.c:73-227) line for line as its source does: the text
+    from the class line to its last return is the same in both."""
+    head = "class ReservoirChooser:"
+    tail = "        return choice, truncate, pad"
+    blocks = []
+    for pkg in ("vorbis_tpu", "vorbis_tpu_torch"):
+        lines = open(os.path.join(ROOT, pkg, "ops", "managed.py")).read() \
+            .splitlines()
+        i = lines.index(head)
+        blocks.append(lines[i:lines.index(tail, i) + 1])
+    assert blocks[0] == blocks[1]
+    assert len(blocks[0]) > 100
 
 
 def test_rescue_walk_host_c_equals_vorbisnative():

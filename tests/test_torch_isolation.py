@@ -1,9 +1,11 @@
 """The port stands alone: its package and chip_smoke.py import neither jax
 nor the JAX package vorbis_tpu, and a process in which both imports fail
-can still encode with the port on the CPU (stateless, and the default
-encoder with block switching and the cross-frame psy state) and decode with the port's own decoder
-(the GPU machine has no JAX).  The encoder runs on the card
-unless the caller asks for the CPU."""
+can still encode with the port on the CPU (stateless, the default
+encoder with block switching and the cross-frame psy state, and managed
+ABR) and decode with the port's own decoder (the GPU machine has no
+JAX); the test files that hold the card tests import in such a process
+too.  The encoder runs on the card unless the caller asks for the
+CPU."""
 
 import os
 import re
@@ -44,6 +46,11 @@ assert fs.switching and fs.psy_state
 out, vi = decode_ogg(fs.encode(pcm))
 assert out.shape == pcm.shape, out.shape
 assert np.isfinite(out).all()
+# managed ABR (ops/managed.py), on the long-only path: it imports every
+# module of the switched managed path but the envelope, run above
+fm = FastEncoder(2, 44100, bitrate=(-1, 128000, -1), device="cpu")
+out, vi = decode_ogg(fm.encode_managed(pcm, switching=False))
+assert out.shape == pcm.shape, out.shape
 bad = sorted(m for m in sys.modules if m.startswith("jax.")
              and m not in preloaded)
 assert not bad, bad
@@ -85,3 +92,34 @@ def test_fast_encoder_defaults_to_the_card():
         return
     with pytest.raises(RuntimeError, match='device="cpu"'):
         FastEncoder(2, 44100, 0.5, switching=False, psy_state=False)
+
+
+CARD_PROBE = r"""
+import importlib.util, sys
+sys.modules["jax"] = None          # any `import jax` now raises
+sys.modules["vorbis_tpu"] = None   # and so does `import vorbis_tpu...`
+sys.path.insert(0, {root!r})
+for path in {paths!r}:
+    spec = importlib.util.spec_from_file_location("card_tests", path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+print("ok", len({paths!r}))
+"""
+
+
+def test_card_test_files_import_without_jax():
+    """Every tests/test_torch_*.py that holds a card test (`*_on_cuda`)
+    imports in a process where jax and vorbis_tpu cannot be imported:
+    the GPU machine, where those tests run, has no JAX."""
+    tests = os.path.join(ROOT, "tests")
+    pat = re.compile(r"^def test_\w*_on_cuda\(", re.M)
+    paths = sorted(
+        os.path.join(tests, n) for n in os.listdir(tests)
+        if n.startswith("test_torch_") and n.endswith(".py")
+        and pat.search(open(os.path.join(tests, n)).read()))
+    assert os.path.join(tests, "test_torch_cuda.py") in paths
+    r = subprocess.run([sys.executable, "-c",
+                        CARD_PROBE.format(root=ROOT, paths=paths)],
+                       capture_output=True, text=True, timeout=300,
+                       env={**os.environ, "OMP_NUM_THREADS": "1"})
+    assert r.returncode == 0, r.stderr[-4000:]
+    assert r.stdout.strip() == f"ok {len(paths)}", r.stdout

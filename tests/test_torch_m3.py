@@ -279,6 +279,7 @@ def test_omitted_zero_adds_change_no_bit():
                                       .view(np.int32), tm[ok].view(np.int32))
 
 
+@pytest.mark.cuda
 def test_m3_scan_cases_on_cuda(looks):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")

@@ -128,8 +128,9 @@ def test_stateful_single_blocksize_template(tmp_path):
 
 def test_unported_paths_raise(tfe, stateful):
     """Block switching (§1.7) runs on every entry point, stateless and
-    stateful; managed bitrate (§1.9) and the 5.1 layouts (§1.10) still
-    raise NotImplementedError naming their ROADMAP items."""
+    stateful, and managed bitrate (§1.9) builds an encoder; the 5.1
+    layouts (§1.10) still raise NotImplementedError naming their ROADMAP
+    item."""
     pcm = np.zeros((2, 4410), np.float32)
     switching = copy.copy(stateful)
     switching.switching = True
@@ -138,8 +139,25 @@ def test_unported_paths_raise(tfe, stateful):
                                  B_short=64)[0],
                 switching.encode_batch([pcm], B_long=64, B_short=64)[0]):
         assert ogg[:4] == b"OggS"
-    with pytest.raises(NotImplementedError, match="1.9"):
-        TFE(2, 44100, bitrate=(192000, 128000, 64000), device="cpu")
+    fm = TFE(2, 44100, bitrate=(192000, 128000, 64000), device="cpu")
+    assert fm.managed and fm.setup.hi.bitrate_av == 128000
     with pytest.raises(NotImplementedError, match="1.10"):
         TFE(6, 48000, 0.4, switching=False, device="cpu").encode(
             np.zeros((6, 4800), np.float32))
+
+
+def test_managed_encoder_builds_and_encodes():
+    """TFE(2, 44100, bitrate=...) on the CPU: the managed setup (its own
+    books and a reservoir of twice the nominal rate), and encode routes
+    to encode_managed; an unmanaged encoder refuses encode_managed_batch."""
+    fm = TFE(2, 44100, bitrate=(-1, 128000, -1), device="cpu")
+    hi = fm.setup.hi
+    assert (hi.bitrate_av, hi.bitrate_reservoir) == (128000, 256000)
+    assert fm.switching and fm.psy_state
+    pcm = np.zeros((2, 4410), np.float32)
+    ogg = fm.encode(pcm, switching=False)
+    assert ogg == fm.encode_managed(pcm, switching=False)
+    assert ogg[:4] == b"OggS"
+    with pytest.raises(ValueError, match="bitrate"):
+        TFE(2, 44100, 0.5, switching=False,
+            device="cpu").encode_managed_batch([pcm])

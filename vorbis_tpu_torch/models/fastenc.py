@@ -16,10 +16,12 @@ recurrences -> finish, `_run_two_phase`), and the envelope-driven
 256/2048 block switching that both run by default: the batched envelope
 marks, the exact stretch rescue (device trigger tables, host C walk),
 the switched schedule, and M3 on impulse short blocks (`encode` is then
-`encode_batch` of one stream, `_encode_switched`).  Paths of the JAX
-encoder that later slices port raise NotImplementedError naming their
-ROADMAP item: managed bitrate (§1.9) and the multi-submap 5.1 layouts
-(§1.10).
+`encode_batch` of one stream, `_encode_switched`); and managed
+ABR/CBR bitrate (`bitrate=`, `encode_managed_batch`): the 15-packetblob
+finish on the device (ops/managed.py), the host reservoir floater and a
+device gather of the chosen packets, switched or long-only.  The
+multi-submap 5.1 layouts (§1.10) raise NotImplementedError naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -139,15 +141,17 @@ class FastEncoder:
         encoder's defaults are kept: switching=True drives 256/2048
         block switching from the envelope pass (False forces long-only).
 
+        bitrate=(max_bps, nominal_bps, min_bps) selects managed
+        (ABR/CBR) mode: the encode runs the 15-packetblob device pass
+        and the host reservoir floater picks each packet
+        (ops/managed.py; reference lib/bitrate.c).
+
         psy_state=True (default) threads the reference's cross-frame
         psychoacoustic state through the batched pipeline -- ampmax
         decay, lastmdct (M9), the M5 compand latch, M2 post-echo, M7
         ntfix, M6 lossless promotion and the M8 noise-normalize budgets
         (ops/psydevice); False selects the stateless single-pass
         pipeline."""
-        if bitrate is not None:
-            raise NotImplementedError(
-                "managed ABR/CBR (bitrate=): ROADMAP §1.9")
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -156,8 +160,12 @@ class FastEncoder:
                     "on the CPU")
             device = "cuda"
         self.device = torch.device(device)
-        self.managed = False
-        b = encsetup.setup_vbr_staged(ch, rate, quality)
+        self.managed = bitrate is not None
+        if self.managed:
+            mx, nom, mn = bitrate
+            b = encsetup.setup_managed_staged(ch, rate, mx, nom, mn)
+        else:
+            b = encsetup.setup_vbr_staged(ch, rate, quality)
         if coupling is None:
             # couple wherever the reference templates do: stereo and
             # the 5.1 layouts (setup_44p51); other channel counts have
@@ -220,6 +228,7 @@ class FastEncoder:
         self._dev = None
         self._short_ctx = None
         self._dev_short = None
+        self._managed_devs = {}
         self._step_caches = {}
         # block switching (envelope-driven 256/2048) — on by default
         # when the mode set has two block sizes
@@ -333,6 +342,19 @@ class FastEncoder:
         return self._cached_step("finish", W, B, wb, lambda: self._dev_for(
             W).make_finish_step(B, wb))
 
+    def _managed_dev_for(self, W):
+        """DeviceManagedEncode per block mode (cached); it shares the
+        mode's DeviceFastEncode."""
+        from ..ops.managed import DeviceManagedEncode
+        W = W if self.W_main else 0
+        if W not in self._managed_devs:
+            self._managed_devs[W] = DeviceManagedEncode(self, W=W)
+        return self._managed_devs[W]
+
+    def _managed_finish_step(self, W, B, wb=None):
+        return self._cached_step("finish15", W, B, wb, lambda: (
+            self._managed_dev_for(W).make_finish_step15(B, wb)))
+
     # -- block switching (envelope-driven 256/2048) -----------------------
     _ENV_STEPS = 8192        # envelope chunk, in 64-sample steps
     _ENV_HIST = 32           # history overlap (nearDC window + stretch)
@@ -363,17 +385,22 @@ class FastEncoder:
         return self._env_steps_cache[NC]
 
     @staticmethod
+    def _start_to_host(t):
+        """Start one non-blocking copy of a device tensor into pinned
+        host memory and return the host tensor (valid after the next
+        synchronize); a CPU tensor is returned as it is."""
+        if not t.is_cuda:
+            return t
+        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        h.copy_(t, non_blocking=True)
+        return h
+
+    @staticmethod
     def _to_host(tensors):
         """Device tensors -> host numpy arrays: one non-blocking copy
         into pinned memory each, then one synchronize (a CPU tensor is
         read as it is)."""
-        outs = []
-        for t in tensors:
-            if t.is_cuda:
-                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                h.copy_(t, non_blocking=True)
-                t = h
-            outs.append(t)
+        outs = [FastEncoder._start_to_host(t) for t in tensors]
         if any(t.is_pinned() for t in outs):
             torch.cuda.synchronize()
         return [t.numpy() for t in outs]
@@ -930,10 +957,16 @@ class FastEncoder:
         ((nbits[i]+7)>>3)] -- the stateless gather runner's contract.
         Phase times land in `last_profile`.  A long-only schedule
         still opens each stream with one short (padding) block; either
-        list of frames may be empty."""
-        if managed:
-            raise NotImplementedError(
-                "managed 15-packetblob finish (bitrate=): ROADMAP §1.9")
+        list of frames may be empty.
+
+        managed=True keeps the same probe pass and host recurrences
+        (with m3_param_seq's managed noise_rate reduction) but finishes
+        through the 15-packetblob step and returns, per block mode,
+        ((pend, args), B): pend holds every batch's (packets (B, 15,
+        wb), nbits (B, 15)) on the device, with the nbits already on
+        their way to the host, and args(bi) rebuilds batch bi's finish
+        arguments (for the oversized redo), for the reservoir and gather
+        stage (_encode_managed_switched)."""
         import time as _time
 
         from ..ops import psydevice as PD
@@ -1119,7 +1152,8 @@ class FastEncoder:
             nbat = len(outs)
             F = len(amp)
             if not F:
-                return self._drain([], None, devW.plan.wb, 0)
+                return ([], None) if managed else self._drain(
+                    [], None, devW.plan.wb, 0)
 
             def rows(a, fill):
                 return self._pad_to(a, nbat * B * (len(a) // F),
@@ -1149,6 +1183,13 @@ class FastEncoder:
                 return (o[0], o[1], o[2], o[3], o[4], lastm, o[6],
                         fsd[bi], None if m3d is None else m3d[bi])
 
+            if managed:
+                # the 15-blob packets stay on the device; the (B, 15)
+                # bit counts start to the host at once
+                step = self._managed_finish_step(W, B)
+                pend = [step(*args(bi)) for bi in range(nbat)]
+                return [(pk, self._start_to_host(nb)) for pk, nb in pend], \
+                    args
             step = self._finish_step(W, B)
             pend = [step(*args(bi)) for bi in range(nbat)]
             return self._drain(
@@ -1168,6 +1209,8 @@ class FastEncoder:
                            np.full(nshort * ch, -1.0, np.float32), pad_s,
                            prev_s, None, m3)
         prof["finish"] = _time.perf_counter() - _t0
+        if managed:
+            return (res_l, B_long), (res_s, B_short)
         return res_l, res_s
 
     def _run_gather_batches(self, W, x64d, starts, wids, B=1024):
@@ -1357,6 +1400,343 @@ class FastEncoder:
         w._pages.append(blob)
         return w.pageout_all()
 
+    # -- managed (ABR/CBR) path --------------------------------------------
+    def encode_managed(self, pcm, serialno=778, comments=None, chunk=256,
+                       switching=None) -> bytes:
+        """Managed encode of one stream (see encode_managed_batch)."""
+        return self.encode_managed_batch([pcm], [serialno], comments,
+                                         chunk=chunk,
+                                         switching=switching)[0]
+
+    # frames budget per managed device wave: bounds live device memory
+    # (probe spectra + the 15-blob packet buffers stay resident until
+    # the wave's reservoir/gather drains them)
+    _MANAGED_GROUP_FRAMES = 24576
+
+    def encode_managed_batch(self, pcms, serialnos=None, comments=None,
+                             chunk=256, switching=None, B_long=256,
+                             B_short=256) -> list:
+        """Managed (ABR/CBR) encode of MANY independent streams.
+
+        With switching (the default when the template has two block
+        sizes): the envelope schedule drives 256/2048 block selection,
+        every frame runs the 15-packetblob stateful finish on the device
+        (the blob axis folded into the frame batch,
+        ops/managed.make_finish_step15), the per-stream host reservoir
+        floater (ReservoirChooser, lib/bitrate.c:73-227, fed each
+        packet's W) picks each packet, and a device gather fetches only
+        the chosen blob's bytes.  Streams run in groups of about
+        _MANAGED_GROUP_FRAMES frames, so live device memory is bounded
+        by a group, not the job.  `last_managed` counts the frames,
+        batches, oversized redos, truncates and pads of the last group,
+        and holds its streams' chosen blobs in frame order (switched
+        path).
+
+        switching=False (or a single-blocksize template) selects the
+        long-only pipeline in chunks of `chunk` frames, stateful unless
+        psy_state=False."""
+        if not self.managed:
+            raise ValueError("construct FastEncoder(bitrate=...) first")
+        if serialnos is None:
+            serialnos = [778 + i for i in range(len(pcms))]
+        if len(serialnos) < len(pcms):
+            raise ValueError(f"{len(serialnos)} serialnos < {len(pcms)} "
+                             f"streams")
+        sw = self.switching if switching is None else switching
+        if not sw:
+            return self._encode_managed_long(pcms, serialnos, comments,
+                                             chunk)
+        hop = self.n // 2
+        outs = []
+        i = 0
+        while i < len(pcms):
+            j, acc = i, 0
+            while j < len(pcms) and (
+                    j == i or acc + pcms[j].shape[1] // hop + 4
+                    <= self._MANAGED_GROUP_FRAMES):
+                acc += pcms[j].shape[1] // hop + 4
+                j += 1
+            outs += self._encode_managed_switched(
+                pcms[i:j], serialnos[i:j], comments, B_long, B_short)
+            i = j
+        return outs
+
+    def _encode_managed_switched(self, pcms, serialnos, comments,
+                                 B_long=256, B_short=256):
+        """One device wave of the switched managed pipeline (see
+        encode_managed_batch)."""
+        import time as _time
+
+        from ..ops.managed import (PACKETBLOBS, ReservoirChooser,
+                                   compact_chosen, reservoir_walk)
+        x64, per = self._prepare_switched(pcms, True)
+        res_l, res_s = self._run_two_phase(x64, per, B_long, B_short,
+                                           managed=True)
+        prof = self.last_profile
+        _t0 = _time.perf_counter()
+        nlong = sum(len(r["li"]) for r in per)
+        nshort = sum(len(r["si"]) for r in per)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize()       # the (B, 15) bit counts landed
+
+        def nbits(res, total):
+            pend = res[0][0]
+            if not pend:
+                return np.zeros((0, PACKETBLOBS), np.int64)
+            return np.concatenate([nb.numpy() for _, nb in pend])[
+                :total].astype(np.int64)
+
+        nb_l = nbits(res_l, nlong)
+        nb_s = nbits(res_s, nshort)
+
+        # per-stream reservoir walk in frame order (mixing W groups)
+        choices = []
+        cho_l = np.zeros(nlong, np.int64)
+        cho_s = np.zeros(nshort, np.int64)
+        tp_l = np.zeros((nlong, 2), np.int64)     # (truncate, pad)
+        tp_s = np.zeros((nshort, 2), np.int64)
+        for rec in per:
+            F = len(rec["Ws"])
+            li, si = rec["li"], rec["si"]
+            gl = rec["lofs"] + np.arange(len(li))
+            gs = rec["sofs"] + np.arange(len(si))
+            sizes = np.empty((F, PACKETBLOBS), np.int64)
+            sizes[li] = (nb_l[gl] + 7) >> 3
+            sizes[si] = (nb_s[gs] + 7) >> 3
+            cf, tf = reservoir_walk(
+                ReservoirChooser(self.setup, self.rate, self.vi.blocksizes),
+                sizes, rec["Ws"])
+            cho_l[gl], tp_l[gl] = cf[li], tf[li]
+            cho_s[gs], tp_s[gs] = cf[si], tf[si]
+            choices.append(cf)
+        prof["reservoir"] = _time.perf_counter() - _t0
+        _t0 = _time.perf_counter()
+
+        # gather the chosen blob per batch on the device (a batch whose
+        # chosen packet outgrew the budget is redone at the worst case),
+        # fetch in one wave, then apply truncate/pad while compacting
+        # into the dense (blob, off) pager form
+        def drain_sel(res, W, choices, tps, nbW, total):
+            (pend, args), B = res
+            if not pend:
+                return (np.zeros(0, np.uint8), np.zeros(0, np.int64),
+                        np.zeros(0, np.int64), 0)
+            mdev = self._managed_dev_for(W)
+            plan = mdev.dev.plan
+            chd = torch.from_numpy(self._pad_to(
+                choices, len(pend) * B)).to(self.device)
+            sel, redos = [], 0
+            for bi, (pk, _) in enumerate(pend):
+                g = np.arange(bi * B, min((bi + 1) * B, total))
+                if (nbW[g, choices[g]] > plan.wb * 8).any():
+                    pk, _ = self._managed_finish_step(
+                        W, B, plan.worst_bytes)(*args(bi))
+                    redos += 1
+                sel.append(mdev.gather(pk, chd[bi * B:(bi + 1) * B]))
+            chosen = (nbW[np.arange(total), choices] + 7) >> 3
+            return (*compact_chosen(self._to_host(sel), chosen, tps),
+                    redos)
+
+        bl_l, of_l, sz_l, rd_l = drain_sel(res_l, 1, cho_l, tp_l, nb_l,
+                                           nlong)
+        bl_s, of_s, sz_s, rd_s = drain_sel(res_s, 0, cho_s, tp_s, nb_s,
+                                           nshort)
+        prof["gather"] = _time.perf_counter() - _t0
+        tps = np.concatenate([tp_l, tp_s])
+        self.last_managed = dict(
+            long=nlong, short=nshort, long_batches=len(res_l[0][0]),
+            short_batches=len(res_s[0][0]), redos_long=rd_l,
+            redos_short=rd_s, truncates=int((tps[:, 0] > 0).sum()),
+            pads=int((tps[:, 1] > 0).sum()), choices=choices)
+
+        # per-stream Ogg paging (the dense-blob pager of encode_batch)
+        _t0 = _time.perf_counter()
+        outs = []
+        for rec, serialno in zip(per, serialnos):
+            rows = rec["rows"]
+            li, si = rec["li"], rec["si"]
+            sizes = np.empty(len(rec["cs"]), np.int64)
+            sizes[li] = sz_l[rows[li]]
+            sizes[si] = sz_s[rows[si]]
+            ilk = np.zeros(len(rec["cs"]), np.int64)
+            ilk[li] = of_l[rows[li]]
+            ilk[si] = of_s[rows[si]]
+            outs.append(self._page_stream(rec, serialno, comments,
+                                          bl_l, bl_s, ilk, sizes))
+        prof["paging"] = _time.perf_counter() - _t0
+        return outs
+
+    def _frame(self, pcm):
+        """(ch, ns) PCM, numpy or tensor -> (F, ch, n) float32 frames on
+        the device (a view), lapped at hop over a hop of front pad and
+        two of tail; int16 is scaled by 1/32768."""
+        x = (pcm if torch.is_tensor(pcm) else torch.from_numpy(
+            np.ascontiguousarray(pcm))).to(self.device)
+        x = x.to(torch.float32) / (32768.0 if x.dtype == torch.int16
+                                   else 1.0)
+        hop = self.n // 2
+        x = torch.nn.functional.pad(x, (hop, 2 * hop))
+        nf = (x.shape[1] - self.n) // hop + 1
+        return x.unfold(1, self.n, hop)[:, :nf].transpose(0, 1)
+
+    def _encode_managed_long(self, pcms, serialnos, comments,
+                             chunk=256) -> list:
+        """Long-only managed pipeline (switching=False and the
+        single-blocksize templates): every chunk of frames runs the
+        15-packetblob device pass, the host reservoir picks each
+        packet, a device gather fetches only the chosen blob's
+        bytes."""
+        from ..ops import psydevice as PD
+        from ..ops.managed import ReservoirChooser, reservoir_walk
+        mdev = self._managed_dev_for(self.W_main)
+        plan = mdev.dev.plan
+        hop = self.n // 2
+        ch = self.ch
+        dev = self.device
+
+        # ---- per-stream framing + the global (stream, chunk) list
+        streams = []
+        work = []                        # (sidx, frame offset o)
+        for sidx, pcm in enumerate(pcms):
+            if pcm.shape[0] != ch:
+                raise ValueError(f"pcm has {pcm.shape[0]} channels, "
+                                 f"encoder {ch}")
+            frames = self._frame(pcm)
+            streams.append(dict(frames=frames, F=frames.shape[0],
+                                ns=int(pcm.shape[1])))
+            work += [(sidx, o) for o in range(0, frames.shape[0], chunk)]
+
+        def chunk_frames(sidx, o):
+            blk = streams[sidx]["frames"][o:o + chunk]
+            return torch.nn.functional.pad(
+                blk, (0, 0, 0, 0, 0, chunk - blk.shape[0])).contiguous()
+
+        # ---- dispatch all chunks; the (chunk, 15) bit counts start to
+        # the host at once
+        if self.psy_state:
+            # two-phase: probe all chunks, replay the ampmax decay on
+            # the host (each stream is an independent lane of
+            # ampmax_seq_nd), finish with per-frame state (the managed
+            # path is long-only: ampmax + M9 lastmdct are the live
+            # states; lastmdct rows never cross a stream boundary)
+            probe = mdev.make_probe_step(chunk)
+            finish = mdev.make_finish_step(chunk)
+            probes = [probe(chunk_frames(sidx, o)) for sidx, o in work]
+            lamf = self._to_host([torch.cat([ob[5] for ob in probes])])[
+                0].reshape(-1, ch).max(-1)           # global frame order
+            S = len(streams)
+            Fcmax = chunk * max(sum(w == sidx for w, _ in work)
+                                for sidx in range(S))
+            lam_p = np.full((S, Fcmax), -9999.0, np.float32)
+            gbase = []
+            cur = [0] * S
+            for wi, (sidx, o) in enumerate(work):
+                lam_p[sidx, cur[sidx]:cur[sidx] + chunk] = \
+                    lamf[wi * chunk:(wi + 1) * chunk]
+                gbase.append(cur[sidx])
+                cur[sidx] += chunk
+            amp_nd = PD.ampmax_seq_nd(
+                lam_p, np.full((S, Fcmax), self.W_main, np.int64),
+                self.vi.blocksizes, self.rate,
+                self.setup.psy_global["ampmax_att_per_sec"]) \
+                .astype(np.float32)
+            hsrate = self.rate >= 26000
+            n2L = mdev.n2
+            zeros = torch.zeros((chunk * ch, n2L), device=dev)
+            if hsrate:
+                # previous frame's logmdct rows; the first frame of EACH
+                # STREAM reads the zero row
+                L_all = torch.cat([ob[1] for ob in probes]
+                                  + [zeros[:1]], 0)
+                zrow = len(probes) * chunk * ch
+                g = np.arange(len(probes) * chunk)
+                within = np.concatenate([np.arange(chunk) + b
+                                         for b in gbase])
+                prow = np.where(within[:, None] == 0, zrow,
+                                (g - 1)[:, None] * ch
+                                + np.arange(ch)[None, :])
+                prow = torch.from_numpy(prow.reshape(
+                    len(probes), -1)).to(dev)
+            ampd = torch.from_numpy(np.stack(
+                [amp_nd[sidx, b:b + chunk]
+                 for (sidx, _), b in zip(work, gbase)])).to(dev)
+
+            def args(wi):
+                ob = probes[wi]
+                lastm = L_all.index_select(0, prow[wi]) if hsrate \
+                    else zeros
+                return (*ob[:5], lastm, ob[5], ampd[wi])
+
+            def redo(wi):
+                return mdev.make_finish_step(chunk, plan.worst_bytes)(
+                    *args(wi))
+            pend = [finish(*args(wi)) for wi in range(len(work))]
+        else:
+            step = mdev.make_framed_step(chunk)
+
+            def redo(wi):
+                return mdev.make_framed_step(chunk, plan.worst_bytes)(
+                    chunk_frames(*work[wi]))
+            pend = [step(chunk_frames(sidx, o)) for sidx, o in work]
+        nbs = self._to_host([nb for _, nb in pend])
+
+        # ---- per-stream reservoir walk (work is stream-major, so each
+        # stream's chunks arrive in order), then the device gather of
+        # the chosen blobs, fetched in one wave
+        sizes = {}
+        for wi, (sidx, o) in enumerate(work):
+            hi = min(chunk, streams[sidx]["F"] - o)
+            sizes.setdefault(sidx, []).append((nbs[wi][:hi] + 7) >> 3)
+        picks = {}
+        for sidx, st in enumerate(streams):
+            sz = np.concatenate(sizes[sidx]).astype(np.int64)
+            picks[sidx] = (sz, *reservoir_walk(
+                ReservoirChooser(self.setup, self.rate, self.vi.blocksizes),
+                sz, np.full(len(sz), self.W_main)))
+        sel = []
+        for wi, ((sidx, o), (pk, _)) in enumerate(zip(work, pend)):
+            sz, cf, _ = picks[sidx]
+            c = cf[o:o + chunk]
+            if (sz[o + np.arange(len(c)), c] > plan.wb).any():
+                # an oversized chosen packet: redo the chunk at the
+                # static worst-case budget
+                pk, _ = redo(wi)
+            sel.append(mdev.gather(pk[:len(c)], torch.from_numpy(c).to(
+                dev)))
+        sel = self._to_host(sel)
+
+        # ---- per-stream Ogg assembly
+        outs = []
+        for sidx, serialno in enumerate(serialnos[:len(streams)]):
+            st = streams[sidx]
+            w = OggStreamWriter(serialno)
+            h1, h2, h3 = self.enc.header_packets(comments)
+            w.packetin(h1, 0)
+            w.flush()
+            w.packetin(h2, 0)
+            w.packetin(h3, 0)
+            w.flush()
+            sz, cf, tf = picks[sidx]
+            # the stream's chunks in order; a chunk redone at the
+            # worst-case budget has wider rows than the others
+            rows = [s for (si, _), s in zip(work, sel) if si == sidx]
+            F, ns = st["F"], st["ns"]
+            gp = 0
+            for f in range(F):
+                nbytes = int(sz[f, cf[f]])
+                row = rows[f // chunk][f % chunk]
+                data = row[:nbytes - int(tf[f, 0])].tobytes() \
+                    + b"\x00" * int(tf[f, 1])
+                gp = 0 if f == 0 else gp + hop
+                eos = f == F - 1
+                if eos:
+                    gp = ns
+                w.packetin(data, gp if f > 0 else 0, eos=eos)
+                if f % 16 == 0 or eos:
+                    w.flush(eos=eos)
+            outs.append(w.pageout_all())
+        return outs
+
     # -- host side ---------------------------------------------------------
     def _encode_switched(self, pcm, serialno, comments):
         return self.encode_batch([pcm], [serialno], comments,
@@ -1375,6 +1755,9 @@ class FastEncoder:
         scale) or int16 (scaled by 1/32768 on the device), staged to the
         device chunk by chunk, or a tensor on the device, sliced there.
         """
+        if self.managed:
+            return self.encode_managed(pcm, serialno, comments,
+                                       switching=switching)
         sw = self.switching if switching is None else switching
         if sw:
             return self._encode_switched(pcm, serialno, comments)

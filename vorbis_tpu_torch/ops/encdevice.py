@@ -13,9 +13,10 @@ The host receives only (packed packet bytes, bit counts).  This port
 covers the single-submap steps: the stateless step
 (`make_step`), the frame-gather step (`make_gather_step`) and the
 two-phase psy-state steps (`make_probe_step`, `make_finish_step`, with
-M6/M9 coupling and the noise-normalize promotion, without M3's impulse
-terms).  Multi-submap 5.1 layouts (§1.10) and the managed pass (§1.9)
-raise NotImplementedError.
+M6/M9 coupling, the noise-normalize promotion and, on short blocks,
+M3), and `finish_from_posts`, which the managed 15-packetblob pass
+(ops/managed.py) shares.  Multi-submap 5.1 layouts (§1.10) raise
+NotImplementedError.
 
 Differences from the JAX module, all exact:
   * bit fields ride int64 (torch has no uint32 shifts/comparisons on
@@ -388,6 +389,9 @@ class DeviceFastEncode:
             # noise-normalize promotion region (coupled: above the
             # point limit too)
             inreg = bins >= nm["start"]
+            # the region's start alone: the managed pass ands in its
+            # per-blob point limits (inlimit)
+            tabs["nm_start"] = inreg.copy()
             if self.res_type == 2:
                 inreg &= bins >= self.ctx.couple["limit"]
             tabs["nm_inreg"] = inreg
@@ -733,7 +737,8 @@ class DeviceFastEncode:
         c2b = torch.repeat_interleave(c2, part, dim=-1)[:, :n2]
         return flagm1 & (c1b | (c2b & opposed))
 
-    def _couple_quantize(self, md, curve, used, F, epeak=None,
+    def _couple_quantize(self, md, curve, used, F, thr1=None,
+                         threv=None, inlimit=None, epeak=None,
                          npeak=None):
         """Stereo channel coupling + quantization (reference:
         _vp_couple_quantize_normalize, psy.c:4858-5142): per-bin
@@ -745,7 +750,12 @@ class DeviceFastEncode:
         peak store (lowers the lossless threshold, feeds the M6
         promotion) and M8 partition store (gates the promotion
         budget).  md/curve: (F*2, n2); returns integer-valued
-        (F, 2, n2) float32 residues."""
+        (F, 2, n2) float32 residues.
+
+        thr1/threv/inlimit may override the single-blob static
+        threshold profiles with per-frame (F, n2) rows -- the managed
+        15-packetblob pass varies prepoint/postpoint/pointlimit per
+        blob (psy.c blob loop, mapping0.c:1204-1313)."""
         cp = self.ctx.couple
         n2 = md.shape[-1]
         mdc = md.reshape(F, 2, n2)
@@ -753,7 +763,8 @@ class DeviceFastEncode:
         cur = curve.reshape(F, 2, n2)
         cur = torch.where(us[..., None], cur, float(f32(1e-10)))
         res = torch.where(us[..., None], mdc / cur, 0.0)
-        thr1 = self.thr1_t[:n2]
+        if thr1 is None:
+            thr1 = self.thr1_t[:n2]
         r = torch.abs(res)
         if epeak is not None:
             # M9: the stored post-echo peaks lower the lossless
@@ -797,7 +808,8 @@ class DeviceFastEncode:
         ma = torch.where(us[:, 1, None], mdc[:, 1], 0.0)
         rawM = torch.where(mm < 0, -(mm * mm), mm * mm)
         rawA = torch.where(ma < 0, -(ma * ma), ma * ma)
-        threv = self.threv_t[:n2]
+        if threv is None:
+            threv = self.threv_t[:n2]
         a2 = torch.abs(rawM * thnor)
         b2 = torch.abs(rawA * thnor)
         hyp = torch.where(
@@ -817,7 +829,8 @@ class DeviceFastEncode:
         any_used = us[:, 0] | us[:, 1]
         nm = getattr(self.ctx, "normal", None)
         if nm is not None and nm["thresh"] < 9000.0:
-            inreg = self.nm_inreg_t[:n2]
+            inreg = (self.nm_inreg_t[:n2] if inlimit is None
+                     else self.nm_start_t[:n2] & inlimit)
             cand = (~lossless) & (ve < float(f32(0.25))) & inreg \
                 & any_used[:, None]
             npk_m = None
@@ -893,20 +906,31 @@ class DeviceFastEncode:
         return self.finish_from_posts(md, posts, used, F, wb)
 
     def finish_from_posts(self, md, posts, used, F, wb, wid=None,
-                          epeak=None, npeak=None):
+                          thr1=None, threv=None, inlimit=None,
+                          lowpass=None, epeak=None, npeak=None):
         """Post-fit encode body: raw fit posts -> packed packets.
-        wid (F*ch,): per-row window-shape id (lW*2+nW) for the header
-        flags; epeak/npeak: the psy-state path's M9 peak store
-        (F*ch, n2) and M8 partition store (F*ch, nparts) feeding
-        flag_lossless, M6 and the noise-normalize budget."""
+        Shared by the single-blob path and the managed 15-blob pass
+        (ops/managed.py), which feeds interpolated post ladders, per-row
+        coupling thresholds thr1/threv/inlimit (F, n2) and the per-row
+        sliding lowpass (F*ch,) bins.  wid (F*ch,): per-row
+        window-shape id (lW*2+nW) for the header flags; epeak/npeak:
+        the psy-state path's M9 peak store (F*ch, n2) and M8 partition
+        store (F*ch, nparts) feeding flag_lossless, M6 and the
+        noise-normalize budget."""
         ctx = self.ctx
         ch = self.ch
         codes, qposts = self._floor_wrap(posts)
         curve = ctx.floor.render(qposts, ctx.fromdB)
+        if lowpass is not None:
+            # per-row sliding lowpass: zero residues at and above the
+            # blob's bin limit (psy.c:5126-5131)
+            bins = torch.arange(md.shape[-1], dtype=torch.int32,
+                                device=md.device)
+            md = torch.where(bins[None, :] < lowpass[:, None], md, 0.0)
         if self.res_type == 2:
-            out2, any_used = self._couple_quantize(md, curve, used, F,
-                                                   epeak=epeak,
-                                                   npeak=npeak)
+            out2, any_used = self._couple_quantize(
+                md, curve, used, F, thr1=thr1, threv=threv,
+                inlimit=inlimit, epeak=epeak, npeak=npeak)
             # interleave the coupled pair: flat[i] = out2[:, i%2, i//2]
             inter = out2.transpose(1, 2).reshape(F, -1)
             pw = self._classify2(torch.abs(out2[:, 0]),

@@ -330,6 +330,18 @@ class DeviceAnalysis:
         tone = self.tonemask(logfft, global_max, local_max)
         return md, logmdct, noise, tone
 
+    def managed_masks(self, frames, wid=None):
+        """(mdct, logmdct, masks (..., 3, n2)): the three
+        offset_select mask variants that anchor the 15 packetblob
+        interpolation ladder (reference: mapping0.c:1090-1181)."""
+        md, logmdct, noise, tone = self.mask_components(frames, wid)
+        # select order mirrors the reference (mapping0.c:1090-1181):
+        # mask1 first -- its M1 pass rescales the mdct used by every blob
+        md, m1 = self.offset_and_mix(md, logmdct, noise, tone, 1)
+        _, m2 = self.offset_and_mix(md, logmdct, noise, tone, 2)
+        _, m0 = self.offset_and_mix(md, logmdct, noise, tone, 0)
+        return md, logmdct, torch.stack([m0, m1, m2], dim=-2)
+
 
 class DeviceToneMask:
     """Batched fast-path tone masking (reference: lib/psy.c
