@@ -44,6 +44,15 @@ Phases (any failure raises and the script exits non-zero):
      launches, the short batch's three M3 calls by bit pattern against
      their plain version, and the 15-blob finish on the card against the
      same step on the CPU in >= 90% of the (F, 15) rows;
+  3g. 5.1 kernels: the floor kernel bitwise against its plain version
+     on the three floor looks of FastEncoder(6, 48000, 0.4) (P = 29,
+     n = 1024; P = 13, n = 128; the LFE's P = 2, n = 12) at B = 1280 and
+     256 rows of random spectra and at the rows of a main-path finish
+     batch, with its times, bounds and plain times there; the MDCT's
+     time at a long batch's rows (float64-accumulated, beside an fp32
+     GEMM); the M3 kernel by bit pattern on the six-channel short
+     batches of 5 s of the 5.1 click train, and its time on the first
+     full batch;
   4. main path: FastEncoder(2, 44100, 0.5, switching=False,
      psy_state=False).encode of 60 s of 44.1 kHz stereo int16 (bench.py's
      signal, seed 0), from a CUDA tensor and from host numpy; the stream
@@ -87,6 +96,16 @@ Phases (any failure raises and the script exits non-zero):
      the exact length; the long-only managed paths (switching=False,
      stateful and stateless) on 10 s of stream 0, decoded to the exact
      length;
+  4g. 5.1: FastEncoder(6, 48000, 0.4) (switching and the psy state on)
+     encode_batch of 4 x 60 s of _signal51 and 4 x 30 s of
+     _click_train51 from CUDA tensors, warm, then timed: x-realtime,
+     last_profile, frames and finish batches per mode, the floor launches
+     of every group's wrapper (the coupled submap's and the LFE's, each
+     block mode) and M3's (six channels), every last granulepos, every
+     stream decoded to its exact length (four worker processes), stream
+     0's SNR within SNR_MARGIN_DB of the JAX package's and its short
+     blocks beside JAX's, audio kbps; the busy share under
+     torch.profiler (the click train on one stream);
   5. card vs CPU: the port's packets for a 2 s clip on the card and on
      the CPU, byte for byte;
   5b. card vs CPU, stateful: the stateful packets of a 2 s clip
@@ -96,11 +115,13 @@ Phases (any failure raises and the script exits non-zero):
      envelope marks and the schedule equal, >= 90% of packets identical;
   5d. card vs CPU, managed: the same clip through the ABR encoder at
      B_long = B_short = 64: marks and schedule equal, the chosen blobs
-     equal printed, >= 85% of packets identical.
+     equal printed, >= 85% of packets identical;
+  5e. card vs CPU, 5.1: a 2 s 5.1 click train at B_long = B_short = 64:
+     marks and schedule equal, >= 90% of packets identical.
 Phase 4b then runs once more under torch.profiler and prints the
 device's busy share (4d profiles the same 16-stream batch as 4c, with
 switching).  Launch counts are set to 0 just before each main
-path (4, 4b, 4c, 4d, 4e, 4f) and read just after it.
+path (4, 4b, 4c, 4d, 4e, 4f, 4g) and read just after it.
 It prints the kernel record as one JSON line, then the result line.
 """
 
@@ -140,6 +161,14 @@ JAX_SWITCHED_SHORTS = {"signal": 9, "click_train": 4678}
 # the CPU; `JAX_PLATFORMS=cpu python3 reference_snr.py --managed`;
 # audio 128.316 and 128.374 kbps, 2337 and 2345 short blocks).
 JAX_MANAGED_SNR_DB = {0: 7.82215, 7: 8.09780}
+# And for phase 4g: the JAX package's 5.1 encoder, FastEncoder(6, 48000,
+# 0.4).encode (block switching and the psy state on) of the first stream
+# of each 4g leg, _signal51(60, 48000, 0) and _click_train51(30, 48000,
+# 0), decoded by vorbis_tpu.vorbisfile: SNR in dB and short blocks (JAX
+# 0.9.0 on the CPU; `JAX_PLATFORMS=cpu python3 reference_snr.py --51`;
+# bytes 2,243,961 and 849,484, audio 296.057 and 221.272 kbps).
+JAX_51_SNR_DB = {"signal51": 19.66066, "click_train51": 4.67523}
+JAX_51_SHORTS = {"signal51": 13, "click_train51": 3251}
 
 # The card's peaks for the kernel's bound (NVIDIA H100 SXM data sheet,
 # 132 SMs at 1.98 GHz): HBM bytes per second; float32 operations, 67e12
@@ -193,17 +222,14 @@ def _signal(secs, rate, seed):
     import numpy as np
     t = np.arange(secs * rate) / rate
     rng = np.random.RandomState(seed)
-    pcmf = (0.30 * np.sin(2 * np.pi * (440 + 7 * seed) * t)[None, :]
-            + 0.10 * np.sin(2 * np.pi * 1873 * t)[None, :]
-            + 0.02 * rng.randn(2, int(secs * rate)))
-    return np.clip(np.rint(pcmf * 32768.0), -32768,
-                   32767).astype(np.int16)
+    return _int16(0.30 * np.sin(2 * np.pi * (440 + 7 * seed) * t)[None, :]
+                  + 0.10 * np.sin(2 * np.pi * 1873 * t)[None, :]
+                  + 0.02 * rng.randn(2, int(secs * rate)))
 
 
-def _click_train(secs, rate, seed):
-    """bench.py's transient leg: a decaying click every ~90 ms over a
-    quiet tonal bed, int16 stereo (every click lands an envelope mark,
-    so the schedule mixes short and long blocks throughout)."""
+def _click_mono(secs, rate, seed):
+    """The click train's one channel, float64: a decaying click every
+    ~90 ms over a quiet tone."""
     import numpy as np
     n = int(secs * rate)
     t = np.arange(n) / rate
@@ -214,9 +240,47 @@ def _click_train(secs, rate, seed):
         dur = 256
         env = np.exp(-np.arange(dur) / 40.0)
         x[o:o + dur] += 0.75 * env * rng.randn(dur)
-    pcmf = np.stack([x, np.roll(x, 7)])
+    return x
+
+
+def _int16(pcmf):
+    import numpy as np
     return np.clip(np.rint(pcmf * 32768.0), -32768,
                    32767).astype(np.int16)
+
+
+def _click_train(secs, rate, seed):
+    """bench.py's transient leg: a decaying click every ~90 ms over a
+    quiet tonal bed, int16 stereo (every click lands an envelope mark,
+    so the schedule mixes short and long blocks throughout)."""
+    import numpy as np
+    x = _click_mono(secs, rate, seed)
+    return _int16(np.stack([x, np.roll(x, 7)]))
+
+
+def _signal51(secs, rate, seed):
+    """A 5.1 stream as tests/test_fastenc.py's test_fast_51_coupled
+    builds it, from a seed: five tones plus seeded noise on channels 0-4
+    and a 50 Hz LFE, int16."""
+    import numpy as np
+    n = int(secs * rate)
+    t = np.arange(n) / rate
+    rng = np.random.RandomState(seed)
+    chs = [0.3 * np.sin(2 * np.pi * (300 + 120 * c + 7 * seed) * t)
+           + 0.02 * rng.randn(n) for c in range(5)]
+    chs.append(0.2 * np.sin(2 * np.pi * 50 * t))
+    return _int16(np.stack(chs))
+
+
+def _click_train51(secs, rate, seed):
+    """The click train on channels 0-4 (each a few samples later than the
+    one before) and a quiet 50 Hz LFE tone, int16 5.1: it drives the
+    short blocks and M3 on six channels."""
+    import numpy as np
+    x = _click_mono(secs, rate, seed)
+    t = np.arange(len(x)) / rate
+    return _int16(np.stack([np.roll(x, 7 * c) for c in range(5)]
+                           + [0.05 * np.sin(2 * np.pi * 50 * t)]))
 
 
 def _cuda_ms(fn, reps):
@@ -242,14 +306,26 @@ def _packets(dev, chunk):
             for f in range(len(nb))]
 
 
-def _floors(fe):
-    """The floor-fit kernels of an encoder's main path: the long look's
-    and, once built, the short look's (a long-only stream opens with one
-    short block)."""
-    out = [fe.floor]
+def _floor_groups(fe):
+    """{name: floor-fit wrapper} of an encoder's main path: the long
+    look's and, once built, the short look's (a long-only stream opens
+    with one short block); on a multi-submap layout (5.1) each submap's
+    of each block mode built so far (the coupled submap shares its
+    mode's, the LFE has its own)."""
+    out = {"long": fe.floor}
     if fe._short_ctx is not None:
-        out.append(fe._short_ctx.floor)
+        out["short"] = fe._short_ctx.floor
+    for mode, d in (("long", fe._dev), ("short", fe._dev_short)):
+        if d is not None and d.multi:
+            for i, g in enumerate(d.groups):
+                if all(g.floor is not f for f in out.values()):
+                    out[f"{mode} group {i}"] = g.floor
     return out
+
+
+def _floors(fe):
+    """The floor-fit kernels of an encoder's main path (_floor_groups)."""
+    return list(_floor_groups(fe).values())
 
 
 def _launches(fe):
@@ -1092,6 +1168,250 @@ def _phase_managed_card_vs_cpu(fm, fm_cpu, clip, clip_dev):
                            "than 15%")
 
 
+def _phase_51_kernels(f51, smi):
+    """Phase 3g: both hand kernels at the shapes the 5.1 encoder sends
+    them.  The floor kernel bitwise against its plain version on the
+    three floor looks of FastEncoder(6, 48000, 0.4) (the port's
+    encsetup): P = 29, n = 1024 (long), P = 13, n = 128 (short) and the
+    LFE's P = 2, n = 12, each at B = 256 * 5 and B = 256 rows of random
+    spectra (_random_spectra), then its time (CUDA events), bound and
+    plain time at the rows of one main-path finish batch: the coupled
+    submap's B_long * 5 = 10,240 and B_short * 5 = 1,280 rows, the LFE's
+    2,048 and 256.  The M3 kernel by bit pattern on every short batch of
+    5 s of the 5.1 click train (F = 256, six channels, through the
+    port's own probe), and its time on the first full batch (CUDA
+    graphs).  Returns the records for the kernels' JSON line."""
+    import torch
+    from vorbis_tpu_torch.codec.encoder import Encoder
+    from vorbis_tpu_torch.models import encsetup
+    from vorbis_tpu_torch.ops import floor_cuda
+    looks = Encoder(encsetup.setup_vbr_staged(6, 48000, 0.4).init()
+                    ).floor_looks
+    by = {(lk.posts, lk.n): lk for lk in looks}
+    if sorted(by) != [(2, 12), (13, 128), (29, 1024)]:
+        raise RuntimeError(f"5.1 floor looks {sorted(by)}")
+    fl_err, fl_rec = 0, []
+    timed = [((29, 1024), 10240), ((13, 128), 1280), ((2, 12), 2048),
+             ((2, 12), 256)]
+    for (P, n), lk in sorted(by.items()):
+        fit = floor_cuda.DeviceFloorFitCuda(lk, "cuda")
+        for B in sorted({1280, 256} | {b for pn, b in timed
+                                       if pn == (P, n)}):
+            q, a, p, _ = fit.prepare(*_random_spectra(n, B, 40 + P))
+            fl_err = max(fl_err, _check(fit, f"5.1 P={P} n={n}", q, a, p))
+            if ((P, n), B) not in timed:
+                continue
+            ms = _cuda_ms(lambda: fit.fit(q, a, p), 100)
+            plain_ms = _cuda_ms(lambda: fit.fit_plain(q, a, p), 3)
+            bound_ms, bound_by, _ = _bound(fit, q, a, p)
+            print(f"[5.1 kernel] floor fit P={P} n={n} B={B}: kernel "
+                  f"{ms:.5f} ms, plain {plain_ms:.4f} ms, bound "
+                  f"{bound_ms * 1e3:.3f} us by {bound_by}, share "
+                  f"{100 * bound_ms / ms:.1f}% ({smi})")
+            fl_rec.append(dict(P=P, n=n, B=B, ms=ms, plain_ms=plain_ms,
+                               bound_ms=bound_ms, bound_by=bound_by))
+    # the MDCT accumulates in float64 (torchdsp.DeviceAnalysis.mdct):
+    # its cost at one long finish batch's rows, beside an fp32 GEMM
+    da = f51.analysis
+    w = torch.randn(2048 * 6, f51.n, device="cuda")
+    t64 = _cuda_ms(lambda: da.mdct(w), 20)
+    t32 = _cuda_ms(lambda: torch.matmul(w, da.mdct_basis), 20)
+    print(f"[5.1 kernel] MDCT of one long finish batch ({w.shape[0]} x "
+          f"{f51.n}): float64-accumulated {t64:.4f} ms, fp32 GEMM "
+          f"{t32:.4f} ms ({smi})")
+    m3 = f51.ctx(0).m3_scan
+    recorded = []
+
+    def record(*a):
+        recorded.append(a)
+        return m3(*a)
+
+    f51._short_ctx.m3_scan = record
+    try:
+        f51.encode_batch([torch.from_numpy(_click_train51(5, 48000, 0))
+                          .cuda()])
+    finally:
+        f51._short_ctx.m3_scan = m3
+    m3_err, first = 0.0, None
+    for i, (lm3, last3, v3, tv3, prm3) in enumerate(recorded):
+        sub = {k: prm3[k] for k in ("sw", "reset", "noise_center")}
+        args = (lm3, last3, v3, tv3)
+        if lm3.shape[1] != 6:
+            raise RuntimeError(f"5.1 M3 call on {lm3.shape[1]} channels")
+        err, want, segs, longest = _m3_check(m3, f"5.1 click-train batch "
+                                             f"{i}", args, sub)
+        m3_err = max(m3_err, err)
+        if first is None and lm3.shape[0] == 256 and bool(sub["sw"].any()):
+            first = (args, sub, want, segs, longest)
+    if first is None:
+        raise RuntimeError("no F = 256 5.1 short batch with sw")
+    args, sub, want, segs, longest = first
+    rows = _m3_turns(m3, None, args, sub)
+    m3_ms = (rows[0] + rows[-1]) / 2
+    m3_plain = _cuda_ms(lambda: m3.plain(*args, sub), 3)
+    bound_ms, bound_by, chain_ms, w = _m3_bound(m3, args, sub, want)
+    print(f"[5.1 kernel] m3 scan F=256 ch=6 n={m3.n} ({segs} segments, "
+          f"longest {longest}): kernel {m3_ms:.5f} ms (turns "
+          f"{rows[0]:.5f}, {rows[-1]:.5f}), plain {m3_plain:.4f} ms; "
+          f"roofline {bound_ms * 1e3:.3f} us by {bound_by}, segment chain "
+          f"{chain_ms * 1e3:.3f} us ({w['chain_steps']} steps); share "
+          f"{100 * max(bound_ms, chain_ms) / m3_ms:.2f}% ({smi})")
+    return fl_err, fl_rec, m3_err, dict(
+        F=256, ch=6, n=m3.n, ms=m3_ms, plain_ms=m3_plain,
+        bound_ms=bound_ms, bound_by=bound_by, chain_bound_ms=chain_ms)
+
+
+def _decode_check(job):
+    """One 4g stream through the port's own decoder in a worker process:
+    (ogg bytes, int16 input) -> its SNR in dB; raises unless it decodes
+    to the input's exact shape with finite samples."""
+    sys.path.insert(0, HERE)
+    from vorbis_tpu_torch.codec.decoder import decode_ogg
+    ogg, pcm16 = job
+    out, _ = decode_ogg(ogg)
+    return _snr(pcm16, out)
+
+
+def _phase_51(f51, smi):
+    """Phase 4g: FastEncoder(6, 48000, 0.4) (5.1: block switching and the
+    psy state on) encode_batch of 4 x 60 s of _signal51 and 4 x 30 s of
+    _click_train51 (seeds 0-3) from CUDA tensors, warm, then timed:
+    x-realtime, last_profile, frames and finish batches per mode, the
+    floor launches of every group's wrapper (the coupled submap's and
+    the LFE's, long and short) and M3's (on six channels: the warm-up's
+    calls are recorded), every last granulepos, every stream decoded by
+    the port's decoder (four worker processes) to its exact length,
+    stream 0's SNR within SNR_MARGIN_DB of the JAX package's and its
+    short blocks beside JAX's, each stream's audio kbps; then the busy
+    share under torch.profiler (the click train on one stream) and the
+    largest kernels.  Returns the timed runs' (floor, M3) launches."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    S, rate = 4, 48000
+    total = [0, 0]
+    pool = ProcessPoolExecutor(
+        S, mp_context=multiprocessing.get_context("spawn"))
+    with pool:
+        for leg, gen, secs in (("signal51", _signal51, 60),
+                               ("click_train51", _click_train51, 30)):
+            fl, m3_n = _leg_51(f51, smi, pool, leg, gen, secs, S, rate)
+            total[0] += fl
+            total[1] += m3_n
+    return tuple(total)
+
+
+def _leg_51(f51, smi, pool, leg, gen, secs, S, rate):
+    """One leg of phase 4g (_phase_51); returns its (floor, M3)
+    launches."""
+    import torch
+    pcms = [gen(secs, rate, k) for k in range(S)]
+    streams = [torch.from_numpy(x).cuda() for x in pcms]
+    m3 = f51.ctx(0).m3_scan
+    chans = set()
+
+    def record(*a):
+        chans.add(a[0].shape[1])
+        return m3(*a)
+
+    f51._short_ctx.m3_scan = record
+    try:
+        f51.encode_batch(streams[:1])             # warm-up
+        torch.cuda.synchronize()
+    finally:
+        f51._short_ctx.m3_scan = m3
+    groups = _floor_groups(f51)
+    for k in _kernels_of(f51):
+        k.launches = 0
+    t0 = time.perf_counter()
+    oggs = f51.encode_batch(streams)
+    torch.cuda.synchronize()
+    t = time.perf_counter() - t0
+    fl = {k: w.launches for k, w in groups.items()}
+    m3_n = m3.launches
+    prof = dict(f51.last_profile)
+    shorts = [_short_blocks(f51, o) for o in oggs]
+    npk = [len(_audio_packets(o)) for o in oggs]
+    nshort = sum(shorts)
+    nlong = sum(npk) - nshort
+    nb_l, nb_s = -(-nlong // 2048), -(-nshort // 256)
+    fl_long = (fl["long"], fl["long group 1"])
+    fl_short = (fl["short"], fl["short group 1"])
+    if (fl_long[0] != fl_long[1] or fl_long[0] < nb_l
+            or fl_short[0] != fl_short[1] or fl_short[0] < nb_s
+            or m3_n < nb_s or (nshort and not m3_n)
+            or chans != {6}):
+        raise RuntimeError(f"{leg}: floor launches {fl}, M3 {m3_n} on "
+                           f"channels {chans}, for {nb_l} long + {nb_s} "
+                           f"short finish batches")
+    for k, o in enumerate(oggs):
+        if _last_granulepos(o) != pcms[k].shape[1]:
+            raise RuntimeError(f"{leg} stream {k}: last granulepos "
+                               f"{_last_granulepos(o)}")
+    snrs = list(pool.map(_decode_check, zip(oggs, pcms)))
+    kbps = [_audio_kbps(o, x.shape[1], rate) for o, x in zip(oggs, pcms)]
+    print(f"[5.1] {leg} stream 0: {len(oggs[0])} bytes, {shorts[0]} "
+          f"short blocks (JAX {JAX_51_SHORTS[leg]}), SNR {snrs[0]:.3f} "
+          f"dB (JAX {JAX_51_SNR_DB[leg]:.3f} dB); every stream decoded "
+          f"to its length, SNR " + ", ".join(f"{v:.3f}" for v in snrs)
+          + " dB; audio kbps " + ", ".join(f"{v:.2f}" for v in kbps))
+    if abs(snrs[0] - JAX_51_SNR_DB[leg]) > SNR_MARGIN_DB:
+        raise RuntimeError(f"{leg}: SNR {snrs[0]:.3f} dB not within "
+                           f"{SNR_MARGIN_DB} dB of the JAX stream")
+    print(f"[5.1] {leg} {S} x {secs} s: {t:.4f} s = "
+          f"{S * secs / t:.2f}x realtime; {nlong} long + {nshort} short "
+          f"frames in {nb_l} + {nb_s} finish batches; floor launches "
+          + ", ".join(f"{k} {v}" for k, v in fl.items())
+          + f"; m3 {m3_n} on {sorted(chans)} channels; last_profile (s): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in prof.items())
+          + f" ({smi})")
+    # the profiler's cost grows with the kernel count: the click
+    # train is profiled on one stream, against its unprofiled wall
+    prof_streams = streams if leg == "signal51" else streams[:1]
+    t_prof = t
+    if leg != "signal51":
+        t0 = time.perf_counter()
+        f51.encode_batch(prof_streams)
+        torch.cuda.synchronize()
+        t_prof = time.perf_counter() - t0
+    busy, dev_ms, rows = _busy_share(
+        lambda: f51.encode_batch(prof_streams), t_prof)
+    print(f"[5.1] {leg} profiled ({len(prof_streams)} streams): device "
+          f"{dev_ms:.3f} ms, busy {100 * busy:.1f}% of the unprofiled "
+          f"{t_prof:.4f} s; top: " + "; ".join(rows))
+    return sum(fl.values()), m3_n
+
+
+def _phase_51_card_vs_cpu(f51, f51_cpu):
+    """Phase 5e: a 2 s 5.1 click train through FastEncoder(6, 48000, 0.4)
+    on the card and on the CPU at B_long = B_short = 64: the envelope
+    marks and the schedule equal, >= 90% of packets identical."""
+    import numpy as np
+    import torch
+    clip = np.ascontiguousarray(_click_train51(2, 48000, 0))
+    clip_dev = torch.from_numpy(clip).cuda()
+    (mk_card,), per_card = _switched_marks(f51, [clip_dev])
+    (mk_cpu,), per_cpu = _switched_marks(f51_cpu, [clip])
+    sched = all(np.array_equal(per_card[0][k], per_cpu[0][k])
+                for k in ("cs", "Ws", "impulse"))
+    a = _audio_packets(f51.encode_batch([clip_dev], B_long=64,
+                                        B_short=64)[0])
+    b = _audio_packets(f51_cpu.encode_batch([clip], B_long=64,
+                                            B_short=64)[0])
+    if len(a) != len(b):
+        raise RuntimeError(f"5.1: card {len(a)} packets, CPU {len(b)}")
+    diff = [i for i, (x, y) in enumerate(zip(a, b)) if x != y]
+    print(f"[card-vs-cpu] 5.1: marks {int(mk_card.sum())} card, "
+          f"{int(mk_cpu.sum())} CPU, {int((mk_card != mk_cpu).sum())} "
+          f"differ; schedule {'equal' if sched else 'DIFFERS'} "
+          f"({int((per_card[0]['Ws'] == 0).sum())} short blocks); "
+          f"identical packets {len(a) - len(diff)}/{len(a)} (B=64)")
+    if (mk_card != mk_cpu).any() or not sched:
+        raise RuntimeError("5.1: card and CPU marks or schedule differ")
+    if len(a) - len(diff) < 0.9 * len(a):
+        raise RuntimeError("5.1 card and CPU packets differ in more than "
+                           "10%")
+
+
 def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1236,6 +1556,13 @@ def main():
     max_err = max(max_err, fl_err_m)
     m3_rec["max_abs_err"] = max(m3_rec["max_abs_err"], m3_err_m)
     _lap(t_start, "3f")
+
+    # 3g. both kernels at the shapes of the 5.1 encoder
+    f51 = FastEncoder(6, 48000, 0.4)
+    fl_err_51, fl_rec_51, m3_err_51, m3_rec_51 = _phase_51_kernels(f51, smi)
+    max_err = max(max_err, fl_err_51)
+    m3_rec["max_abs_err"] = max(m3_rec["max_abs_err"], m3_err_51)
+    _lap(t_start, "3g")
 
     # 4. main path at real size
     from vorbis_tpu_torch.codec.decoder import decode_ogg
@@ -1459,6 +1786,10 @@ def main():
     launches_sw["managed"] = _phase_managed_leg(fm, smi)
     _lap(t_start, "4f")
 
+    # 4g. 5.1: 4 x 60 s tonal and 4 x 30 s click train
+    launches_sw["5.1"] = _phase_51(f51, smi)
+    _lap(t_start, "4g")
+
     # 5. card vs CPU
     fe_cpu = FastEncoder(2, 44100, 0.5, switching=False, psy_state=False,
                          device="cpu")
@@ -1535,6 +1866,10 @@ def main():
     # 5d. card vs CPU, managed: the 2 s click-train clip at B = 64
     _phase_managed_card_vs_cpu(fm, fm_cpu, clipc, clipc_dev)
 
+    # 5e. card vs CPU, 5.1: a 2 s click train at B = 64
+    _phase_51_card_vs_cpu(f51, FastEncoder(6, 48000, 0.4, device="cpu"))
+    _lap(t_start, "5d, 5e")
+
     print(f"[time] {time.perf_counter() - t_start:.1f} s of command time")
     print(json.dumps({"kernels": [{
         "name": "floor1_greedy_fit", "route": "cuda",
@@ -1544,12 +1879,13 @@ def main():
             v[0] for v in launches_sw.values()),
         "max_abs_err": max_err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "share": share, "library_ms": None}, {
+        "bound_by": bound_by, "share": share, "at_51": fl_rec_51,
+        "library_ms": None}, {
         "name": "m3_tempmdct_scan", "route": "cuda",
         "source": "vorbis_tpu_torch/csrc/m3_scan.cu",
         "replaces": "vorbis_tpu/ops/psydevice.py:498",
         "launches": sum(v[1] for v in launches_sw.values()),
-        **m3_rec, "library_ms": None}]}))
+        **m3_rec, "at_51": m3_rec_51, "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

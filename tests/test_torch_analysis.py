@@ -18,10 +18,10 @@ Tolerances, as measured on this comparison and why they hold:
   * tone mask on the same input: max/min/gather plus the same adds in
     the same order -> bitwise.
   * full chain (frames -> mask): the floor quantizes the mask as
-    int(mask * 7.31 + 1023.5); measured 468 of 65536 quanta (0.7%) flip,
-    9 of them (0.014%) by more than one quantum, where a near-zero MDCT
+    int(mask * 7.31 + 1023.5); measured 452 of 65536 quanta (0.7%) flip,
+    10 of them (0.015%) by more than one quantum, where a near-zero MDCT
     line moves an M4/M1 decision; 1.5% and 0.05% asserted, and the
-    99.9th percentile of |mask diff| (0.0065 dB measured) < 0.05 dB.
+    99.9th percentile of |mask diff| (0.0064 dB measured) < 0.05 dB.
 """
 
 import numpy as np

@@ -1,5 +1,6 @@
 """Tests that need the card: the port's CUDA kernels (csrc/floor_fit.cu,
-csrc/m3_scan.cu) against their plain PyTorch versions, and the managed
+csrc/m3_scan.cu) against their plain PyTorch versions (the floor fit on
+the 5.1 looks too, M3 on six channels), and the managed
 15-blob finish on the card against the same step on the CPU.  A CUDA
 kernel has no CPU mode, so each test here skips without a card.
 
@@ -66,14 +67,14 @@ def _random(look, B, seed):
     return lm, mk
 
 
-def _m3_inputs(F, n, seed):
+def _m3_inputs(F, n, seed, ch=2):
     """Seeded (logmdct, lastmdct, val, tval) with M3 triggers firing, and
     params from m3_param_seq on a switched frame sequence."""
     rng = np.random.RandomState(seed)
-    lm = (rng.randn(F, 2, n) * 15 - 60).astype(np.float32)
-    last = (rng.randn(F, 2, 1024) * 15 - 75).astype(np.float32)
-    val = (lm + rng.randn(F, 2, n) * 8 + 6).astype(np.float32)
-    tval = (lm + rng.randn(F, 2, n) * 8 - 6).astype(np.float32)
+    lm = (rng.randn(F, ch, n) * 15 - 60).astype(np.float32)
+    last = (rng.randn(F, ch, 1024) * 15 - 75).astype(np.float32)
+    val = (lm + rng.randn(F, ch, n) * 8 + 6).astype(np.float32)
+    tval = (lm + rng.randn(F, ch, n) * 8 - 6).astype(np.float32)
     Ws = np.where(rng.rand(1, F) < 0.7, 0, 1)
     imp = (rng.rand(1, F) < 0.6) & (Ws == 0)
     ann = TPD.annotate_frames_nd(Ws, imp)
@@ -93,18 +94,41 @@ def test_kernel_matches_plain_on_cuda(cuda, look):
 
 
 def test_m3_scan_on_cuda(cuda):
-    """csrc/m3_scan.cu against the plain scan by bit pattern."""
+    """csrc/m3_scan.cu against the plain scan by bit pattern, on stereo
+    rows and on the six channels of a 5.1 short batch."""
     look = TFE(2, 44100, 0.5, device="cpu").ctx(0).analysis.look
     scan = M3ScanCuda(look, "cuda")
-    lm, last, val, tval, pr = _m3_inputs(256, look.n, 1)
-    args = [torch.from_numpy(a).cuda() for a in (lm, last, val, tval)]
-    prm = {k: torch.from_numpy(np.asarray(pr[k])).cuda()
-           for k in ("sw", "reset", "noise_center")}
-    got = scan(*args, prm)
-    torch.cuda.synchronize()
-    assert scan.launches == 1
-    want = scan.plain(*args, prm)
-    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    for ch, seed in ((2, 1), (6, 2)):
+        lm, last, val, tval, pr = _m3_inputs(256, look.n, seed, ch)
+        args = [torch.from_numpy(a).cuda() for a in (lm, last, val, tval)]
+        prm = {k: torch.from_numpy(np.asarray(pr[k])).cuda()
+               for k in ("sw", "reset", "noise_center")}
+        scan.launches = 0
+        got = scan(*args, prm)
+        torch.cuda.synchronize()
+        assert scan.launches == 1
+        want = scan.plain(*args, prm)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_floor_kernel_51_looks_on_cuda(cuda):
+    """csrc/floor_fit.cu against the plain fit, bitwise, on the three
+    floor looks of FastEncoder(6, 48000, 0.4) (the 5.1 templates): the
+    long look (29 posts over 1024 bins), the short look (13 over 128) and
+    the LFE's (2 over 12), at the batches of one 5.1 finish (B = 256 * 5
+    rows of the coupled submap, B = 256 of the LFE)."""
+    looks = Encoder(encsetup.setup_vbr_staged(6, 48000, 0.4).init()
+                    ).floor_looks
+    shapes = sorted({(lk.posts, lk.n) for lk in looks})
+    assert shapes == [(2, 12), (13, 128), (29, 1024)]
+    for lk in looks:
+        kf = make_floor_fit(lk, "cuda")
+        for B_, seed in ((256 * 5, 31), (256, 32)):
+            lm, mk = _random(lk, B_, seed)
+            q, a, p, _ = kf.prepare(torch.from_numpy(lm).cuda(),
+                                    torch.from_numpy(mk).cuda())
+            assert torch.equal(kf.fit(q, a, p), kf.fit_plain(q, a, p))
+        assert kf.launches == 2
 
 
 def test_managed_finish15_on_cuda(cuda):

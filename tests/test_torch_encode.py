@@ -14,10 +14,10 @@ in the JAX order, so it is bitwise equal.  Two notes:
     contract the floor-energy sum into an FMA, so a rint tie could move a
     residue by one: counted (0 of 131072 measured) and bounded at 0.1%.
 Slice tolerances (2 s of the oracle test signal, two 64-packet chunks):
-the port's MDCT is the basis matmul where the JAX step runs the
-butterfly, and its bark-fit sums round in another order
-(test_torch_analysis.py); measured 121 of 128 packets byte-identical
-and total bits within 0.02%.  Asserted: >= 90% and within 0.5%.
+the port's MDCT is the basis matmul (accumulated in float64) where the
+JAX step runs the butterfly, and its bark-fit sums round in another
+order (test_torch_analysis.py); measured 123 of 128 packets
+byte-identical and total bits within 0.02%.  Asserted: >= 90% and within 0.5%.
 The port's whole streams are tested in test_torch_stream.py.
 """
 

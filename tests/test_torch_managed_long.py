@@ -10,14 +10,14 @@ Tolerances, each with its cause and the count measured on these inputs:
   * the finish on identical inputs (B = 32 frames, so 32 x 15 packets):
     the causes of the switched finish (test_torch_managed_switched.py):
     XLA:CPU's FMAs in the floor quantization and fit_line, M1's scale; a
-    moved post moves every blob of the ladder built on it.  Measured: 474
-    of 480 rows equal in bits and bytes, 1,120,813 bits against
+    moved post moves every blob of the ladder built on it.  Measured: 473
+    of 480 rows equal in bits and bytes, 1,120,814 bits against
     1,120,877; asserted: >= 90% of rows, total bits within 0.5%.
   * two whole ABR streams in one batch (1.0 s and 0.7 s of the click
     train, chunks of B frames: the second stream's first chunk follows
     the first stream's last in the batch, so a lastmdct row or an ampmax
-    lane that crossed streams would move its packets): 14,465 vs 14,481
-    and 9,459 vs 9,468 audio bytes, 38 of 45 and 29 of 32 packets
+    lane that crossed streams would move its packets): 14,466 vs 14,481
+    and 9,469 vs 9,468 audio bytes, 41 of 45 and 28 of 32 packets
     identical, measured; asserted: each stream's audio bytes within 5% of
     JAX's, both in 100-165 kbps.  At 128 kbps no chosen packet passes the
     finish's byte budget, so no chunk is redone (asserted): JAX's

@@ -9,11 +9,14 @@ Tolerances, each with its cause and the count measured on these inputs:
     the masks of managed_masks (test_torch_managed.py: the MDCT GEMM,
     bark_fit's sum order, XLA:CPU's FMAs; a flipped floor quantum moves a
     post, and a moved post every blob of the ladder built on it).
-    Measured: 458 of 480 rows equal in bits and bytes, 1,029,742 bits
-    against 1,029,654; asserted: >= 90% of rows, total bits within 0.5%.
+    Measured: 438 of 480 rows equal in bits and bytes, 1,029,863 bits
+    against 1,029,654 (458 of 480 with the MDCT as an fp32 GEMM, which
+    rounds nearer the butterfly here; the float64-accumulated GEMM keeps
+    the card and the CPU equal); asserted: >= 90% of rows, total bits
+    within 0.5%.
   * two whole ABR streams in one batch (1.0 s and 0.7 s of the click
-    train, chunks of B frames): 15,408 vs 15,415 and 9,498 vs 9,512
-    audio bytes, 36 of 45 and 28 of 32 packets identical, measured;
+    train, chunks of B frames): 15,410 vs 15,415 and 9,510 vs 9,512
+    audio bytes, 42 of 45 and 28 of 32 packets identical, measured;
     asserted: each stream's audio bytes within 5% of JAX's, both in
     100-165 kbps.  No chosen packet passes the step's byte budget, so no
     chunk is redone (asserted; test_torch_managed_long.py says why that

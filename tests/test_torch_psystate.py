@@ -31,7 +31,7 @@ Tolerances, each with its cause and the count measured on this input:
     (test_torch_floor.py), and M1's scale rounds once more here; 62 of
     64 packets byte-identical measured, >= 90% asserted.
   * whole slice (two streams, 1.0 s and 0.7 s of the oracle signal,
-    B_long=64 on both sides): 65 of 77 packets byte-identical, bytes
+    B_long=64 on both sides): 66 of 77 packets byte-identical, bytes
     within 0.01%; with the JAX butterfly MDCT swapped into the port's
     analysis, 73 of 77: the MDCT's rounding, not the psy state, moves
     the rest.  Asserted: >= 80% as is, >= 90% with the butterfly, bytes

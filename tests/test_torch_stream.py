@@ -2,8 +2,8 @@
 long-only slices, stateless and with the cross-frame psy state) on the
 CPU: the stock libvorbis decodes them to the exact input length, the
 quality gate of tests/test_fastenc.py:37 holds, block switching runs on
-every entry point, and the paths later slices port raise
-NotImplementedError naming their ROADMAP item.  No
+every entry point, 5.1 encodes, and managed 5.1, which the JAX package
+lacks, raises NotImplementedError.  No
 JAX on this side: the packet-level comparisons with the JAX package are
 tests/test_torch_encode.py (stateless) and test_torch_psystate.py."""
 
@@ -128,9 +128,10 @@ def test_stateful_single_blocksize_template(tmp_path):
 
 def test_unported_paths_raise(tfe, stateful):
     """Block switching (§1.7) runs on every entry point, stateless and
-    stateful, and managed bitrate (§1.9) builds an encoder; the 5.1
-    layouts (§1.10) still raise NotImplementedError naming their ROADMAP
-    item."""
+    stateful, managed bitrate (§1.9) builds an encoder, and the 5.1
+    layouts (§1.10) encode; managed 5.1, which the JAX package lacks
+    (its managed finish has no multi-submap branch), raises
+    NotImplementedError naming that gap."""
     pcm = np.zeros((2, 4410), np.float32)
     switching = copy.copy(stateful)
     switching.switching = True
@@ -141,9 +142,15 @@ def test_unported_paths_raise(tfe, stateful):
         assert ogg[:4] == b"OggS"
     fm = TFE(2, 44100, bitrate=(192000, 128000, 64000), device="cpu")
     assert fm.managed and fm.setup.hi.bitrate_av == 128000
-    with pytest.raises(NotImplementedError, match="1.10"):
-        TFE(6, 48000, 0.4, switching=False, device="cpu").encode(
-            np.zeros((6, 4800), np.float32))
+    # stateless: the stateful encode pads its one batch to 1024 frames
+    # of six channels (20 s on one CPU thread); tests/test_torch_51*.py
+    # hold the stateful and switched 5.1 paths to the JAX package
+    ogg = TFE(6, 48000, 0.4, switching=False, psy_state=False,
+              device="cpu").encode(np.zeros((6, 4800), np.float32))
+    assert ogg[:4] == b"OggS"
+    f51 = TFE(6, 48000, bitrate=(-1, 320000, -1), device="cpu")
+    with pytest.raises(NotImplementedError, match="multi-submap"):
+        f51.encode(np.zeros((6, 4800), np.float32))
 
 
 def test_managed_encoder_builds_and_encodes():

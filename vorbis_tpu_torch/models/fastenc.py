@@ -19,9 +19,12 @@ the switched schedule, and M3 on impulse short blocks (`encode` is then
 `encode_batch` of one stream, `_encode_switched`); and managed
 ABR/CBR bitrate (`bitrate=`, `encode_managed_batch`): the 15-packetblob
 finish on the device (ops/managed.py), the host reservoir floater and a
-device gather of the chosen packets, switched or long-only.  The
-multi-submap 5.1 layouts (§1.10) raise NotImplementedError naming their
-ROADMAP item.
+device gather of the chosen packets, switched or long-only; and the
+multi-submap 5.1 layouts (FastEncoder(6, 48000, 0.4)): per-submap floor
+and residue configs, the four-step chained coupling and the LFE's own
+floor (ops/encdevice.py `_finish_multi`), on every unmanaged path.
+Managed 5.1 raises NotImplementedError: the JAX package's managed
+finish has no multi-submap branch either.
 """
 
 from __future__ import annotations
@@ -1437,6 +1440,13 @@ class FastEncoder:
         psy_state=False."""
         if not self.managed:
             raise ValueError("construct FastEncoder(bitrate=...) first")
+        if self.mapping.submaps > 1 or self.mapping.coupling_steps > 1:
+            raise NotImplementedError(
+                "managed bitrate on a multi-submap layout (5.1): the JAX "
+                "package's managed finish has no multi-submap branch "
+                "(vorbis_tpu/ops/managed.py:398 reaches "
+                "encdevice.py:676 _floor_wrap, which raises "
+                "AttributeError), so there is no reference to port")
         if serialnos is None:
             serialnos = [778 + i for i in range(len(pcms))]
         if len(serialnos) < len(pcms):

@@ -9,14 +9,17 @@ oggpack_write):
   residue classify + lattice VQ -> codeword lookup -> bit-field
   columns -> LSB-first bit packing
 
-The host receives only (packed packet bytes, bit counts).  This port
-covers the single-submap steps: the stateless step
-(`make_step`), the frame-gather step (`make_gather_step`) and the
-two-phase psy-state steps (`make_probe_step`, `make_finish_step`, with
-M6/M9 coupling, the noise-normalize promotion and, on short blocks,
-M3), and `finish_from_posts`, which the managed 15-packetblob pass
-(ops/managed.py) shares.  Multi-submap 5.1 layouts (§1.10) raise
-NotImplementedError.
+The host receives only (packed packet bytes, bit counts).  The port
+covers the stateless step (`make_step`), the frame-gather step
+(`make_gather_step`) and the two-phase psy-state steps
+(`make_probe_step`, `make_finish_step`, with M6/M9 coupling, the
+noise-normalize promotion and, on short blocks, M3).  A single-submap
+layout finishes through `finish_from_posts`, which the managed
+15-packetblob pass (ops/managed.py) shares; a multi-submap layout (the
+5.1 templates) through `_finish_multi`: a floor fit per submap (the
+LFE's own look), the chained multi-step coupling (`_couple_multi`) and
+a residue block per submap, each stage reading its submap's tables
+(`cfg`).
 
 Differences from the JAX module, all exact:
   * bit fields ride int64 (torch has no uint32 shifts/comparisons on
@@ -156,14 +159,100 @@ class DeviceFastEncode:
         self.multi = mapping is not None and (
             mapping.submaps > 1 or mapping.coupling_steps > 1)
         if self.multi:
-            raise NotImplementedError(
-                "multi-submap / multi-step coupling layouts (5.1): "
-                "ROADMAP §1.10")
-        self._prepare_floor()
-        self._prepare_residue()
-        self._prepare_columns()
+            self._prepare_multi(mapping)
+        else:
+            self._prepare_floor()
+            self._prepare_residue()
+            self._prepare_columns()
         self._prepare_device()
         self._step_cache = {}
+
+    def _prepare_multi(self, mapping):
+        """Multi-submap / multi-step coupling layout (e.g. the 5.1
+        templates, reference lib/modes/residue_44p51.h: submap 0 =
+        five coupled channels under res2 with four chained coupling
+        steps, submap 1 = the LFE under res1).  Builds one
+        floor+residue config namespace per submap plus the absolute
+        coupling step list."""
+        from types import SimpleNamespace
+
+        from .floor_cuda import make_floor_fit
+        from .residue_device import DeviceResidueVQ
+        fe = self.fe
+        vi = fe.vi
+        self.mapping = mapping
+        self.coupling = [(mapping.coupling_mag[s],
+                          mapping.coupling_ang[s])
+                         for s in range(mapping.coupling_steps)]
+        self.groups = []
+        for sm in range(mapping.submaps):
+            chans = [c for c in range(self.ch)
+                     if mapping.chmuxlist[c] == sm]
+            assert chans == list(range(chans[0],
+                                       chans[0] + len(chans))), \
+                "submap channels must be contiguous"
+            g = SimpleNamespace()
+            g.channels = chans
+            fl_idx = mapping.floorsubmap[sm]
+            res_idx = mapping.residuesubmap[sm]
+            g.fl_look = fe.enc.floor_looks[fl_idx]
+            g.res_look = fe.enc.residue_looks[res_idx]
+            g.res_type = vi.residue_types[res_idx]
+            g.res_ch = 1 if g.res_type == 2 else len(chans)
+            g.dvq = DeviceResidueVQ(g.res_look.info, g.res_look.books,
+                                    g.res_look.partbooks, self.device)
+            if (getattr(self.ctx, "fl_look", None) is g.fl_look
+                    and getattr(self.ctx, "floor", None) is not None):
+                g.floor = self.ctx.floor
+            else:
+                g.floor = make_floor_fit(g.fl_look, self.device)
+            self._prepare_floor(look=g.fl_look, tgt=g)
+            self._prepare_residue(look=g.res_look, dvq=g.dvq, tgt=g,
+                                  res_ch=g.res_ch)
+            self.groups.append(g)
+        self._prepare_columns_multi()
+
+    def _prepare_columns_multi(self):
+        """Packet column plan for the multi-submap layout: header,
+        then every channel's floor (its submap's config), then each
+        submap's residue block (mapping0_forward emission order)."""
+        fe = self.fe
+        maxbits = [1, fe.modebits, 1, 1]
+        for g in self.groups:
+            fl_bits = [1, g.qb, g.qb]
+            for p in g.fl_parts:
+                if p["csubbits"]:
+                    fl_bits.append(int(np.max(p["classbook"].lengths)))
+                for k in range(p["cdim"]):
+                    ml = max((int(np.max(b.lengths))
+                              for b in p["subbooks"] if b is not None),
+                             default=1)
+                    fl_bits.append(max(ml, 1))
+            g.fl_bits = fl_bits
+        for c in range(self.ch):
+            g = next(g for g in self.groups if c in g.channels)
+            maxbits.extend(g.fl_bits)
+        for g in self.groups:
+            ph_maxlen = int(g.ph_cl.max())
+            for s in range(g.stages):
+                st = g.stage_tabs[s]
+                ms = st["max_steps"]
+                pos_ml = np.zeros(ms, np.int64)
+                for cc, d in enumerate(g.res_books[s]):
+                    if d is None:
+                        continue
+                    sc = g.spp // d["dim"]
+                    ml = int(np.max(np.asarray(
+                        g.res_look.partbooks[cc][s].lengths)))
+                    pos_ml[:sc] = np.maximum(pos_ml[:sc], ml)
+                pos_ml = np.maximum(pos_ml, 1)
+                for c0 in range(g.nchunks):
+                    if s == 0:
+                        maxbits.extend([ph_maxlen] * g.res_ch)
+                    for _ in range(g.ppw):
+                        for _ in range(g.res_ch):
+                            maxbits.extend(pos_ml.tolist())
+        self.plan = PackPlan.build(maxbits, wb_cap=2048)
 
     # -- static preparation ------------------------------------------------
     def _prepare_floor(self, look=None, tgt=None):
@@ -350,35 +439,15 @@ class DeviceFastEncode:
         self.plan = PackPlan.build(maxbits)
 
     def _prepare_device(self):
-        """Every table the device stages read, through device_tables."""
+        """Every table the device stages read, through device_tables:
+        each floor+residue config's (self, or each submap's), then the
+        shared ones."""
         dev = self.device
-        for p in self.fl_parts:
-            tabs = dict(maxval=p["maxval"].astype(np.int32))
-            if p["csubbits"]:
-                cb = p["classbook"]
-                tabs["cb_cw"] = np.asarray(cb.codewords, np.uint64) \
-                    .astype(np.uint32)
-                tabs["cb_cl"] = np.asarray(cb.lengths, np.int32)
-            for l, bk in enumerate(p["subbooks"]):
-                if bk is None:
-                    continue
-                tabs[f"sub_cw{l}"] = np.asarray(bk.codewords, np.uint64) \
-                    .astype(np.uint32)
-                tabs[f"sub_cl{l}"] = np.asarray(bk.lengths, np.int32)
-            p["t"] = device_tables(tabs, dev)
-        for s, st in enumerate(self.stage_tabs):
-            st["t"] = device_tables(dict(
-                cw=st["cw"], cl=st["cl"],
-                steps=st["steps"].astype(np.int32)), dev)
-            for d in self.res_books[s]:
-                if d is not None and not d["ident"]:
-                    d["rd_t"] = device_tables(
-                        {"rd": d["remap_digits"].astype(np.int32)},
-                        dev)["rd"]
+        for cfg in (self.groups if self.multi else [self]):
+            self._prepare_config_device(cfg)
         gidx = np.where(self.plan.gidx < 0, self.plan.n_cols,
                         self.plan.gidx).astype(np.int64)
-        tabs = dict(sec=self.sec.astype(np.int32), ph_cw=self.ph_cw,
-                    ph_cl=self.ph_cl, gidx=gidx,
+        tabs = dict(gidx=gidx,
                     hdr_l=np.array([1, self.fe.modebits,
                                     1 if self.W else 0,
                                     1 if self.W else 0], np.int32))
@@ -390,7 +459,8 @@ class DeviceFastEncode:
             # point limit too)
             inreg = bins >= nm["start"]
             # the region's start alone: the managed pass ands in its
-            # per-blob point limits (inlimit)
+            # per-blob point limits (inlimit), and a multi-submap
+            # layout's uncoupled submap promotes from there
             tabs["nm_start"] = inreg.copy()
             if self.res_type == 2:
                 inreg &= bins >= self.ctx.couple["limit"]
@@ -405,34 +475,74 @@ class DeviceFastEncode:
             tabs["thr1"] = np.asarray(cp["thr1"], np.float32)
             tabs["thr2"] = np.asarray(cp["thr2"], np.float32)
             tabs["threv"] = np.asarray(cp["threv"], np.float32)
+            if self.multi:
+                # the chained coupling's intermediate steps fold with a
+                # .04 high ratio (psy.c; the last step keeps .12)
+                tabs["threv04"] = np.where(
+                    bins < cp["limit"], np.float32(0.18),
+                    np.float32(0.04)).astype(np.float32)
         vars(self).update({f"{k}_t": v for k, v in
                            device_tables(tabs, dev).items()})
 
+    def _prepare_config_device(self, cfg):
+        """One floor+residue config's tables (cfg: self or a submap's
+        namespace), onto cfg."""
+        dev = self.device
+        for p in cfg.fl_parts:
+            tabs = dict(maxval=p["maxval"].astype(np.int32))
+            if p["csubbits"]:
+                cb = p["classbook"]
+                tabs["cb_cw"] = np.asarray(cb.codewords, np.uint64) \
+                    .astype(np.uint32)
+                tabs["cb_cl"] = np.asarray(cb.lengths, np.int32)
+            for l, bk in enumerate(p["subbooks"]):
+                if bk is None:
+                    continue
+                tabs[f"sub_cw{l}"] = np.asarray(bk.codewords, np.uint64) \
+                    .astype(np.uint32)
+                tabs[f"sub_cl{l}"] = np.asarray(bk.lengths, np.int32)
+            p["t"] = device_tables(tabs, dev)
+        for s, st in enumerate(cfg.stage_tabs):
+            st["t"] = device_tables(dict(
+                cw=st["cw"], cl=st["cl"],
+                steps=st["steps"].astype(np.int32)), dev)
+            for d in cfg.res_books[s]:
+                if d is not None and not d["ident"]:
+                    d["rd_t"] = device_tables(
+                        {"rd": d["remap_digits"].astype(np.int32)},
+                        dev)["rd"]
+        vars(cfg).update({f"{k}_t": v for k, v in device_tables(dict(
+            sec=cfg.sec.astype(np.int32), ph_cw=cfg.ph_cw,
+            ph_cl=cfg.ph_cl), dev).items()})
+
     # -- device stages -------------------------------------------------------
-    def _floor_wrap(self, posts):
+    def _floor_wrap(self, posts, cfg=None):
         """Raw fit posts (B, P) -> (codes (B, P), qposts (B, P)) — the
         floor1_encode quantization + predictive wrap coding
-        (floor1.c:774-935), vectorized over frames."""
-        P = self.P
+        (floor1.c:774-935), vectorized over frames.  cfg: the floor
+        config (default self; a submap's in a multi-submap layout), as
+        for every stage below."""
+        cfg = cfg if cfg is not None else self
+        P = cfg.P
         post = posts.to(i32)
         val = post & 0x7FFF
-        m = self.mult
+        m = cfg.mult
         val = (val >> 2 if m == 1 else val >> 3 if m == 2
                else torch.div(val, 12, rounding_mode="floor") if m == 3
                else val >> 4)
         post = val | (post & 0x8000)
         outs = [post[:, 0] & 0x7FFF, post[:, 1] & 0x7FFF]
         cols = [post[:, i] for i in range(P)]
-        qq = self.quant_q
+        qq = cfg.quant_q
         for i in range(2, P):
-            ln = int(self.lo_static[i - 2])
-            hn = int(self.hi_static[i - 2])
+            ln = int(cfg.lo_static[i - 2])
+            hn = int(cfg.hi_static[i - 2])
             y0 = cols[ln] & 0x7FFF
             y1 = cols[hn] & 0x7FFF
             dy = y1 - y0
-            adx = int(self.postlist[hn] - self.postlist[ln])
-            err = torch.abs(dy) * int(self.postlist[i]
-                                      - self.postlist[ln])
+            adx = int(cfg.postlist[hn] - cfg.postlist[ln])
+            err = torch.abs(dy) * int(cfg.postlist[i]
+                                      - cfg.postlist[ln])
             offp = torch.div(err, adx, rounding_mode="floor")
             predicted = torch.where(dy < 0, y0 - offp, y0 + offp)
             flag = ((cols[i] & 0x8000) != 0) | (predicted == cols[i])
@@ -449,18 +559,19 @@ class DeviceFastEncode:
             cols[hn] = torch.where(unflag, cols[hn] & 0x7FFF, cols[hn])
         return torch.stack(outs, 1), torch.stack(cols, 1)
 
-    def _floor_fields(self, codes, used):
+    def _floor_fields(self, codes, used, cfg=None):
         """codes (B, P) + used (B,) -> (vals (B, FC) int64,
         lens (B, FC) int32) for one batch of channels."""
+        cfg = cfg if cfg is not None else self
         B = codes.shape[0]
         dev = codes.device
         vals = [used.to(i64)]
         lens = [torch.ones((B,), dtype=i32, device=dev)]
-        qbl = torch.where(used, self.qb, 0).to(i32)
+        qbl = torch.where(used, cfg.qb, 0).to(i32)
         vals += [codes[:, 0].to(i64), codes[:, 1].to(i64)]
         lens += [qbl, qbl]
         j = 2
-        for p in self.fl_parts:
+        for p in cfg.fl_parts:
             t = p["t"]
             cdim = p["cdim"]
             seg = codes[:, j:j + cdim]                 # (B, cdim)
@@ -495,52 +606,54 @@ class DeviceFastEncode:
             x = torch.nn.functional.pad(x, (0, need - x.shape[-1]))
         return x
 
-    def _classify(self, res):
+    def _classify(self, res, cfg=None):
         """res (B, n) float (already rint'ed) -> partword
         (B, partvals) int32 (res01_class)."""
-        ri = self.ri
-        spp = self.spp
-        need = ri.begin + self.partvals * spp
+        cfg = cfg if cfg is not None else self
+        ri = cfg.ri
+        spp = cfg.spp
+        need = ri.begin + cfg.partvals * spp
         res = self._pad_to(res, need)
         seg = torch.abs(res[..., ri.begin:need].to(i32)) \
-            .reshape(res.shape[:-1] + (self.partvals, spp))
+            .reshape(res.shape[:-1] + (cfg.partvals, spp))
         mx = seg.amax(-1)
         scale = float(f32(f32(100.0) / f32(spp)))
         ent = (seg.sum(-1, dtype=i32).to(torch.float32) * scale).to(i32)
         cm1 = np.asarray(ri.classmetric1, np.int64)
         cm2 = np.asarray(ri.classmetric2, np.int64)
-        k = torch.full(mx.shape, self.possible - 1, dtype=i32,
+        k = torch.full(mx.shape, cfg.possible - 1, dtype=i32,
                        device=res.device)
-        for kk in range(self.possible - 2, -1, -1):
+        for kk in range(cfg.possible - 2, -1, -1):
             okk = mx <= int(cm1[kk])
             if cm2[kk] >= 0:
                 okk = okk & (ent < int(cm2[kk]))
             k = torch.where(okk, kk, k)
         return k
 
-    def _vq_stages(self, res, pw):
+    def _vq_stages(self, res, pw, cfg=None):
         """res (B, n) float residuals, pw (B, partvals) -> per stage
         entries (B, partvals, max_steps) int32 (-1 where inactive).
         Pure elementwise zigzag-lattice math (res0.c _encodepart with
         the lattice fast path; value reconstruction is delta*zz(m))."""
-        spp = self.spp
-        need = self.ri.begin + self.partvals * spp
+        cfg = cfg if cfg is not None else self
+        spp = cfg.spp
+        need = cfg.ri.begin + cfg.partvals * spp
         res = self._pad_to(res, need)
-        work = res[..., self.ri.begin:need].to(torch.float32) \
-            .reshape(res.shape[:-1] + (self.partvals, spp))
+        work = res[..., cfg.ri.begin:need].to(torch.float32) \
+            .reshape(res.shape[:-1] + (cfg.partvals, spp))
         dev = res.device
         out = []
-        for s in range(self.stages):
-            st = self.stage_tabs[s]
+        for s in range(cfg.stages):
+            st = cfg.stage_tabs[s]
             ents = torch.full(work.shape[:-1] + (st["max_steps"],), -1,
                               dtype=i32, device=dev)
             new_work = work
-            dims = sorted({d["dim"] for d in self.res_books[s]
+            dims = sorted({d["dim"] for d in cfg.res_books[s]
                            if d is not None})
             for dim in dims:
                 steps = spp // dim
                 a = work.reshape(work.shape[:-1] + (steps, dim))
-                classes = [c for c, d in enumerate(self.res_books[s])
+                classes = [c for c, d in enumerate(cfg.res_books[s])
                            if d is not None and d["dim"] == dim]
                 # per-partition scalar params via where-ladder
                 mvv = torch.zeros(pw.shape, dtype=torch.float32, device=dev)
@@ -550,7 +663,7 @@ class DeviceFastEncode:
                 qvv = torch.ones(pw.shape, dtype=i32, device=dev)
                 act = torch.zeros(pw.shape, dtype=torch.bool, device=dev)
                 for c in classes:
-                    d = self.res_books[s][c]
+                    d = cfg.res_books[s][c]
                     selc = pw == c
                     mvv = torch.where(selc, float(d["minval"]), mvv)
                     dl = torch.where(selc, float(d["delta"]), dl)
@@ -581,7 +694,7 @@ class DeviceFastEncode:
                 mdig = m
                 # non-identity remaps (unused lattice entries)
                 for c in classes:
-                    d = self.res_books[s][c]
+                    d = cfg.res_books[s][c]
                     if d["ident"]:
                         continue
                     rd = d["rd_t"][torch.clamp(idx, 0, d["entries"] - 1)
@@ -604,27 +717,28 @@ class DeviceFastEncode:
             out.append(ents)
         return out
 
-    def _residue_fields(self, pw, entries, used):
+    def _residue_fields(self, pw, entries, used, cfg=None):
         """pw (F, ch, partvals), entries per stage
         (F, ch, partvals, max_steps), used (F, ch) -> (vals, lens)
         (F, RC) in res01_forward emission order."""
+        cfg = cfg if cfg is not None else self
         F = pw.shape[0]
-        ch = self.res_ch
-        ppw = self.ppw
-        nck = self.nchunks
+        ch = cfg.res_ch
+        ppw = cfg.ppw
+        nck = cfg.nchunks
         dev = pw.device
         pwl = pw.long()
         vals_blocks = []
         lens_blocks = []
-        padn = self.parts_pad - self.partvals
+        padn = cfg.parts_pad - cfg.partvals
         pwp = torch.nn.functional.pad(pw, (0, padn)) if padn else pw
-        for s in range(self.stages):
-            st = self.stage_tabs[s]
+        for s in range(cfg.stages):
+            st = cfg.stage_tabs[s]
             t = st["t"]
             ms = st["max_steps"]
             e = entries[s]
             ent_act = e >= 0
-            act = (((self.sec_t[pwl] >> s) & 1) == 1) & used[..., None]
+            act = (((cfg.sec_t[pwl] >> s) & 1) == 1) & used[..., None]
             nsteps = t["steps"][pwl]                   # (F, ch, parts)
             krange = torch.arange(ms, dtype=i32, device=dev)
             inr = (krange < nsteps[..., None]) & act[..., None] & ent_act
@@ -644,13 +758,13 @@ class DeviceFastEncode:
                 # phrase words: digit-pack ppw partwords, MSB first
                 ph_v = torch.zeros((F, ch, nck), dtype=i32, device=dev)
                 for k in range(ppw):
-                    ph_v = ph_v * self.possible \
+                    ph_v = ph_v * cfg.possible \
                         + pwp[..., k::ppw][..., :nck]
-                ph_ok = (ph_v < self.phrasebook.entries) \
+                ph_ok = (ph_v < cfg.phrasebook.entries) \
                     & used[..., None]
                 ph_idx = torch.where(ph_ok, ph_v, 0).long()
-                ph_cw = self.ph_cw_t[ph_idx]
-                ph_cl = torch.where(ph_ok, self.ph_cl_t[ph_idx], 0)
+                ph_cw = cfg.ph_cw_t[ph_idx]
+                ph_cl = torch.where(ph_ok, cfg.ph_cl_t[ph_idx], 0)
                 # (F, ch, nck) -> (F, nck, ch)
                 blk_v = torch.cat([ph_cw.permute(0, 2, 1),
                                    ev.reshape(F, nck, ppw * ch * ms)], -1)
@@ -664,53 +778,61 @@ class DeviceFastEncode:
         return torch.cat(vals_blocks, 1), torch.cat(lens_blocks, 1)
 
     # -- channel coupling (res2 / coupled stereo) ---------------------------
-    def _classify2(self, absM, absA, nch=2):
+    def _classify2(self, absM, absA, nch=2, cfg=None):
         """res2 classification (_2class, res0.c:473): per interleaved
         partition, the magnitude channel's max and the angle channels'
-        max walk the classmetric thresholds."""
-        ri = self.ri
-        spp = self.spp
+        max walk the classmetric thresholds.  absM: (F, n2) channel-0
+        abs ints; absA: (F, n2) the elementwise max over the other
+        channels."""
+        cfg = cfg if cfg is not None else self
+        ri = cfg.ri
+        spp = cfg.spp
         per = spp // nch
         b0 = ri.begin // nch
-        need = b0 + self.partvals * per
+        need = b0 + cfg.partvals * per
 
         def seg(x):
             x = self._pad_to(x, need)
             return x[..., b0:need].reshape(
-                x.shape[:-1] + (self.partvals, per))
+                x.shape[:-1] + (cfg.partvals, per))
         magmax = seg(absM).amax(-1)
         angmax = seg(absA).amax(-1)
         cm1 = np.asarray(ri.classmetric1, np.int64)
         cm2 = np.asarray(ri.classmetric2, np.int64)
-        k = torch.full(magmax.shape, self.possible - 1, dtype=i32,
+        k = torch.full(magmax.shape, cfg.possible - 1, dtype=i32,
                        device=absM.device)
-        for kk in range(self.possible - 2, -1, -1):
+        for kk in range(cfg.possible - 2, -1, -1):
             ok = (magmax <= int(cm1[kk])) & (angmax <= int(cm2[kk]))
             k = torch.where(ok, kk, k)
         return k
 
-    def _m6_promote(self, rM, rA, reM, reA, flagm1, F):
+    def _m6_promote(self, rM, rA, reM, reA, flagm1, F, prae=0.34,
+                    couple=None):
         """aoTuV M6 dynamic lossless promotion (psy.c:5007-5047), one
         coupling step: per partition below tonefix_end, count
         sign-opposed vs parallel active bins and the mean |res|
         imbalance; an EMA of the imbalance across partitions (the
         side_resdef carry) promotes flag==-1 bins to lossless when the
         imbalance exceeds 1 or the opposed fraction exceeds prae (0.34
-        for single-step stereo; the multi-step 5.1 coupling's 0.825
-        comes with ROADMAP §1.10).
+        single-step, 0.825 multi-step); couple: the coupling parameter
+        dict (default the ctx's).
         The JAX side carries the EMA through a lax.scan whose carry is
         only the previous partition's temp_def (or -1 when that
         partition is off), so here it is one shifted where with the
         same float operations.  rM/rA: the pair's residue values
         (F, n2); reM/reA the signed raw energies; flagm1: (F, n2) bins
         flagged -1 on either channel.  Returns promoted (F, n2)."""
-        cp = self.ctx.couple
+        cp = couple if couple is not None else self.ctx.couple
+        tfe = int(cp.get("tonefix_end", 0))
         n2 = rM.shape[-1]
-        if int(cp.get("tonefix_end", 0)) <= 0:
+        if tfe <= 0:
             return torch.zeros((F, n2), dtype=torch.bool, device=rM.device)
         part = cp["partition"]
         npt = (n2 + part - 1) // part
         padn = npt * part - n2
+        gate = (self.m6_gate_t[:npt] if cp is self.ctx.couple
+                else torch.from_numpy(np.arange(npt) * part < tfe).to(
+                    rM.device))
 
         def p4(a):
             return torch.nn.functional.pad(a, (0, padn)) if padn else a
@@ -725,14 +847,14 @@ class DeviceFastEncode:
         rp = opp_p.sum(-1)
         rdsum = imb_p.sum(-1)
         temp_def = rdsum / torch.clamp_min(ap, 1.0)
-        nz = (ap > 0) & self.m6_gate_t[:npt]
+        nz = (ap > 0) & gate
         carry = torch.nn.functional.pad(
             torch.where(nz, temp_def, -1.0)[:, :-1], (1, 0), value=-1.0)
         rdef = torch.where(carry > 0, temp_def * 0.5 + carry * 0.5,
                            temp_def)
         rdef = torch.where(nz, rdef, 0.0)
         c1 = nz & (rdef > 1.0)
-        c2 = nz & (rp / torch.clamp_min(ap, 1.0) >= float(f32(0.34)))
+        c2 = nz & (rp / torch.clamp_min(ap, 1.0) >= float(f32(prae)))
         c1b = torch.repeat_interleave(c1, part, dim=-1)[:, :n2]
         c2b = torch.repeat_interleave(c2, part, dim=-1)[:, :n2]
         return flagm1 & (c1b | (c2b & opposed))
@@ -847,6 +969,264 @@ class DeviceFastEncode:
         outA = torch.where(any_used[:, None], outA, 0.0)
         return torch.stack([outM, outA], 1), any_used
 
+    def _couple_multi(self, md_g, curve_g, used_g, F, epeak=None,
+                      npeak=None):
+        """General multi-step channel coupling for the coupled submap
+        (reference: the coupling_steps loop of
+        _vp_couple_quantize_normalize, psy.c:4858-5142 — e.g. the 5.1
+        templates couple five channels through FOUR chained steps:
+        (0,2) (3,4) (0,1) (0,3), so later steps read the folded
+        outputs of earlier ones).  md_g/curve_g: (F, C, n2); used_g:
+        (F, C); epeak (F, C, n2) / npeak (F, C, nparts) as in
+        _couple_quantize.  Each channel's state is an (F, n2) tensor
+        in a list, updated step by step in the JAX module's order of
+        operations.  Returns (out (F, C, n2) integer-valued float32,
+        used_out (F, C))."""
+        cp = self.ctx.couple
+        nsteps = len(self.coupling)
+        prae = 0.34 if nsteps == 1 else 0.825
+        n2 = md_g.shape[-1]
+        C = md_g.shape[1]
+        us = used_g
+        cur = torch.where(us[..., None], curve_g, float(f32(1e-10)))
+        res = torch.where(us[..., None], md_g / cur, 0.0)
+        r = torch.abs(res)
+        thr1 = self.thr1_t[:n2]
+        thr2 = self.thr2_t[:n2]
+        if epeak is not None:
+            # M9: the stored post-echo peaks lower the lossless threshold
+            thr1 = torch.clamp_min(thr1 - epeak, float(f32(cp["prepoint"])))
+        tfe = int(cp.get("tonefix_end", 0))
+        nm = getattr(self.ctx, "normal", None)
+        promote_on = nm is not None and nm["thresh"] < 9000.0
+
+        # per-channel mutable state (lists of (F, n2) tensors)
+        f1 = [r[:, c] >= (thr1[:, c] if epeak is not None else thr1)
+              for c in range(C)]
+        fm1 = [(~f1[c]) & (r[:, c] >= thr2) for c in range(C)]
+        out = [torch.round(res[:, c]) for c in range(C)]
+        raw0 = torch.where(md_g < 0, -(md_g * md_g), md_g * md_g)
+        raw0 = torch.where(us[..., None], raw0, 0.0)
+        re_ = [raw0[:, c] for c in range(C)]
+        fl_e = [cur[:, c] * cur[:, c] for c in range(C)]
+        rs = [res[:, c] for c in range(C)]
+        usc = [us[:, c] for c in range(C)]
+        npk = ([npeak[:, c] for c in range(C)] if npeak is not None
+               else None)
+        thnor = float(f32(0.94))
+
+        for si, (Mi, Ai) in enumerate(self.coupling):
+            pair_used = usc[Mi] | usc[Ai]
+            pu = pair_used[:, None]
+            # M6 on the CURRENT residues/energies of the pair
+            if tfe > 0:
+                flagm1 = (fm1[Mi] | fm1[Ai]) & ~(f1[Mi] | f1[Ai])
+                promoted = self._m6_promote(rs[Mi], rs[Ai], re_[Mi],
+                                            re_[Ai], flagm1, F,
+                                            prae=prae, couple=cp)
+            else:
+                promoted = torch.zeros((F, n2), dtype=torch.bool,
+                                       device=md_g.device)
+            lossless = (f1[Mi] | f1[Ai] | promoted) & pu
+            point = (~lossless) & pu
+            # point fold thresholds (psy.c: steps==1 or step==3 keep
+            # the .12 high ratio, intermediate steps use .04)
+            threv = (self.threv_t if (nsteps == 1 or si == 3)
+                     else self.threv04_t)[:n2]
+            rM, rA = re_[Mi], re_[Ai]
+            a2 = torch.abs(rM * thnor)
+            b2 = torch.abs(rA * thnor)
+            hyp = torch.where(
+                rM > 0,
+                torch.where(rA > 0, a2 + b2,
+                            torch.where(rM > -rA, a2 - b2 * threv,
+                                        -(b2 - a2 * threv))),
+                torch.where(rA < 0, -(a2 + b2),
+                            torch.where(-rM > rA, -(a2 - b2 * threv),
+                                        b2 - a2 * threv)))
+            floorsum = fl_e[Mi] + fl_e[Ai]
+            ve = torch.abs(hyp) / floorsum
+            sq = torch.sqrt(ve)
+            mag_pt = torch.where(hyp < 0, -torch.round(sq), torch.round(sq))
+            # lossless integer mag/ang transform on the current ints
+            qiM, qiA = out[Mi], out[Ai]
+            c1 = torch.abs(qiM) > torch.abs(qiA)
+            magi = torch.where(c1, qiM, qiA)
+            angi = torch.where(c1,
+                               torch.where(qiM > 0, qiM - qiA, qiA - qiM),
+                               torch.where(qiA > 0, qiM - qiA, qiA - qiM))
+            flip = angi >= torch.abs(magi) * 2
+            magi = torch.where(flip, -magi, magi)
+            angi = torch.where(flip, -angi, angi)
+            # float residue transform (feeds later steps' M6)
+            cf = torch.abs(rs[Mi]) > torch.abs(rs[Ai])
+            magf = torch.where(cf, rs[Mi], rs[Ai])
+            angf = torch.where(cf,
+                               torch.where(rs[Mi] > 0, rs[Mi] - rs[Ai],
+                                           rs[Ai] - rs[Mi]),
+                               torch.where(rs[Ai] > 0, rs[Mi] - rs[Ai],
+                                           rs[Ai] - rs[Mi]))
+            flipf = angf >= torch.abs(magf) * 2
+            magf = torch.where(flipf, -magf, magf)
+            angf = torch.where(flipf, -angf, angf)
+            sqs = torch.where(hyp < 0, -sq, sq)
+            # point-side promotion on the folded magnitude channel
+            out_pt = mag_pt
+            if promote_on:
+                cand = point & (ve < float(f32(0.25))) \
+                    & self.nm_inreg_t[:n2]
+                npk_m = None
+                if npk is not None:
+                    neg = (npk[Mi] < -0.5) | (npk[Ai] < -0.5)
+                    npk_m = torch.where(neg, -1.0,
+                                        torch.minimum(npk[Mi], npk[Ai]))
+                    npk[Mi] = torch.where(pu, npk_m, npk[Mi])
+                out_pt = self._normalize_promote(
+                    mag_pt, ve, torch.abs(hyp), cand, hyp, npeak=npk_m)
+            # commit the pair's new state (the C's quant energies are
+            # not read by any later stage of this path and are not kept)
+            out[Mi] = torch.where(lossless, magi,
+                                  torch.where(point, out_pt, out[Mi]))
+            out[Ai] = torch.where(lossless, angi,
+                                  torch.where(point, 0.0, out[Ai]))
+            re_[Mi] = torch.where(lossless, torch.abs(rM) + torch.abs(rA),
+                                  torch.where(point, hyp, re_[Mi]))
+            rs[Mi] = torch.where(lossless, magf,
+                                 torch.where(point, sqs, rs[Mi]))
+            rs[Ai] = torch.where(lossless, angf,
+                                 torch.where(point, 0.0, rs[Ai]))
+            fsum = torch.where(pu, fl_e[Mi] + fl_e[Ai], fl_e[Mi])
+            fl_e[Ai] = torch.where(pu, fsum, fl_e[Ai])
+            fl_e[Mi] = fsum
+            f1[Mi] = lossless | (f1[Mi] & ~pu)
+            f1[Ai] = pu | f1[Ai]
+            # point bins keep a -1 flag on the mag channel (the C only
+            # sets fA=1 there), so later steps' M6 can still promote
+            fm1[Mi] = fm1[Mi] & ~lossless
+            fm1[Ai] = fm1[Ai] & ~pu
+            both = usc[Mi] | usc[Ai]
+            usc[Mi] = both
+            usc[Ai] = both
+        out_g = torch.stack(out, 1)
+        used_out = torch.stack(usc, 1)
+        out_g = torch.where(used_out[..., None], out_g, 0.0)
+        return out_g, used_out
+
+    def _finish_multi(self, md, logmdct, mask, F, wb, wid=None,
+                      epeak=None, npeak=None):
+        """Multi-submap encode tail (5.1 layouts): per-submap floor fit
+        (each submap's own floor kernel) + wrap coding, the chained
+        coupling on the coupled submap, per-submap residue VQ, one
+        packet assembly.  md/logmdct/mask: (F*ch, n2); wid, epeak and
+        npeak as in finish_from_posts."""
+        ch = self.ch
+        n2 = md.shape[-1]
+        md3 = md.reshape(F, ch, n2)
+        lg3 = logmdct.reshape(F, ch, n2)
+        mk3 = mask.reshape(F, ch, n2)
+        ep3 = epeak.reshape(F, ch, n2) if epeak is not None else None
+        npk3 = (npeak.reshape(F, ch, -1) if npeak is not None
+                else None)
+        nm = getattr(self.ctx, "normal", None)
+        bins = torch.arange(n2, device=md.device)
+        fl_cols_v = [None] * ch
+        fl_cols_l = [None] * ch
+        res_blocks = []
+        for g in self.groups:
+            c0 = g.channels[0]
+            nc = len(g.channels)
+            gs = slice(c0, c0 + nc)
+            # the submap's floor may cover fewer bins than the block
+            # (e.g. the LFE floor); fit/render at its width, zero the
+            # residue above it (mapping0 codes nothing past floor n).
+            # The floor kernel takes contiguous (B, n) rows.
+            fln = g.fl.n
+            posts, used = g.floor(
+                lg3[:, gs, :fln].reshape(F * nc, fln).contiguous(),
+                mk3[:, gs, :fln].reshape(F * nc, fln).contiguous())
+            codes, qposts = self._floor_wrap(posts, cfg=g)
+            curve = g.floor.render(qposts, self.ctx.fromdB)
+            if fln < n2:
+                curve = torch.nn.functional.pad(curve, (0, n2 - fln),
+                                                value=1e-10)
+            inband = bins < fln
+            fv, fl = self._floor_fields(codes, used, cfg=g)
+            fv = fv.reshape(F, nc, -1)
+            fl = fl.reshape(F, nc, -1)
+            for j, c in enumerate(g.channels):
+                fl_cols_v[c] = fv[:, j]
+                fl_cols_l[c] = fl[:, j]
+            mdg = md3[:, gs]
+            curg = curve.reshape(F, nc, n2)
+            usedg = used.reshape(F, nc)
+            if g.res_type == 2:
+                out_g, used_o = self._couple_multi(
+                    mdg, curg, usedg, F,
+                    epeak=ep3[:, gs] if ep3 is not None else None,
+                    npeak=npk3[:, gs] if npk3 is not None else None)
+                out_g = torch.where(inband, out_g, 0.0)
+                inter = out_g.transpose(1, 2).reshape(F, -1)
+                absA = torch.abs(out_g[:, 1]) if nc == 2 else \
+                    torch.abs(out_g[:, 1:]).amax(1)
+                pw = self._classify2(torch.abs(out_g[:, 0]), absA,
+                                     nch=nc, cfg=g)
+                entries = self._vq_stages(inter, pw, cfg=g)
+                pw_p = pw.reshape(F, 1, -1)
+                ent_p = [e.reshape(F, 1, g.partvals, -1)
+                         for e in entries]
+                used_p = used_o.any(-1).reshape(F, 1)
+            else:
+                curg2 = torch.where(usedg[..., None], curg,
+                                    float(f32(1e-10)))
+                rr = mdg / curg2
+                res = torch.round(rr)
+                res = torch.where(usedg[..., None] & inband, res, 0.0)
+                R = F * nc
+                if nm is not None and nm["thresh"] < 9000.0:
+                    ve = rr * rr
+                    cand = (ve < float(f32(0.25))) \
+                        & self.nm_start_t[:n2] & usedg[..., None]
+                    npk_g = (npk3[:, gs].reshape(R, -1)
+                             if npk3 is not None else None)
+                    res = self._normalize_promote(
+                        res.reshape(R, n2), ve.reshape(R, n2),
+                        torch.abs(mdg * mdg).reshape(R, n2),
+                        cand.reshape(R, n2), rr.reshape(R, n2),
+                        npeak=npk_g).reshape(F, nc, n2)
+                pw = self._classify(res.reshape(R, n2), cfg=g)
+                entries = self._vq_stages(res.reshape(R, n2), pw, cfg=g)
+                pw_p = pw.reshape(F, nc, -1)
+                ent_p = [e.reshape(F, nc, g.partvals, -1)
+                         for e in entries]
+                used_p = usedg
+            res_blocks.append(self._residue_fields(pw_p, ent_p, used_p,
+                                                   cfg=g))
+        hdr_v, hdr_l = self._header(F, wid, md.device)
+        vals = torch.cat([hdr_v] + fl_cols_v
+                         + [rv for rv, _ in res_blocks], 1)
+        lens = torch.cat([hdr_l] + fl_cols_l
+                         + [rl for _, rl in res_blocks], 1)
+        mv, ml = merge_columns(vals, lens, self.gidx_t)
+        return pack_bits(mv, ml, wb)
+
+    def _header(self, F, wid, dev):
+        """The packet header columns (F, 4): packet-type bit, mode, and
+        (long blocks only) the lW/nW window-shape flags -- the frame's
+        neighbour flags when the caller passes wid (F*ch,), else 1/1
+        (all-long stream).  Bit fields ride int64 (no uint32 shifts in
+        torch)."""
+        if self.W and wid is not None:
+            wf = wid.reshape(F, self.ch)[:, 0].to(i64)
+            lw_v = (wf >> 1) & 1
+            nw_v = wf & 1
+        else:
+            lw_v = torch.ones((F,), dtype=i64, device=dev)
+            nw_v = lw_v
+        hdr_v = torch.stack([torch.zeros_like(lw_v),
+                             torch.full_like(lw_v, self.ctx.mode_idx),
+                             lw_v, nw_v], 1)
+        return hdr_v, self.hdr_l_t.expand(F, 4)
+
     def _normalize_promote(self, out, ve, qe, cand, sgn, npeak=None):
         """noise_normalize's energy-budget promotion (psy.c:4732-4854),
         batched per partition: candidate bins (sub-unity energy) sort
@@ -895,15 +1275,18 @@ class DeviceFastEncode:
         return torch.where(sel, unit, out)
 
     # -- the full step -------------------------------------------------------
-    def encode_flat(self, flat, F, wb):
+    def encode_flat(self, flat, F, wb, wid=None):
         """The post-framing encode body: flat (F*ch, n) raw PCM frames
-        in frame-major (F, ch) order -> (packets (F, wb) uint8,
-        nbits (F,) int32).  Per-frame math only (no cross-frame
+        in frame-major (F, ch) order, wid (F*ch,) the window-shape ids
+        (long mode; None for an all-long stream) -> (packets (F, wb)
+        uint8, nbits (F,) int32).  Per-frame math only (no cross-frame
         dependency)."""
         ctx = self.ctx
-        md, logmdct, mask = ctx.analysis.full_mask(flat)
+        md, logmdct, mask = ctx.analysis.full_mask(flat, wid)
+        if self.multi:
+            return self._finish_multi(md, logmdct, mask, F, wb, wid)
         posts, used = ctx.floor(logmdct, mask)
-        return self.finish_from_posts(md, posts, used, F, wb)
+        return self.finish_from_posts(md, posts, used, F, wb, wid=wid)
 
     def finish_from_posts(self, md, posts, used, F, wb, wid=None,
                           thr1=None, threv=None, inlimit=None,
@@ -953,22 +1336,7 @@ class DeviceFastEncode:
             entries = self._vq_stages(res, pw)
             used_p = used.reshape(F, ch)
         fv, fl = self._floor_fields(codes, used)
-        # header: packet-type bit, mode, and (long blocks only) the
-        # lW/nW window-shape flags -- the frame's neighbour flags when
-        # the caller passes wid, else 1/1 (all-long stream).  Bit
-        # fields ride int64 (no uint32 shifts in torch).
-        dev = md.device
-        if self.W and wid is not None:
-            wf = wid.reshape(F, ch)[:, 0].to(i64)
-            lw_v = (wf >> 1) & 1
-            nw_v = wf & 1
-        else:
-            lw_v = torch.ones((F,), dtype=i64, device=dev)
-            nw_v = lw_v
-        hdr_v = torch.stack([torch.zeros_like(lw_v),
-                             torch.full_like(lw_v, ctx.mode_idx),
-                             lw_v, nw_v], 1)
-        hdr_l = self.hdr_l_t.expand(F, 4)
+        hdr_v, hdr_l = self._header(F, wid, md.device)
         fv = fv.reshape(F, -1)
         fl = fl.reshape(F, -1)
         rc = self.res_ch
@@ -1024,9 +1392,7 @@ class DeviceFastEncode:
         def step(x64, starts, wid):
             flat = self._gather_frames(x64, starts, F)
             w = torch.repeat_interleave(wid, ch) if self.W else None
-            md, logmdct, mask = self.ctx.analysis.full_mask(flat, w)
-            posts, used = self.ctx.floor(logmdct, mask)
-            return self.finish_from_posts(md, posts, used, F, wb, wid=w)
+            return self.encode_flat(flat, F, wb, wid=w)
 
         return step
 
@@ -1156,6 +1522,10 @@ class DeviceFastEncode:
                 npeak = npk2.reshape(F * ch, -1)
             md2, mask = da.mix_m4_m1(md, logmdct, val, tval, 1)
             w = torch.repeat_interleave(wid, ch) if self.W else None
+            if self.multi:
+                return self._finish_multi(md2, logmdct, mask, F, wb,
+                                          wid=w, epeak=epeak,
+                                          npeak=npeak)
             posts, used = self.ctx.floor(logmdct, mask)
             return self.finish_from_posts(md2, posts, used, F, wb,
                                           wid=w, epeak=epeak,

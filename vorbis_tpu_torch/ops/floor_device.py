@@ -11,7 +11,8 @@ posts equal the Pallas kernel's bit for bit given the same inputs
 
   prepare(logmdct, logmask) -> quant, above, prefix, used
       dB quantization, above/below classes, the per-segment moment
-      matmul and its prefix sum (outside the kernel on both backends)
+      matmul (exact, in float64) and its prefix sum (outside the kernel
+      on both backends)
   fit(quant, above, prefix) -> posts (B, P) int32 with 0x8000 flags
 """
 
@@ -89,12 +90,19 @@ class DeviceFloorFit:
             fwd_t=self.forward_index,
             iv_t=np.clip(iv, 0, P - 1).astype(np.int64),
         ), self.device))
+        # the moments sum in float64 (_moments)
+        self.seg_mat64 = self.seg_mat.double()
 
     # -- stage 1: quantization + per-segment moments -------------------
     def _moments(self, quant, above):
         """quant (B, n) int32, above (B, n) bool -> weighted prefix
         moments (B, S+1, 6) float32 and per-segment above counts
-        (B, S).  The bin -> segment reduction is one fp32 matmul."""
+        (B, S).  The bin -> segment reduction is one matmul in float64:
+        every feature is an integer below 2^20 and a segment sums at
+        most n of them, so the float64 sums are exact (as the
+        reference's integer accumulate_fit) and round once to float32,
+        the same on the card and the CPU; an fp32 matmul would round in
+        its library's order."""
         q = quant.to(torch.float32)
         x = self.xg.to(torch.float32).expand(q.shape)
         used = quant != 0
@@ -105,7 +113,8 @@ class DeviceFloorFit:
 
         def seg_moments(mask):
             vals = torch.where(mask[:, None, :], feats, 0.0)
-            return torch.matmul(vals, self.seg_mat).transpose(1, 2)
+            return torch.matmul(vals.double(), self.seg_mat64).float() \
+                .transpose(1, 2)
 
         A = seg_moments(am)                                # (B, S, 6)
         Bv = seg_moments(bm)

@@ -3,12 +3,14 @@ analysis spine (window -> MDCT -> log spectrum -> bark noise fit ->
 tone mask -> stateless offset/mix), batched over frames and channels.
 
 Same formulas and float32 op order as the JAX module, in torch idiom:
-prefix sums are `torch.cumsum`, static index tables are tensor gathers,
-`segment_max` is `scatter_reduce(..., "amax")` and the one-hot
-curve-row matmul (a TPU workaround) is a plain row index.  Float
-results agree with JAX to float reassociation (the cumsum and FFT
-orders differ between backends); tests/test_torch_analysis.py states
-the bounds.
+static index tables are tensor gathers, `segment_max` is
+`scatter_reduce(..., "amax")` and the one-hot curve-row matmul (a TPU
+workaround) is a plain row index.  The MDCT GEMM and bark_fit's prefix
+sums accumulate in float64 and round once to float32, so the card and
+the CPU give the same values (an fp32 GEMM or scan rounds in its
+library's order, which differs between them).  Float results agree
+with JAX to float reassociation (the sums and FFT orders differ);
+tests/test_torch_analysis.py states the bounds.
 
 Reference behavior being reproduced (file:line of the reference tree):
 - bark_noise_hybridmp least-squares noise fit: lib/psy.c:3480
@@ -65,6 +67,14 @@ def _ls_terms(N, X, XX, Y, XY, lo, hi, neg_lo):
     return A, B, D
 
 
+def _cumsum64(x):
+    """Prefix sums over the last axis, accumulated in float64 and rounded
+    once to float32: the card's scan and the CPU's loop add in other
+    orders, and in float64 both round to the same float32 except where
+    the sum's error meets a float32 rounding boundary."""
+    return torch.cumsum(x.double(), -1).float()
+
+
 def bark_fit(fvec, bark_lo, bark_hi, offset, fixed, i1, i2, j1, j2):
     """Batched bark-windowed weighted LS line fit (reference:
     lib/psy.c bark_noise_hybridmp).  fvec: (..., n) f32; bark_lo/hi
@@ -81,12 +91,11 @@ def bark_fit(fvec, bark_lo, bark_hi, offset, fixed, i1, i2, j1, j2):
     wy = w * y
     wxy = wx * y
     zero = torch.zeros_like(w0_half)
-    N = torch.cumsum(torch.cat([w0_half, w[..., 1:]], -1), -1)
-    X = torch.cumsum(torch.cat([w0_half, wx[..., 1:]], -1), -1)
-    XX = torch.cumsum(torch.cat([zero, wxx[..., 1:]], -1), -1)
-    Y = torch.cumsum(torch.cat([w0_half * y[..., :1], wy[..., 1:]], -1),
-                     -1)
-    XY = torch.cumsum(torch.cat([zero, wxy[..., 1:]], -1), -1)
+    N = _cumsum64(torch.cat([w0_half, w[..., 1:]], -1))
+    X = _cumsum64(torch.cat([w0_half, wx[..., 1:]], -1))
+    XX = _cumsum64(torch.cat([zero, wxx[..., 1:]], -1))
+    Y = _cumsum64(torch.cat([w0_half * y[..., :1], wy[..., 1:]], -1))
+    XY = _cumsum64(torch.cat([zero, wxy[..., 1:]], -1))
 
     def fit_regions(lo, hi, k1, k2):
         A1, B1, D1 = _ls_terms(N, X, XX, Y, XY, lo[:k1], hi[:k1], True)
@@ -218,6 +227,8 @@ class DeviceAnalysis:
         bins = np.arange(n2)
         tabs["in_m4"] = (bins > m4_start) & (bins < m4_end)
         vars(self).update(device_tables(tabs, self.device))
+        # the MDCT accumulates in float64 (mdct)
+        self.mdct_basis64 = self.mdct_basis.double()
         self.noiseoffset = self.noiseoffsets[1]
         self.noisemaxsupp = _c(look.vi["noisemaxsupp"])
         self.toneatts = [_c(a) for a in look.vi["tone_masteratt"]]
@@ -231,11 +242,15 @@ class DeviceAnalysis:
         return frames * self.windows4[wid.long()]
 
     def mdct(self, w):
-        """Forward MDCT of windowed frames as one fp32 GEMM against the
-        basis (TF32 off); the JAX module runs the butterfly, which
-        rounds otherwise (tests/test_torch_analysis.py bounds the
-        difference)."""
-        return torch.matmul(w, self.mdct_basis)
+        """Forward MDCT of windowed frames: one GEMM against the basis,
+        accumulated in float64 and rounded once to float32.  An fp32
+        GEMM rounds in its library's reduction order, which differs
+        between the card (cuBLAS picks it by shape) and the CPU; the
+        float64 sum rounds to the same float32 on both except where its
+        error meets a float32 rounding boundary.  The JAX module runs
+        the butterfly, which rounds otherwise
+        (tests/test_torch_analysis.py bounds the difference)."""
+        return torch.matmul(w.double(), self.mdct_basis64).float()
 
     def spectra(self, frames, wid=None, with_fft=False):
         """The per-frame DSP front: window -> MDCT -> log spectrum ->
