@@ -9,9 +9,11 @@ vorbis_tpu and no network:
 
 Phases (any failure raises and the script exits non-zero):
   1. device: the card, its name and power limit, the fp32 policy;
-  2. build: nvcc compiles csrc/floor_fit.cu and csrc/m3_scan.cu and cc
-     compiles csrc/host_ogg.c (Ogg CRC and pager, rescue walk, schedule)
-     into build/vorbis_tpu_torch/, all builds started together;
+  2. build: nvcc compiles csrc/floor_fit.cu, csrc/m3_scan.cu and
+     csrc/imdct.cu and cc compiles csrc/host_ogg.c (Ogg CRC and pager,
+     rescue walk, schedule) and csrc/host_decode.c (the decode's page
+     walk, packet parse, host IMDCT and lap, with -ffp-contract=off) into
+     build/vorbis_tpu_torch/, all builds started together;
   3. kernel vs plain: the floor-fit kernel against its plain PyTorch
      version, bitwise, on real spectra of the main path (B = 2048, the
      1074 rows of the last chunk, B = 1 and 3), on random correlated
@@ -53,11 +55,16 @@ Phases (any failure raises and the script exits non-zero):
      GEMM); the M3 kernel by bit pattern on the six-channel short
      batches of 5 s of the 5.1 click train, and its time on the first
      full batch;
+  3h. decode vs scalar: decode_ogg_fast with the IMDCT kernel on the
+     card, and the host-C drain, bitwise against the port's scalar
+     decoder (vorbis_tpu_torch.codec.decoder) on 2 s click-train clips of
+     the switched, managed and 5.1 encoders; phases 4-4g then decode
+     their streams with decode_ogg_fast on the card;
   4. main path: FastEncoder(2, 44100, 0.5, switching=False,
      psy_state=False).encode of 60 s of 44.1 kHz stereo int16 (bench.py's
      signal, seed 0), from a CUDA tensor and from host numpy; the stream
-     decodes with the port's own decoder (vorbis_tpu_torch.codec.decoder)
-     to the exact length above an SNR floor; the kernel's launch count
+     decodes (decode_ogg_fast on the card) to the exact length above an
+     SNR floor; the kernel's launch count
      shows the path went through it;
   4b. stateful encode: FastEncoder(2, 44100, 0.5, switching=False) with
      the cross-frame psy state (the default) encodes the same 60 s from
@@ -102,7 +109,7 @@ Phases (any failure raises and the script exits non-zero):
      last_profile, frames and finish batches per mode, the floor launches
      of every group's wrapper (the coupled submap's and the LFE's, each
      block mode) and M3's (six channels), every last granulepos, every
-     stream decoded to its exact length (four worker processes), stream
+     stream decoded to its exact length (decode_ogg_fast), stream
      0's SNR within SNR_MARGIN_DB of the JAX package's and its short
      blocks beside JAX's, audio kbps; the busy share under
      torch.profiler (the click train on one stream);
@@ -117,11 +124,23 @@ Phases (any failure raises and the script exits non-zero):
      B_long = B_short = 64: marks and schedule equal, the chosen blobs
      equal printed, >= 85% of packets identical;
   5e. card vs CPU, 5.1: a 2 s 5.1 click train at B_long = B_short = 64:
-     marks and schedule equal, >= 90% of packets identical.
+     marks and schedule equal, >= 90% of packets identical;
+  6. decode: the IMDCT kernel (csrc/imdct.cu) by bit pattern against its
+     plain version on the card and the host C at n = 64-8192 on seeded
+     spectra and on the real spectra of 4d's stream 0 (tonal, click
+     train); then the decode path: decode_ogg_fast_batch(device=True) of
+     4d's 16 x 60 s tonal streams, click trains and 4g's 5.1 streams and
+     decode_ogg_fast(device=True) of one tonal stream, each bitwise equal
+     to device=False and as long as its input; x-realtime card and
+     host-C drain, three times each with the spread; the split into scan
+     + parse, dispatch, H2D, kernel, D2H and lap; the kernel's time, its
+     bytes bound and share, the plain version's and one torch.matmul
+     against the dense IMDCT basis at a main-path wave's rows.
 Phase 4b then runs once more under torch.profiler and prints the
 device's busy share (4d profiles the same 16-stream batch as 4c, with
 switching).  Launch counts are set to 0 just before each main
-path (4, 4b, 4c, 4d, 4e, 4f, 4g) and read just after it.
+path (4, 4b, 4c, 4d, 4e, 4f, 4g, and 6's decode runs) and read just
+after it.
 It prints the kernel record as one JSON line, then the result line.
 """
 
@@ -1039,7 +1058,6 @@ def _phase_managed_leg(fm, smi):
     launches of the timed run."""
     import numpy as np
     import torch
-    from vorbis_tpu_torch.codec.decoder import decode_ogg
     from vorbis_tpu_torch.models.fastenc import FastEncoder
     S, secs = 8, 30
     streams = [torch.from_numpy(_click_train(secs, 44100, k)).cuda()
@@ -1069,7 +1087,7 @@ def _phase_managed_leg(fm, smi):
     kbps = [_audio_kbps(o, streams[k].shape[1]) for k, o in enumerate(oggs)]
     snrs = {}
     for k in (0, S - 1):
-        out_k, _ = decode_ogg(oggs[k])
+        out_k, _ = _decode(oggs[k])
         snrs[k] = _snr(streams[k].cpu().numpy(), out_k)
         print(f"[managed] stream {k}: {len(oggs[k])} bytes, "
               f"{_short_blocks(fm, oggs[k])} short blocks, decoded "
@@ -1107,7 +1125,7 @@ def _phase_managed_leg(fm, smi):
     ogg_c = fc.encode_managed_batch([streams[0]])[0]
     torch.cuda.synchronize()
     t_c = time.perf_counter() - t0
-    out_c, _ = decode_ogg(ogg_c)
+    out_c, _ = _decode(ogg_c)
     snr_c = _snr(streams[0].cpu().numpy(), out_c)
     lc = fc.last_managed
     print(f"[managed] CBR 128 kbps 30 s click train (cold): {t_c:.4f} s, "
@@ -1128,7 +1146,7 @@ def _phase_managed_leg(fm, smi):
             t_l = time.perf_counter() - t0
         finally:
             fm.psy_state = True
-        out_l, _ = decode_ogg(ogg_l)
+        out_l, _ = _decode(ogg_l)
         snr_l = _snr(clip.cpu().numpy(), out_l)
         print(f"[managed] long-only psy_state={psy_state} 10 s (cold): "
               f"{t_l:.4f} s, {len(ogg_l)} bytes, audio "
@@ -1261,18 +1279,15 @@ def _phase_51_kernels(f51, smi):
         bound_ms=bound_ms, bound_by=bound_by, chain_bound_ms=chain_ms)
 
 
-def _decode_check(job):
-    """One 4g stream through the port's own decoder in a worker process:
-    (ogg bytes, int16 input) -> its SNR in dB; raises unless it decodes
-    to the input's exact shape with finite samples."""
-    sys.path.insert(0, HERE)
-    from vorbis_tpu_torch.codec.decoder import decode_ogg
-    ogg, pcm16 = job
-    out, _ = decode_ogg(ogg)
-    return _snr(pcm16, out)
+def _decode(ogg):
+    """One stream through the port's fast decode with the IMDCT on the
+    card (phase 3h holds it bitwise against the port's scalar decoder):
+    (pcm (ch, n) float32, vi)."""
+    from vorbis_tpu_torch.models.fastdec import decode_ogg_fast
+    return decode_ogg_fast(ogg)
 
 
-def _phase_51(f51, smi):
+def _phase_51(f51, smi, keep):
     """Phase 4g: FastEncoder(6, 48000, 0.4) (5.1: block switching and the
     psy state on) encode_batch of 4 x 60 s of _signal51 and 4 x 30 s of
     _click_train51 (seeds 0-3) from CUDA tensors, warm, then timed:
@@ -1280,27 +1295,23 @@ def _phase_51(f51, smi):
     floor launches of every group's wrapper (the coupled submap's and
     the LFE's, long and short) and M3's (on six channels: the warm-up's
     calls are recorded), every last granulepos, every stream decoded by
-    the port's decoder (four worker processes) to its exact length,
+    decode_ogg_fast on the card to its exact length,
     stream 0's SNR within SNR_MARGIN_DB of the JAX package's and its
     short blocks beside JAX's, each stream's audio kbps; then the busy
     share under torch.profiler (the click train on one stream) and the
-    largest kernels.  Returns the timed runs' (floor, M3) launches."""
-    import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
+    largest kernels.  Returns the timed runs' (floor, M3) launches and
+    keeps each leg's streams and input lengths in `keep` for phase 6."""
     S, rate = 4, 48000
     total = [0, 0]
-    pool = ProcessPoolExecutor(
-        S, mp_context=multiprocessing.get_context("spawn"))
-    with pool:
-        for leg, gen, secs in (("signal51", _signal51, 60),
-                               ("click_train51", _click_train51, 30)):
-            fl, m3_n = _leg_51(f51, smi, pool, leg, gen, secs, S, rate)
-            total[0] += fl
-            total[1] += m3_n
+    for leg, gen, secs in (("signal51", _signal51, 60),
+                           ("click_train51", _click_train51, 30)):
+        fl, m3_n = _leg_51(f51, smi, keep, leg, gen, secs, S, rate)
+        total[0] += fl
+        total[1] += m3_n
     return tuple(total)
 
 
-def _leg_51(f51, smi, pool, leg, gen, secs, S, rate):
+def _leg_51(f51, smi, keep, leg, gen, secs, S, rate):
     """One leg of phase 4g (_phase_51); returns its (floor, M3)
     launches."""
     import torch
@@ -1347,7 +1358,8 @@ def _leg_51(f51, smi, pool, leg, gen, secs, S, rate):
         if _last_granulepos(o) != pcms[k].shape[1]:
             raise RuntimeError(f"{leg} stream {k}: last granulepos "
                                f"{_last_granulepos(o)}")
-    snrs = list(pool.map(_decode_check, zip(oggs, pcms)))
+    snrs = [_snr(x, _decode(o)[0]) for o, x in zip(oggs, pcms)]
+    keep[leg] = (oggs, [x.shape[1] for x in pcms])
     kbps = [_audio_kbps(o, x.shape[1], rate) for o, x in zip(oggs, pcms)]
     print(f"[5.1] {leg} stream 0: {len(oggs[0])} bytes, {shorts[0]} "
           f"short blocks (JAX {JAX_51_SHORTS[leg]}), SNR {snrs[0]:.3f} "
@@ -1412,6 +1424,242 @@ def _phase_51_card_vs_cpu(f51, f51_cpu):
                            "10%")
 
 
+def _phase_decode_vs_scalar(fsw, fm, f51):
+    """Phase 3h: decode_ogg_fast with the IMDCT on the card against the
+    port's scalar decoder (vorbis_tpu_torch.codec.decoder) and the host-C
+    drain, bit for bit, on 2 s click-train clips of the stereo switched,
+    managed (ABR 128 kbps) and 5.1 encoders, so that phases 4-4g can read
+    their streams with it."""
+    import numpy as np
+    import torch
+    from vorbis_tpu_torch.codec.decoder import decode_ogg
+    from vorbis_tpu_torch.models.fastdec import decode_ogg_fast
+
+    def card(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).cuda()
+
+    clips = (("switched", fsw.encode_batch([card(_click_train(2, 44100, 0))])),
+             ("managed", fm.encode_managed_batch(
+                 [card(_click_train(2, 44100, 0))])),
+             ("5.1", f51.encode_batch([card(_click_train51(2, 48000, 0))])))
+    for name, (ogg,) in clips:
+        t0 = time.perf_counter()
+        want, _ = decode_ogg(ogg)
+        t_scalar = time.perf_counter() - t0
+        got, _ = decode_ogg_fast(ogg)
+        host, _ = decode_ogg_fast(ogg, device=False)
+        same = [g.shape == want.shape and np.array_equal(
+            g.view(np.uint32), want.view(np.uint32)) for g in (got, host)]
+        print(f"[decode] {name} 2 s clip: card {same[0]}, host-C drain "
+              f"{same[1]} bitwise against the scalar decoder "
+              f"({want.shape}, scalar {t_scalar:.2f} s)")
+        if not all(same):
+            raise RuntimeError(f"{name}: the fast decode differs from the "
+                               f"scalar decoder")
+
+
+def _imdct_work(n, rows):
+    """(bytes, float32 operations) of `rows` IMDCT rows of blocksize n:
+    each input float read once and each output float written once; the
+    operations as the code does them: stage A 5 an output of n/2, a
+    radix-2 butterfly 10 (n/8 a stage), a 32-point tail 176, stage C 16
+    a pair of n/8, stage D 8 an output pair of n/4."""
+    from vorbis_tpu_torch.ops.mdct import _imdct_index_tables
+    nst = len(_imdct_index_tables(n)["stages"])
+    ops = (5 * (n // 2) + nst * (n // 8) * 10 + (n // 64) * 176
+           + (n // 8) * 16 + (n // 4) * 8)
+    return rows * (n // 2 + n) * 4, rows * ops
+
+
+def _imdct_bound(n, rows):
+    nbytes, ops = _imdct_work(n, rows)
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return (max(by_bytes, by_ops) * 1e3,
+            "bytes" if by_bytes >= by_ops else "operations", nbytes, ops)
+
+
+def _spread(ts):
+    ts = sorted(ts)
+    return f"{ts[len(ts) // 2]:.4f} s (min {ts[0]:.4f}, max {ts[-1]:.4f})"
+
+
+def _phase_decode(smi, keep):
+    """Phase 6: the decode slice on the card.  The IMDCT kernel against
+    its plain version on the card and the host C (vn_imdct_batch), by bit
+    pattern, at n = 64-8192 on seeded spectra and on the real spectra of
+    4d's tonal and click-train stream 0; then the main path,
+    decode_ogg_fast(device=True) of one 4d stream and
+    decode_ogg_fast_batch(device=True) of 4d's 16 x 60 s tonal and click
+    trains and 4g's 5.1 streams, each bitwise equal to device=False and
+    as long as its input, with the kernel's launches counted over these
+    runs; x-realtime of the tonal batch and of one stream, card and
+    host-C drain, each three times with its spread; the batch's split
+    into scan + parse, dispatch, H2D, kernel, D2H, the wait and the lap;
+    the kernel's time (CUDA events) at a main-path wave's rows, its bytes
+    bound and share, the plain version's time and one torch.matmul of the
+    rows against the dense IMDCT basis (fp32, TF32 off).  Returns the
+    kernel's record for the kernels' line."""
+    import numpy as np
+    import torch
+    from vorbis_tpu_torch.models import fastdec
+    from vorbis_tpu_torch.native import imdct_batch
+    from vorbis_tpu_torch.ops.imdct_cuda import imdct, imdct_plain
+    dev = torch.device("cuda")
+    max_err = 0.0
+    bad = 0
+
+    def check(name, spec, n):
+        nonlocal max_err, bad
+        x = torch.from_numpy(np.ascontiguousarray(spec)).cuda()
+        got = imdct(x, n)
+        plain = imdct_plain(x, n)
+        torch.cuda.synchronize()
+        g = got.cpu().numpy()
+        host = imdct_batch(spec, n)
+        mis = [int((g.view(np.uint32) != w.view(np.uint32)).sum())
+               for w in (plain.cpu().numpy(), host)]
+        err = max(float(np.abs(g - w).max()) for w in
+                  (plain.cpu().numpy(), host)) if g.size else 0.0
+        max_err = max(max_err, err)
+        bad += sum(mis)
+        print(f"[imdct] {name} n={n} rows={spec.shape[0]}: mismatches "
+              f"against plain {mis[0]}, against host C {mis[1]}")
+
+    for k, n in enumerate((64, 128, 256, 512, 1024, 2048, 4096, 8192)):
+        rng = np.random.RandomState(k)
+        B = 2048
+        s = rng.randn(B, n // 2) * 10.0 ** rng.uniform(-3, 3, (B, 1))
+        s[rng.rand(B, n // 2) < 0.1] = 0.0
+        check("seeded", s.astype(np.float32), n)
+    for leg in ("signal", "click_train"):
+        dec, W, res, _, _ = fastdec._scan_job(keep[leg][0][0])
+        bs = dec.vi.blocksizes
+        for Wv in (0, 1):
+            idx = np.flatnonzero(W == Wv)
+            if len(idx):
+                n = bs[Wv]
+                check(f"4d {leg} stream 0 W={Wv}", np.ascontiguousarray(
+                    res[idx][:, :, :n // 2].reshape(-1, n // 2)), n)
+    if bad:
+        raise RuntimeError(f"imdct kernel: {bad} mismatches")
+
+    def same(a, b):
+        return a.shape == b.shape and np.array_equal(a.view(np.uint32),
+                                                     b.view(np.uint32))
+
+    # the main path: the counts go to 0 just before it and are read after
+    tonal, tlen = keep["signal"]
+    secs = sum(tlen) / 44100
+    imdct.launches = 0
+    t_card, t_host, t1_card, t1_host = [], [], [], []
+    for rep in range(3):
+        t0 = time.perf_counter()
+        outs = fastdec.decode_ogg_fast_batch(tonal, device=True)
+        t_card.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        host = fastdec.decode_ogg_fast_batch(tonal, device=False)
+        t_host.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        one, _ = fastdec.decode_ogg_fast(tonal[0], device=True)
+        t1_card.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        one_h, _ = fastdec.decode_ogg_fast(tonal[0], device=False)
+        t1_host.append(time.perf_counter() - t0)
+        if rep == 0:
+            if not all(same(a, b) for (a, _), (b, _) in zip(outs, host)) \
+                    or not same(one, one_h):
+                raise RuntimeError("4d tonal: device=True differs from "
+                                   "device=False")
+            if [a.shape[1] for a, _ in outs] != tlen:
+                raise RuntimeError("4d tonal: a decoded stream is not as "
+                                   "long as its input")
+    del outs, host
+    t_other = {}
+    for leg in ("click_train", "signal51", "click_train51"):
+        oggs, lens = keep[leg]
+        t0 = time.perf_counter()
+        outs = fastdec.decode_ogg_fast_batch(oggs, device=True)
+        t_other[leg] = time.perf_counter() - t0
+        host = fastdec.decode_ogg_fast_batch(oggs, device=False)
+        if not all(same(a, b) for (a, _), (b, _) in zip(outs, host)):
+            raise RuntimeError(f"{leg}: device=True differs from "
+                               f"device=False")
+        if [a.shape[1] for a, _ in outs] != lens:
+            raise RuntimeError(f"{leg}: a decoded stream is not as long as "
+                               f"its input")
+        print(f"[decode] {leg} {len(oggs)} streams: device=True equal to "
+              f"device=False bit for bit, every stream as long as its input "
+              f"(card {t_other[leg]:.4f} s)")
+        del outs, host
+    # the split of one tonal batch, stage by stage (the same calls as
+    # fastdec._decode_jobs)
+    t0 = time.perf_counter()
+    jobs = [fastdec._scan_job(o) for o in tonal]
+    t_scan = time.perf_counter() - t0
+    waves = []
+    t0 = time.perf_counter()
+    pend = [d._device_imdct_dispatch(r, W, *d.vi.blocksizes, dev, waves)
+            for d, W, r, _, _ in jobs]
+    t_disp = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    drained = [d._device_imdct_drain(p, len(W))
+               for (d, W, _, _, _), p in zip(jobs, pend)]
+    t_wait = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for (d, W, _, gp, eos), (g, gi) in zip(jobs, drained):
+        d._lap_and_trim(W, g, gi, gp, eos)
+    t_lapt = time.perf_counter() - t0
+    launches = imdct.launches
+    h2d = sum(e[0].elapsed_time(e[1]) for _, _, e in waves)
+    kern = sum(e[1].elapsed_time(e[2]) for _, _, e in waves)
+    d2h = sum(e[2].elapsed_time(e[3]) for _, _, e in waves)
+    rows = {}
+    for n, G, _ in waves:
+        rows[n] = rows.get(n, 0) + G
+    del jobs, pend, drained
+    print(f"[decode] 4d tonal {len(tonal)} x {tlen[0] / 44100:.0f} s, "
+          f"device=True: "
+          f"{_spread(t_card)} = {secs / sorted(t_card)[1]:.2f}x realtime; "
+          f"device=False (host-C drain, threads): {_spread(t_host)} = "
+          f"{secs / sorted(t_host)[1]:.2f}x; one stream: card "
+          f"{_spread(t1_card)} = {tlen[0] / 44100 / sorted(t1_card)[1]:.2f}x"
+          f", host {_spread(t1_host)} = "
+          f"{tlen[0] / 44100 / sorted(t1_host)[1]:.2f}x ({smi})")
+    print(f"[decode] split of one tonal batch (s): scan + parse {t_scan:.4f}"
+          f", dispatch (gather into pinned memory, launches) {t_disp:.4f}, "
+          f"wait for the device {t_wait:.4f}, lap + trim {t_lapt:.4f}; "
+          f"device (ms, summed over {len(waves)} waves): H2D {h2d:.3f}, "
+          f"kernel {kern:.3f}, D2H {d2h:.3f}; rows " + ", ".join(
+              f"n={n}: {g}" for n, g in sorted(rows.items()))
+          + f"; imdct launches {launches}")
+    if launches == 0:
+        raise RuntimeError("the IMDCT kernel never launched on the decode "
+                           "path")
+    # the kernel at a main-path wave's rows: stream 0's long wave
+    d0, W0, r0, _, _ = fastdec._scan_job(tonal[0])
+    n = d0.vi.blocksizes[1]
+    idx = np.flatnonzero(W0 == 1)
+    x = torch.from_numpy(np.ascontiguousarray(
+        r0[idx][:, :, :n // 2].reshape(-1, n // 2))).cuda()
+    ms = _cuda_ms(lambda: imdct(x, n), 100)
+    plain_ms = _cuda_ms(lambda: imdct_plain(x, n), 5)
+    basis = imdct_plain(torch.eye(n // 2, device=dev), n)
+    lib_ms = _cuda_ms(lambda: torch.matmul(x, basis), 20)
+    lib_err = float((torch.matmul(x, basis) - imdct(x, n)).abs().max())
+    bound_ms, bound_by, nbytes, ops = _imdct_bound(n, x.shape[0])
+    print(f"[imdct] kernel at {x.shape[0]} rows of n={n} (4d tonal stream "
+          f"0's long wave): {ms:.5f} ms, plain {plain_ms:.4f} ms, "
+          f"torch.matmul against the dense basis {lib_ms:.5f} ms (max abs "
+          f"difference {lib_err:.3g}); bytes {nbytes} = "
+          f"{nbytes / HBM_BYTES_PER_S * 1e3:.5f} ms, operations {ops} = "
+          f"{ops / F32_OPS_PER_S * 1e3:.5f} ms; bound {bound_ms:.5f} ms by "
+          f"{bound_by}, share {100 * bound_ms / ms:.1f}% ({smi})")
+    return dict(launches=launches, max_abs_err=max_err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                share=bound_ms / ms, library_ms=lib_ms, rows=x.shape[0],
+                n=n)
+
+
 def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1445,17 +1693,21 @@ def main():
 
     # 2. build: one compiler process per source, all started together
     from vorbis_tpu_torch import native
-    from vorbis_tpu_torch.ops import floor_cuda, m3_cuda
+    from vorbis_tpu_torch.ops import floor_cuda, imdct_cuda, m3_cuda
     t0 = time.perf_counter()
     jobs = {"floor_fit.cu": floor_cuda.build,
             "m3_scan.cu": m3_cuda.build,
-            "host_ogg.c": native.build_host}
+            "imdct.cu": imdct_cuda.build,
+            "host_ogg.c": native.build_host,
+            "host_decode.c": native.build_decode}
     with ThreadPoolExecutor(len(jobs)) as ex:
         futs = {k: ex.submit(f) for k, f in jobs.items()}
         built = {k: f.result() for k, f in futs.items()}
     floor_cuda.load_library()
     m3_cuda.load_library()
+    imdct_cuda.load_library()
     native.host_library()
+    native.decode_library()
     print(f"[build] {len(built)} libraries in "
           f"{time.perf_counter() - t0:.2f} s")
     for k, (so, log) in built.items():
@@ -1564,8 +1816,12 @@ def main():
     m3_rec["max_abs_err"] = max(m3_rec["max_abs_err"], m3_err_51)
     _lap(t_start, "3g")
 
+    # 3h. the fast decode on the card against the scalar decoder, before
+    # phases 4-4g read their streams with it
+    _phase_decode_vs_scalar(fsw, fm, f51)
+    _lap(t_start, "3h")
+
     # 4. main path at real size
-    from vorbis_tpu_torch.codec.decoder import decode_ogg
     secs = pcm16.shape[1] / 44100
     pcm_dev = torch.from_numpy(pcm16).cuda()
     fe.encode(pcm_dev)                              # warm-up
@@ -1587,7 +1843,7 @@ def main():
         raise RuntimeError("host-staged stream differs from the "
                            "device-resident one")
     t0 = time.perf_counter()
-    out, _ = decode_ogg(ogg)
+    out, _ = _decode(ogg)
     t_dec = time.perf_counter() - t0
     x = pcm16.astype(np.float64) / 32768.0
     if out.shape != pcm16.shape:
@@ -1597,7 +1853,7 @@ def main():
     snr = 10 * np.log10(np.sum(x ** 2) / np.sum((out - x) ** 2))
     print(f"[encode] 60 s stereo: {len(ogg)} bytes, {nchunks} chunks, "
           f"floor launches {launches}, decoded {out.shape} in "
-          f"{t_dec:.2f} s (host decoder), SNR {snr:.3f} dB "
+          f"{t_dec:.2f} s (decode_ogg_fast on the card), SNR {snr:.3f} dB "
           f"(JAX {JAX_SNR_DB:.3f} dB)")
     if snr < JAX_SNR_DB - SNR_MARGIN_DB:
         raise RuntimeError(f"SNR {snr:.3f} dB below the floor")
@@ -1630,7 +1886,7 @@ def main():
     if launches_s < batches:
         raise RuntimeError(f"stateful: floor kernel launched {launches_s} "
                            f"times for {batches} finish batches")
-    out_s, _ = decode_ogg(ogg_s)
+    out_s, _ = _decode(ogg_s)
     snr_s = _snr(pcm16, out_s)
     print(f"[stateful] 60 s stereo: {len(ogg_s)} bytes, {npk} packets, "
           f"{batches} finish batches, floor launches {launches_s}, SNR "
@@ -1670,7 +1926,7 @@ def main():
             raise RuntimeError(f"stream {k}: last granulepos "
                                f"{_last_granulepos(o)}")
     for k in (0, S - 1):
-        out_k, _ = decode_ogg(oggs[k])
+        out_k, _ = _decode(oggs[k])
         snr_k = _snr(streams[k].cpu().numpy(), out_k)
         print(f"[batch] stream {k}: {len(oggs[k])} bytes, decoded "
               f"{out_k.shape}, SNR {snr_k:.3f} dB")
@@ -1684,6 +1940,7 @@ def main():
     # 4d. the default main path (block switching + psy state), 16 x 60 s
     # of the tonal signal and of the click train, from CUDA tensors
     launches_sw = {}
+    keep = {}                   # leg -> (streams, input lengths): phase 6
     for leg, gen in (("signal", _signal), ("click_train", _click_train)):
         streams = [torch.from_numpy(gen(60, 44100, k)).cuda()
                    for k in range(S)]
@@ -1712,7 +1969,7 @@ def main():
                 raise RuntimeError(f"{leg} stream {k}: last granulepos "
                                    f"{_last_granulepos(o)}")
         for k in (0, S - 1):
-            out_k, _ = decode_ogg(oggs[k])
+            out_k, _ = _decode(oggs[k])
             snr_k = _snr(streams[k].cpu().numpy(), out_k)
             line = (f"[switched] {leg} stream {k}: {len(oggs[k])} bytes, "
                     f"{_short_blocks(fsw, oggs[k])} short blocks, decoded "
@@ -1751,6 +2008,7 @@ def main():
               f"unprofiled {t_prof:.4f} s; top: " + "; ".join(rows))
         _lap(t_start, f"4d {leg}")
         launches_sw[leg] = (fl_long + fl_short, m3_n)
+        keep[leg] = (oggs, [x.shape[1] for x in streams])
         click0 = streams[0]
         del streams, oggs
 
@@ -1766,7 +2024,7 @@ def main():
     launches_sw["encode"] = (fsw.floor.launches
                              + fsw._short_ctx.floor.launches,
                              fsw._short_ctx.m3_scan.launches)
-    out_e, _ = decode_ogg(ogg_e)
+    out_e, _ = _decode(ogg_e)
     snr_e = _snr(click0.cpu().numpy(), out_e)
     print(f"[switched] encode click train 60 s: {t_e:.4f} s = "
           f"{secs / t_e:.2f}x realtime, {len(ogg_e)} bytes, "
@@ -1787,7 +2045,7 @@ def main():
     _lap(t_start, "4f")
 
     # 4g. 5.1: 4 x 60 s tonal and 4 x 30 s click train
-    launches_sw["5.1"] = _phase_51(f51, smi)
+    launches_sw["5.1"] = _phase_51(f51, smi, keep)
     _lap(t_start, "4g")
 
     # 5. card vs CPU
@@ -1870,6 +2128,11 @@ def main():
     _phase_51_card_vs_cpu(f51, FastEncoder(6, 48000, 0.4, device="cpu"))
     _lap(t_start, "5d, 5e")
 
+    # 6. decode: the IMDCT kernel, then decode_ogg_fast(_batch) on the
+    # card over 4d's and 4g's streams
+    imdct_rec = _phase_decode(smi, keep)
+    _lap(t_start, "6")
+
     print(f"[time] {time.perf_counter() - t_start:.1f} s of command time")
     print(json.dumps({"kernels": [{
         "name": "floor1_greedy_fit", "route": "cuda",
@@ -1885,7 +2148,11 @@ def main():
         "source": "vorbis_tpu_torch/csrc/m3_scan.cu",
         "replaces": "vorbis_tpu/ops/psydevice.py:498",
         "launches": sum(v[1] for v in launches_sw.values()),
-        **m3_rec, "at_51": m3_rec_51, "library_ms": None}]}))
+        **m3_rec, "at_51": m3_rec_51, "library_ms": None}, {
+        "name": "imdct", "route": "cuda",
+        "source": "vorbis_tpu_torch/csrc/imdct.cu",
+        "replaces": "vorbis_tpu/ops/mdct.py:261 (jnp, fastdec.py:210)",
+        **imdct_rec}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -1,7 +1,9 @@
 """Tests that need the card: the port's CUDA kernels (csrc/floor_fit.cu,
-csrc/m3_scan.cu) against their plain PyTorch versions (the floor fit on
-the 5.1 looks too, M3 on six channels), and the managed
-15-blob finish on the card against the same step on the CPU.  A CUDA
+csrc/m3_scan.cu, csrc/imdct.cu) against their plain PyTorch versions
+(the floor fit on the 5.1 looks too, M3 on six channels, the IMDCT at
+every blocksize and against the host C), the managed 15-blob finish on
+the card against the same step on the CPU, and the fast decode on the
+card against the host-C drain.  A CUDA
 kernel has no CPU mode, so each test here skips without a card.
 
 The GPU machine has no JAX, so this file imports neither jax nor
@@ -192,3 +194,45 @@ def test_managed_finish15_on_cuda(cuda):
         same = _rows_equal(pk, nb, pc, nc)
         print(f"finish15 W={W} card vs CPU: {same}/{nb.size} rows equal")
         assert same >= 0.9 * nb.size
+
+
+def test_imdct_kernel_matches_plain_on_cuda(cuda):
+    """csrc/imdct.cu against its plain version on the card and the host
+    C (vn_imdct_batch), bitwise, at every blocksize 64-8192, with one
+    launch a call."""
+    from vorbis_tpu_torch.native import imdct_batch
+    from vorbis_tpu_torch.ops.imdct_cuda import imdct, imdct_plain
+    for k, n in enumerate((64, 128, 256, 512, 1024, 2048, 4096, 8192)):
+        rng = np.random.RandomState(k)
+        spec = (rng.randn(300, n // 2)
+                * 10.0 ** rng.uniform(-3, 3, (300, 1))).astype(np.float32)
+        x = torch.from_numpy(spec).cuda()
+        before = imdct.launches
+        got = imdct(x, n)
+        torch.cuda.synchronize()
+        assert imdct.launches == before + 1
+        bits = got.cpu().numpy().view(np.uint32)
+        assert np.array_equal(bits, imdct_plain(x, n).cpu().numpy()
+                              .view(np.uint32)), n
+        assert np.array_equal(bits, imdct_batch(spec, n).view(np.uint32)), n
+
+
+def test_decode_device_matches_host_drain_on_cuda(cuda):
+    """decode_ogg_fast on the card (the default) and
+    decode_ogg_fast_batch of three streams equal the host-C drain
+    (device=False) bit for bit, through the kernel."""
+    from chip_smoke import _signal
+    from vorbis_tpu_torch.models.fastdec import (decode_ogg_fast,
+                                                 decode_ogg_fast_batch)
+    from vorbis_tpu_torch.ops.imdct_cuda import imdct
+    fe = TFE(2, 44100, 0.5)
+    oggs = fe.encode_batch([torch.from_numpy(_signal(3 + k, 44100, k)).cuda()
+                            for k in range(3)])
+    want = [decode_ogg_fast(o, device=False)[0] for o in oggs]
+    before = imdct.launches
+    got = [decode_ogg_fast(oggs[0])[0]] + [
+        g for g, _ in decode_ogg_fast_batch(oggs)]
+    assert imdct.launches > before
+    for g, w in zip(got, want[:1] + want):
+        assert g.shape == w.shape
+        assert np.array_equal(g.view(np.uint32), w.view(np.uint32))

@@ -3,12 +3,16 @@ codec, models/encsetup+modes, ops/psy+window+mdct+envelope, the
 ReservoirChooser of ops/managed, utils/scales, data/) against the
 originals in vorbis_tpu, and the port's host C (csrc/host_ogg.c: the Ogg
 CRC against the Python loop, the stretch-rescue walk against vorbis_tpu's
-native/vorbisnative.c vn_rescue_walk).  numpy
+native/vorbisnative.c vn_rescue_walk; csrc/host_decode.c function by
+function against native/vorbisnative.c), with the decode slice's copies
+(codec/floor0_codec.py, codec/nativeparse.py, the copied functions of
+models/fastdec.py).  numpy
 only: every comparison is exact (bytes, integers, float32 arrays bit for
 bit)."""
 
 import filecmp
 import os
+import re
 
 import numpy as np
 import pytest
@@ -208,13 +212,118 @@ def test_decode_ogg_of_port_stream_bitwise():
         == pcm.shape
 
 
-def test_decoder_refuses_floor0():
-    vi = T_dec.H.parse_headers(
-        FastEncoder(2, 44100, 0.5, switching=False, psy_state=False,
-                    device="cpu").enc.header_packets())
-    vi.floor_types = [0] * len(vi.floor_types)
-    with pytest.raises(NotImplementedError, match="1.11"):
-        T_dec.Decoder(vi)
+def _py_defs(path):
+    """{qualified name: source text} of every function and class of a
+    module, methods as Class.method."""
+    import ast
+    text = open(path).read()
+    out = {}
+
+    def walk(node, prefix):
+        for d in node.body:
+            if isinstance(d, (ast.FunctionDef, ast.ClassDef)):
+                start = min([d.lineno] + [x.lineno for x in d.decorator_list])
+                out[prefix + d.name] = "\n".join(
+                    text.splitlines()[start - 1:d.end_lineno])
+                if isinstance(d, ast.ClassDef):
+                    walk(d, prefix + d.name + ".")
+
+    walk(ast.parse(text), "")
+    return out
+
+
+def _changed_lines(a, b):
+    import difflib
+    return [ln[2:] for ln in difflib.ndiff(a.splitlines(), b.splitlines())
+            if ln[:2] in ("- ", "+ ")]
+
+
+def test_floor0_codec_line_aligned_copy():
+    """codec/floor0_codec.py is its source with one paragraph added to
+    the module docstring."""
+    src, port = (open(os.path.join(ROOT, pkg, "codec", "floor0_codec.py"))
+                 .read() for pkg in ("vorbis_tpu", "vorbis_tpu_torch"))
+    para = re.search(r'56-57\)\.(\n\nCopy of vorbis_tpu/codec/'
+                     r'floor0_codec\.py.*?)"""', port, re.S).group(1)
+    assert port == src.replace('56-57)."""', f'56-57).{para}"""', 1)
+    assert _py_defs(os.path.join(ROOT, "vorbis_tpu_torch", "codec",
+                                 "floor0_codec.py")).keys() \
+        == _py_defs(os.path.join(ROOT, "vorbis_tpu", "codec",
+                                 "floor0_codec.py")).keys()
+
+
+def test_nativeparse_and_fastdec_copies():
+    """codec/nativeparse.py holds every function of its source, the same
+    text but for the lines that bind the library; models/fastdec.py
+    holds the copied functions of its source verbatim."""
+    bind = re.compile(r"_load|decode_library|_sig|restype|argtypes|"
+                      r"native library unavailable|fn = L\.vn_parse")
+    j, t = (_py_defs(os.path.join(ROOT, pkg, "codec", "nativeparse.py"))
+            for pkg in ("vorbis_tpu", "vorbis_tpu_torch"))
+    assert j.keys() == t.keys() and len(j) >= 9
+    for k in j:
+        bad = [ln for ln in _changed_lines(j[k], t[k])
+               if not bind.search(ln) and ln.strip()]
+        assert not bad, (k, bad)
+    assert _changed_lines(j["StreamParseTables._build"],
+                          t["StreamParseTables._build"]) == []
+    j, t = (_py_defs(os.path.join(ROOT, pkg, "models", "fastdec.py"))
+            for pkg in ("vorbis_tpu", "vorbis_tpu_torch"))
+    for k in ("_win_table", "FastDecodeUnsupported", "FastDecoder.__init__",
+              "FastDecoder._trim_range", "FastDecoder.decode_arrays",
+              "_decoder_for"):
+        if k == "FastDecoder.__init__":
+            assert t[k] == j[k].rstrip(), k
+        else:
+            assert t[k] == j[k], k
+    assert "FastStreamDecoder" not in t and "_render_curves" not in t
+
+
+def _c_defs(path):
+    """{name: text} of every top-level function and typedef of a C
+    source: from its first line at column 0 to its closing brace."""
+    lines = open(path).read().splitlines()
+    out = {}
+    i = 0
+    while i < len(lines):
+        ln = lines[i]
+        if (ln and not ln[0].isspace() and ln[0] not in "#/{}*"
+                and not ln.endswith(";")):
+            j = i
+            while lines[j] != "}" and not lines[j].startswith("} "):
+                j += 1
+            block = lines[i:j + 1]
+            head = " ".join(block[:3])
+            name = (lines[j][2:].rstrip(";") if lines[j].startswith("} ")
+                    else re.search(r"(\w+)\s*\(", head).group(1))
+            out[name] = "\n".join(block)
+            i = j
+        i += 1
+    return out
+
+
+def test_host_decode_c_functions_equal_vorbisnative():
+    """Every function and typedef of csrc/host_decode.c is the same text
+    as the same-named one in native/vorbisnative.c, and the port's file
+    holds the whole decode half and nothing of the encoder's."""
+    port = _c_defs(os.path.join(ROOT, "vorbis_tpu_torch", "csrc",
+                                "host_decode.c"))
+    src = _c_defs(os.path.join(ROOT, "native", "vorbisnative.c"))
+    for k, text in port.items():
+        assert text == src[k], k
+    need = {"rd_bits", "vn_ogg_crc", "vn_huff1", "vn_rd_load", "vn_rd_init",
+            "vn_rd_bits", "vn_rd_huff", "vn_ilog", "vn_floor0_curve",
+            "vn_render_pt", "vn_parse_one", "vn_pctx_init",
+            "vn_parse_packets", "vn_bf8", "vn_bf16", "vn_bf32", "vn_imdct1",
+            "vn_imtab_init", "vn_imdct_batch", "vn_lap_add", "vn_bf8_l",
+            "vn_bf16_l", "vn_bf32_l", "vn_imdct16_rows", "vn_imdct_batch16",
+            "vn_scan_W", "vn_decode_stream", "vn_ogg_scan", "vn_book",
+            "vn_rd", "vn_pctx", "vn_imtab"}
+    assert need <= port.keys(), need - port.keys()
+    assert not port.keys() & {"vn_pack_bits", "vn_pack_bits_multi",
+                              "vn_ogg_pages", "vn_rescue_walk",
+                              "vn_schedule", "vn_read_fields",
+                              "vn_huff_decode"}
 
 
 def test_ogg_crc_has_no_python_fallback(monkeypatch):

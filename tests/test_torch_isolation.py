@@ -4,16 +4,19 @@ can still encode with the port on the CPU (stateless, the default
 encoder with block switching and the cross-frame psy state, and managed
 ABR) and decode with the port's own decoder (the GPU machine has no
 JAX); the test files that hold the card tests import in such a process
-too.  The encoder runs on the card unless the caller asks for the
-CPU."""
+too.  The encoder and the fast decode run on the card unless the caller
+asks for the CPU."""
 
 import os
 import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
+
+from vorbis_tpu_torch.models.fastenc import FastEncoder as FastEncoderT
 
 # The suite runs under pytest-xdist with several workers to the host's
 # cores; one torch thread a worker keeps torch's OpenMP pools from
@@ -49,8 +52,14 @@ assert np.isfinite(out).all()
 # managed ABR (ops/managed.py), on the long-only path: it imports every
 # module of the switched managed path but the envelope, run above
 fm = FastEncoder(2, 44100, bitrate=(-1, 128000, -1), device="cpu")
-out, vi = decode_ogg(fm.encode_managed(pcm, switching=False))
+ogg = fm.encode_managed(pcm, switching=False)
+out, vi = decode_ogg(ogg)
 assert out.shape == pcm.shape, out.shape
+# the fast decode: the host-C drain and the staged plain IMDCT
+from vorbis_tpu_torch import decode_ogg_fast
+for device in (False, "cpu"):
+    fast, _ = decode_ogg_fast(ogg, device=device)
+    assert np.array_equal(fast, out), device
 bad = sorted(m for m in sys.modules if m.startswith("jax.")
              and m not in preloaded)
 assert not bad, bad
@@ -92,6 +101,31 @@ def test_fast_encoder_defaults_to_the_card():
         return
     with pytest.raises(RuntimeError, match='device="cpu"'):
         FastEncoder(2, 44100, 0.5, switching=False, psy_state=False)
+
+
+def test_fast_decoder_defaults_to_the_card():
+    """decode_ogg_fast and decode_ogg_fast_batch run the IMDCT on the
+    card unless asked otherwise: with no card the default raises and
+    names device="cpu"; the CPU is never taken silently."""
+    from tests import oracle
+    from vorbis_tpu_torch.models.fastdec import (decode_ogg_fast,
+                                                 decode_ogg_fast_batch)
+    from vorbis_tpu_torch.ops.imdct_cuda import imdct
+    fe = FastEncoderT(2, 44100, 0.5, switching=False, psy_state=False,
+                      device="cpu")
+    ogg = fe.encode(oracle.make_test_signal(seconds=0.3))
+    want, _ = decode_ogg_fast(ogg, device=False)
+    if torch.cuda.is_available():
+        before = imdct.launches
+        got, _ = decode_ogg_fast(ogg)
+        assert imdct.launches > before
+        assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+        return
+    for call in (lambda: decode_ogg_fast(ogg),
+                 lambda: decode_ogg_fast(ogg, device=True),
+                 lambda: decode_ogg_fast_batch([ogg, ogg])):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            call()
 
 
 CARD_PROBE = r"""

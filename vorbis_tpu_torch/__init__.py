@@ -6,10 +6,11 @@ its layout and names (`ops/torchdsp.py` is the counterpart of
 on) and imports nothing of it: the host layers it runs (bitstream, the
 codec's headers, codebooks, floor1/residue decode and decoder, encsetup,
 the psy tables, window, the numpy MDCT, data/) are its own line-aligned
-copies.  Device code is plain torch on an explicit device; the one
-hand-written kernel (the floor1 greedy fit, `csrc/floor_fit.cu`) is built
-with nvcc and the host C (the Ogg CRC, `csrc/host_ogg.c`) with cc at
-first use (`native.py`).
+copies.  Device code is plain torch on an explicit device; the
+hand-written kernels (the floor1 greedy fit `csrc/floor_fit.cu`, the M3
+scan `csrc/m3_scan.cu`, the decode's IMDCT `csrc/imdct.cu`) are built
+with nvcc and the host C (`csrc/host_ogg.c`, `csrc/host_decode.c`) with
+cc at first use (`native.py`).
 
 Importing the package sets the fp32 policy the reference runs under:
 the JAX side computes its matmuls at Precision.HIGHEST, so TF32 is off
@@ -28,3 +29,12 @@ def fp32_policy_ok() -> bool:
     return (not torch.backends.cuda.matmul.allow_tf32
             and not torch.backends.cudnn.allow_tf32
             and torch.get_float32_matmul_precision() == "highest")
+
+
+def __getattr__(name):
+    """The fast decode, imported at first use (as vorbis_tpu exports
+    it): `vorbis_tpu_torch.decode_ogg_fast`, `decode_ogg_fast_batch`."""
+    if name in ("decode_ogg_fast", "decode_ogg_fast_batch"):
+        from .models import fastdec
+        return getattr(fastdec, name)
+    raise AttributeError(name)

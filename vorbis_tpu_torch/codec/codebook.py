@@ -331,6 +331,10 @@ class Codebook:
         r.advance(r.bits_remaining() + 1)
         raise EndOfPacket
 
+    def decode_vector(self, r: BitReader) -> np.ndarray:
+        e = self.decode(r)
+        return self.values[e]
+
     # -- encode ------------------------------------------------------------
     def encode(self, w: BitWriter, entry: int) -> int:
         L = int(self.lengths[entry])

@@ -7,9 +7,9 @@ lib/mapping0.c mapping0_inverse; lapped overlap-add and granulepos
 bookkeeping per lib/block.c vorbis_synthesis_blockin/pcmout).
 
 Copy of vorbis_tpu/codec/decoder.py, kept line-aligned with it: the
-port's own host decoder, which reads back what the port encodes.  It
-decodes floor1 streams; a floor0 stream raises NotImplementedError
-(the device-IMDCT decode of ROADMAP §1.11 takes floor0 up with it).
+port's own host decoder, which reads back what the port encodes and
+holds the fast decode (models/fastdec.py) bit for bit.  It decodes
+floor1 and floor0 streams.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ import numpy as np
 from ..bitstream.bitpack import BitReader, EndOfPacket, ilog
 from ..ops.mdct import imdct
 from . import headers as H
+from .floor0_codec import Floor0Look, decode_floor0, floor0_curve
 from .floor1_codec import Floor1Look, decode_floor1, floor1_curve
 from .residue_codec import ResidueLook, decode_residue
 
@@ -68,10 +69,8 @@ class Decoder:
                              "(synthesis.c:170)")
         self.hs = 1 if halfrate else 0
         self.modebits = ilog(len(vi.modes) - 1)
-        if any(t != 1 for t in vi.floor_types):
-            raise NotImplementedError(
-                "floor0 streams: ROADMAP §1.11 (the port decodes floor1)")
-        self.floor_looks = [Floor1Look(f) for f in vi.floors]
+        self.floor_looks = [Floor1Look(f) if t == 1 else Floor0Look(f)
+                            for t, f in zip(vi.floor_types, vi.floors)]
         self.residue_looks = [ResidueLook(res, vi.books)
                               for res in vi.residues]
         # blockin state
@@ -128,7 +127,10 @@ class Decoder:
             submap = mapping.chmuxlist[c]
             fl_idx = mapping.floorsubmap[submap]
             look = self.floor_looks[fl_idx]
-            fit = decode_floor1(r, look, vi.books)
+            if vi.floor_types[fl_idx] == 0:
+                fit = decode_floor0(r, look, vi.books)
+            else:
+                fit = decode_floor1(r, look, vi.books)
             floor_fits.append(fit)
             nonzero[c] = fit is not None
 
@@ -178,7 +180,10 @@ class Decoder:
                 submap = mapping.chmuxlist[c]
                 fl_idx = mapping.floorsubmap[submap]
                 look = self.floor_looks[fl_idx]
-                curve = floor1_curve(floor_fits[c], look, n // 2)
+                if vi.floor_types[fl_idx] == 0:
+                    curve = floor0_curve(floor_fits[c], look, n // 2)
+                else:
+                    curve = floor1_curve(floor_fits[c], look, n // 2)
                 spec[c] = (spec[c] * curve).astype(np.float32)
             else:
                 spec[c] = 0.0
