@@ -9,8 +9,8 @@ vorbis_tpu and no network:
 
 Phases (any failure raises and the script exits non-zero):
   1. device: the card, its name and power limit, the fp32 policy;
-  2. build: nvcc compiles csrc/floor_fit.cu, csrc/m3_scan.cu and
-     csrc/imdct.cu and cc compiles csrc/host_ogg.c (Ogg CRC and pager,
+  2. build: nvcc compiles csrc/floor_fit.cu, csrc/m3_scan.cu,
+     csrc/imdct.cu and csrc/lap.cu and cc compiles csrc/host_ogg.c (Ogg CRC and pager,
      rescue walk, schedule) and csrc/host_decode.c (the decode's page
      walk, packet parse, host IMDCT and lap, with -ffp-contract=off) into
      build/vorbis_tpu_torch/, all builds started together;
@@ -125,17 +125,28 @@ Phases (any failure raises and the script exits non-zero):
      equal printed, >= 85% of packets identical;
   5e. card vs CPU, 5.1: a 2 s 5.1 click train at B_long = B_short = 64:
      marks and schedule equal, >= 90% of packets identical;
-  6. decode: the IMDCT kernel (csrc/imdct.cu) by bit pattern against its
-     plain version on the card and the host C at n = 64-8192 on seeded
-     spectra and on the real spectra of 4d's stream 0 (tonal, click
-     train); then the decode path: decode_ogg_fast_batch(device=True) of
-     4d's 16 x 60 s tonal streams, click trains and 4g's 5.1 streams and
+  6. decode: the IMDCT kernel (csrc/imdct.cu) and the lap kernel
+     (csrc/lap.cu) by bit pattern against their plain versions on the
+     card and the host C: the IMDCT at n = 64-8192 on seeded spectra read
+     through a permuted row table and on the real spectra of 4d's stream
+     0 (tonal, click train) read in place; the lap on
+     tests/test_torch_lap.py's seeded streams at every blocksize, its
+     -0.0 and subnormal case and the host IMDCT blocks of those streams;
+     then the decode path: decode_ogg_fast_batch(device=True) of 4d's
+     16 x 60 s tonal streams, click trains and 4g's 5.1 streams and
      decode_ogg_fast(device=True) of one tonal stream, each bitwise equal
-     to device=False and as long as its input; x-realtime card and
-     host-C drain, three times each with the spread; the split into scan
-     + parse, dispatch, H2D, kernel, D2H and lap; the kernel's time, its
-     bytes bound and share, the plain version's and one torch.matmul
-     against the dense IMDCT basis at a main-path wave's rows.
+     to device=False and as long as its input, each card call launching
+     the IMDCT once a blocksize and the lap once and never the host lap;
+     x-realtime card and host-C drain, three times each with the spread;
+     the split of the tonal and click-train batches into scan + parse and
+     the device half (host plan and row tables, H2D, each IMDCT launch,
+     the lap, D2H, the host's rest); the IMDCT's time (CUDA graphs) at 5,166
+     rows of n = 2048 and 9,356 rows of n = 256, in turns with the first
+     design (commit 5b586f3's, with --imdct-baseline), its bytes bound
+     and share, the plain version's time and one torch.matmul against the
+     dense IMDCT basis; the lap's time at the tonal batch's shape, its
+     bound and share, the plain version's and one index_add_ of the
+     windowed products.
 Phase 4b then runs once more under torch.profiler and prints the
 device's busy share (4d profiles the same 16-stream batch as 4c, with
 switching).  Launch counts are set to 0 just before each main
@@ -1460,22 +1471,24 @@ def _phase_decode_vs_scalar(fsw, fm, f51):
 
 def _imdct_work(n, rows):
     """(bytes, float32 operations) of `rows` IMDCT rows of blocksize n:
-    each input float read once and each output float written once; the
-    operations as the code does them: stage A 5 an output of n/2, a
-    radix-2 butterfly 10 (n/8 a stage), a 32-point tail 176, stage C 16
-    a pair of n/8, stage D 8 an output pair of n/4."""
+    each input float read once, each row's table entry (8 bytes) and
+    each output float written once; the operations as the code does
+    them: stage A 3 an output of n/2, a radix-2 butterfly 10 (n/8 a
+    stage), a 32-point tail 176, stage C 16 a pair of n/8, stage D 8 an
+    output pair of n/4."""
     from vorbis_tpu_torch.ops.mdct import _imdct_index_tables
     nst = len(_imdct_index_tables(n)["stages"])
-    ops = (5 * (n // 2) + nst * (n // 8) * 10 + (n // 64) * 176
+    ops = (3 * (n // 2) + nst * (n // 8) * 10 + (n // 64) * 176
            + (n // 8) * 16 + (n // 4) * 8)
-    return rows * (n // 2 + n) * 4, rows * ops
+    return rows * ((n // 2 + n) * 4 + 8), rows * ops
 
 
-def _imdct_bound(n, rows):
-    nbytes, ops = _imdct_work(n, rows)
+def _roofline(nbytes, ops):
+    """(bound ms, what bounds it) of a kernel that moves `nbytes` and
+    does `ops` float32 operations."""
     by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
     return (max(by_bytes, by_ops) * 1e3,
-            "bytes" if by_bytes >= by_ops else "operations", nbytes, ops)
+            "bytes" if by_bytes >= by_ops else "operations")
 
 
 def _spread(ts):
@@ -1483,140 +1496,337 @@ def _spread(ts):
     return f"{ts[len(ts) // 2]:.4f} s (min {ts[0]:.4f}, max {ts[-1]:.4f})"
 
 
-def _phase_decode(smi, keep):
-    """Phase 6: the decode slice on the card.  The IMDCT kernel against
-    its plain version on the card and the host C (vn_imdct_batch), by bit
-    pattern, at n = 64-8192 on seeded spectra and on the real spectra of
-    4d's tonal and click-train stream 0; then the main path,
-    decode_ogg_fast(device=True) of one 4d stream and
-    decode_ogg_fast_batch(device=True) of 4d's 16 x 60 s tonal and click
-    trains and 4g's 5.1 streams, each bitwise equal to device=False and
-    as long as its input, with the kernel's launches counted over these
-    runs; x-realtime of the tonal batch and of one stream, card and
-    host-C drain, each three times with its spread; the batch's split
-    into scan + parse, dispatch, H2D, kernel, D2H, the wait and the lap;
-    the kernel's time (CUDA events) at a main-path wave's rows, its bytes
-    bound and share, the plain version's time and one torch.matmul of the
-    rows against the dense IMDCT basis (fp32, TF32 off).  Returns the
-    kernel's record for the kernels' line."""
+def _lap_cases():
+    """tests/test_torch_lap.py, the one definition of the lap's seeded
+    cases (`lap_case`, `CASE_PAIRS`, `signed_zero_case`, `lap_inputs`),
+    loaded by its path as _m3_cases loads the M3 cases."""
+    import importlib.util
+    mod = sys.modules.get("test_torch_lap")
+    if mod is None:
+        spec = importlib.util.spec_from_file_location(
+            "test_torch_lap", os.path.join(HERE, "tests", "test_torch_lap.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        sys.modules["test_torch_lap"] = mod
+    return mod
+
+
+# sha256 of the first design's csrc/imdct.cu (commit 5b586f3), the one
+# earlier version whose C interface _ImdctBaseline knows
+IMDCT_BASELINE_SHA256 = ("f871fc59209805631ccb7224c820f2af3c1ccdc0422edc"
+                         "24aa168e22b94ee1fd")
+
+
+class _ImdctBaseline:
+    """The first design's csrc/imdct.cu (one thread block a row, a stage
+    a barrier, the tails on one thread in 32: `git show
+    5b586f3:vorbis_tpu_torch/csrc/imdct.cu`), built from `source` for
+    timing in turns on packed rows.  Its entry point takes thirteen
+    index and trig tables, made here from ops/mdct.py as that commit's
+    wrapper made them; any other source is refused (its hash differs)."""
+
+    NAMES = ("T", "sa", "sb", "ia", "ib", "ta", "tb", "tc_all",
+             "stage_off", "e0", "e1", "tC", "tD")
+
+    def __init__(self, source):
+        import ctypes
+        import hashlib
+        from pathlib import Path
+        from vorbis_tpu_torch.native import build_library
+        from vorbis_tpu_torch.ops import floor_cuda
+        digest = hashlib.sha256(Path(source).read_bytes()).hexdigest()
+        if digest != IMDCT_BASELINE_SHA256:
+            raise RuntimeError(f"--imdct-baseline {source} is not commit "
+                               f"5b586f3's imdct.cu (sha256 {digest})")
+        so, _ = build_library(Path(source), floor_cuda.nvcc,
+                              floor_cuda.NVCC_FLAGS, "libimdct_baseline")
+        self.fn = ctypes.CDLL(str(so)).vtt_imdct
+        self.fn.restype = ctypes.c_int
+        self.fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_long]
+                            + [ctypes.c_int] * 2
+                            + [ctypes.c_void_p] * (len(self.NAMES) + 1))
+        self.tabs = {}
+
+    def _tables(self, n):
+        import numpy as np
+        import torch
+        from vorbis_tpu_torch.ops.mdct import _imdct_index_tables
+        if n not in self.tabs:
+            tbl = _imdct_index_tables(n)
+            tcs = [np.asarray(tc, np.int32) for _, tc in tbl["stages"]]
+            offs = np.cumsum([0] + [len(tc) for tc in tcs])[:-1]
+            arrs = dict(T=np.asarray(tbl["T"], np.float32),
+                        sa=np.asarray(tbl["sa"], np.float32),
+                        sb=np.asarray(tbl["sb"], np.float32),
+                        tc_all=(np.concatenate(tcs) if tcs
+                                else np.zeros(1, np.int32)),
+                        stage_off=np.asarray(offs if tcs else [0],
+                                             np.int32))
+            for k in ("ia", "ib", "ta", "tb", "e0", "e1", "tC", "tD"):
+                arrs[k] = np.asarray(tbl[k], np.int32)
+            t = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
+                 for k, v in arrs.items()}
+            self.tabs[n] = (t, len(tcs))
+        return self.tabs[n]
+
+    def launch(self, x, n, out):
+        import torch
+        t, nst = self._tables(n)
+        rc = self.fn(x.data_ptr(), out.data_ptr(), x.shape[0], n, nst,
+                     *(t[k].data_ptr() for k in self.NAMES),
+                     torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"baseline imdct launch failed: {rc}")
+
+
+def _imdct_turns(x, n, base):
+    """The IMDCT kernel's ms (CUDA graphs) on packed (R, n/2) rows `x`, in
+    turns with the baseline (this kernel, the baseline, the baseline,
+    this kernel), or twice alone; the baseline's output must equal this
+    kernel's bit for bit."""
+    import numpy as np
+    import torch
+    from vorbis_tpu_torch.ops.imdct_cuda import imdct
+    R = x.shape[0]
+    offs = np.arange(R, dtype=np.int64) * (n // 2)
+    offs_d = torch.from_numpy(offs).cuda()
+    flat = x.reshape(-1)
+    out = torch.empty((R, n), device="cuda")
+    out_b = torch.empty((R, n), device="cuda")
+    mine = lambda: imdct(flat, n, rows=offs, out=out,     # noqa: E731
+                         rows_dev=offs_d)
+    order = [mine, mine]
+    if base is not None:
+        theirs = lambda: base.launch(x, n, out_b)          # noqa: E731
+        order = [mine, theirs, theirs, mine]
+    ms = [_graph_ms(fn) for fn in order]
+    if base is not None and not torch.equal(out.view(torch.int32),
+                                            out_b.view(torch.int32)):
+        raise RuntimeError("baseline imdct kernel differs from this one")
+    return ms
+
+
+def _lap_work(plan):
+    """(bytes, float32 operations) of the lap of `plan`: every block
+    float read once (each block's ch x n, whatever the trim keeps), the
+    windows and tables once, every output float written once; 4
+    operations an output sample (two products, two sums)."""
+    import numpy as np
+    blk = sum(int(np.asarray(n, np.int64).sum()) * ch
+              for ch, n, *_ in plan.streams)
+    nbytes = 4 * (blk + plan.total) + 8 * (plan.pk.size + plan.st.size)
+    return nbytes, 4 * plan.total
+
+
+def _index_add_lap(blocks, wins, plan):
+    """The lap's library yardstick: each block element inside its
+    stream's [lo, hi) times its window (made here, outside the timing)
+    and its destination in the flat output, for one
+    `torch.Tensor.index_add_` into a zeroed buffer."""
+    import torch
+    pk = torch.from_numpy(plan.pk).cuda()
+    st = torch.from_numpy(plan.st).cuda()
+    n, sid = pk[:, 3] & 0xffff, pk[:, 3] >> 16
+    ch = st[sid, 2]
+    prow = torch.repeat_interleave(torch.arange(len(pk), device="cuda"), ch)
+    first = torch.cumsum(ch, 0) - ch
+    c = torch.arange(len(prow), device="cuda") - first[prow]
+    nr = n[prow]
+    row = torch.repeat_interleave(torch.arange(len(prow), device="cuda"), nr)
+    j = torch.arange(len(row), device="cuda") - (torch.cumsum(nr, 0)
+                                                  - nr)[row]
+    p = prow[row]
+    s = sid[p]
+    t = pk[p, 1] + j                        # sample in the stream
+    lo, hi = st[s, 0], st[s, 1]
+    keep = (t >= lo) & (t < hi)
+    src = pk[p, 0] + c[row] * n[p] + j
+    prod = (blocks[src] * wins[pk[p, 2] + j])[keep]
+    dst = (st[s, 3] + c[row] * (hi - lo) + t - lo)[keep]
+    return prod, dst
+
+
+def _phase_decode(smi, keep, baseline=None):
+    """Phase 6: the decode slice on the card.  Both kernels against their
+    plain versions on the card and the host C, by bit pattern: the IMDCT
+    (vn_imdct_batch) at n = 64-8192 on seeded spectra read through a row
+    table that reorders and spaces them and on the real spectra of 4d's
+    tonal and click-train stream 0 read in place; the lap (vn_lap_add and
+    the trim) on the seeded cases of tests/test_torch_lap.py at every
+    blocksize (start and end trims, one batch), its -0.0 and subnormal
+    case and the host IMDCT blocks of those two streams.  Then the main
+    path, decode_ogg_fast_batch(device=True) of 4d's 16 x 60 s tonal
+    streams and click trains and 4g's 5.1 streams and
+    decode_ogg_fast(device=True) of one tonal stream, each bitwise equal
+    to device=False and as long as its input, with both kernels' launches
+    counted over these runs (the IMDCT once a blocksize, the lap once a
+    call) and the host lap's calls (none); x-realtime of the tonal batch
+    and of one stream, card and host-C drain, each three times with its
+    spread; the split of the tonal and click-train batches into scan +
+    parse and the device half: its host plan and row tables, H2D, each
+    IMDCT launch, the lap, D2H and the host's rest; the IMDCT's time (CUDA graphs) at
+    5,166 rows of n = 2048 and at the click train's short rows (n = 256),
+    in turns with the first design (`baseline`), its bytes bound and
+    share, the plain version's time and one torch.matmul against the
+    dense IMDCT basis (fp32, TF32 off); the lap's time at the tonal
+    batch's shape, its bound, the plain version's and one index_add_ of
+    the windowed products.  Returns both kernels' records."""
     import numpy as np
     import torch
     from vorbis_tpu_torch.models import fastdec
     from vorbis_tpu_torch.native import imdct_batch
     from vorbis_tpu_torch.ops.imdct_cuda import imdct, imdct_plain
-    dev = torch.device("cuda")
-    max_err = 0.0
-    bad = 0
+    from vorbis_tpu_torch.ops.lap_cuda import lap, lap_plain
+    tl = _lap_cases()
+    base = _ImdctBaseline(baseline) if baseline else None
+    max_err = {"imdct": 0.0, "lap": 0.0}
+    bad = {"imdct": 0, "lap": 0}
 
-    def check(name, spec, n):
-        nonlocal max_err, bad
-        x = torch.from_numpy(np.ascontiguousarray(spec)).cuda()
-        got = imdct(x, n)
-        plain = imdct_plain(x, n)
+    def tally(kind, name, got, wants):
+        g = np.ascontiguousarray(got)
+        mis = [int((g.view(np.uint32) != np.ascontiguousarray(w)
+                    .view(np.uint32)).sum()) if w.shape == g.shape
+               else g.size for w in wants]
+        err = max((float(np.abs(g - w).max()) if g.size and
+                   w.shape == g.shape else 0.0) for w in wants)
+        max_err[kind] = max(max_err[kind], err)
+        bad[kind] += sum(mis)
+        print(f"[{kind}] {name}: mismatches against plain {mis[0]}, "
+              f"against host C {mis[1]}")
+
+    def check_imdct(name, flat, offs, n):
+        x = torch.from_numpy(flat).cuda()
+        got = imdct(x, n, rows=offs)
+        spec = flat[offs[:, None] + np.arange(n // 2)]
+        plain = imdct_plain(torch.from_numpy(spec).cuda(), n)
         torch.cuda.synchronize()
-        g = got.cpu().numpy()
-        host = imdct_batch(spec, n)
-        mis = [int((g.view(np.uint32) != w.view(np.uint32)).sum())
-               for w in (plain.cpu().numpy(), host)]
-        err = max(float(np.abs(g - w).max()) for w in
-                  (plain.cpu().numpy(), host)) if g.size else 0.0
-        max_err = max(max_err, err)
-        bad += sum(mis)
-        print(f"[imdct] {name} n={n} rows={spec.shape[0]}: mismatches "
-              f"against plain {mis[0]}, against host C {mis[1]}")
+        tally("imdct", f"{name} n={n} rows={len(offs)}", got.cpu().numpy(),
+              [plain.cpu().numpy(), imdct_batch(spec, n)])
 
     for k, n in enumerate((64, 128, 256, 512, 1024, 2048, 4096, 8192)):
         rng = np.random.RandomState(k)
         B = 2048
         s = rng.randn(B, n // 2) * 10.0 ** rng.uniform(-3, 3, (B, 1))
         s[rng.rand(B, n // 2) < 0.1] = 0.0
-        check("seeded", s.astype(np.float32), n)
+        slot = rng.permutation(B).astype(np.int64) * (n // 2 + 4)
+        flat = np.zeros(int(slot.max()) + n // 2, np.float32)
+        flat[slot[:, None] + np.arange(n // 2)] = s
+        check_imdct("seeded, permuted row table", flat, slot, n)
+    real = {}
     for leg in ("signal", "click_train"):
-        dec, W, res, _, _ = fastdec._scan_job(keep[leg][0][0])
-        bs = dec.vi.blocksizes
+        dec, W, res, gp, eos = fastdec._scan_job(keep[leg][0][0])
+        bs, ch, n2m = dec.vi.blocksizes, dec.vi.channels, res.shape[2]
+        flat = np.ascontiguousarray(res).reshape(-1)
         for Wv in (0, 1):
             idx = np.flatnonzero(W == Wv)
+            offs = ((idx[:, None] * ch + np.arange(ch)) * n2m).reshape(-1)
             if len(idx):
-                n = bs[Wv]
-                check(f"4d {leg} stream 0 W={Wv}", np.ascontiguousarray(
-                    res[idx][:, :, :n // 2].reshape(-1, n // 2)), n)
-    if bad:
-        raise RuntimeError(f"imdct kernel: {bad} mismatches")
+                check_imdct(f"4d {leg} stream 0 W={Wv}, in place", flat,
+                            offs, bs[Wv])
+                real[(leg, bs[Wv])] = np.ascontiguousarray(
+                    res[idx][:, :, :bs[Wv] // 2].reshape(-1, bs[Wv] // 2))
+        blocks = [imdct_batch(np.ascontiguousarray(
+            res[p, :, :bs[w] // 2]), bs[w]) for p, w in enumerate(W)]
+        real[leg] = (dec, W, gp, eos, blocks)
+
+    def check_lap(name, cases):
+        flat, wins, plan, wants = tl.lap_inputs(cases)
+        args = (torch.from_numpy(flat).cuda(), torch.from_numpy(wins).cuda(),
+                plan)
+        got, plain = lap(*args), lap_plain(*args)
+        torch.cuda.synchronize()
+        for k, want in enumerate(wants):
+            tally("lap", f"{name} stream {k} ({want.shape[0]} x "
+                  f"{want.shape[1]})", plan.out_view(got, k).cpu().numpy(),
+                  [plan.out_view(plain, k).cpu().numpy(), want])
+
+    check_lap("seeded, bs " + " ".join(f"{a}/{b}" for a, b in tl.CASE_PAIRS),
+              [tl.lap_case(bs0, bs1, 200, (1, 2, 6)[k % 3], k,
+                           trim=k % 2 == 0)
+               for k, (bs0, bs1) in enumerate(tl.CASE_PAIRS)])
+    check_lap("-0.0 and subnormal products", [tl.signed_zero_case()])
+    for leg in ("signal", "click_train"):
+        check_lap(f"4d {leg} stream 0 host-C blocks", [real[leg]])
+    if bad["imdct"] or bad["lap"]:
+        raise RuntimeError(f"decode kernels: {bad} mismatches")
 
     def same(a, b):
         return a.shape == b.shape and np.array_equal(a.view(np.uint32),
                                                      b.view(np.uint32))
 
-    # the main path: the counts go to 0 just before it and are read after
+    # the main path: the counts go to 0 just before it and are read after;
+    # every card call must launch the IMDCT once a blocksize (two here)
+    # and the lap once, and never run the host lap
+    host_laps = [0]
+    host_lap = fastdec.FastDecoder._lap_and_trim
+
+    def counted(*a, **kw):
+        host_laps[0] += 1
+        return host_lap(*a, **kw)
+
     tonal, tlen = keep["signal"]
     secs = sum(tlen) / 44100
+    calls = []
+
+    def card(fn, *a):
+        i0, l0 = imdct.launches, lap.launches
+        t0 = time.perf_counter()
+        r = fn(*a, device=True)
+        calls.append((imdct.launches - i0, lap.launches - l0))
+        return r, time.perf_counter() - t0
+
+    fastdec.FastDecoder._lap_and_trim = counted
     imdct.launches = 0
-    t_card, t_host, t1_card, t1_host = [], [], [], []
-    for rep in range(3):
-        t0 = time.perf_counter()
-        outs = fastdec.decode_ogg_fast_batch(tonal, device=True)
-        t_card.append(time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        host = fastdec.decode_ogg_fast_batch(tonal, device=False)
-        t_host.append(time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        one, _ = fastdec.decode_ogg_fast(tonal[0], device=True)
-        t1_card.append(time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        one_h, _ = fastdec.decode_ogg_fast(tonal[0], device=False)
-        t1_host.append(time.perf_counter() - t0)
-        if rep == 0:
-            if not all(same(a, b) for (a, _), (b, _) in zip(outs, host)) \
-                    or not same(one, one_h):
-                raise RuntimeError("4d tonal: device=True differs from "
-                                   "device=False")
-            if [a.shape[1] for a, _ in outs] != tlen:
-                raise RuntimeError("4d tonal: a decoded stream is not as "
-                                   "long as its input")
-    del outs, host
-    t_other = {}
-    for leg in ("click_train", "signal51", "click_train51"):
-        oggs, lens = keep[leg]
-        t0 = time.perf_counter()
-        outs = fastdec.decode_ogg_fast_batch(oggs, device=True)
-        t_other[leg] = time.perf_counter() - t0
-        host = fastdec.decode_ogg_fast_batch(oggs, device=False)
-        if not all(same(a, b) for (a, _), (b, _) in zip(outs, host)):
-            raise RuntimeError(f"{leg}: device=True differs from "
-                               f"device=False")
-        if [a.shape[1] for a, _ in outs] != lens:
-            raise RuntimeError(f"{leg}: a decoded stream is not as long as "
-                               f"its input")
-        print(f"[decode] {leg} {len(oggs)} streams: device=True equal to "
-              f"device=False bit for bit, every stream as long as its input "
-              f"(card {t_other[leg]:.4f} s)")
+    lap.launches = 0
+    try:
+        t_card, t_host, t1_card, t1_host = [], [], [], []
+        for rep in range(3):
+            outs, t = card(fastdec.decode_ogg_fast_batch, tonal)
+            t_card.append(t)
+            t0 = time.perf_counter()
+            host = fastdec.decode_ogg_fast_batch(tonal, device=False)
+            t_host.append(time.perf_counter() - t0)
+            (one, _), t = card(fastdec.decode_ogg_fast, tonal[0])
+            t1_card.append(t)
+            t0 = time.perf_counter()
+            one_h, _ = fastdec.decode_ogg_fast(tonal[0], device=False)
+            t1_host.append(time.perf_counter() - t0)
+            if rep == 0:
+                if not all(same(a, b) for (a, _), (b, _) in zip(outs, host)) \
+                        or not same(one, one_h):
+                    raise RuntimeError("4d tonal: device=True differs from "
+                                       "device=False")
+                if [a.shape[1] for a, _ in outs] != tlen:
+                    raise RuntimeError("4d tonal: a decoded stream is not "
+                                       "as long as its input")
         del outs, host
-    # the split of one tonal batch, stage by stage (the same calls as
-    # fastdec._decode_jobs)
-    t0 = time.perf_counter()
-    jobs = [fastdec._scan_job(o) for o in tonal]
-    t_scan = time.perf_counter() - t0
-    waves = []
-    t0 = time.perf_counter()
-    pend = [d._device_imdct_dispatch(r, W, *d.vi.blocksizes, dev, waves)
-            for d, W, r, _, _ in jobs]
-    t_disp = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    drained = [d._device_imdct_drain(p, len(W))
-               for (d, W, _, _, _), p in zip(jobs, pend)]
-    t_wait = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    for (d, W, _, gp, eos), (g, gi) in zip(jobs, drained):
-        d._lap_and_trim(W, g, gi, gp, eos)
-    t_lapt = time.perf_counter() - t0
-    launches = imdct.launches
-    h2d = sum(e[0].elapsed_time(e[1]) for _, _, e in waves)
-    kern = sum(e[1].elapsed_time(e[2]) for _, _, e in waves)
-    d2h = sum(e[2].elapsed_time(e[3]) for _, _, e in waves)
-    rows = {}
-    for n, G, _ in waves:
-        rows[n] = rows.get(n, 0) + G
-    del jobs, pend, drained
+        t_other = {}
+        for leg in ("click_train", "signal51", "click_train51"):
+            oggs, lens = keep[leg]
+            outs, t_other[leg] = card(fastdec.decode_ogg_fast_batch, oggs)
+            host = fastdec.decode_ogg_fast_batch(oggs, device=False)
+            if not all(same(a, b) for (a, _), (b, _) in zip(outs, host)):
+                raise RuntimeError(f"{leg}: device=True differs from "
+                                   f"device=False")
+            if [a.shape[1] for a, _ in outs] != lens:
+                raise RuntimeError(f"{leg}: a decoded stream is not as long "
+                                   f"as its input")
+            print(f"[decode] {leg} {len(oggs)} streams: device=True equal to "
+                  f"device=False bit for bit, every stream as long as its "
+                  f"input (card {t_other[leg]:.4f} s)")
+            del outs, host
+    finally:
+        fastdec.FastDecoder._lap_and_trim = host_lap
+    launches = {"imdct": imdct.launches, "lap": lap.launches}
+    print(f"[decode] main path: {len(calls)} card calls, launches a call "
+          f"(imdct, lap) {sorted(set(calls))}, in all imdct "
+          f"{launches['imdct']}, lap {launches['lap']}; host lap calls "
+          f"{host_laps[0]}")
+    if host_laps[0]:
+        raise RuntimeError("the card path ran the host lap")
+    if any(c != (2, 1) for c in calls):
+        raise RuntimeError(f"launches a call {calls}: the IMDCT once a "
+                           f"blocksize (2) and the lap once expected")
     print(f"[decode] 4d tonal {len(tonal)} x {tlen[0] / 44100:.0f} s, "
           f"device=True: "
           f"{_spread(t_card)} = {secs / sorted(t_card)[1]:.2f}x realtime; "
@@ -1625,39 +1835,104 @@ def _phase_decode(smi, keep):
           f"{_spread(t1_card)} = {tlen[0] / 44100 / sorted(t1_card)[1]:.2f}x"
           f", host {_spread(t1_host)} = "
           f"{tlen[0] / 44100 / sorted(t1_host)[1]:.2f}x ({smi})")
-    print(f"[decode] split of one tonal batch (s): scan + parse {t_scan:.4f}"
-          f", dispatch (gather into pinned memory, launches) {t_disp:.4f}, "
-          f"wait for the device {t_wait:.4f}, lap + trim {t_lapt:.4f}; "
-          f"device (ms, summed over {len(waves)} waves): H2D {h2d:.3f}, "
-          f"kernel {kern:.3f}, D2H {d2h:.3f}; rows " + ", ".join(
-              f"n={n}: {g}" for n, g in sorted(rows.items()))
-          + f"; imdct launches {launches}")
-    if launches == 0:
-        raise RuntimeError("the IMDCT kernel never launched on the decode "
-                           "path")
-    # the kernel at a main-path wave's rows: stream 0's long wave
-    d0, W0, r0, _, _ = fastdec._scan_job(tonal[0])
-    n = d0.vi.blocksizes[1]
-    idx = np.flatnonzero(W0 == 1)
-    x = torch.from_numpy(np.ascontiguousarray(
-        r0[idx][:, :, :n // 2].reshape(-1, n // 2))).cuda()
-    ms = _cuda_ms(lambda: imdct(x, n), 100)
+
+    # the split of a batch: scan + parse, then the device half
+    dev = torch.device("cuda")
+    lap_args = None
+    for leg in ("signal", "click_train"):
+        oggs = keep[leg][0]
+        t0 = time.perf_counter()
+        jobs = [fastdec._scan_job(o) for o in oggs]
+        t_scan = time.perf_counter() - t0
+        prof = {}
+        t0 = time.perf_counter()
+        fastdec._decode_jobs(jobs, dev, profile=prof)
+        wall = time.perf_counter() - t0
+        dev_s = (prof["h2d_ms"] + sum(prof["imdct_ms"]) + prof["lap_ms"]
+                 + prof["d2h_ms"]) / 1e3
+        print(f"[decode] split of the 4d {leg} batch (s): scan + parse "
+              f"{t_scan:.4f}, device half {wall:.4f} = host plan "
+              f"{prof['plan']:.4f} + row tables {prof['tables']:.4f} + "
+              f"device {dev_s:.4f} + host rest "
+              f"{wall - prof['plan'] - prof['tables'] - dev_s:.4f}; device "
+              f"(ms): H2D {prof['h2d_ms']:.3f}, imdct "
+              + ", ".join(f"n={n} ({R} rows) {ms:.3f}" for (n, R), ms
+                          in zip(prof["rows"].items(), prof["imdct_ms"]))
+              + f", lap {prof['lap_ms']:.3f}, D2H {prof['d2h_ms']:.3f}")
+        if leg == "signal":
+            lap_args = prof["lap_args"]
+        del prof, jobs
+
+    # the IMDCT kernel at the main path's rows, in turns with the first
+    # design: tonal stream 0's long rows and click-train stream 0's short
+    # rows, packed
+    rec = {}
+    for leg, n in (("signal", 2048), ("click_train", 256)):
+        x = torch.from_numpy(real[(leg, n)]).cuda()
+        ms = _imdct_turns(x, n, base)
+        bound_ms, bound_by = _roofline(*_imdct_work(n, x.shape[0]))
+        rec[n] = dict(rows=x.shape[0], ms=min(ms[0], ms[-1]),
+                      baseline_ms=(min(ms[1], ms[2]) if base else None),
+                      bound_ms=bound_ms, bound_by=bound_by)
+        print(f"[imdct] kernel at {x.shape[0]} rows of n={n} (4d {leg} "
+              f"stream 0), CUDA graphs in turns (ms): "
+              + (f"this {ms[0]:.5f}, first design {ms[1]:.5f}, first "
+                 f"design {ms[2]:.5f}, this {ms[3]:.5f}" if base else
+                 f"this {ms[0]:.5f}, this {ms[1]:.5f}")
+              + f"; bound {bound_ms:.5f} ms by {bound_by}, share "
+              f"{100 * bound_ms / rec[n]['ms']:.1f}%"
+              + (f" (first design {100 * bound_ms / rec[n]['baseline_ms']:.1f}"
+                 f"%)" if base else "") + f" ({smi})")
+        if base and rec[n]["ms"] >= rec[n]["baseline_ms"]:
+            raise RuntimeError(f"imdct at n={n}: not faster than the first "
+                               f"design")
+    x = torch.from_numpy(real[("signal", 2048)]).cuda()
+    n = 2048
     plain_ms = _cuda_ms(lambda: imdct_plain(x, n), 5)
     basis = imdct_plain(torch.eye(n // 2, device=dev), n)
     lib_ms = _cuda_ms(lambda: torch.matmul(x, basis), 20)
     lib_err = float((torch.matmul(x, basis) - imdct(x, n)).abs().max())
-    bound_ms, bound_by, nbytes, ops = _imdct_bound(n, x.shape[0])
-    print(f"[imdct] kernel at {x.shape[0]} rows of n={n} (4d tonal stream "
-          f"0's long wave): {ms:.5f} ms, plain {plain_ms:.4f} ms, "
+    nbytes, ops = _imdct_work(n, x.shape[0])
+    print(f"[imdct] at {x.shape[0]} rows of n={n}: plain {plain_ms:.4f} ms, "
           f"torch.matmul against the dense basis {lib_ms:.5f} ms (max abs "
           f"difference {lib_err:.3g}); bytes {nbytes} = "
           f"{nbytes / HBM_BYTES_PER_S * 1e3:.5f} ms, operations {ops} = "
-          f"{ops / F32_OPS_PER_S * 1e3:.5f} ms; bound {bound_ms:.5f} ms by "
-          f"{bound_by}, share {100 * bound_ms / ms:.1f}% ({smi})")
-    return dict(launches=launches, max_abs_err=max_err, ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                share=bound_ms / ms, library_ms=lib_ms, rows=x.shape[0],
-                n=n)
+          f"{ops / F32_OPS_PER_S * 1e3:.5f} ms ({smi})")
+    del basis, x
+    imdct_rec = dict(
+        launches=launches["imdct"], max_abs_err=max_err["imdct"],
+        ms=rec[2048]["ms"], plain_ms=plain_ms,
+        bound_ms=rec[2048]["bound_ms"], bound_by=rec[2048]["bound_by"],
+        share=rec[2048]["bound_ms"] / rec[2048]["ms"], library_ms=lib_ms,
+        rows=rec[2048]["rows"], n=2048,
+        baseline_ms=rec[2048]["baseline_ms"], at_n256=rec[256])
+
+    # the lap kernel at the tonal batch's shape
+    blocks, wins, plan, tabs = lap_args
+    lap_ms = _graph_ms(lambda: lap(blocks, wins, plan, tables=tabs),
+                       reps=10)
+    got = lap(blocks, wins, plan, tables=tabs)
+    plain_ms = _cuda_ms(lambda: lap_plain(blocks, wins, plan), 1)
+    prod, dst = _index_add_lap(blocks, wins, plan)
+    acc = torch.zeros(plan.total, device=dev)
+    lib_ms = _cuda_ms(lambda: acc.index_add_(0, dst, prod), 5)
+    acc.zero_().index_add_(0, dst, prod)
+    lib_err = float((acc - got).abs().max())
+    nbytes, ops = _lap_work(plan)
+    bound_ms, bound_by = _roofline(nbytes, ops)
+    print(f"[lap] kernel at the 4d tonal batch ({len(plan.pk)} packets, "
+          f"{plan.total} output floats): {lap_ms:.5f} ms (CUDA graphs), "
+          f"plain {plain_ms:.2f} ms, index_add_ of the windowed products "
+          f"{lib_ms:.5f} ms (max abs difference {lib_err:.3g}); bytes "
+          f"{nbytes} = {nbytes / HBM_BYTES_PER_S * 1e3:.5f} ms, operations "
+          f"{ops}; bound {bound_ms:.5f} ms by {bound_by}, share "
+          f"{100 * bound_ms / lap_ms:.1f}% ({smi})")
+    lap_rec = dict(
+        launches=launches["lap"], max_abs_err=max_err["lap"], ms=lap_ms,
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        share=bound_ms / lap_ms, library_ms=lib_ms, packets=len(plan.pk))
+    del blocks, wins, plan, tabs, lap_args, prod, dst, acc, got
+    return imdct_rec, lap_rec
 
 
 def main():
@@ -1667,6 +1942,10 @@ def main():
                     help="the first design's csrc/m3_scan.cu (git show 185cdeb:"
                          "vorbis_tpu_torch/csrc/m3_scan.cu, checked by its "
                          "hash) to time in turns with this one in phase 3b")
+    ap.add_argument("--imdct-baseline", metavar="SOURCE",
+                    help="the first design's csrc/imdct.cu (git show 5b586f3:"
+                         "vorbis_tpu_torch/csrc/imdct.cu, checked by its "
+                         "hash) to time in turns with this one in phase 6")
     args = ap.parse_args()
     t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(HERE, "vorbis_tpu_torch")):
@@ -1693,11 +1972,12 @@ def main():
 
     # 2. build: one compiler process per source, all started together
     from vorbis_tpu_torch import native
-    from vorbis_tpu_torch.ops import floor_cuda, imdct_cuda, m3_cuda
+    from vorbis_tpu_torch.ops import floor_cuda, imdct_cuda, lap_cuda, m3_cuda
     t0 = time.perf_counter()
     jobs = {"floor_fit.cu": floor_cuda.build,
             "m3_scan.cu": m3_cuda.build,
             "imdct.cu": imdct_cuda.build,
+            "lap.cu": lap_cuda.build,
             "host_ogg.c": native.build_host,
             "host_decode.c": native.build_decode}
     with ThreadPoolExecutor(len(jobs)) as ex:
@@ -1706,6 +1986,7 @@ def main():
     floor_cuda.load_library()
     m3_cuda.load_library()
     imdct_cuda.load_library()
+    lap_cuda.load_library()
     native.host_library()
     native.decode_library()
     print(f"[build] {len(built)} libraries in "
@@ -2128,9 +2409,9 @@ def main():
     _phase_51_card_vs_cpu(f51, FastEncoder(6, 48000, 0.4, device="cpu"))
     _lap(t_start, "5d, 5e")
 
-    # 6. decode: the IMDCT kernel, then decode_ogg_fast(_batch) on the
-    # card over 4d's and 4g's streams
-    imdct_rec = _phase_decode(smi, keep)
+    # 6. decode: the IMDCT and lap kernels, then decode_ogg_fast(_batch)
+    # on the card over 4d's and 4g's streams
+    imdct_rec, lap_rec = _phase_decode(smi, keep, args.imdct_baseline)
     _lap(t_start, "6")
 
     print(f"[time] {time.perf_counter() - t_start:.1f} s of command time")
@@ -2152,7 +2433,12 @@ def main():
         "name": "imdct", "route": "cuda",
         "source": "vorbis_tpu_torch/csrc/imdct.cu",
         "replaces": "vorbis_tpu/ops/mdct.py:261 (jnp, fastdec.py:210)",
-        **imdct_rec}]}))
+        **imdct_rec}, {
+        "name": "lap", "route": "cuda",
+        "source": "vorbis_tpu_torch/csrc/lap.cu",
+        "replaces": "vorbis_tpu/models/fastdec.py:142 (_native_lap, host C "
+                    "vn_lap_add) and :351 (_trim_range)",
+        **lap_rec}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

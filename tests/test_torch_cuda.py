@@ -1,9 +1,10 @@
 """Tests that need the card: the port's CUDA kernels (csrc/floor_fit.cu,
-csrc/m3_scan.cu, csrc/imdct.cu) against their plain PyTorch versions
-(the floor fit on the 5.1 looks too, M3 on six channels, the IMDCT at
-every blocksize and against the host C), the managed 15-blob finish on
-the card against the same step on the CPU, and the fast decode on the
-card against the host-C drain.  A CUDA
+csrc/m3_scan.cu, csrc/imdct.cu, csrc/lap.cu) against their plain PyTorch
+versions (the floor fit on the 5.1 looks too, M3 on six channels, the
+IMDCT at every blocksize and the lap at every blocksize and on -0.0 and
+subnormal products, both against the host C), the managed 15-blob
+finish on the card against the same step on the CPU, and the fast
+decode on the card against the host-C drain.  A CUDA
 kernel has no CPU mode, so each test here skips without a card.
 
 The GPU machine has no JAX, so this file imports neither jax nor
@@ -198,41 +199,80 @@ def test_managed_finish15_on_cuda(cuda):
 
 def test_imdct_kernel_matches_plain_on_cuda(cuda):
     """csrc/imdct.cu against its plain version on the card and the host
-    C (vn_imdct_batch), bitwise, at every blocksize 64-8192, with one
+    C (vn_imdct_batch), bitwise, at every blocksize 64-8192, on packed
+    rows and through a row table that reorders and spaces them, with one
     launch a call."""
     from vorbis_tpu_torch.native import imdct_batch
     from vorbis_tpu_torch.ops.imdct_cuda import imdct, imdct_plain
     for k, n in enumerate((64, 128, 256, 512, 1024, 2048, 4096, 8192)):
         rng = np.random.RandomState(k)
-        spec = (rng.randn(300, n // 2)
-                * 10.0 ** rng.uniform(-3, 3, (300, 1))).astype(np.float32)
+        R = 300
+        spec = (rng.randn(R, n // 2)
+                * 10.0 ** rng.uniform(-3, 3, (R, 1))).astype(np.float32)
+        slot = rng.permutation(R).astype(np.int64) * (n // 2 + 4)
+        flat = np.zeros(int(slot.max()) + n // 2, np.float32)
+        flat[slot[:, None] + np.arange(n // 2)] = spec
         x = torch.from_numpy(spec).cuda()
-        before = imdct.launches
-        got = imdct(x, n)
-        torch.cuda.synchronize()
-        assert imdct.launches == before + 1
-        bits = got.cpu().numpy().view(np.uint32)
-        assert np.array_equal(bits, imdct_plain(x, n).cpu().numpy()
+        want = imdct_batch(spec, n).view(np.uint32)
+        assert np.array_equal(want, imdct_plain(x, n).cpu().numpy()
                               .view(np.uint32)), n
-        assert np.array_equal(bits, imdct_batch(spec, n).view(np.uint32)), n
+        for got in (imdct(x, n),
+                    imdct(torch.from_numpy(flat).cuda(), n, rows=slot)):
+            torch.cuda.synchronize()
+            assert np.array_equal(got.cpu().numpy().view(np.uint32),
+                                  want), n
+        before = imdct.launches
+        imdct(x, n)
+        assert imdct.launches == before + 1
+
+
+def test_lap_kernel_matches_plain_on_cuda(cuda):
+    """csrc/lap.cu against its plain version on the card and the host C
+    (vn_lap_add and the trim), bitwise: tests/test_torch_lap.py's seeded
+    streams at every blocksize 64-8192 in one batch and its case of -0.0
+    and subnormal products, with one launch a call."""
+    from chip_smoke import _lap_cases
+    from vorbis_tpu_torch.ops.lap_cuda import lap, lap_plain
+    tl = _lap_cases()
+    batch = [tl.lap_case(bs0, bs1, 60, (1, 2, 6)[k % 3], k, trim=k % 2 == 0)
+             for k, (bs0, bs1) in enumerate(tl.CASE_PAIRS)]
+    for cases in (batch, [tl.signed_zero_case()]):
+        flat, wins, plan, wants = tl.lap_inputs(cases)
+        args = (torch.from_numpy(flat).cuda(), torch.from_numpy(wins).cuda(),
+                plan)
+        before = lap.launches
+        got = lap(*args)
+        assert lap.launches == before + 1
+        plain = lap_plain(*args)
+        for k, want in enumerate(wants):
+            bits = want.view(np.uint32)
+            for o in (got, plain):
+                g = plan.out_view(o, k).cpu().numpy()
+                assert g.shape == want.shape
+                assert np.array_equal(g.view(np.uint32), bits), k
 
 
 def test_decode_device_matches_host_drain_on_cuda(cuda):
     """decode_ogg_fast on the card (the default) and
     decode_ogg_fast_batch of three streams equal the host-C drain
-    (device=False) bit for bit, through the kernel."""
+    (device=False) bit for bit; a card call launches the IMDCT once a
+    blocksize present (two: every stream opens with a short block) and
+    the lap once."""
     from chip_smoke import _signal
     from vorbis_tpu_torch.models.fastdec import (decode_ogg_fast,
                                                  decode_ogg_fast_batch)
     from vorbis_tpu_torch.ops.imdct_cuda import imdct
+    from vorbis_tpu_torch.ops.lap_cuda import lap
     fe = TFE(2, 44100, 0.5)
     oggs = fe.encode_batch([torch.from_numpy(_signal(3 + k, 44100, k)).cuda()
                             for k in range(3)])
     want = [decode_ogg_fast(o, device=False)[0] for o in oggs]
-    before = imdct.launches
-    got = [decode_ogg_fast(oggs[0])[0]] + [
-        g for g, _ in decode_ogg_fast_batch(oggs)]
-    assert imdct.launches > before
+    got = []
+    for call in (lambda: [decode_ogg_fast(oggs[0])[0]],
+                 lambda: [g for g, _ in decode_ogg_fast_batch(oggs)]):
+        i0, l0 = imdct.launches, lap.launches
+        got += call()
+        assert (imdct.launches - i0, lap.launches - l0) == (2, 1)
     for g, w in zip(got, want[:1] + want):
         assert g.shape == w.shape
         assert np.array_equal(g.view(np.uint32), w.view(np.uint32))

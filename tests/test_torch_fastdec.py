@@ -65,9 +65,9 @@ def _spectra(n, B, seed):
     return s.astype(np.float32)
 
 
-@pytest.fixture(scope="module")
-def streams(tmp_path_factory):
-    d = tmp_path_factory.mktemp("fastdec")
+def make_streams(d):
+    """The ten streams of STREAMS, written under the directory `d`
+    (tests/test_torch_lap.py builds the same)."""
     out = {}
     for (q, rate, ch), name in zip(CONFIGS, STREAMS):
         pcm = oracle.make_test_signal(rate=rate, seconds=0.6, ch=ch)
@@ -81,6 +81,11 @@ def streams(tmp_path_factory):
     out["port"] = fe.encode_batch([oracle.make_test_signal(seconds=0.6)],
                                   B_long=64, B_short=64)[0]
     return out
+
+
+@pytest.fixture(scope="module")
+def streams(tmp_path_factory):
+    return make_streams(tmp_path_factory.mktemp("fastdec"))
 
 
 @pytest.mark.parametrize("n", NS)
@@ -97,78 +102,177 @@ def test_imdct_plain_and_host_c_bitwise(n):
     assert _same(J_native.imdct_batch(spec, n), want)
 
 
-def _kernel_schedule(spec, n):
-    """csrc/imdct.cu's per-thread schedule replayed in numpy float32:
-    the padded shared-memory layout, stage B's butterfly index k ->
-    (block, m), the tails at 33 b, stage C's top-down upper half and
-    stage D's four quarter writes, with the kernel's tables
-    (ImdctKernel.tables on the CPU)."""
+def _brev(m, bits):
+    """m's low `bits` bits reversed (the kernel's __brev(m) >> (32 - bits))."""
+    out = np.zeros_like(m)
+    for k in range(bits):
+        out |= ((m >> k) & 1) << (bits - 1 - k)
+    return out
+
+
+def _kernel_schedule(flat, rowoff, n):
+    """csrc/imdct.cu's schedule replayed in numpy float32: the rows read
+    through the row table `rowoff` (element offsets into `flat`), G =
+    2048/n rows a warp (one above 2048) staged with the 16-byte chunk
+    swizzle, stage A's items (r, t) with computed gathers and negated
+    signs, stage B two radix-2 stages a pass on four pairs (one radix-2
+    pass when their count is odd) through the twiddle table, the
+    32-point tails one chunk a lane through the working vector's swizzle,
+    and stages C and D fused, four m an item, with computed bit reversal
+    and 16-byte stores in the kernel's element order; the kernel's
+    tables (ImdctKernel.tables on the CPU).  Each pass is vectorized over
+    a warp's items, which the kernel runs in any order."""
     f = np.float32
-    tab = {k: (v.numpy() if isinstance(v, torch.Tensor) else v)
-           for k, v in ImdctKernel.tables(n, torch.device("cpu")).items()}
-    T = tab["T"]
+    tab = ImdctKernel.tables(n, torch.device("cpu"))
+    T, tw = tab["T"].numpy(), tab["tw"].numpy()
+    tw = tw[:len(tw) // 2 * 2].reshape(-1, 2)
+    logn = n.bit_length() - 1
     n2, n4, n8 = n >> 1, n >> 2, n >> 3
+    G = 2048 // n if n <= 2048 else 1
+    nst = logn - 6
+    four = np.arange(4)
 
-    def pad(i):
-        return i + (i >> 5)
+    def ys(e):
+        return e ^ (((e >> 5) & 7) << 2)
 
-    R = spec.shape[0]
-    z = np.zeros((R, pad(n2)), f)
-    y = np.zeros((R, pad(n2)), f)
-    i = np.arange(n2)
-    z[:, pad(i)] = spec
-    y[:, pad(i)] = ((tab["sa"] * z[:, pad(tab["ia"])]) * T[tab["ta"]]
-                    + (tab["sb"] * z[:, pad(tab["ib"])]) * T[tab["tb"]])
-    for s in range(tab["nstages"]):
-        P = n2 >> s
-        half, nc = P >> 1, P >> 2
-        tc = tab["tc_all"][tab["stage_off"][s]:]
-        k = np.arange(n2 >> 2)
-        b, m = k // nc, k % nc
-        lo = b * P + 2 * m
-        hi = lo + half
-        h0, h1 = y[:, pad(hi)], y[:, pad(hi + 1)]
-        l0, l1 = y[:, pad(lo)], y[:, pad(lo + 1)]
-        r0, r1 = h0 - l0, h1 - l1
-        c, sn = T[tc[m]], T[tc[m] + 1]
-        y[:, pad(hi)], y[:, pad(hi + 1)] = h0 + l0, h1 + l1
-        y[:, pad(lo)] = r1 * sn + r0 * c
-        y[:, pad(lo + 1)] = r1 * c - r0 * sn
-    for b in range(n2 >> 5):
-        blk = y[:, 33 * b:33 * b + 32]
-        y[:, 33 * b:33 * b + 32] = J_bf32(blk, np)
-    m = np.arange(n8)
-    e0, e1 = tab["e0"], tab["e1"]
-    a0, a1 = y[:, pad(e0)], y[:, pad(e0 + 1)]
-    b0, b1 = y[:, pad(e1)], y[:, pad(e1 + 1)]
-    c, sn = T[tab["tC"]], T[tab["tC"] + 1]
-    r0, r1 = a1 - b1, a0 + b0
-    r2, r3 = r1 * c + r0 * sn, r1 * sn - r0 * c
-    r0h, r1h = f(0.5) * (a1 + b1), f(0.5) * (a0 - b0)
-    up = n4 + 2 * (n8 - 1 - m)
-    z[:, pad(2 * m)], z[:, pad(2 * m + 1)] = r0h + r2, r1h + r3
-    z[:, pad(up)], z[:, pad(up + 1)] = r0h - r2, r3 - r1h
-    i = np.arange(n4)
-    z0, z1 = z[:, pad(2 * i)], z[:, pad(2 * i + 1)]
-    c, sn = T[tab["tD"]], T[tab["tD"] + 1]
-    a = z0 * sn - z1 * c
-    bb = -(z0 * c + z1 * sn)
-    o = np.zeros((R, n), f)
-    o[:, n4 - 1 - i], o[:, n4 + i] = a, -a
-    o[:, n2 + n4 - 1 - i], o[:, n2 + n4 + i] = bb, bb
-    return o
+    def xs(q):
+        return q ^ ((q >> 3) & 1)
+
+    def tw_off(s):
+        return (n2 >> 1) - (n2 >> (s + 1))
+
+    def pair(e):
+        return ys(e)[:, None] + np.arange(2)
+
+    def bfly(lo, hi, w):
+        r0, r1 = hi[:, 0] - lo[:, 0], hi[:, 1] - lo[:, 1]
+        nh = np.stack([hi[:, 0] + lo[:, 0], hi[:, 1] + lo[:, 1]], 1)
+        nl = np.stack([r1 * w[:, 1] + r0 * w[:, 0],
+                       r1 * w[:, 0] - r0 * w[:, 1]], 1)
+        return nl, nh
+
+    R = len(rowoff)
+    out = np.zeros((R, n), f)
+    o = out.reshape(R, n // 4, 4)
+    for grp in range(-(-R // G)):
+        # the group's spectra, 16-byte chunks through the swizzle
+        x = np.zeros(G * n2, f)
+        q = np.arange(G * n2 // 4)
+        r, j = q // (n2 // 4), q % (n2 // 4)
+        ok = grp * G + r < R
+        src = rowoff[grp * G + r[ok]] + 4 * j[ok]
+        x[(4 * xs(q[ok]))[:, None] + four] = flat[src[:, None] + four]
+        y = np.zeros(G * n2, f)
+        # stage A: item (r, t) reads the 8 floats at n2 - 8 - 8t
+        u = np.arange(G * n2 // 8)
+        r, t = u // (n2 // 8), u % (n2 // 8)
+        qq = r * (n2 // 4) + n2 // 4 - 2 - 2 * t
+        x0, x1, x2, x3 = x[(4 * xs(qq))[:, None] + four].T
+        x4, x5, x6, x7 = x[(4 * xs(qq + 1))[:, None] + four].T
+        t1 = T[(n4 + 4 * t)[:, None] + four].T
+        t2 = T[(n4 - 4 * (t + 1))[:, None] + four].T
+        y[ys(r * n2 + n4 - 4 * (t + 1))[:, None] + four] = np.stack(
+            [-x3 * t1[3] + -x1 * t1[2], x1 * t1[3] + -x3 * t1[2],
+             -x7 * t1[1] + -x5 * t1[0], x5 * t1[1] + -x7 * t1[0]], 1)
+        y[ys(r * n2 + n4 + 4 * t)[:, None] + four] = np.stack(
+            [x4 * t2[3] + x6 * t2[2], x4 * t2[2] + -x6 * t2[3],
+             x0 * t2[1] + x2 * t2[0], x0 * t2[0] + -x2 * t2[1]], 1)
+        # stage B: two stages a pass on pairs q0 + {0, 1, 2, 3} P/4
+        s = 0
+        while s + 1 < nst:
+            P = n2 >> s
+            nm = P >> 3
+            u = np.arange(G * n2 // 8)
+            r, k = u // (n2 // 8), u % (n2 // 8)
+            b, m = k // nm, k % nm
+            q0 = r * n2 + b * P + 2 * m
+            qs = [q0 + i * (P // 4) for i in range(4)]
+            v = [y[pair(e)] for e in qs]
+            v[0], v[2] = bfly(v[0], v[2], tw[tw_off(s) + m])
+            v[1], v[3] = bfly(v[1], v[3], tw[tw_off(s) + m + nm])
+            w = tw[tw_off(s + 1) + m]
+            v[0], v[1] = bfly(v[0], v[1], w)
+            v[2], v[3] = bfly(v[2], v[3], w)
+            for e, vv in zip(qs, v):
+                y[pair(e)] = vv
+            s += 2
+        if s < nst:
+            P = n2 >> s
+            nc = P >> 2
+            u = np.arange(G * n2 // 4)
+            r, k = u // (n2 // 4), u % (n2 // 4)
+            b, m = k // nc, k % nc
+            lo = r * n2 + b * P + 2 * m
+            hi = lo + P // 2
+            vl, vh = bfly(y[pair(lo)], y[pair(hi)], tw[tw_off(s) + m])
+            y[pair(lo)], y[pair(hi)] = vl, vh
+        # the tails: chunk c's float4 k at k ^ (c & 7)
+        c = np.arange(G * n2 // 32)
+        idx = (32 * c[:, None, None]
+               + 4 * (np.arange(8)[None, :, None] ^ (c[:, None, None] & 7))
+               + four).reshape(len(c), 32)
+        y[idx] = J_bf32(y[idx], np)
+        # stages C and D: item (r, v) takes m = 4v .. 4v+3
+        u = np.arange(G * n8 // 4)
+        r, v = u // (n8 // 4), u % (n8 // 4)
+        row = grp * G + r
+        tc = T[(n + 8 * v)[:, None] + np.arange(8)].T
+        td = T[(n2 + 8 * v)[:, None] + np.arange(8)].T
+        tr = T[(n - 8 - 8 * v)[:, None] + np.arange(8)].T
+        a, bb, a2, b2 = [], [], [], []
+        for jj in range(4):
+            e1 = _brev(4 * v + jj, logn - 1)
+            e0 = ((~e1) & (n2 - 1)) - 1
+            a0, a1 = y[pair(r * n2 + e0)].T
+            b0, b1 = y[pair(r * n2 + e1)].T
+            cC, sC = tc[2 * jj], tc[2 * jj + 1]
+            cD, sD = td[2 * jj], td[2 * jj + 1]
+            cR, sR = tr[6 - 2 * jj], tr[7 - 2 * jj]     # pair n4-1-m
+            r0, r1 = a1 - b1, a0 + b0
+            r2, r3 = r1 * cC + r0 * sC, r1 * sC - r0 * cC
+            r0h, r1h = f(0.5) * (a1 + b1), f(0.5) * (a0 - b0)
+            z0, z1 = r0h + r2, r1h + r3
+            a.append(z0 * sD - z1 * cD)
+            bb.append(-(z0 * cD + z1 * sD))
+            z0, z1 = r0h - r2, r3 - r1h
+            a2.append(z0 * sR - z1 * cR)
+            b2.append(-(z0 * cR + z1 * sR))
+        ok = row < R
+        a, bb, a2, b2 = (np.stack(z, 1)[ok] for z in (a, bb, a2, b2))
+        rr, vv = row[ok], v[ok]
+        o[rr, n4 // 4 - 1 - vv] = a[:, ::-1]
+        o[rr, n4 // 4 + vv] = -a
+        o[rr, (n2 + n4) // 4 - 1 - vv] = bb[:, ::-1]
+        o[rr, (n2 + n4) // 4 + vv] = bb
+        o[rr, vv] = a2
+        o[rr, n2 // 4 - 1 - vv] = -a2[:, ::-1]
+        o[rr, n2 // 4 + vv] = b2
+        o[rr, n // 4 - 1 - vv] = b2[:, ::-1]
+    return out
 
 
 @pytest.mark.parametrize("n", NS)
 def test_imdct_kernel_schedule_emulated(n):
-    """The CUDA kernel's index schedule and tables, replayed in numpy,
-    give the reference transform bit for bit (the kernel itself runs
-    only on the card: test_torch_cuda.py, chip_smoke.py phase 6)."""
-    spec = _spectra(n, 9, 100 + n)
+    """The CUDA kernel's schedule and tables, replayed in numpy through a
+    row table that reorders and spaces the rows (and leaves a partial
+    last row group), give the reference transform bit for bit (the kernel
+    itself runs only on the card: test_torch_cuda.py, chip_smoke.py phase
+    6)."""
+    R = (2048 // n if n <= 2048 else 1) * 2 + 1
+    spec = _spectra(n, R, 100 + n)
+    rng = np.random.RandomState(n)
+    slot = rng.permutation(R) * (n // 2 + 4 * rng.randint(0, 3))
+    flat = np.full(slot.max() + n // 2 + 8, np.nan, np.float32)
+    for k in range(R):
+        flat[slot[k]:slot[k] + n // 2] = spec[k]
     tab = ImdctKernel.tables(n, torch.device("cpu"))
-    assert tab["nstages"] == len(_imdct_index_tables(n)["stages"]) \
-        == max(0, n.bit_length() - 7)
-    assert _same(_kernel_schedule(spec, n), np.asarray(J_imdct(spec, n)))
+    assert tab["T"].numel() == n + n // 4
+    assert tab["tw"].numel() == max(1, n // 2 - 32)
+    assert len(_imdct_index_tables(n)["stages"]) == n.bit_length() - 7
+    got = _kernel_schedule(flat, slot.astype(np.int64), n)
+    assert _same(got, np.asarray(J_imdct(spec, n)))
+    # the row-table form of the wrapper, on the CPU (its plain version)
+    assert _same(imdct(torch.from_numpy(flat), n, rows=slot).numpy(), got)
 
 
 def _tables_fields(tb):
@@ -245,6 +349,29 @@ def test_decode_packets_and_batch_paths(streams):
     assert all(_same(g, w) for (g, _), w in zip(got, want))
     got = T_fd.decode_ogg_fast_batch(data, threads=3, device=False)
     assert all(_same(g, w) for (g, _), w in zip(got, want))
+
+
+def test_decode_mixed_batch(streams):
+    """A batch of 5.1, mono and stereo streams (three blocksize pairs) on
+    the CPU: one plan for all of them, rows grouped by blocksize across
+    streams, each stream's PCM bitwise equal to device=False and to the
+    JAX package's decode_ogg_fast."""
+    names = ["q0.4-48000-6ch", "q0.2-8000-1ch", "q0.5-44100-2ch",
+             "q-0.1-44100-2ch", "q0.2-8000-1ch"]
+    data = [streams[k] for k in names]
+    want = [J_fd.decode_ogg_fast(s)[0] for s in data]
+    jobs = [T_fd._scan_job(s) for s in data]
+    bp = T_fd._BatchPlan(jobs)
+    assert bp.pairs == ((256, 2048), (512, 512), (512, 4096))
+    assert sorted(bp.group) == [256, 512, 2048, 4096]
+    assert len(bp.plan.out_off) == len(data)
+    assert sum(R for _, R in bp.group.values()) == sum(
+        len(W) * dec.vi.channels for dec, W, *_ in jobs)
+    got = T_fd.decode_ogg_fast_batch(data, device="cpu")
+    host = T_fd.decode_ogg_fast_batch(data, device=False)
+    for (g, vi), (h, _), w, name in zip(got, host, want, names):
+        assert _same(g, w) and _same(h, w), name
+        assert vi.channels == w.shape[0]
 
 
 @pytest.fixture(scope="module")

@@ -1,53 +1,59 @@
 // Batched inverse MDCT (libvorbis mdct_backward) as a hand-written Hopper
 // kernel: the device stage of the port's decode (models/fastdec.py
-// _device_imdct_dispatch).
+// _decode_jobs), one launch a blocksize for every stream of a batch.
 //
 // Replaces: vorbis_tpu/ops/mdct.py:261 imdct(spec, n, xp=jnp), which the
 // JAX package jits per blocksize in vorbis_tpu/models/fastdec.py:210
 // (plain jax.numpy, not a Pallas kernel).
 //
-// Computes, for every (packet, channel) row of (R, n/2) float32 spectra,
-// the n-sample block (R, n) in the SAME expression trees as the numpy
-// transform and the host C (native/vorbisnative.c vn_imdct1): stage A's
-// pre-rotation through the gather tables, log2(n) - 6 radix-2 stages,
-// the 32/16/8-point butterfly tails, stage C's bitreverse and half-angle
+// Computes, for every row r of a row table (the n/2 float32 spectrum at
+// spec + rowoff[r]), the n-sample block out[r] in the SAME expression
+// trees as the numpy transform and the host C (csrc/host_decode.c
+// vn_imdct1): stage A's pre-rotation, log2(n) - 6 radix-2 stages, the
+// 32/16/8-point butterfly tails, stage C's bitreverse and half-angle
 // rotation, stage D's rotation and symmetric expansion.  Every product
 // and sum is an explicit round-to-nearest intrinsic in the C's operand
-// order, and the library is built with -fmad=false as well, so no FMA
-// contraction can move a bit: the output equals vn_imdct_batch and the
-// numpy imdct bitwise.
+// order, and the library is built with -fmad=false as well (never
+// --use_fast_math or -ftz=true: subnormals survive), so the output equals
+// vn_imdct_batch and the numpy imdct bit for bit.  Stage A's signs
+// (sa, sb = +-1) are applied as negations of the spectrum value, which is
+// exact: fmul(fmul(-1, x), T) == fmul(-x, T).
 //
-// Design: one thread block a row.  The row's n/2 working vector and the
-// n/2 stage-C vector stay in shared memory (33 KB at n = 8192), each with
-// one pad word every 32 floats so that the single-thread 32-point tails
-// (thread b walks floats 32b..32b+31) hit 32 different banks.  Each stage
-// is one strided pass of the block's threads, with __syncthreads()
-// between stages; each tail runs in one thread in the C's statement
-// order.  The trig and index tables of each blocksize live in device
-// memory (ops/imdct_cuda.py caches them per n) and are read through L1.
+// Bound on this card: bytes.  A row reads n/2 floats and writes n: 6
+// bytes an output sample against ~15 float32 operations (n = 2048; H100
+// SXM 3.35 TB/s and 67 TFLOP/s fp32), so the least time is the traffic's.
+// No tensor cores and no TF32: bitwise equality to the host C allows
+// neither.  The design keeps the card busy on the traffic:
 //
-// Bound on this card: bytes.  A row reads n/2 floats and writes n, 6
-// bytes an output sample against ~15 float32 operations (at n = 2048;
-// H100 SXM: 3.35 TB/s, 67 TFLOP/s fp32 counting an FMA as two, and none
-// here), so the least time is the traffic's.  This first
-// design is right, not fast: stages serialise on __syncthreads and the
-// tails use one thread in 32; several rows a block, cp.async staging and
-// a fused window multiply are for a later change.
+// - Persistent CTAs, warps that own whole rows.  A warp owns G = 2048/n
+//   rows at n <= 2048 (one row above), so that G * n/64 = 32 tails give
+//   every lane one 32-point tail (n = 4096 and 8192: two and four a
+//   lane).  Stages are separated by __syncwarp only; the CTA's one
+//   __syncthreads follows the table staging.  The grid is the SM count
+//   times the CTAs resident a SM, each warp striding over row groups.
+// - Tables staged once a CTA into shared memory: the trig table T
+//   (n + n/4 floats) and stage B's twiddles laid out a stage after
+//   another (tw, (c, s) pairs in the order a warp reads them: n/2 - 32
+//   floats).  Every index (stage A's gathers, stage B's trig index,
+//   stage C's bit reversal) is computed from the lane's item, not read.
+//   At n = 8192 the tables take 57 KB beside two warps' 96 KB.
+// - Double-buffered asynchronous staging: while a warp computes one row
+//   group, cp.async 16-byte copies bring the next group's spectra into
+//   the other buffer (rows must start 16-byte aligned: offsets that are
+//   multiples of 4 floats).
+// - Stage B runs two radix-2 stages a pass on four (c, s)-pairs held in
+//   registers (one radix-2 pass when the count is odd), halving the
+//   shared-memory round trips; stage C feeds stage D in registers and
+//   stores the block with 16-byte coalesced writes (four m a lane).
+// - The working vector is XOR-swizzled at 16-byte granularity within
+//   each 32-float chunk (chunk k's word i at i ^ 4 (k & 7)), so that a
+//   lane's tail loads, stage B's pair loads and stage A's quad stores
+//   hit distinct banks.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
-
-struct ImdctTabs {
-    const float *T, *sa, *sb;
-    const int32_t *ia, *ib, *ta, *tb, *tc_all, *stage_off;
-    const int32_t *e0, *e1, *tC, *tD;
-    int n, nstages;
-};
-
-// shared-memory index of element i: one pad float every 32
-__device__ __forceinline__ int pad(int i) { return i + (i >> 5); }
 
 __device__ __forceinline__ float fadd(float a, float b)
 {
@@ -66,8 +72,8 @@ __device__ const float cPI1_8 = 0.92387953f;
 __device__ const float cPI2_8 = 0.70710678f;
 __device__ const float cPI3_8 = 0.38268343f;
 
-// vn_bf8 (vorbisnative.c:1225) on 8 contiguous floats
-__device__ void bf8(float *x)
+// vn_bf8 (host_decode.c) on 8 contiguous floats
+__device__ __forceinline__ void bf8(float *x)
 {
     float r0 = fadd(x[6], x[2]), r1 = fsub(x[6], x[2]);
     float r2 = fadd(x[4], x[0]), r3 = fsub(x[4], x[0]);
@@ -81,8 +87,8 @@ __device__ void bf8(float *x)
     x[4] = n4; x[5] = n5; x[6] = n6; x[7] = n7;
 }
 
-// vn_bf16 (vorbisnative.c:1239)
-__device__ void bf16(float *x)
+// vn_bf16
+__device__ __forceinline__ void bf16(float *x)
 {
     float c2 = cPI2_8;
     float r0 = fsub(x[1], x[9]), r1 = fsub(x[0], x[8]);
@@ -105,8 +111,8 @@ __device__ void bf16(float *x)
     bf8(x + 8);
 }
 
-// vn_bf32 (vorbisnative.c:1262)
-__device__ void bf32(float *x)
+// vn_bf32
+__device__ __forceinline__ void bf32(float *x)
 {
     float c1 = cPI1_8, c2 = cPI2_8, c3 = cPI3_8;
     float r0 = fsub(x[30], x[14]), r1 = fsub(x[31], x[15]);
@@ -149,113 +155,354 @@ __device__ void bf32(float *x)
     bf16(x + 16);
 }
 
-__global__ void imdct_rows(const float *__restrict__ spec,
-                           float *__restrict__ out, ImdctTabs t)
+// the working vector's swizzle: word i of 32-float chunk k at i ^ 4(k & 7)
+__device__ __forceinline__ int ys(int e)
 {
-    extern __shared__ float sm[];
-    const int n = t.n, n2 = n >> 1, n4 = n >> 2, n8 = n >> 3;
-    float *y = sm;                       // working vector, padded
-    float *z = sm + pad(n2);             // input row, then stage C
-    const float *x = spec + (long)blockIdx.x * n2;
-    float *o = out + (long)blockIdx.x * n;
-    const int tid = threadIdx.x, nt = blockDim.x;
-    const float *T = t.T;
+    return e ^ (((e >> 5) & 7) << 2);
+}
 
-    for (int i = tid; i < n2; i += nt)
-        z[pad(i)] = x[i];
-    __syncthreads();
+// the staged spectra's swizzle, in 16-byte chunks: q ^ ((q >> 3) & 1)
+__device__ __forceinline__ int xs(int q)
+{
+    return q ^ ((q >> 3) & 1);
+}
 
-    // stage A: pre-rotation, y[i] = sa*x[ia]*T[ta] + sb*x[ib]*T[tb]
-    for (int i = tid; i < n2; i += nt) {
-        float a = fmul(fmul(t.sa[i], z[pad(t.ia[i])]), T[t.ta[i]]);
-        float b = fmul(fmul(t.sb[i], z[pad(t.ib[i])]), T[t.tb[i]]);
-        y[pad(i)] = fadd(a, b);
+__device__ __forceinline__ void cp_async16(void *smem, const void *gmem)
+{
+    unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                 :: "r"(s), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit()
+{
+    asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int K>
+__device__ __forceinline__ void cp_async_wait()
+{
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(K));
+}
+
+// one radix-2 butterfly on (c, s)-pairs lo and hi with twiddle w
+__device__ __forceinline__ void bfly(float2 &lo, float2 &hi, float2 w)
+{
+    float r0 = fsub(hi.x, lo.x), r1 = fsub(hi.y, lo.y);
+    hi = make_float2(fadd(hi.x, lo.x), fadd(hi.y, lo.y));
+    lo = make_float2(fadd(fmul(r1, w.y), fmul(r0, w.x)),
+                     fsub(fmul(r1, w.x), fmul(r0, w.y)));
+}
+
+template <int LOGN>
+struct Cfg {
+    static constexpr int N = 1 << LOGN, N2 = N >> 1, N4 = N >> 2;
+    static constexpr int N8 = N >> 3;
+    static constexpr int G = N <= 2048 ? 2048 / N : 1;   // rows a warp
+    static constexpr int WARPS = N <= 2048 ? 8 : (N == 4096 ? 4 : 2);
+    static constexpr int NST = LOGN - 6;                  // radix-2 stages
+    static constexpr int TLEN = N + N4;
+    static constexpr int TWLEN = NST ? N2 - 32 : 0;
+    static constexpr int RB = G * N2;                     // floats a buffer
+    static constexpr int SMEM = (TLEN + TWLEN + WARPS * 3 * RB) * 4;
+    static constexpr int THREADS = WARPS * 32;
+};
+
+// twiddle offset (in pairs) of stage s: stage s' holds (N2 >> s') / 4,
+// so the stages before s hold N2/2 - N2/2^(s+1)
+template <int N2>
+__device__ __forceinline__ int tw_off(int s)
+{
+    return (N2 >> 1) - (N2 >> (s + 1));
+}
+
+// one radix-2 stage (P = N2 >> s) over a warp's rows
+template <int LOGN>
+__device__ __forceinline__ void pass2(float *y, const float2 *tw, int s,
+                                      int lane)
+{
+    using C = Cfg<LOGN>;
+    const int P = C::N2 >> s, nc = P >> 2;
+    const float2 *t = tw + tw_off<C::N2>(s);
+#pragma unroll 4
+    for (int u = lane; u < C::G * (C::N2 >> 2); u += 32) {
+        int r = u / (C::N2 >> 2), k = u % (C::N2 >> 2);
+        int b = k / nc, m = k % nc;
+        int lo = r * C::N2 + b * P + 2 * m, hi = lo + (P >> 1);
+        float2 vl = *(float2 *)(y + ys(lo)), vh = *(float2 *)(y + ys(hi));
+        bfly(vl, vh, t[m]);
+        *(float2 *)(y + ys(lo)) = vl;
+        *(float2 *)(y + ys(hi)) = vh;
     }
+}
+
+// two radix-2 stages s and s + 1 (P = N2 >> s) in one pass: an item
+// holds pairs q0, q0 + P/4, q0 + P/2, q0 + 3P/4 of one block, which the
+// two stages' butterflies touch and no other item does
+template <int LOGN>
+__device__ __forceinline__ void pass4(float *y, const float2 *tw, int s,
+                                      int lane)
+{
+    using C = Cfg<LOGN>;
+    const int P = C::N2 >> s, nm = P >> 3;
+    const float2 *t0 = tw + tw_off<C::N2>(s);
+    const float2 *t1 = tw + tw_off<C::N2>(s + 1);
+#pragma unroll 2
+    for (int u = lane; u < C::G * (C::N2 >> 3); u += 32) {
+        int r = u / (C::N2 >> 3), k = u % (C::N2 >> 3);
+        int b = k / nm, m = k % nm;
+        int q0 = r * C::N2 + b * P + 2 * m;
+        int q1 = q0 + (P >> 2), q2 = q0 + (P >> 1), q3 = q2 + (P >> 2);
+        float2 v0 = *(float2 *)(y + ys(q0)), v1 = *(float2 *)(y + ys(q1));
+        float2 v2 = *(float2 *)(y + ys(q2)), v3 = *(float2 *)(y + ys(q3));
+        bfly(v0, v2, t0[m]);
+        bfly(v1, v3, t0[m + nm]);
+        float2 w = t1[m];
+        bfly(v0, v1, w);
+        bfly(v2, v3, w);
+        *(float2 *)(y + ys(q0)) = v0;
+        *(float2 *)(y + ys(q1)) = v1;
+        *(float2 *)(y + ys(q2)) = v2;
+        *(float2 *)(y + ys(q3)) = v3;
+    }
+}
+
+template <int LOGN>
+__global__ void __launch_bounds__(Cfg<LOGN>::THREADS)
+imdct_rows(const float *__restrict__ spec,
+           const long long *__restrict__ rowoff, float *__restrict__ out,
+           long rows, const float *__restrict__ Tg,
+           const float *__restrict__ twg)
+{
+    using C = Cfg<LOGN>;
+    constexpr int N = C::N, N2 = C::N2, N4 = C::N4, N8 = C::N8, G = C::G;
+    extern __shared__ float4 sm4[];
+    float *sm = (float *)sm4;
+    float *T = sm;                                   // TLEN
+    float2 *tw = (float2 *)(sm + C::TLEN);           // TWLEN / 2 pairs
+    const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+    float *xb = sm + C::TLEN + C::TWLEN + wid * 3 * C::RB;  // 2 buffers
+    float *y = xb + 2 * C::RB;
+
+    for (int i = threadIdx.x; i < C::TLEN; i += C::THREADS)
+        T[i] = Tg[i];
+    for (int i = threadIdx.x; i < C::TWLEN; i += C::THREADS)
+        ((float *)tw)[i] = twg[i];
     __syncthreads();
 
-    // stage B: radix-2 cascade, P = n2 >> s; each butterfly owns its
-    // four floats, so a stage runs in place
-    for (int s = 0; s < t.nstages; s++) {
-        const int P = n2 >> s, half = P >> 1, nc = P >> 2;
-        const int32_t *tc = t.tc_all + t.stage_off[s];
-        for (int k = tid; k < (n2 >> 2); k += nt) {
-            int b = k / nc, m = k - b * nc;
-            int lo = b * P + 2 * m, hi = lo + half;
-            float h0 = y[pad(hi)], h1 = y[pad(hi + 1)];
-            float l0 = y[pad(lo)], l1 = y[pad(lo + 1)];
-            float r0 = fsub(h0, l0), r1 = fsub(h1, l1);
-            float c = T[tc[m]], sn = T[tc[m] + 1];
-            y[pad(hi)] = fadd(h0, l0);
-            y[pad(hi + 1)] = fadd(h1, l1);
-            y[pad(lo)] = fadd(fmul(r1, sn), fmul(r0, c));
-            y[pad(lo + 1)] = fsub(fmul(r1, c), fmul(r0, sn));
+    const long ngroups = (rows + G - 1) / G;
+    const long stride = (long)gridDim.x * C::WARPS;
+    long grp = (long)blockIdx.x * C::WARPS + wid;
+
+    // the row group's spectra into buffer dst, 16 bytes a copy
+    auto stage = [&](long g, float *dst) {
+#pragma unroll
+        for (int q = lane; q < G * (N2 >> 2); q += 32) {
+            int r = q / (N2 >> 2), j = q % (N2 >> 2);
+            long row = g * G + r;
+            if (row < rows)
+                cp_async16(dst + 4 * xs(q), spec + rowoff[row] + 4 * j);
         }
-        __syncthreads();
-    }
-    // the 32-point tails: block b's floats sit contiguous at 33b
-    for (int b = tid; b < (n2 >> 5); b += nt)
-        bf32(y + 33 * b);
-    __syncthreads();
+        cp_async_commit();
+    };
 
-    // stage C: bitreverse + half-angle rotation into z
-    for (int m = tid; m < n8; m += nt) {
-        int e0 = t.e0[m], e1 = t.e1[m];
-        float a0 = y[pad(e0)], a1 = y[pad(e0 + 1)];
-        float b0 = y[pad(e1)], b1 = y[pad(e1 + 1)];
-        float c = T[t.tC[m]], sn = T[t.tC[m] + 1];
-        float r0 = fsub(a1, b1), r1 = fadd(a0, b0);
-        float r2 = fadd(fmul(r1, c), fmul(r0, sn));
-        float r3 = fsub(fmul(r1, sn), fmul(r0, c));
-        float r0h = fmul(0.5f, fadd(a1, b1));
-        float r1h = fmul(0.5f, fsub(a0, b0));
-        int up = n4 + 2 * (n8 - 1 - m);
-        z[pad(2 * m)] = fadd(r0h, r2);
-        z[pad(2 * m + 1)] = fadd(r1h, r3);
-        z[pad(up)] = fsub(r0h, r2);
-        z[pad(up + 1)] = fsub(r3, r1h);
-    }
-    __syncthreads();
+    if (grp < ngroups)
+        stage(grp, xb);
+    for (int buf = 0; grp < ngroups; grp += stride, buf ^= 1) {
+        if (grp + stride < ngroups)
+            stage(grp + stride, xb + (buf ^ 1) * C::RB);
+        else
+            cp_async_commit();                  // an empty group
+        cp_async_wait<1>();
+        __syncwarp();
+        const float *x = xb + buf * C::RB;
 
-    // stage D: final rotation + symmetric expansion (vorbisnative.c
-    // :1373-1386: o reads a and b reversed in its first and third
-    // quarters)
-    for (int i = tid; i < n4; i += nt) {
-        float z0 = z[pad(2 * i)], z1 = z[pad(2 * i + 1)];
-        float c = T[t.tD[i]], sn = T[t.tD[i] + 1];
-        float a = fsub(fmul(z0, sn), fmul(z1, c));
-        float b = -fadd(fmul(z0, c), fmul(z1, sn));
-        o[n4 - 1 - i] = a;
-        o[n4 + i] = -a;
-        o[n2 + n4 - 1 - i] = b;
-        o[n2 + n4 + i] = b;
+        // stage A: item (r, t) reads the 8 floats at B = N2 - 8 - 8t and
+        // writes y[N4 - 4(t+1) .. +3] (loop 1, odd inputs) and
+        // y[N4 + 4t .. +3] (loop 2, even inputs)
+#pragma unroll 4
+        for (int u = lane; u < G * (N2 >> 3); u += 32) {
+            int r = u / (N2 >> 3), t = u % (N2 >> 3);
+            int q = r * (N2 >> 2) + (N2 >> 2) - 2 - 2 * t;
+            float4 lo4 = *(const float4 *)(x + 4 * xs(q));
+            float4 hi4 = *(const float4 *)(x + 4 * xs(q + 1));
+            float x0 = lo4.x, x1 = lo4.y, x2 = lo4.z, x3 = lo4.w;
+            float x4 = hi4.x, x5 = hi4.y, x6 = hi4.z, x7 = hi4.w;
+            float4 t1 = *(const float4 *)(T + N4 + 4 * t);
+            float4 t2 = *(const float4 *)(T + N4 - 4 * (t + 1));
+            float4 o1, o2;
+            o1.x = fadd(fmul(-x3, t1.w), fmul(-x1, t1.z));
+            o1.y = fadd(fmul(x1, t1.w), fmul(-x3, t1.z));
+            o1.z = fadd(fmul(-x7, t1.y), fmul(-x5, t1.x));
+            o1.w = fadd(fmul(x5, t1.y), fmul(-x7, t1.x));
+            o2.x = fadd(fmul(x4, t2.w), fmul(x6, t2.z));
+            o2.y = fadd(fmul(x4, t2.z), fmul(-x6, t2.w));
+            o2.z = fadd(fmul(x0, t2.y), fmul(x2, t2.x));
+            o2.w = fadd(fmul(x0, t2.x), fmul(-x2, t2.y));
+            *(float4 *)(y + ys(r * N2 + N4 - 4 * (t + 1))) = o1;
+            *(float4 *)(y + ys(r * N2 + N4 + 4 * t)) = o2;
+        }
+        __syncwarp();
+
+        // stage B: radix-2 stages P = N2 .. 64, two a pass
+        int s = 0;
+        for (; s + 1 < C::NST; s += 2) {
+            pass4<LOGN>(y, tw, s, lane);
+            __syncwarp();
+        }
+        if (s < C::NST) {
+            pass2<LOGN>(y, tw, s, lane);
+            __syncwarp();
+        }
+
+        // the 32-point tails: one 32-float chunk a lane, in registers
+#pragma unroll 1
+        for (int c = lane; c < G * (N2 >> 5); c += 32) {
+            float v[32];
+            float4 *p = (float4 *)(y + 32 * c);
+#pragma unroll
+            for (int k = 0; k < 8; k++) {
+                float4 w = p[k ^ (c & 7)];
+                v[4 * k] = w.x; v[4 * k + 1] = w.y;
+                v[4 * k + 2] = w.z; v[4 * k + 3] = w.w;
+            }
+            bf32(v);
+#pragma unroll
+            for (int k = 0; k < 8; k++)
+                p[k ^ (c & 7)] = make_float4(v[4 * k], v[4 * k + 1],
+                                             v[4 * k + 2], v[4 * k + 3]);
+        }
+        __syncwarp();
+
+        // stages C and D: item (r, v) takes m = 4v .. 4v+3; stage C's m
+        // gives stage D's pairs m and N4-1-m, kept in registers
+#pragma unroll 1
+        for (int u = lane; u < G * (N8 >> 2); u += 32) {
+            int r = u / (N8 >> 2), v = u % (N8 >> 2);
+            long row = grp * G + r;
+            float4 tc0 = *(const float4 *)(T + N + 8 * v);
+            float4 tc1 = *(const float4 *)(T + N + 8 * v + 4);
+            float4 td0 = *(const float4 *)(T + N2 + 8 * v);
+            float4 td1 = *(const float4 *)(T + N2 + 8 * v + 4);
+            float4 tr0 = *(const float4 *)(T + N - 8 - 8 * v);
+            float4 tr1 = *(const float4 *)(T + N - 4 - 8 * v);
+            float cC[4] = {tc0.x, tc0.z, tc1.x, tc1.z};
+            float sC[4] = {tc0.y, tc0.w, tc1.y, tc1.w};
+            float cD[4] = {td0.x, td0.z, td1.x, td1.z};
+            float sD[4] = {td0.y, td0.w, td1.y, td1.w};
+            float cR[4] = {tr1.z, tr1.x, tr0.z, tr0.x};  // pair N4-1-m
+            float sR[4] = {tr1.w, tr1.y, tr0.w, tr0.y};
+            float a[4], b[4], a2[4], b2[4];
+#pragma unroll
+            for (int j = 0; j < 4; j++) {
+                int m = 4 * v + j;
+                int e1 = (int)(__brev((unsigned)m) >> (33 - LOGN));
+                int e0 = ((~e1) & (N2 - 1)) - 1;
+                float2 A = *(const float2 *)(y + ys(r * N2 + e0));
+                float2 B = *(const float2 *)(y + ys(r * N2 + e1));
+                float a0 = A.x, a1 = A.y, b0 = B.x, b1 = B.y;
+                float r0 = fsub(a1, b1), r1 = fadd(a0, b0);
+                float r2 = fadd(fmul(r1, cC[j]), fmul(r0, sC[j]));
+                float r3 = fsub(fmul(r1, sC[j]), fmul(r0, cC[j]));
+                float r0h = fmul(0.5f, fadd(a1, b1));
+                float r1h = fmul(0.5f, fsub(a0, b0));
+                // pair m
+                float z0 = fadd(r0h, r2), z1 = fadd(r1h, r3);
+                a[j] = fsub(fmul(z0, sD[j]), fmul(z1, cD[j]));
+                b[j] = -fadd(fmul(z0, cD[j]), fmul(z1, sD[j]));
+                // pair N4-1-m
+                z0 = fsub(r0h, r2);
+                z1 = fsub(r3, r1h);
+                a2[j] = fsub(fmul(z0, sR[j]), fmul(z1, cR[j]));
+                b2[j] = -fadd(fmul(z0, cR[j]), fmul(z1, sR[j]));
+            }
+            if (row < rows) {
+                float4 *o = (float4 *)(out + row * (long)N);
+                int q = v;                       // float4 index of m = 4v
+                // pair i = m: o[N4-1-m] = a, o[N4+m] = -a,
+                // o[N2+N4-1-m] = b, o[N2+N4+m] = b
+                o[N4 / 4 - 1 - q] = make_float4(a[3], a[2], a[1], a[0]);
+                o[N4 / 4 + q] = make_float4(-a[0], -a[1], -a[2], -a[3]);
+                o[(N2 + N4) / 4 - 1 - q] = make_float4(b[3], b[2], b[1],
+                                                       b[0]);
+                o[(N2 + N4) / 4 + q] = make_float4(b[0], b[1], b[2], b[3]);
+                // pair i = N4-1-m: o[m] = a2, o[N2-1-m] = -a2,
+                // o[N2+m] = b2, o[N-1-m] = b2
+                o[q] = make_float4(a2[0], a2[1], a2[2], a2[3]);
+                o[N2 / 4 - 1 - q] = make_float4(-a2[3], -a2[2], -a2[1],
+                                                -a2[0]);
+                o[N2 / 4 + q] = make_float4(b2[0], b2[1], b2[2], b2[3]);
+                o[N / 4 - 1 - q] = make_float4(b2[3], b2[2], b2[1], b2[0]);
+            }
+        }
+        __syncwarp();
     }
+    cp_async_wait<0>();
+}
+
+struct Launch {
+    int sms = 0, per_sm = 0;
+};
+
+template <int LOGN>
+int launch(const float *spec, const long long *rowoff, float *out,
+           long rows, const float *T, const float *tw, cudaStream_t st)
+{
+    using C = Cfg<LOGN>;
+    static Launch cache[64];                  // by device ordinal
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess)
+        return (int)e;
+    if (dev < 0 || dev >= 64)
+        return (int)cudaErrorInvalidDevice;
+    Launch &L = cache[dev];
+    if (L.per_sm == 0) {
+        e = cudaFuncSetAttribute(imdct_rows<LOGN>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 C::SMEM);
+        if (e == cudaSuccess)
+            e = cudaDeviceGetAttribute(&L.sms, cudaDevAttrMultiProcessorCount,
+                                       dev);
+        if (e == cudaSuccess)
+            e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &L.per_sm, imdct_rows<LOGN>, C::THREADS, C::SMEM);
+        if (e != cudaSuccess)
+            return (int)e;
+        if (L.per_sm < 1)
+            return (int)cudaErrorLaunchOutOfResources;
+    }
+    long groups = (rows + C::G - 1) / C::G;
+    long want = (groups + C::WARPS - 1) / C::WARPS;
+    long cap = (long)L.sms * L.per_sm;
+    unsigned grid = (unsigned)(want < cap ? want : cap);
+    imdct_rows<LOGN><<<grid, C::THREADS, C::SMEM, st>>>(spec, rowoff, out,
+                                                        rows, T, tw);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int vtt_imdct(const float *spec, float *out, long rows, int n,
-                         int nstages, const float *T, const float *sa,
-                         const float *sb, const int32_t *ia,
-                         const int32_t *ib, const int32_t *ta,
-                         const int32_t *tb, const int32_t *tc_all,
-                         const int32_t *stage_off, const int32_t *e0,
-                         const int32_t *e1, const int32_t *tC,
-                         const int32_t *tD, void *stream)
+// spec: the spectra; rowoff[r]: element offset of row r's n/2 floats in
+// spec (a multiple of 4); out: (rows, n) blocks; T: the trig table (n +
+// n/4 floats); tw: stage B's twiddle pairs (n/2 - 32 floats, none at
+// n = 64).  Returns a cudaError_t.
+extern "C" int vtt_imdct(const float *spec, const long long *rowoff,
+                         float *out, long rows, int n, const float *T,
+                         const float *tw, void *stream)
 {
-    if (n < 64 || n > 8192 || (n & (n - 1)) || rows < 0
-        || rows > 0x7fffffffL)
+    if (rows < 0 || rows > 0x7fffffffL)
         return (int)cudaErrorInvalidValue;
     if (rows == 0)
         return 0;
-    ImdctTabs t = {T, sa, sb, ia, ib, ta, tb, tc_all, stage_off,
-                   e0, e1, tC, tD, n, nstages};
-    int threads = n >> 2;
-    if (threads < 32)
-        threads = 32;
-    if (threads > 256)
-        threads = 256;
-    size_t smem = 2 * (size_t)((n >> 1) + (n >> 6)) * sizeof(float);
-    imdct_rows<<<(unsigned)rows, threads, smem, (cudaStream_t)stream>>>(
-        spec, out, t);
-    return (int)cudaGetLastError();
+    cudaStream_t st = (cudaStream_t)stream;
+    switch (n) {
+    case 64: return launch<6>(spec, rowoff, out, rows, T, tw, st);
+    case 128: return launch<7>(spec, rowoff, out, rows, T, tw, st);
+    case 256: return launch<8>(spec, rowoff, out, rows, T, tw, st);
+    case 512: return launch<9>(spec, rowoff, out, rows, T, tw, st);
+    case 1024: return launch<10>(spec, rowoff, out, rows, T, tw, st);
+    case 2048: return launch<11>(spec, rowoff, out, rows, T, tw, st);
+    case 4096: return launch<12>(spec, rowoff, out, rows, T, tw, st);
+    case 8192: return launch<13>(spec, rowoff, out, rows, T, tw, st);
+    }
+    return (int)cudaErrorInvalidValue;
 }

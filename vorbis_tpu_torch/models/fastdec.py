@@ -27,21 +27,27 @@ it where the text is the same.  The port's differences:
 - the host C is the port's own (csrc/host_decode.c through native.py and
   codec/nativeparse.py), with no numpy fall-back for the IMDCT or the
   lap;
-- the device stage is the hand-written CUDA IMDCT (ops/imdct_cuda.py,
-  csrc/imdct.cu) on a CUDA device, its plain PyTorch version on the CPU:
-  per wave one host gather into pinned memory, one H2D copy, one launch
-  on the current stream and an asynchronous D2H copy into pinned memory,
-  every stream's waves dispatched before any is drained;
+- the device stage is two hand-written CUDA kernels on a CUDA device,
+  their plain PyTorch versions on the CPU (`_decode_jobs`): one H2D copy
+  of every stream's spectra, one IMDCT launch a blocksize for the whole
+  batch (ops/imdct_cuda.py, csrc/imdct.cu, rows read through a row
+  table), one launch of the windowed lap with the granulepos trim
+  (ops/lap_cuda.py, csrc/lap.cu), and a D2H copy of each stream's
+  trimmed (ch, N) PCM into pinned memory;
 - the entry points run on the card unless the caller asks otherwise:
   device="cuda" (the default, or True, or a CUDA torch.device) runs the
-  IMDCT on the card and raises without one; device="cpu" runs the same
-  staged path with the plain IMDCT on the CPU; device=False is the fused
-  host-C drain (vn_decode_stream), the JAX package's default;
+  IMDCT and the lap on the card and raises without one; device="cpu"
+  runs the same staged path with the plain versions on the CPU;
+  device=False is the fused host-C drain (vn_decode_stream), the JAX
+  package's default;
 - `_render_curves` (which nothing calls) and `FastStreamDecoder` (whose
   caller, vorbis_tpu/vorbisfile.py, is not ported) stay behind.
 """
 
 from __future__ import annotations
+
+import time
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -52,6 +58,7 @@ from ..codec.nativeparse import (StreamParseTables, decode_stream,
                                  parse_packet_arrays, parse_packets, scan_W)
 from ..native import decode_library, imdct_batch, ogg_scan
 from ..ops.imdct_cuda import imdct
+from ..ops.lap_cuda import LapPlan, lap
 from ..ops.window import hybrid_window
 
 _WIN_CACHE = {}
@@ -133,83 +140,9 @@ class FastDecoder:
             ptr(wcat), ptr(np.ascontiguousarray(win_off)),
             ptr(out), C.c_long(outlen))
 
-    def _device_imdct_dispatch(self, spec, W, bs0, bs1, device,
-                               waves=None):
-        """Dispatch the IMDCT of both W groups to `device` (async on a
-        card); returns a pending handle for _device_imdct_drain.
-        Dispatching EVERY stream's waves before draining any is what
-        lets the multi-stream device batch overlap all transfers and
-        compute (decode_ogg_fast_batch(device="cuda")).  On a card a
-        wave is one gather into pinned host memory, one H2D copy, one
-        kernel launch on the current stream and one asynchronous D2H
-        copy into pinned memory; on the CPU it is the plain IMDCT.  A
-        `waves` list receives each card wave's (n, rows, timing events
-        before the H2D copy, after it, after the kernel, after the
-        D2H)."""
-        cuda = device.type == "cuda"
-        pending = []
-        for Wv in (0, 1):
-            idx = np.where(W == Wv)[0]
-            if not len(idx):
-                continue
-            n = bs1 if Wv else bs0
-            G = len(idx) * spec.shape[1]
-            if not cuda:
-                stack = np.ascontiguousarray(
-                    spec[idx][:, :, :n // 2].reshape(-1, n // 2))
-                pending.append((Wv, idx, n, G,
-                                (imdct(torch.from_numpy(stack), n), None)))
-                continue
-            host = torch.empty((G, n // 2), dtype=torch.float32,
-                               pin_memory=True)
-            np.take(spec[:, :, :n // 2], idx, axis=0,
-                    out=host.numpy().reshape(len(idx), -1, n // 2))
-            timed = waves is not None
-            ev = [torch.cuda.Event(enable_timing=timed)
-                  for _ in range(4 if timed else 1)]
-            if timed:
-                ev[0].record()
-            rows = host.to(device, non_blocking=True)
-            if timed:
-                ev[1].record()
-            blocks = imdct(rows, n)
-            if timed:
-                ev[2].record()
-            out = torch.empty((G, n), dtype=torch.float32, pin_memory=True)
-            out.copy_(blocks, non_blocking=True)
-            ev[-1].record()
-            if timed:
-                waves.append((n, G, ev))
-            pending.append((Wv, idx, n, G, (out, ev[-1])))
-        return pending
-
-    @staticmethod
-    def _device_imdct_drain(pending, npkt):
-        """Collect dispatched IMDCT waves into the `groups`/`gidx`
-        layout the lap stage consumes."""
-        groups = {}
-        gidx = np.zeros(npkt, np.int32)
-        for Wv, idx, n, G, (out, done) in pending:
-            if done is not None:
-                done.synchronize()
-            blocks = np.ascontiguousarray(
-                out.numpy().reshape(len(idx), -1, n))
-            groups[Wv] = blocks
-            gidx[idx] = np.arange(len(idx), dtype=np.int32)
-        return groups, gidx
-
-    def _device_imdct(self, spec, W, bs0, bs1, device):
-        """IMDCT on `device` for both W groups, batched over packets
-        (bit-exact with the host C: csrc/imdct.cu and the plain version
-        keep the reference op order).  Returns the same `groups`/`gidx`
-        layout the host-C path produces."""
-        return self._device_imdct_drain(
-            self._device_imdct_dispatch(spec, W, bs0, bs1, device), len(W))
-
     def _lap_and_trim(self, W, groups, gidx, gps, eoss):
         """Windowed scatter-add lapping + granulepos trim from the
-        per-group IMDCT blocks (shared by the staged single-stream
-        path and the multi-stream device batch)."""
+        per-group IMDCT blocks of the host C (vn_lap_add)."""
         vi = self.vi
         ch = vi.channels
         bs0, bs1 = vi.blocksizes
@@ -241,8 +174,9 @@ class FastDecoder:
     def decode_packets(self, pkts, device=None) -> np.ndarray:
         """pkts: list of (packet_bytes, granulepos_or_None, eos).
         Returns (ch, N) float32 PCM, trimmed exactly like the scalar
-        blockin/granulepos state machine.  device=None runs the IMDCT in
-        the host C; a torch.device runs it there (see _device_imdct)."""
+        blockin/granulepos state machine.  device=None runs the IMDCT and
+        the lap in the host C; a torch.device runs them there, as the
+        entry points do (_decode_jobs)."""
         vi = self.vi
         ch = vi.channels
         bs0, bs1 = vi.blocksizes
@@ -262,25 +196,26 @@ class FastDecoder:
         # coupling -> floor1_inverse2); `res` IS the final spectrum
         spec = res            # (npkt, ch, n2max) float32
 
-        # ---- IMDCT per W group (host C bit-exact kernel, or the
-        # device's: the CUDA kernel or its plain version) ----
+        # ---- on a device: the batch path's kernels (or their plain
+        # versions) ----
         if device is not None:
-            groups, gidx = self._device_imdct(spec, W, bs0, bs1, device)
-        else:
-            groups = {}          # Wv -> (blocks (G, ch, n), group idx)
-            gidx = np.zeros(npkt, np.int32)
-            for Wv in (0, 1):
-                idx = np.where(W == Wv)[0]
-                if not len(idx):
-                    continue
-                n = bs1 if Wv else bs0
-                stack = np.ascontiguousarray(
-                    spec[idx][:, :, :n // 2].reshape(-1, n // 2))
-                blocks = imdct_batch(stack, n)
-                blocks = np.ascontiguousarray(
-                    blocks.reshape(len(idx), ch, n))
-                groups[Wv] = blocks
-                gidx[idx] = np.arange(len(idx), dtype=np.int32)
+            return _decode_jobs([(self, W, spec, gps, eoss)], device)[0][0]
+
+        # ---- IMDCT per W group (host C bit-exact kernel) ----
+        groups = {}          # Wv -> (blocks (G, ch, n), group idx)
+        gidx = np.zeros(npkt, np.int32)
+        for Wv in (0, 1):
+            idx = np.where(W == Wv)[0]
+            if not len(idx):
+                continue
+            n = bs1 if Wv else bs0
+            stack = np.ascontiguousarray(
+                spec[idx][:, :, :n // 2].reshape(-1, n // 2))
+            blocks = imdct_batch(stack, n)
+            blocks = np.ascontiguousarray(
+                blocks.reshape(len(idx), ch, n))
+            groups[Wv] = blocks
+            gidx[idx] = np.arange(len(idx), dtype=np.int32)
 
         return self._lap_and_trim(W, groups, gidx, gps, eoss)
 
@@ -423,9 +358,10 @@ def decode_ogg_fast(data: bytes, device="cuda"):
     FastDecodeUnsupported on a bad packet.
 
     device="cuda" (the default; True and a CUDA torch.device alike) runs
-    the IMDCT stage on the card: the page walk and packet parse in the
-    host C, the IMDCT in csrc/imdct.cu, the lap and trim in the host C.
-    device="cpu" runs the same stages with the plain IMDCT on the CPU.
+    the device stages on the card: the page walk and packet parse in the
+    host C, the IMDCT in csrc/imdct.cu, the lap and trim in csrc/lap.cu,
+    the PCM back in pinned memory.  device="cpu" runs the same stages
+    with the plain versions on the CPU.
     device=False is the FUSED host-C drain: vn_ogg_scan (page walk ->
     packet arrays) + vn_decode_stream (parse/IMDCT/lap in one chunked
     call), the JAX package's default."""
@@ -450,30 +386,190 @@ def decode_ogg_fast(data: bytes, device="cuda"):
     return dec.decode_packets(pkts[3:], device=dev), dec.vi
 
 
-def _decode_jobs(jobs, device):
-    """The device half of the staged decode: every stream's IMDCT waves
-    are dispatched before any stream's lap/trim drains."""
-    pendings = [
-        dec._device_imdct_dispatch(res, W, *dec.vi.blocksizes, device)
-        for dec, W, res, _, _ in jobs]
-    outs = []
-    for (dec, W, res, gp, eos), pend in zip(jobs, pendings):
-        if not len(W):
-            outs.append((np.zeros((dec.vi.channels, 0), np.float32),
-                         dec.vi))
-            continue
-        groups, gidx = dec._device_imdct_drain(pend, len(W))
-        outs.append((dec._lap_and_trim(W, groups, gidx, gp, eos),
-                     dec.vi))
-    return outs
+def _lap_geometry(W, bs0, bs1, gps, eoss):
+    """One stream's lap in the coordinates of _lap_and_trim and
+    decode_arrays (the earliest block start at 0): each packet's
+    blocksize, block start and window id (lW * 4 + W * 2 + nW, as
+    _win_table orders them), and the trim [lo, hi)."""
+    npkt = len(W)
+    ns = np.where(W == 1, bs1, bs0).astype(np.int64)
+    adv = np.zeros(npkt, np.int64)
+    adv[1:] = ns[:-1] // 4 + ns[1:] // 4
+    centers = np.cumsum(adv)
+    starts = centers - ns // 2
+    base = starts.min()
+    lW = np.concatenate([[0], W[:-1]])
+    nW = np.concatenate([W[1:], [W[-1]]])
+    winid = (lW * 4 + W * 2 + nW).astype(np.int64)
+    gp_arr = (gps.astype(np.int64) if isinstance(gps, np.ndarray) else
+              np.asarray([-1 if g is None else int(g) for g in gps],
+                         np.int64))
+    lo, hi = FastDecoder._trim_range(centers, base, gp_arr,
+                                     np.asarray(eoss, bool))
+    return ns, starts - base, winid, lo, hi
+
+
+@lru_cache(maxsize=None)
+def _batch_windows(pairs, device):
+    """The hybrid windows of each (bs0, bs1) of `pairs`, one _win_table
+    after another, on `device`."""
+    return torch.from_numpy(np.concatenate(
+        [_win_table(*bs)[0] for bs in pairs])).to(device)
+
+
+class _BatchPlan:
+    """The device stages' layout of a batch of jobs, made on the host:
+    `rows[n]` the (stream, packet indices) of blocksize n in order;
+    `group[n]` its first element in the blocks buffer and its row count
+    (blocksize groups one after another; in a group each stream's packets
+    in order, a packet's channels on consecutive rows); `nblocks` the
+    buffer's floats; `pairs` the batch's (bs0, bs1) in the order of the
+    window buffer (_batch_windows); `plan` the lap (ops/lap_cuda.py)."""
+
+    def __init__(self, jobs):
+        pairs, wbase, geo, rows = [], {}, [], {}
+        for k, (dec, W, _, gp, eos) in enumerate(jobs):
+            bs = tuple(dec.vi.blocksizes)
+            if bs not in wbase:
+                wbase[bs] = sum(len(_win_table(*p)[0]) for p in pairs)
+                pairs.append(bs)
+            if not len(W):
+                geo.append(None)
+                continue
+            geo.append(_lap_geometry(W, *bs, gp, eos))
+            for n in np.unique(geo[-1][0]):
+                rows.setdefault(int(n), []).append(
+                    (k, np.flatnonzero(geo[-1][0] == n)))
+        blk = [np.zeros(len(j[1]), np.int64) for j in jobs]
+        group, base = {}, 0
+        for n in sorted(rows):
+            r0 = 0
+            for k, idx in rows[n]:
+                ch = jobs[k][0].vi.channels
+                blk[k][idx] = base + (r0 + np.arange(len(idx)) * ch) * n
+                r0 += len(idx) * ch
+            group[n] = (base, r0)
+            base += r0 * n
+        streams = []
+        for k, (dec, *_rest) in enumerate(jobs):
+            ch = dec.vi.channels
+            if geo[k] is None:
+                e = np.zeros(0, np.int64)
+                streams.append((ch, e, e, e, e, 0, 0))
+                continue
+            ns, pos, winid, lo, hi = geo[k]
+            bs = tuple(dec.vi.blocksizes)
+            streams.append((ch, ns, pos, blk[k],
+                            wbase[bs] + _win_table(*bs)[1][winid], lo, hi))
+        self.rows, self.group, self.nblocks = rows, group, base
+        self.pairs = tuple(pairs)
+        self.plan = LapPlan(streams)
+
+
+def _decode_jobs(jobs, device, profile=None):
+    """The device half of the staged decode, for every stream of a batch
+    at once: each stream's padded (npkt, ch, n2max) spectra to `device`
+    as the parse left them, one IMDCT launch a blocksize reading its rows
+    there through a row table (the blocks of all streams in one buffer),
+    one lap launch that writes every stream's trimmed PCM, then each
+    stream's (ch, N) PCM to the host (pinned memory on a card).  On the
+    CPU the same plan runs the plain versions.  Returns [(pcm, vi)] in
+    job order.  A `profile` dict receives the host seconds of the plan
+    and the row tables, the rows a blocksize, the lap's arguments
+    (blocks, windows, plan, tables) and, on a card, the device ms of the
+    H2D copies, each IMDCT launch, the lap and the D2H copies.
+
+    Copying the spectra as they are moves up to n2max / (n/2) times the
+    rows' bytes (8x for a short block at 256 / 2048); packing each
+    blocksize's rows on the host first (np.take into pinned memory) moves
+    only the rows but costs a host copy of all of them: on an H100 the
+    copy in place took 0.0712 s against 0.1699 s for the device half of
+    16 x 60 s of tonal streams and 0.1527 s against 0.1757 s on the click
+    train, whose rows are mostly short (chip_smoke.py phase 6)."""
+    cuda = device.type == "cuda"
+    t0 = time.perf_counter()
+    bp = _BatchPlan(jobs)
+    plan, rows, group = bp.plan, bp.rows, bp.group
+    t_plan = time.perf_counter() - t0
+
+    # each row's offset in the spectra of all streams, one after another
+    t0 = time.perf_counter()
+    sbase = np.cumsum([0] + [res.size for _, _, res, _, _ in jobs])
+    offs = {n: np.concatenate([
+        sbase[k] + ((idx[:, None] * jobs[k][0].vi.channels
+                     + np.arange(jobs[k][0].vi.channels))
+                    * jobs[k][2].shape[2]).reshape(-1)
+        for k, idx in grp]) for n, grp in rows.items()}
+    # the row tables and the lap's tables in one copy
+    tabs = np.concatenate([offs[n] for n in sorted(rows)]
+                          + [plan.pk.reshape(-1), plan.st.reshape(-1)])
+    t_tabs = time.perf_counter() - t0
+
+    timed = cuda and profile is not None
+    ev = []
+
+    def mark():
+        if timed:
+            ev.append(torch.cuda.Event(enable_timing=True))
+            ev[-1].record()
+
+    mark()
+    if cuda:
+        tabs_h = torch.empty(len(tabs), dtype=torch.int64, pin_memory=True)
+        tabs_h.numpy()[:] = tabs
+        tabs_d = tabs_h.to(device, non_blocking=True)
+    else:
+        tabs_d = torch.from_numpy(tabs)
+    # each stream's spectra straight from the parse's (pageable) buffer
+    # into its place on the device
+    spec = torch.empty(int(sbase[-1]), dtype=torch.float32, device=device)
+    for k, (_, _, res, _, _) in enumerate(jobs):
+        spec[sbase[k]:sbase[k + 1]].copy_(torch.from_numpy(
+            np.ascontiguousarray(res).reshape(-1)), non_blocking=True)
+    mark()
+    blocks = torch.empty(bp.nblocks, dtype=torch.float32, device=device)
+    t = 0
+    for n in sorted(rows):
+        b0, R = group[n]
+        imdct(spec, n, rows=offs[n],
+              out=blocks[b0:b0 + R * n].view(R, n),
+              rows_dev=tabs_d[t:t + R])
+        t += R
+        mark()
+    npk = plan.pk.size
+    wins = _batch_windows(bp.pairs, device)
+    lap_tabs = (tabs_d[t:t + npk], tabs_d[t + npk:])
+    out = lap(blocks, wins, plan, tables=lap_tabs)
+    mark()
+    pcm = []
+    for k in range(len(jobs)):
+        v = plan.out_view(out, k)
+        if cuda:
+            h = torch.empty(v.shape, dtype=torch.float32, pin_memory=True)
+            h.copy_(v, non_blocking=True)
+            v = h
+        pcm.append(v)
+    if cuda:
+        done = torch.cuda.Event()
+        done.record()
+        mark()
+        done.synchronize()
+    if profile is not None:
+        profile.update(plan=t_plan, tables=t_tabs, rows={
+            n: group[n][1] for n in sorted(rows)},
+            lap_args=(blocks, wins, plan, lap_tabs))
+        if timed:
+            ms = [a.elapsed_time(b) for a, b in zip(ev, ev[1:])]
+            profile.update(h2d_ms=ms[0], imdct_ms=ms[1:-2], lap_ms=ms[-2],
+                           d2h_ms=ms[-1])
+    return [(p.numpy(), dec.vi) for p, (dec, *_r) in zip(pcm, jobs)]
 
 
 def _decode_batch_device(streams, device):
     """Multi-stream DEVICE decode: every stream's packets are parsed
-    natively, then ALL streams' spectra ride one IMDCT dispatch wave
-    on the device (transfers and compute of different streams
-    overlap, like encode_batch's chip-filling batches) before any
-    stream's lap/trim drains.  Bit-exact with the per-stream paths."""
+    natively, then ALL streams ride one IMDCT launch a blocksize and one
+    lap launch on the device (_decode_jobs).  Bit-exact with the
+    per-stream paths."""
     jobs = [_scan_job(data) for data in streams]
     if any(j is None for j in jobs):
         return [decode_ogg_fast(s, device=device) for s in streams]
@@ -484,8 +580,8 @@ def decode_ogg_fast_batch(streams, threads=None, device="cuda"):
     """Decode MANY independent Ogg streams concurrently.
 
     device="cuda" (the default) or "cpu" routes ALL streams' packets
-    through one IMDCT dispatch wave on that device
-    (_decode_batch_device).  device=False runs each stream through two
+    through one IMDCT launch a blocksize and one lap launch on that
+    device (_decode_batch_device).  device=False runs each stream through two
     whole-stream host C calls (vn_ogg_scan + vn_decode_stream) that
     release the GIL for their entire duration, so a thread pool scales
     the drain across host cores the way the reference would need one

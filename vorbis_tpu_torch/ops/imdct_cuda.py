@@ -2,21 +2,25 @@
 jitted `imdct(s, n, xp=jnp)` of vorbis_tpu/models/fastdec.py:210, the
 transform of vorbis_tpu/ops/mdct.py:261).
 
-`csrc/imdct.cu` runs libvorbis's mdct_backward on (R, n/2) float32 rows,
-one thread block a row with the working vectors in shared memory, every
-product and sum an explicit round-to-nearest intrinsic in the C's
+`csrc/imdct.cu` runs libvorbis's mdct_backward on float32 rows read
+through a row table (each row's n/2 floats at an element offset of one
+spectra buffer), persistent CTAs whose warps own whole rows, the trig
+table and stage B's twiddles staged once a CTA in shared memory, the
+next rows' spectra staged by cp.async while the current ones compute,
+every product and sum an explicit round-to-nearest intrinsic in the C's
 operand order (nvcc -fmad=false as well): its output equals the host C
 (`native.imdct_batch`, vn_imdct_batch) and the numpy `ops.mdct.imdct`
 bit for bit, at every blocksize 64-8192.  `imdct_plain` is the same
 transform in eager PyTorch: each op rounds once, so on the CPU it too
 equals the numpy transform bitwise, and the tests hold it there.
 
-`imdct(spec, n)` is the wrapper the decode path calls: on a CPU tensor
-it runs `imdct_plain`; on a CUDA tensor it launches the kernel or raises
-(no fall-back).  `imdct.launches` counts the kernel's launches and
-nothing else.  The library is compiled by nvcc at first use into
-build/vorbis_tpu_torch/ (keyed by a hash of the source and flags,
-vorbis_tpu_torch.native) and bound with ctypes.
+`imdct(spec, n)` -> (R, n) and `imdct(spec, n, rows=offsets, out=...)`
+are the wrapper's two forms: on a CPU tensor it runs `imdct_plain`; on a
+CUDA tensor it launches the kernel or raises (no fall-back).
+`imdct.launches` counts the kernel's launches and nothing else.  The
+library is compiled by nvcc at first use into build/vorbis_tpu_torch/
+(keyed by a hash of the source and flags, vorbis_tpu_torch.native) and
+bound with ctypes.
 """
 
 from __future__ import annotations
@@ -33,8 +37,6 @@ from .floor_cuda import NVCC_FLAGS, nvcc
 from .mdct import _bf32, _imdct_index_tables
 
 SOURCE = PKG / "csrc" / "imdct.cu"
-TABLE_NAMES = ("T", "sa", "sb", "ia", "ib", "ta", "tb", "tc_all",
-               "stage_off", "e0", "e1", "tC", "tD")
 
 
 def build() -> tuple[Path, str]:
@@ -49,9 +51,8 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()[0]))
     fn = lib.vtt_imdct
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_long]
-                   + [ctypes.c_int] * 2
-                   + [ctypes.c_void_p] * (len(TABLE_NAMES) + 1))
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_long, ctypes.c_int]
+                   + [ctypes.c_void_p] * 3)
     return lib
 
 
@@ -155,10 +156,13 @@ def imdct_plain(spec: torch.Tensor, n: int) -> torch.Tensor:
 
 
 class ImdctKernel:
-    """`self(spec, n)`: the IMDCT of (R, n/2) float32 rows -> (R, n).  On a
-    CPU tensor the plain version; on a CUDA tensor one launch of
-    csrc/imdct.cu on the current stream, or an exception.  `launches`
-    counts the kernel's launches (and nothing else)."""
+    """`self(spec, n)`: the IMDCT of (R, n/2) float32 rows -> (R, n);
+    `self(spec, n, rows=offsets, out=None)`: of the rows at the element
+    offsets `offsets` (an int64 numpy array, multiples of 4) of the 1-D
+    float32 `spec`, into `out` (R, n) when given.  On a CPU tensor the
+    plain version; on a CUDA tensor one launch of csrc/imdct.cu on the
+    current stream, or an exception.  `launches` counts the kernel's
+    launches (and nothing else)."""
 
     def __init__(self):
         self.launches = 0
@@ -166,46 +170,76 @@ class ImdctKernel:
     @staticmethod
     @lru_cache(maxsize=None)
     def tables(n: int, device: torch.device) -> dict:
-        """The kernel's tables for blocksize n on `device`, made once:
-        ops/mdct.py's, the stage-B trig indices concatenated with their
-        offsets, as float32 and int32."""
+        """The kernel's tables for blocksize n on `device`, made once: the
+        trig table T (n + n/4 floats) and stage B's twiddles, stage after
+        stage, (T[tc], T[tc + 1]) for each butterfly index m of a stage
+        (n/2 - 32 floats; one unused float at n = 64)."""
         tbl = _imdct_index_tables(n)
-        tcs = [np.asarray(tc, np.int32) for _, tc in tbl["stages"]]
-        offs = np.cumsum([0] + [len(tc) for tc in tcs])[:-1]
-        arrs = dict(
-            T=np.asarray(tbl["T"], np.float32),
-            sa=np.asarray(tbl["sa"], np.float32),
-            sb=np.asarray(tbl["sb"], np.float32),
-            tc_all=(np.concatenate(tcs) if tcs else np.zeros(1, np.int32)),
-            stage_off=np.asarray(offs if tcs else [0], np.int32))
-        for k in ("ia", "ib", "ta", "tb", "e0", "e1", "tC", "tD"):
-            arrs[k] = np.asarray(tbl[k], np.int32)
-        out = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-               for k, v in arrs.items()}
-        out["nstages"] = len(tcs)
-        return out
+        T = np.asarray(tbl["T"], np.float32)
+        tw = [np.stack([T[tc], T[tc + 1]], axis=1).reshape(-1)
+              for _, tc in tbl["stages"]]
+        arrs = dict(T=T, tw=(np.concatenate(tw) if tw
+                             else np.zeros(1, np.float32)))
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                for k, v in arrs.items()}
 
-    def __call__(self, spec: torch.Tensor, n: int) -> torch.Tensor:
+    def __call__(self, spec: torch.Tensor, n: int, rows=None, out=None,
+                 rows_dev=None) -> torch.Tensor:
+        """`rows_dev`, the offsets already on the card, saves their copy."""
+        _check_n(n)
+        n2 = n // 2
+        if rows is None:
+            if spec.dim() != 2 or spec.shape[1] != n2:
+                raise ValueError(f"imdct: spec must be (R, {n2}), got "
+                                 f"{tuple(spec.shape)}")
+            R = spec.shape[0]
+            offs = None
+        else:
+            offs = np.ascontiguousarray(rows, np.int64).reshape(-1)
+            R = len(offs)
+            if spec.dim() != 1:
+                raise ValueError("imdct: with rows, spec must be 1-D")
+            if R and (offs.min() < 0 or offs.max() + n2 > spec.numel()
+                      or (offs & 3).any()):
+                raise ValueError("imdct: row offsets must be multiples of "
+                                 "4 with every row inside spec")
         if spec.device.type == "cpu":
-            return imdct_plain(spec, n)
+            x = spec if offs is None else spec[
+                torch.from_numpy(offs)[:, None] + torch.arange(n2)]
+            got = imdct_plain(x, n)
+            if out is None:
+                return got
+            out.copy_(got)
+            return out
         if spec.device.type != "cuda":
             raise ValueError(f"imdct: unsupported device {spec.device}")
-        _check_n(n)
-        if spec.dtype != torch.float32 or spec.dim() != 2 \
-                or spec.shape[1] != n // 2:
-            raise ValueError(f"imdct: spec must be float32 (R, {n // 2}), "
-                             f"got {spec.dtype} {tuple(spec.shape)}")
-        if not spec.is_contiguous():
-            raise ValueError("imdct: spec is not contiguous")
-        R = spec.shape[0]
-        out = torch.empty((R, n), dtype=torch.float32, device=spec.device)
+        if spec.dtype != torch.float32 or not spec.is_contiguous():
+            raise ValueError(f"imdct: spec must be contiguous float32, got "
+                             f"{spec.dtype}")
+        if out is None:
+            out = torch.empty((R, n), dtype=torch.float32,
+                              device=spec.device)
+        elif (out.shape != (R, n) or out.dtype != torch.float32
+              or not out.is_contiguous() or out.device != spec.device
+              or out.data_ptr() % 16):
+            raise ValueError(f"imdct: out must be a 16-byte aligned "
+                             f"contiguous float32 ({R}, {n}) tensor on "
+                             f"{spec.device}")
         if R == 0:
             return out
+        if offs is None:
+            offs_dev = torch.arange(R, dtype=torch.int64,
+                                    device=spec.device) * n2
+        elif rows_dev is None:
+            offs_dev = torch.from_numpy(offs).to(spec.device)
+        else:
+            offs_dev = rows_dev
+        if spec.data_ptr() % 16:
+            raise ValueError("imdct: spec must be 16-byte aligned")
         tabs = self.tables(n, spec.device)
-        lib = load_library()
-        rc = lib.vtt_imdct(
-            spec.data_ptr(), out.data_ptr(), R, n, tabs["nstages"],
-            *(tabs[k].data_ptr() for k in TABLE_NAMES),
+        rc = load_library().vtt_imdct(
+            spec.data_ptr(), offs_dev.data_ptr(), out.data_ptr(), R, n,
+            tabs["T"].data_ptr(), tabs["tw"].data_ptr(),
             torch.cuda.current_stream(spec.device).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"imdct kernel launch failed: cudaError {rc}")
