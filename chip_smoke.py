@@ -131,7 +131,9 @@ Phases (any failure raises and the script exits non-zero):
      through a permuted row table and on the real spectra of 4d's stream
      0 (tonal, click train) read in place; the lap on
      tests/test_torch_lap.py's seeded streams at every blocksize, its
-     -0.0 and subnormal case and the host IMDCT blocks of those streams;
+     -0.0 and subnormal case, the seeded streams with tails and the spans
+     before the first and after the last center (the chunked decode's
+     lap) and the host IMDCT blocks of those streams;
      then the decode path: decode_ogg_fast_batch(device=True) of 4d's
      16 x 60 s tonal streams, click trains and 4g's 5.1 streams and
      decode_ogg_fast(device=True) of one tonal stream, each bitwise equal
@@ -144,14 +146,28 @@ Phases (any failure raises and the script exits non-zero):
      rows of n = 2048 and 9,356 rows of n = 256, in turns with the first
      design (commit 5b586f3's, with --imdct-baseline), its bytes bound
      and share, the plain version's time and one torch.matmul against the
-     dense IMDCT basis; the lap's time at the tonal batch's shape, its
-     bound and share, the plain version's and one index_add_ of the
-     windowed products.
+     dense IMDCT basis; the lap's time at the tonal batch's shape, in
+     turns with the kernel before tails (commit e1480c3's, with
+     --lap-baseline), its bound and share, the plain version's and one
+     index_add_ of the windowed products;
+  6b. the ov_* layer (vorbis_tpu_torch.vorbisfile.OggVorbisFile) on the
+     card against device=False, bit for bit, on 4d's tonal and click-train
+     stream 0 and a chain of the tonal stream and a 4g 5.1 stream: reads
+     of 4096, 313, 20000 and 64 samples to the end (each as long as
+     pcm_total), 8 seeded pcm_seeks with their tells and reads, halfrate
+     reads, read_all_float, a crosslap, the click train with a corrupt
+     page, and a damaged packet held back between a long and a short
+     block; every staged chunk launching the IMDCT once a blocksize
+     present and the lap once, no host-path chunk, lap or IMDCT and no
+     plain version on a card pass; read_float(4096) and halfrate
+     x-realtime and the pcm_seek + first read latency, card and host,
+     three runs each; both kernels' times at one 256-packet chunk's
+     shapes, full rate and halfrate.
 Phase 4b then runs once more under torch.profiler and prints the
 device's busy share (4d profiles the same 16-stream batch as 4c, with
 switching).  Launch counts are set to 0 just before each main
-path (4, 4b, 4c, 4d, 4e, 4f, 4g, and 6's decode runs) and read just
-after it.
+path (4, 4b, 4c, 4d, 4e, 4f, 4g, 6's decode runs and each card pass
+of 6b) and read just after it.
 It prints the kernel record as one JSON line, then the result line.
 """
 
@@ -506,19 +522,25 @@ def _bound(fit, quant, above, prefix):
         f32_ops=f32_ops, ops_us=t_ops * 1e3, **work)
 
 
-def _m3_cases():
-    """tests/test_torch_m3.py, the one definition of the M3 scan's seeded
-    inputs and the segment schedule's edge cases (`m3_case`, `KINDS`),
-    loaded by its path: another installed package may be named `tests`."""
+def _test_module(name):
+    """tests/<name>.py loaded by its path (another installed package may
+    be named `tests`): the one definition of the cases and recorders that
+    the tests and this script share."""
     import importlib.util
-    mod = sys.modules.get("test_torch_m3")
+    mod = sys.modules.get(name)
     if mod is None:
         spec = importlib.util.spec_from_file_location(
-            "test_torch_m3", os.path.join(HERE, "tests", "test_torch_m3.py"))
+            name, os.path.join(HERE, "tests", f"{name}.py"))
         mod = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(mod)
-        sys.modules["test_torch_m3"] = mod
+        sys.modules[name] = mod
     return mod
+
+
+def _m3_cases():
+    """tests/test_torch_m3.py: the M3 scan's seeded inputs and the
+    segment schedule's edge cases (`m3_case`, `KINDS`)."""
+    return _test_module("test_torch_m3")
 
 
 def _m3_case(kind, n, F):
@@ -1497,18 +1519,9 @@ def _spread(ts):
 
 
 def _lap_cases():
-    """tests/test_torch_lap.py, the one definition of the lap's seeded
-    cases (`lap_case`, `CASE_PAIRS`, `signed_zero_case`, `lap_inputs`),
-    loaded by its path as _m3_cases loads the M3 cases."""
-    import importlib.util
-    mod = sys.modules.get("test_torch_lap")
-    if mod is None:
-        spec = importlib.util.spec_from_file_location(
-            "test_torch_lap", os.path.join(HERE, "tests", "test_torch_lap.py"))
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        sys.modules["test_torch_lap"] = mod
-    return mod
+    """tests/test_torch_lap.py: the lap's seeded cases (`lap_case`,
+    `CASE_PAIRS`, `signed_zero_case`, `lap_inputs`, `tail_inputs`)."""
+    return _test_module("test_torch_lap")
 
 
 # sha256 of the first design's csrc/imdct.cu (commit 5b586f3), the one
@@ -1606,15 +1619,82 @@ def _imdct_turns(x, n, base):
     return ms
 
 
+# sha256 of the redesign's csrc/lap.cu (commit e1480c3), the one earlier
+# version whose C interface _LapBaseline knows
+LAP_BASELINE_SHA256 = ("808a08b05367e0a18ff55c29db4e081262b374aea3949633"
+                       "3bade6f8ebef1a79")
+
+
+class _LapBaseline:
+    """The lap kernel before it took tails and wrote the spans before a
+    stream's first center and after its last (`git show
+    e1480c3:vorbis_tpu_torch/csrc/lap.cu`), built from `source` for
+    timing in turns on a plan without tails whose trims lie inside
+    [c_0, c_last), where both write the same bits.  Its entry point
+    takes the stream table's first four columns; any other source is
+    refused (its hash differs)."""
+
+    def __init__(self, source):
+        import ctypes
+        import hashlib
+        from pathlib import Path
+        from vorbis_tpu_torch.native import build_library
+        from vorbis_tpu_torch.ops import floor_cuda
+        digest = hashlib.sha256(Path(source).read_bytes()).hexdigest()
+        if digest != LAP_BASELINE_SHA256:
+            raise RuntimeError(f"--lap-baseline {source} is not commit "
+                               f"e1480c3's lap.cu (sha256 {digest})")
+        so, _ = build_library(Path(source), floor_cuda.nvcc,
+                              floor_cuda.NVCC_FLAGS, "liblap_baseline")
+        self.fn = ctypes.CDLL(str(so)).vtt_lap
+        self.fn.restype = ctypes.c_int
+        self.fn.argtypes = ([ctypes.c_void_p] * 5
+                            + [ctypes.c_long, ctypes.c_void_p])
+
+    def launch(self, blocks, wins, pk, st4, out, npk):
+        import torch
+        rc = self.fn(blocks.data_ptr(), wins.data_ptr(), pk.data_ptr(),
+                     st4.data_ptr(), out.data_ptr(), npk,
+                     torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"baseline lap launch failed: {rc}")
+
+
+def _lap_turns(blocks, wins, plan, tabs, base):
+    """The lap kernel's ms (CUDA graphs) at `plan`, in turns with the
+    baseline (this kernel, the baseline, the baseline, this kernel), or
+    twice alone, and this kernel's output; the baseline's output must
+    equal it bit for bit."""
+    import numpy as np
+    import torch
+    from vorbis_tpu_torch.ops.lap_cuda import lap
+    mine = lambda: lap(blocks, wins, plan, tables=tabs)   # noqa: E731
+    order = [mine, mine]
+    if base is not None:
+        st4 = torch.from_numpy(np.ascontiguousarray(plan.st[:, :4])).cuda()
+        out_b = torch.empty(plan.total, device="cuda")
+        theirs = (lambda: base.launch(blocks, wins, tabs[0], st4,   # noqa
+                                      out_b, len(plan.pk)))
+        order = [mine, theirs, theirs, mine]
+    ms = [_graph_ms(fn, reps=10) for fn in order]
+    got = mine()
+    if base is not None and not torch.equal(got.view(torch.int32),
+                                            out_b.view(torch.int32)):
+        raise RuntimeError("baseline lap kernel differs from this one")
+    return ms, got
+
+
 def _lap_work(plan):
     """(bytes, float32 operations) of the lap of `plan`: every block
-    float read once (each block's ch x n, whatever the trim keeps), the
-    windows and tables once, every output float written once; 4
-    operations an output sample (two products, two sums)."""
+    float read once (each block's ch x n, whatever the trim keeps), every
+    tail float, the windows and tables once, every output float written
+    once; 4 operations an output sample (two products, two sums)."""
     import numpy as np
     blk = sum(int(np.asarray(n, np.int64).sum()) * ch
               for ch, n, *_ in plan.streams)
-    nbytes = 4 * (blk + plan.total) + 8 * (plan.pk.size + plan.st.size)
+    tail = int((plan.st[:, 2] * plan.st[:, 7]).sum())
+    nbytes = (4 * (blk + tail + plan.total)
+              + 8 * (plan.pk.size + plan.st.size))
     return nbytes, 4 * plan.total
 
 
@@ -1646,7 +1726,7 @@ def _index_add_lap(blocks, wins, plan):
     return prod, dst
 
 
-def _phase_decode(smi, keep, baseline=None):
+def _phase_decode(smi, keep, baseline=None, lap_baseline=None):
     """Phase 6: the decode slice on the card.  Both kernels against their
     plain versions on the card and the host C, by bit pattern: the IMDCT
     (vn_imdct_batch) at n = 64-8192 on seeded spectra read through a row
@@ -1654,7 +1734,9 @@ def _phase_decode(smi, keep, baseline=None):
     tonal and click-train stream 0 read in place; the lap (vn_lap_add and
     the trim) on the seeded cases of tests/test_torch_lap.py at every
     blocksize (start and end trims, one batch), its -0.0 and subnormal
-    case and the host IMDCT blocks of those two streams.  Then the main
+    case, its seeded cases with tails and the spans before the first and
+    after the last center (`tail_inputs`, the chunked decode's lap) and
+    the host IMDCT blocks of those two streams.  Then the main
     path, decode_ogg_fast_batch(device=True) of 4d's 16 x 60 s tonal
     streams and click trains and 4g's 5.1 streams and
     decode_ogg_fast(device=True) of one tonal stream, each bitwise equal
@@ -1669,8 +1751,9 @@ def _phase_decode(smi, keep, baseline=None):
     in turns with the first design (`baseline`), its bytes bound and
     share, the plain version's time and one torch.matmul against the
     dense IMDCT basis (fp32, TF32 off); the lap's time at the tonal
-    batch's shape, its bound, the plain version's and one index_add_ of
-    the windowed products.  Returns both kernels' records."""
+    batch's shape, in turns with the kernel before tails
+    (`lap_baseline`), its bound, the plain version's and one index_add_
+    of the windowed products.  Returns both kernels' records."""
     import numpy as np
     import torch
     from vorbis_tpu_torch.models import fastdec
@@ -1679,6 +1762,7 @@ def _phase_decode(smi, keep, baseline=None):
     from vorbis_tpu_torch.ops.lap_cuda import lap, lap_plain
     tl = _lap_cases()
     base = _ImdctBaseline(baseline) if baseline else None
+    lap_base = _LapBaseline(lap_baseline) if lap_baseline else None
     max_err = {"imdct": 0.0, "lap": 0.0}
     bad = {"imdct": 0, "lap": 0}
 
@@ -1729,11 +1813,15 @@ def _phase_decode(smi, keep, baseline=None):
             res[p, :, :bs[w] // 2]), bs[w]) for p, w in enumerate(W)]
         real[leg] = (dec, W, gp, eos, blocks)
 
-    def check_lap(name, cases):
-        flat, wins, plan, wants = tl.lap_inputs(cases)
+    def check_lap(name, cases, with_tails=False):
+        if with_tails:
+            flat, wins, plan, tails, wants = tl.tail_inputs(cases, seed=3)
+            tails = torch.from_numpy(tails).cuda()
+        else:
+            (flat, wins, plan, wants), tails = tl.lap_inputs(cases), None
         args = (torch.from_numpy(flat).cuda(), torch.from_numpy(wins).cuda(),
                 plan)
-        got, plain = lap(*args), lap_plain(*args)
+        got, plain = lap(*args, tails=tails), lap_plain(*args, tails)
         torch.cuda.synchronize()
         for k, want in enumerate(wants):
             tally("lap", f"{name} stream {k} ({want.shape[0]} x "
@@ -1745,6 +1833,10 @@ def _phase_decode(smi, keep, baseline=None):
                            trim=k % 2 == 0)
                for k, (bs0, bs1) in enumerate(tl.CASE_PAIRS)])
     check_lap("-0.0 and subnormal products", [tl.signed_zero_case()])
+    check_lap("tails and edge spans, bs " + " ".join(
+        f"{a}/{b}" for a, b in tl.CASE_PAIRS),
+        [tl.lap_case(bs0, bs1, 200, (1, 2, 6)[k % 3], k, trim=False)
+         for k, (bs0, bs1) in enumerate(tl.CASE_PAIRS)], with_tails=True)
     for leg in ("signal", "click_train"):
         check_lap(f"4d {leg} stream 0 host-C blocks", [real[leg]])
     if bad["imdct"] or bad["lap"]:
@@ -1907,11 +1999,16 @@ def _phase_decode(smi, keep, baseline=None):
         rows=rec[2048]["rows"], n=2048,
         baseline_ms=rec[2048]["baseline_ms"], at_n256=rec[256])
 
-    # the lap kernel at the tonal batch's shape
+    # the lap kernel at the tonal batch's shape, in turns with the kernel
+    # before tails
     blocks, wins, plan, tabs = lap_args
-    lap_ms = _graph_ms(lambda: lap(blocks, wins, plan, tables=tabs),
-                       reps=10)
-    got = lap(blocks, wins, plan, tables=tabs)
+    ms, got = _lap_turns(blocks, wins, plan, tabs, lap_base)
+    lap_ms = min(ms[0], ms[-1])
+    lap_base_ms = min(ms[1], ms[2]) if lap_base else None
+    print(f"[lap] kernel at the 4d tonal batch, CUDA graphs in turns (ms): "
+          + (f"this {ms[0]:.5f}, before tails {ms[1]:.5f}, before tails "
+             f"{ms[2]:.5f}, this {ms[3]:.5f}" if lap_base else
+             f"this {ms[0]:.5f}, this {ms[1]:.5f}") + f" ({smi})")
     plain_ms = _cuda_ms(lambda: lap_plain(blocks, wins, plan), 1)
     prod, dst = _index_add_lap(blocks, wins, plan)
     acc = torch.zeros(plan.total, device=dev)
@@ -1930,9 +2027,306 @@ def _phase_decode(smi, keep, baseline=None):
     lap_rec = dict(
         launches=launches["lap"], max_abs_err=max_err["lap"], ms=lap_ms,
         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-        share=bound_ms / lap_ms, library_ms=lib_ms, packets=len(plan.pk))
+        share=bound_ms / lap_ms, library_ms=lib_ms, packets=len(plan.pk),
+        baseline_ms=lap_base_ms)
     del blocks, wins, plan, tabs, lap_args, prod, dst, acc, got
     return imdct_rec, lap_rec
+
+
+def _phase_vorbisfile(smi, keep):
+    """Phase 6b: the ov_* layer (vorbis_tpu_torch.vorbisfile) on the card,
+    held bit for bit to device=False (the JAX package's host path) on
+    4d's tonal stream 0 and click-train stream 0 (60 s each) and on a
+    chain of the tonal stream 0 and 4g's 5.1 stream 1 (stereo 44.1 kHz,
+    then six channels at 48 kHz; stream 0's serial is the tonal one's):
+    reads of 4096, 313, 20000 and 64 samples to the end, each as long as
+    pcm_total; 8 seeded pcm_seeks, each with its tell and one
+    read_float(4096); halfrate reads to the end; read_all_float (the chain
+    mixes channel counts, which the JAX package's drain refuses with a
+    ValueError: both paths must raise it, and the 5.1 stream drains
+    alone); a crosslap of the tonal stream into the click train; the
+    click train with a corrupt page read to the end (equal hole counts),
+    and fed to FastStreamDecoder with a damaged packet held back between
+    a long block and a short one (tests/test_torch_cuda.py
+    `damaged_holdback`: the next chunk's lap starts from a tail that
+    reaches past its first center).  Every card pass counts its launches
+    from 0: each staged chunk must launch the IMDCT once a blocksize
+    present and the lap once (tests/test_torch_cuda.py `_ChunkLaunches`),
+    a whole-link drain two IMDCT launches and one lap, and no pass may
+    run the host C's chunk, lap or IMDCT or either kernel's plain
+    version.  Readings (three timed runs, median and
+    spread): read_float(4096) x-realtime card against device=False, the
+    latency of pcm_seek plus the first read_float(4096) (median of the 8
+    positions), halfrate x-realtime; then each kernel's time at the
+    shapes of one 256-packet chunk, full rate and halfrate, from CUDA
+    graphs and as 50 calls from Python (a chunk's launches are that
+    path's host cost), with its bound.  Returns
+    (IMDCT launches, lap launches, record)."""
+    import numpy as np
+    import pytest
+    from vorbis_tpu_torch import native
+    from vorbis_tpu_torch.codec import nativeparse
+    from vorbis_tpu_torch.models import fastdec
+    from vorbis_tpu_torch.ops import imdct_cuda, lap_cuda
+    from vorbis_tpu_torch.ops.imdct_cuda import imdct
+    from vorbis_tpu_torch.ops.lap_cuda import lap
+    from vorbis_tpu_torch.vorbisfile import OggVorbisFile
+    tc = _test_module("test_torch_cuda")
+
+    tonal, click = keep["signal"][0][0], keep["click_train"][0][0]
+    s51 = keep["signal51"][0][1]
+    streams = {"tonal": tonal, "click_train": click, "chained": tonal + s51}
+    FSD = fastdec.FastStreamDecoder
+
+    # host-path and plain-version calls, counted while a card pass runs
+    host = {"chunk": 0, "halfrate chunk": 0, "lap": 0, "imdct": 0,
+            "plain lap": 0, "plain imdct": 0}
+    card_on = [False]
+    saved = []
+
+    def counting(owner, name, key):
+        raw = vars(owner)[name]           # a staticmethod stays one
+        real = getattr(owner, name)
+        saved.append((owner, name, raw))
+
+        def wrapper(*a, **kw):
+            if card_on[0]:
+                host[key] += 1
+            return real(*a, **kw)
+        setattr(owner, name, staticmethod(wrapper)
+                if isinstance(raw, staticmethod) else wrapper)
+
+    counting(nativeparse, "decode_stream", "chunk")
+    counting(FSD, "_synth_staged", "halfrate chunk")
+    counting(fastdec.FastDecoder, "_native_lap", "lap")
+    counting(native, "imdct_batch", "imdct")
+    counting(fastdec, "imdct_batch", "imdct")
+    counting(lap_cuda, "lap_plain", "plain lap")
+    counting(imdct_cuda, "imdct_plain", "plain imdct")
+    mp = pytest.MonkeyPatch()
+    chunks = tc._ChunkLaunches(mp)     # (imdct launches, blocksizes, laps)
+    launches = [0, 0]
+    drains = []
+
+    def card(fn):
+        """One card pass with the counts from 0, read after it."""
+        imdct.launches = lap.launches = 0
+        card_on[0] = True
+        try:
+            r = fn()
+        finally:
+            card_on[0] = False
+        launches[0] += imdct.launches
+        launches[1] += lap.launches
+        return r
+
+    def run(d):
+        """The pass runner of device d: `card` for the card."""
+        return card if d == "cuda" else (lambda f: f())
+
+    def check(what, a, b):
+        if not tc._bits_equal(a, b):
+            raise RuntimeError(f"6b {what}: the card differs from "
+                               f"device=False")
+
+    rng = np.random.RandomState(6)
+    rec = {}
+    try:
+        for name, data in streams.items():
+            ref = OggVorbisFile(data, device=False)
+            total = ref.pcm_total()
+            for n in (4096, 313, 20000, 64):
+                got = card(lambda: tc._reads(OggVorbisFile(data), [n]))
+                check(f"{name} reads of {n}", got,
+                      tc._reads(OggVorbisFile(data, device=False), [n]))
+                if sum(c.shape[1] for c in got) != total:
+                    raise RuntimeError(f"6b {name}: reads of {n} are not "
+                                       f"pcm_total ({total}) long")
+            pos = np.sort(rng.randint(0, total, 8))
+            vfs = {d: OggVorbisFile(data, device=d) for d in ("cuda", False)}
+            lat = {"cuda": [], False: []}
+            heads = {}
+            for d, vf in vfs.items():
+                heads[d] = []
+                for p in map(int, pos):
+                    t0 = time.perf_counter()
+                    c = run(d)(lambda: (vf.pcm_seek(p), vf.read_float(4096)))
+                    lat[d].append(time.perf_counter() - t0)
+                    if vf.pcm_tell() != p + c[1].shape[1]:
+                        raise RuntimeError(f"6b {name}: tell after a seek "
+                                           f"to {p}")
+                    heads[d].append(c[1])
+            check(f"{name} seeks", heads["cuda"], heads[False])
+
+            def halfrate(d):
+                vf = OggVorbisFile(data, device=d)
+                vf.halfrate(True)
+                out = tc._reads(vf, [4096])
+                if vf.pcm_tell() != total:
+                    raise RuntimeError(f"6b {name}: halfrate tell "
+                                       f"{vf.pcm_tell()} != {total}")
+                return out
+            check(f"{name} halfrate", card(lambda: halfrate("cuda")),
+                  halfrate(False))
+            if name == "chained":
+                errs = []
+                for d in ("cuda", False):
+                    try:
+                        run(d)(lambda: OggVorbisFile(
+                            data, device=d).read_all_float())
+                        errs.append(None)
+                    except ValueError as e:
+                        errs.append(str(e))
+                if errs[0] is None or errs[0] != errs[1]:
+                    raise RuntimeError(f"6b chained read_all_float: {errs}")
+                drain_of = s51
+            else:
+                drain_of = data
+            i0 = launches[:]
+            full = card(lambda: OggVorbisFile(drain_of).read_all_float())
+            drains.append((launches[0] - i0[0], launches[1] - i0[1]))
+            want = OggVorbisFile(drain_of, device=False).read_all_float()
+            check(f"{name} read_all_float", [full], [want])
+            # the readings: three timed runs of each, card and host
+            secs = sum(lk.pcm_total / lk.vi.rate for lk in ref.links)
+            t_seq = {"cuda": [], False: []}
+            t_half = {"cuda": [], False: []}
+            for _ in range(3):
+                for d in ("cuda", False):
+                    t0 = time.perf_counter()
+                    run(d)(lambda: tc._reads(OggVorbisFile(data, device=d),
+                                             [4096]))
+                    t_seq[d].append(time.perf_counter() - t0)
+                    t0 = time.perf_counter()
+                    run(d)(lambda: halfrate(d))
+                    t_half[d].append(time.perf_counter() - t0)
+            rec[name] = {
+                "seconds": secs,
+                "read4096_xrt": {str(d): secs / sorted(t)[1]
+                                 for d, t in t_seq.items()},
+                "seek_read_ms": {str(d): 1e3 * float(np.median(t))
+                                 for d, t in lat.items()},
+                "halfrate_xrt": {str(d): secs / sorted(t)[1]
+                                 for d, t in t_half.items()}}
+            print(f"[ov] {name} ({secs:.1f} s, pcm_total {total}): reads of "
+                  f"4096/313/20000/64, 8 seeks {list(map(int, pos))}, "
+                  f"halfrate and read_all_float bit for bit equal to "
+                  f"device=False; read_float(4096) card {_spread(t_seq['cuda'])}"
+                  f" = {rec[name]['read4096_xrt']['cuda']:.2f}x realtime, "
+                  f"host {_spread(t_seq[False])} = "
+                  f"{rec[name]['read4096_xrt']['False']:.2f}x; pcm_seek + "
+                  f"read_float(4096) median card "
+                  f"{rec[name]['seek_read_ms']['cuda']:.3f} ms (min "
+                  f"{1e3 * min(lat['cuda']):.3f}, max "
+                  f"{1e3 * max(lat['cuda']):.3f}), host "
+                  f"{rec[name]['seek_read_ms']['False']:.3f} ms; halfrate "
+                  f"card {_spread(t_half['cuda'])} = "
+                  f"{rec[name]['halfrate_xrt']['cuda']:.2f}x, host "
+                  f"{_spread(t_half[False])} = "
+                  f"{rec[name]['halfrate_xrt']['False']:.2f}x ({smi})")
+        # crosslap: the tonal stream's lap tail into the click train
+        spliced = []
+        for d in ("cuda", False):
+            def splice():
+                a = OggVorbisFile(tonal, device=d)
+                b = OggVorbisFile(click, device=d)
+                a.read_all_float()
+                a.crosslap(b)
+                return [b.read_float(1 << 14) for _ in range(3)]
+            spliced.append(run(d)(splice))
+        check("crosslap", *spliced)
+        # a corrupt page (holes), and a damaged packet held back between
+        # a long and a short block (a tail past the next center)
+        bad = bytearray(click)
+        bad[len(bad) // 2] ^= 0xFF
+        holes = []
+        for d in ("cuda", False):
+            vf = OggVorbisFile(bytes(bad), device=d)
+            got = run(d)(lambda: tc._reads(vf, [4096]))
+            holes.append((got, vf.hole_count))
+        check("corrupt page", holes[0][0], holes[1][0])
+        if holes[0][1] != holes[1][1] or holes[0][1] < 1:
+            raise RuntimeError(f"6b corrupt page: holes {holes[0][1]}, "
+                               f"{holes[1][1]}")
+        dmg = card(lambda: tc.damaged_holdback(click, "cuda"))
+        dmg_h = tc.damaged_holdback(click, False)
+        check("damaged held-back packet", dmg[0], dmg_h[0])
+        if dmg[1] != dmg_h[1] or dmg[1] != 1:
+            raise RuntimeError(f"6b damaged held-back packet: holes "
+                               f"{dmg[1]}, {dmg_h[1]}")
+    finally:
+        mp.undo()
+        for owner, name, real in saved:
+            setattr(owner, name, real)
+    bad = chunks.bad()
+    print(f"[ov] main path: {len(chunks.rows)} staged chunks, launches a "
+          f"chunk (imdct, blocksizes, lap) {sorted(set(chunks.rows))}; "
+          f"whole-link drains (imdct, lap) {drains}; in all imdct "
+          f"{launches[0]}, lap {launches[1]}; host-path and plain calls "
+          f"{host}; corrupt page {holes[0][1]} holes; damaged held-back "
+          f"packet: bit for bit equal to device=False")
+    if bad or any(host.values()) or any(d != (2, 1) for d in drains):
+        raise RuntimeError(f"6b launches: chunks off {bad[:5]}, drains "
+                           f"{drains}, host calls {host}")
+
+    # each kernel at the shapes of one 256-packet chunk of the tonal
+    # stream, full rate and halfrate (the calls of the chunk, recorded)
+    seen = {}
+    real_imdct, real_lap = fastdec.imdct, fastdec.lap
+
+    def rec_imdct(spec, n, **kw):
+        seen.setdefault(("imdct", seen.get("hs"), n), (spec, n, kw))
+        return real_imdct(spec, n, **kw)
+
+    def rec_lap(blocks, wins, plan, tables=None, tails=None):
+        seen.setdefault(("lap", seen.get("hs")),
+                        (blocks, wins, plan, tables, tails))
+        return real_lap(blocks, wins, plan, tables=tables, tails=tails)
+
+    from vorbis_tpu_torch.bitstream.oggfile import OggStreamReader
+    pkts = list(OggStreamReader(tonal).packets())
+    dec = fastdec._decoder_for(tuple(p for p, _, _ in pkts[:3]))
+    fastdec.imdct, fastdec.lap = rec_imdct, rec_lap
+    by_hs = {}
+    try:
+        for hs in (0, 1):
+            d = FSD(dec, hs=hs)
+            d.feed(pkts[3:3 + 257])            # the first chunk
+            seen.clear()
+            seen["hs"] = hs
+            d.feed(pkts[260:516])              # a warm 256-packet chunk
+            by_hs[hs] = {k: v for k, v in seen.items() if k != "hs"}
+    finally:
+        fastdec.imdct, fastdec.lap = real_imdct, real_lap
+    i_saved, l_saved = imdct.launches, lap.launches
+    kern = {}
+    for hs, calls in by_hs.items():
+        for key, args in calls.items():
+            if key[0] == "imdct":
+                spec, n, kw = args
+                fn = (lambda: imdct(spec, n, **kw))
+                bound_ms, by = _roofline(*_imdct_work(n, len(kw["rows"])))
+                name, shape = f"imdct hs={hs} n={n}", dict(rows=len(kw["rows"]))
+            else:
+                blocks, wins, plan, tables, tails = args
+                fn = (lambda: lap(blocks, wins, plan, tables=tables,
+                                  tails=tails))
+                bound_ms, by = _roofline(*_lap_work(plan))
+                name, shape = f"lap hs={hs}", dict(packets=len(plan.pk),
+                                                   samples=plan.total)
+            kern[name] = dict(**shape, ms=_graph_ms(fn, reps=20),
+                              call_ms=_cuda_ms(fn, 50), bound_ms=bound_ms,
+                              bound_by=by)
+    imdct.launches, lap.launches = i_saved, l_saved
+    print("[ov] kernels at one 256-packet chunk of the tonal stream (ms: "
+          "CUDA graphs; call_ms: CUDA events over 50 calls from Python, "
+          "the wrapper's host cost included; warm L2): " + "; ".join(
+              f"{k}: " + ", ".join(f"{a} {v:.5f}" if isinstance(v, float)
+                                   else f"{a} {v}" for a, v in r.items())
+              for k, r in kern.items()) + f" ({smi})")
+    rec["chunk_kernels"] = kern
+    rec["chunks"] = len(chunks.rows)
+    return launches[0], launches[1], rec
 
 
 def main():
@@ -1946,6 +2340,10 @@ def main():
                     help="the first design's csrc/imdct.cu (git show 5b586f3:"
                          "vorbis_tpu_torch/csrc/imdct.cu, checked by its "
                          "hash) to time in turns with this one in phase 6")
+    ap.add_argument("--lap-baseline", metavar="SOURCE",
+                    help="the lap kernel before tails (git show e1480c3:"
+                         "vorbis_tpu_torch/csrc/lap.cu, checked by its hash) "
+                         "to time in turns with this one in phase 6")
     args = ap.parse_args()
     t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(HERE, "vorbis_tpu_torch")):
@@ -2411,8 +2809,22 @@ def main():
 
     # 6. decode: the IMDCT and lap kernels, then decode_ogg_fast(_batch)
     # on the card over 4d's and 4g's streams
-    imdct_rec, lap_rec = _phase_decode(smi, keep, args.imdct_baseline)
+    imdct_rec, lap_rec = _phase_decode(smi, keep, args.imdct_baseline,
+                                       args.lap_baseline)
     _lap(t_start, "6")
+
+    # 6b. the ov_* layer on the card: chunked reads, seeks, halfrate,
+    # drains and a crosslap, held to the host path
+    ov_imdct, ov_lap, ov_rec = _phase_vorbisfile(smi, keep)
+    imdct_rec["launches"] += ov_imdct
+    lap_rec["launches"] += ov_lap
+    imdct_rec["at_ov"] = {"launches": ov_imdct, "chunks": ov_rec["chunks"],
+                          **{k: v for k, v in ov_rec["chunk_kernels"].items()
+                             if k.startswith("imdct")}}
+    lap_rec["at_ov"] = {"launches": ov_lap, "chunks": ov_rec["chunks"],
+                        **{k: v for k, v in ov_rec["chunk_kernels"].items()
+                           if k.startswith("lap")}}
+    _lap(t_start, "6b")
 
     print(f"[time] {time.perf_counter() - t_start:.1f} s of command time")
     print(json.dumps({"kernels": [{

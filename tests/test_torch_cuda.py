@@ -229,21 +229,29 @@ def test_imdct_kernel_matches_plain_on_cuda(cuda):
 def test_lap_kernel_matches_plain_on_cuda(cuda):
     """csrc/lap.cu against its plain version on the card and the host C
     (vn_lap_add and the trim), bitwise: tests/test_torch_lap.py's seeded
-    streams at every blocksize 64-8192 in one batch and its case of -0.0
-    and subnormal products, with one launch a call."""
+    streams at every blocksize 64-8192 in one batch, its case of -0.0
+    and subnormal products, and the seeded streams again with tails and
+    the spans before the first and after the last center (the chunked
+    decode's lap), with one launch a call."""
     from chip_smoke import _lap_cases
     from vorbis_tpu_torch.ops.lap_cuda import lap, lap_plain
     tl = _lap_cases()
     batch = [tl.lap_case(bs0, bs1, 60, (1, 2, 6)[k % 3], k, trim=k % 2 == 0)
              for k, (bs0, bs1) in enumerate(tl.CASE_PAIRS)]
-    for cases in (batch, [tl.signed_zero_case()]):
-        flat, wins, plan, wants = tl.lap_inputs(cases)
+    for cases in (batch, [tl.signed_zero_case()], "tails"):
+        if cases == "tails":
+            flat, wins, plan, tails, wants = tl.tail_inputs(
+                [tl.lap_case(bs0, bs1, 30, (1, 2, 6)[k % 3], k, trim=False)
+                 for k, (bs0, bs1) in enumerate(tl.CASE_PAIRS)], seed=3)
+            tails = torch.from_numpy(tails).cuda()
+        else:
+            (flat, wins, plan, wants), tails = tl.lap_inputs(cases), None
         args = (torch.from_numpy(flat).cuda(), torch.from_numpy(wins).cuda(),
                 plan)
         before = lap.launches
-        got = lap(*args)
+        got = lap(*args, tails=tails)
         assert lap.launches == before + 1
-        plain = lap_plain(*args)
+        plain = lap_plain(*args, tails)
         for k, want in enumerate(wants):
             bits = want.view(np.uint32)
             for o in (got, plain):
@@ -276,3 +284,162 @@ def test_decode_device_matches_host_drain_on_cuda(cuda):
     for g, w in zip(got, want[:1] + want):
         assert g.shape == w.shape
         assert np.array_equal(g.view(np.uint32), w.view(np.uint32))
+
+
+def _reads(vf, sizes):
+    """Reads of `sizes` (cycled) to the end: the list of chunks."""
+    out, i = [], 0
+    while True:
+        c = vf.read_float(sizes[i % len(sizes)])
+        i += 1
+        if c.shape[1] == 0:
+            return out
+        out.append(c)
+
+
+def _bits_equal(a, b):
+    return len(a) == len(b) and all(
+        x.shape == y.shape and np.array_equal(x.view(np.uint32),
+                                              y.view(np.uint32))
+        for x, y in zip(a, b))
+
+
+class _ChunkLaunches:
+    """Per staged chunk of FastStreamDecoder: (IMDCT launches, blocksizes
+    present, lap launches).  chip_smoke.py phase 6b uses it too (with a
+    pytest.MonkeyPatch of its own)."""
+
+    def __init__(self, monkeypatch):
+        from vorbis_tpu_torch.models import fastdec
+        from vorbis_tpu_torch.ops.imdct_cuda import imdct
+        from vorbis_tpu_torch.ops.lap_cuda import lap
+        self.rows = []
+        real = fastdec.FastStreamDecoder._synth_device
+
+        def counted(dec, blob, off, bits, W, *rest):
+            i0, l0 = imdct.launches, lap.launches
+            pcm = real(dec, blob, off, bits, W, *rest)
+            self.rows.append((imdct.launches - i0, len(np.unique(W)),
+                              lap.launches - l0))
+            return pcm
+
+        monkeypatch.setattr(fastdec.FastStreamDecoder, "_synth_device",
+                            counted)
+
+    def bad(self):
+        """The chunks that did not launch the IMDCT once a blocksize
+        present and the lap once."""
+        return [r for r in self.rows if r[0] != r[1] or r[2] != 1]
+
+    def check(self):
+        assert self.rows and not self.bad()
+
+
+def test_vorbisfile_reads_on_cuda(cuda, monkeypatch):
+    """OggVorbisFile on the card (the default) against device=False, bit
+    for bit: odd-size chunked reads, pcm_seeks with their reads and tells,
+    halfrate reads and read_all_float, on a switched click-train stream;
+    every staged chunk launches the IMDCT once a blocksize present and the
+    lap once, and the whole-link drain two IMDCT launches and one lap."""
+    from vorbis_tpu_torch.ops.imdct_cuda import imdct
+    from vorbis_tpu_torch.ops.lap_cuda import lap
+    from vorbis_tpu_torch.vorbisfile import OggVorbisFile
+    fe = TFE(2, 44100, 0.5)
+    ogg = fe.encode_batch([torch.from_numpy(_click_train(4, 44100, 0))
+                           .cuda()])[0]
+    chunks = _ChunkLaunches(monkeypatch)
+    card, host = OggVorbisFile(ogg), OggVorbisFile(ogg, device=False)
+    assert card._fast.device.type == "cuda" and host._fast.device is None
+    got = _reads(card, [4096, 313, 20000, 64])
+    assert _bits_equal(got, _reads(host, [4096, 313, 20000, 64]))
+    total = card.pcm_total()
+    assert sum(c.shape[1] for c in got) == total == 4 * 44100
+    for pos in (0, 1, 30011, 2 * 44100 + 5, total - 100):
+        card.pcm_seek(pos)
+        host.pcm_seek(pos)
+        assert card.pcm_tell() == host.pcm_tell() == pos
+        assert _bits_equal([card.read_float(4096)], [host.read_float(4096)])
+    for vf in (card, host):
+        vf.halfrate(True)
+        vf.pcm_seek(0)
+    assert _bits_equal(_reads(card, [3000]), _reads(host, [3000]))
+    chunks.check()
+    card, host = OggVorbisFile(ogg), OggVorbisFile(ogg, device=False)
+    i0, l0 = imdct.launches, lap.launches
+    full = card.read_all_float()
+    assert (imdct.launches - i0, lap.launches - l0) == (2, 1)
+    assert _bits_equal([full], [host.read_all_float()])
+
+
+def test_faststream_halfrate_on_cuda(cuda, monkeypatch):
+    """FastStreamDecoder(hs=1) on the card against device=False, bit for
+    bit, in feeds of 32, 128 and 256 packets (vorbisfile's) and of 7:
+    each chunk one IMDCT launch a blocksize present at n/2 and one lap."""
+    from vorbis_tpu_torch.bitstream.oggfile import OggStreamReader
+    from vorbis_tpu_torch.models.fastdec import (FastStreamDecoder,
+                                                 _decoder_for)
+    fe = TFE(2, 44100, 0.5)
+    ogg = fe.encode_batch([torch.from_numpy(_click_train(4, 44100, 1))
+                           .cuda()])[0]
+    pkts = list(OggStreamReader(ogg).packets())
+    dec = _decoder_for(tuple(p for p, _, _ in pkts[:3]))
+    audio = pkts[3:]
+    chunks = _ChunkLaunches(monkeypatch)
+    for sizes in ([32, 128, 256], [7]):
+        outs = []
+        for device in ("cuda", False):
+            d = FastStreamDecoder(dec, hs=1, device=device)
+            out, i, j = [], 0, 0
+            while i < len(audio):
+                n = sizes[min(j, len(sizes) - 1)]
+                out.append(d.feed(audio[i:i + n]))
+                i, j = i + n, j + 1
+            outs.append(out + [d.flush()])
+        assert _bits_equal(*outs)
+        assert sum(o.shape[1] for o in outs[0]) == 2 * 44100
+    chunks.check()
+    assert any(sizes == 2 for _, sizes, _ in chunks.rows)
+
+
+def damaged_holdback(ogg, device):
+    """FastStreamDecoder fed an empty audio packet held back after a long
+    block whose successor is short (the carried tail keeps the long
+    block's long-long window, which reaches past the short block's
+    center), in chunks that end on it: the outputs and the holes."""
+    from vorbis_tpu_torch.bitstream.oggfile import OggStreamReader
+    from vorbis_tpu_torch.models.fastdec import (FastStreamDecoder,
+                                                 _decoder_for)
+    pkts = list(OggStreamReader(ogg).packets())
+    dec = _decoder_for(tuple(p for p, _, _ in pkts[:3]))
+    audio = pkts[3:]
+    d = FastStreamDecoder(dec, device=False)
+    W = [d._scan_one_W(p) for p, _, _ in audio]
+    i = next(k for k in range(10, len(W) - 1) if W[k] == 1 and W[k + 1] == 0)
+    bad = audio[:i + 1] + [(b"", None, False)] + audio[i + 1:]
+    d = FastStreamDecoder(dec, device=device)
+    outs = [d.feed(c) for c in (bad[:i + 2], bad[i + 2:i + 40],
+                                bad[i + 40:])]
+    return outs + [d.flush()], d.holes
+
+
+def test_faststream_damaged_holdback_on_cuda(cuda, monkeypatch):
+    """A damaged held-back packet between a long block and a short one:
+    on the card the chunk after it starts its lap from the carried tail
+    (three contributors to a sample: the tail and two blocks), bit for
+    bit equal to device=False, one hole, every chunk one IMDCT launch a
+    blocksize present and one lap launch, and no plain lap."""
+    from vorbis_tpu_torch.ops import lap_cuda
+    fe = TFE(2, 44100, 0.5)
+    ogg = fe.encode_batch([torch.from_numpy(_click_train(4, 44100, 2))
+                           .cuda()])[0]
+    chunks = _ChunkLaunches(monkeypatch)
+    plain = []
+    real_plain = lap_cuda.lap_plain
+    monkeypatch.setattr(lap_cuda, "lap_plain",
+                        lambda *a: plain.append(1) or real_plain(*a))
+    got, holes = damaged_holdback(ogg, "cuda")
+    want, holes_h = damaged_holdback(ogg, False)
+    assert _bits_equal(got, want) and holes == holes_h == 1
+    assert sum(g.shape[1] for g in got) > 3 * 44100
+    chunks.check()
+    assert not plain

@@ -6,7 +6,8 @@ CRC against the Python loop, the stretch-rescue walk against vorbis_tpu's
 native/vorbisnative.c vn_rescue_walk; csrc/host_decode.c function by
 function against native/vorbisnative.c), with the decode slice's copies
 (codec/floor0_codec.py, codec/nativeparse.py, the copied functions of
-models/fastdec.py).  numpy
+models/fastdec.py, FastStreamDecoder and vorbisfile.py but for their
+device lines).  numpy
 only: every comparison is exact (bytes, integers, float32 arrays bit for
 bit)."""
 
@@ -276,7 +277,117 @@ def test_nativeparse_and_fastdec_copies():
             assert t[k] == j[k].rstrip(), k
         else:
             assert t[k] == j[k], k
-    assert "FastStreamDecoder" not in t and "_render_curves" not in t
+    assert "_render_curves" not in t
+
+
+# The lines by which the port's copies differ from their sources, a
+# definition at a time ("-" the source's, "+" the port's): the device
+# argument and what it selects, and nothing else.
+DEVICE_LINES = {
+    "models/fastdec.py": {
+        "FastStreamDecoder.__init__": [
+            '-     def __init__(self, dec: FastDecoder, hs: int = 0):',
+            '+     def __init__(self, dec: FastDecoder, hs: int = 0, '
+            'device="cuda"):',
+            '+         self.device = _device(device)',
+            '+         self._tail = None             # device: the lap '
+            'tail, on it',
+            '+         self._pinned = {}             # device: staging '
+            'buffers, by name'],
+        "FastStreamDecoder._process": [
+            '-         out = np.zeros((ch, outlen), np.float32)',
+            '+         out = (np.zeros((ch, outlen), np.float32) if '
+            'self.device is None',
+            '+                else None)',
+            '+         if self.device is not None:',
+            '+             out = self._synth_device(blob, off, sizes * 8, '
+            'W, winid,',
+            '+                                      starts, centers, '
+            'first_ever)',
+            '-         if hs:',
+            '+         elif hs:'],
+        # the port's imdct_batch always returns the blocks (no numpy
+        # fall-back), and `imdct` there is the CUDA wrapper
+        "FastStreamDecoder._synth_staged": [
+            '-             if blocks is None:',
+            '-                 blocks = np.asarray(imdct(stack, nh))'],
+    },
+    "vorbisfile.py": {
+        "OggVorbisFile.__init__": [
+            '-     def __init__(self, src):',
+            '+     def __init__(self, src, device="cuda"):',
+            '+         from .models.fastdec import _device',
+            '+         self._device = device',
+            "+         self._dev = _device(device)   # None: the JAX "
+            "package's host path"],
+        # a broken build raises instead of reading as "no fast path"
+        "OggVorbisFile._make_fast": [
+            '-         try:',
+            '-             from .models.fastdec import (FastDecodeUnsupported,',
+            '+         from .models.fastdec import (FastDecodeUnsupported,',
+            '-                                          FastDecoder, '
+            'FastStreamDecoder)',
+            '+                                      FastDecoder, '
+            'FastStreamDecoder)',
+            '-         except ImportError:',
+            '-             return None',
+            '-             return FastStreamDecoder(fd, hs=getattr(self, '
+            '"_hs", 0))',
+            '+             return FastStreamDecoder(fd, hs=getattr(self, '
+            '"_hs", 0),',
+            '+                                      device=self._device)'],
+        "OggVorbisFile._read_all_batched": [
+            '-                 out.append(fd.decode_packets(link_pkts))',
+            '+                 out.append(fd.decode_packets(link_pkts, '
+            'device=self._dev))'],
+        "decode_file": [
+            '- def decode_file(src):',
+            '+ def decode_file(src, device="cuda"):',
+            '-     vf = OggVorbisFile(src)',
+            '+     vf = OggVorbisFile(src, device=device)'],
+    },
+}
+
+
+def _docstring_head(text):
+    import ast
+    node = ast.parse(text)
+    return ast.get_docstring(node.body[0] if node.body and isinstance(
+        node.body[0], ast.ClassDef) else node, clean=False)
+
+
+@pytest.mark.parametrize("rel", sorted(DEVICE_LINES))
+def test_faststream_and_vorbisfile_copies(rel):
+    """FastStreamDecoder's methods (models/fastdec.py) and every function
+    and method of vorbisfile.py are their sources' text but for the lines
+    that carry the device (DEVICE_LINES); the port only adds the staged
+    chunk (`_staging`, `_synth_device`), and each docstring it touches
+    keeps its source's text in front of the port's paragraph."""
+    import difflib
+    j, t = (_py_defs(os.path.join(ROOT, pkg, *rel.split("/")))
+            for pkg in ("vorbis_tpu", "vorbis_tpu_torch"))
+    scope = [k for k in j if rel == "vorbisfile.py"
+             or k.startswith("FastStreamDecoder.")]
+    assert len(scope) >= (30 if rel == "vorbisfile.py" else 8)
+    added = {k for k in t if k not in j and (
+        rel == "vorbisfile.py" or k.startswith("FastStreamDecoder."))}
+    assert added == (set() if rel == "vorbisfile.py" else
+                     {"FastStreamDecoder._staging",
+                      "FastStreamDecoder._synth_device"})
+    for k in scope:
+        if k in ("FastStreamDecoder", "OggVorbisFile"):
+            continue                    # the classes: their methods below
+        diff = [ln for ln in difflib.ndiff(j[k].splitlines(),
+                                           t[k].splitlines())
+                if ln[:2] in ("- ", "+ ")]
+        assert diff == DEVICE_LINES[rel].get(k, []), k
+    src, port = (open(os.path.join(ROOT, pkg, *rel.split("/"))).read()
+                 for pkg in ("vorbis_tpu", "vorbis_tpu_torch"))
+    if rel == "vorbisfile.py":
+        docs = [_docstring_head(x) for x in (src, port)]
+    else:
+        docs = [_docstring_head(x["FastStreamDecoder"]) for x in (j, t)]
+    assert docs[1].startswith(docs[0]) and len(docs[1]) > len(docs[0])
 
 
 def _c_defs(path):

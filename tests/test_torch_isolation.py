@@ -2,8 +2,8 @@
 nor the JAX package vorbis_tpu, and a process in which both imports fail
 can still encode with the port on the CPU (stateless, the default
 encoder with block switching and the cross-frame psy state, and managed
-ABR) and decode with the port's own decoder (the GPU machine has no
-JAX); the test files that hold the card tests import in such a process
+ABR) and decode with the port's own decoders, the fast decode and the
+`ov_*` layer among them (the GPU machine has no JAX); the test files that hold the card tests import in such a process
 too.  The encoder and the fast decode run on the card unless the caller
 asks for the CPU."""
 
@@ -60,6 +60,12 @@ from vorbis_tpu_torch import decode_ogg_fast
 for device in (False, "cpu"):
     fast, _ = decode_ogg_fast(ogg, device=device)
     assert np.array_equal(fast, out), device
+# the ov_* layer (vorbisfile.py): the whole-link drain and chunked reads
+from vorbis_tpu_torch import OggVorbisFile
+vf = OggVorbisFile(ogg, device="cpu")
+assert np.array_equal(vf.read_all_float(), out)
+vf.pcm_seek(1000)
+assert np.array_equal(vf.read_float(4096), out[:, 1000:5096])
 bad = sorted(m for m in sys.modules if m.startswith("jax.")
              and m not in preloaded)
 assert not bad, bad
@@ -104,13 +110,15 @@ def test_fast_encoder_defaults_to_the_card():
 
 
 def test_fast_decoder_defaults_to_the_card():
-    """decode_ogg_fast and decode_ogg_fast_batch run the IMDCT on the
-    card unless asked otherwise: with no card the default raises and
-    names device="cpu"; the CPU is never taken silently."""
+    """decode_ogg_fast, decode_ogg_fast_batch and the ov_* layer
+    (OggVorbisFile, decode_file) run the IMDCT on the card unless asked
+    otherwise: with no card the default raises and names device="cpu";
+    the CPU is never taken silently."""
     from tests import oracle
     from vorbis_tpu_torch.models.fastdec import (decode_ogg_fast,
                                                  decode_ogg_fast_batch)
     from vorbis_tpu_torch.ops.imdct_cuda import imdct
+    from vorbis_tpu_torch.vorbisfile import OggVorbisFile, decode_file
     fe = FastEncoderT(2, 44100, 0.5, switching=False, psy_state=False,
                       device="cpu")
     ogg = fe.encode(oracle.make_test_signal(seconds=0.3))
@@ -120,10 +128,13 @@ def test_fast_decoder_defaults_to_the_card():
         got, _ = decode_ogg_fast(ogg)
         assert imdct.launches > before
         assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+        assert OggVorbisFile(ogg)._fast.device.type == "cuda"
         return
     for call in (lambda: decode_ogg_fast(ogg),
                  lambda: decode_ogg_fast(ogg, device=True),
-                 lambda: decode_ogg_fast_batch([ogg, ogg])):
+                 lambda: decode_ogg_fast_batch([ogg, ogg]),
+                 lambda: OggVorbisFile(ogg),
+                 lambda: decode_file(ogg)):
         with pytest.raises(RuntimeError, match='device="cpu"'):
             call()
 

@@ -3,17 +3,22 @@
 
 The kernel cannot run here, so its span ownership is replayed in numpy
 (`lap_replay`, this file only): a CTA owns [c_{p-1}, c_p) n [lo, hi) of a
-stream (c_p packet p's center) and writes each sample once as
-(+0 + block p-1 x window) + block p x window.  The replay and
-`lap_plain` (the packet-order slice add into a zeroed buffer) are held,
-by bit pattern, to the port's host C (vn_lap_add, then _trim_range) and
-to the JAX package's lap on the IMDCT blocks of the ten streams of
+stream (c_p packet p's center), or [lo, c_0) before its first packet, or
+[c_last, hi) after its last, and writes each sample once as
+(t + block p-1 x window) + block p x window, t the stream's tail there
+(its initial values) or +0.  The replay and `lap_plain` (the
+packet-order slice add into a buffer that holds the tail) are held, by
+bit pattern, to the port's host C (vn_lap_add, then _trim_range) and to
+the JAX package's lap on the IMDCT blocks of the ten streams of
 tests/test_torch_fastdec.py, on seeded cases at every blocksize 64-8192
-with both trims, and on a crafted case of -0.0 and subnormal products.
-A second test shows the premise: no sample has more than two blocks with
-a nonzero window, for every (lW, W, nW) transition of each blocksize
-pair the modes use.  JAX is imported by the one test that compares with
-it, so `lap_case` and `lap_inputs` (the cases of chip_smoke.py phase 6)
+with both trims, on a crafted case of -0.0 and subnormal products, and
+on seeded cases with tails and the spans before the first and after the
+last center (the chunked decode's lap, `tail_inputs`).  A second test
+shows the premise: no sample has more than two blocks with a nonzero
+window, and before the first center or after the last only one, for
+every (lW, W, nW) transition of each blocksize pair the modes use.  JAX
+is imported by the one test that compares with it, so `lap_case`,
+`lap_inputs` and `tail_inputs` (the cases of chip_smoke.py phase 6)
 load where only the port is installed.
 """
 
@@ -25,7 +30,7 @@ import torch
 
 from vorbis_tpu_torch.models import fastdec as T_fd
 from vorbis_tpu_torch.native import imdct_batch
-from vorbis_tpu_torch.ops.lap_cuda import LapKernel, lap, lap_plain
+from vorbis_tpu_torch.ops.lap_cuda import LapKernel, LapPlan, lap, lap_plain
 from vorbis_tpu_torch.ops.window import hybrid_window
 
 # one torch thread a pytest-xdist worker (see test_torch_switching.py)
@@ -131,46 +136,112 @@ def _host_groups(W, blocks):
     return groups, gidx
 
 
-def lap_replay(blocks, wins, plan):
-    """csrc/lap.cu replayed in numpy float32: a CTA per packet p that is
-    not its stream's first, its span [c_{p-1}, c_p) n [lo, hi), each
-    sample written once as (+0 + a) + b.  Returns the flat output and the
-    number of writes a sample got."""
+def tail_inputs(cases, seed=0):
+    """(blocks, wins, plan, tails, wants) of a batch of lap_case streams
+    whose lap starts from a tail, as a chunk of the chunked decode does:
+    each stream's seeded initial values from at or before its first
+    center to past its second (as a carried block's long-long window
+    reaches past the next center), in a flat buffer with a channel
+    stride longer than the tail, and its trim from before its first
+    center to half its last block past its last (the spans before c_0
+    and after c_last).  Each want is the host C's vn_lap_add into a
+    buffer that holds the tail, then the cut."""
+    flat, wins, plan0, _ = lap_inputs(cases)
+    rng = np.random.RandomState(seed)
+    streams, tails, data, wants, at = [], [], [], [], 0
+    for (dec, W, _, _, blocks), s in zip(cases, plan0.streams):
+        ch, n, pos, blk, win, _, _ = s
+        n, pos = np.asarray(n, np.int64), np.asarray(pos, np.int64)
+        c = pos + n // 2
+        lo = max(0, int(c[0]) - rng.randint(1, 100))
+        hi = int(c[-1] + n[-1] // 2)
+        t_pos = max(0, int(c[0]) - rng.randint(0, 50))
+        t_len = int(c[1] + n[1] // 4) - t_pos + rng.randint(0, 9)
+        stride = t_len + 3
+        t = (rng.randn(ch, stride)
+             * 10.0 ** rng.uniform(-3, 3, (ch, 1))).astype(np.float32)
+        t[rng.rand(ch, stride) < 0.05] = 0.0
+        streams.append((ch, n, pos, blk, win, lo, hi))
+        tails.append((at, stride, t_pos, t_len))
+        data.append(t.reshape(-1))
+        at += t.size
+        bs0, bs1 = dec.vi.blocksizes
+        out = np.zeros((ch, max(hi, t_pos + t_len, int((pos + n).max()))
+                        + 8), np.float32)
+        out[:, t_pos:t_pos + t_len] = t[:, :t_len]
+        lW = np.concatenate([[0], W[:-1]])
+        nW = np.concatenate([W[1:], [W[-1]]])
+        keys = {(int(a), int(b), int(d)) for a, b, d in zip(lW, W, nW)}
+        groups, gidx = _host_groups(W, blocks)
+        dec._native_lap(groups, gidx, W, lW, nW, pos,
+                        {k: hybrid_window(bs0, bs1, *k) for k in keys},
+                        out, bs0, bs1)
+        wants.append(out[:, lo:hi].copy())
+    return flat, wins, LapPlan(streams, tails), np.concatenate(data), wants
+
+
+def lap_replay(blocks, wins, plan, tails=None):
+    """csrc/lap.cu replayed in numpy float32: a CTA per span s in
+    [0, packets] between packets s - 1 and s, which writes [c_{s-1}, c_s)
+    n [lo, hi) of their stream, or, where they lie in two streams (or
+    one is missing), [c_{s-1}, hi) of the first and [lo, c_s) of the
+    second; each sample once as (t + a) + b, t its tail value or +0, a
+    and b added where their block covers it.  Returns the flat output
+    and the number of writes a sample got."""
     f = np.float32
     out = np.zeros(plan.total, f)
     writes = np.zeros(plan.total, np.int64)
     pk, st = plan.pk, plan.st
-    for p in range(1, len(pk)):
-        A, B = pk[p - 1], pk[p]
-        sid = B[3] >> 16
-        if A[3] >> 16 != sid:
-            continue
-        nA, nB = A[3] & 0xffff, B[3] & 0xffff
-        lo, hi, ch, o = st[sid]
-        a = max(A[1] + nA // 2, lo)
-        b = min(B[1] + nB // 2, hi)
+
+    def span(A, B, S):
+        lo, hi, ch, o, t_off, t_stride, t_pos, t_len = S
+        nA = A[3] & 0xffff if A is not None else 0
+        nB = B[3] & 0xffff if B is not None else 0
+        a = max(A[1] + nA // 2, lo) if A is not None else lo
+        b = min(B[1] + nB // 2, hi) if B is not None else hi
         if a >= b:
-            continue
+            return
         i = np.arange(b - a)
-        ja, jb = a - A[1] + i, a - B[1] + i
-        ina, inb = ja < nA, jb >= 0
-        ja, jb = np.minimum(ja, nA - 1), np.maximum(jb, 0)
         for c in range(ch):
-            va = np.where(ina, blocks[A[0] + c * nA + ja] * wins[A[2] + ja],
-                          f(0))
-            vb = np.where(inb, blocks[B[0] + c * nB + jb] * wins[B[2] + jb],
-                          f(0))
+            v = np.zeros(b - a, f)
+            if t_len:
+                jt = a - t_pos + i
+                ok = (jt >= 0) & (jt < t_len)
+                v[ok] = tails[t_off + c * t_stride + jt[ok]]
+            if A is not None:
+                ja = a - A[1] + i
+                ok = ja < nA
+                v[ok] = v[ok] + (blocks[A[0] + c * nA + ja[ok]]
+                                 * wins[A[2] + ja[ok]])
+            if B is not None:
+                jb = a - B[1] + i
+                ok = jb >= 0
+                v[ok] = v[ok] + (blocks[B[0] + c * nB + jb[ok]]
+                                 * wins[B[2] + jb[ok]])
             at = o + c * (hi - lo) + (a - lo) + i
-            out[at] = (f(0) + va) + vb
+            out[at] = v
             writes[at] += 1
+
+    for s in range(len(pk) + 1):
+        A = pk[s - 1] if s > 0 else None
+        B = pk[s] if s < len(pk) else None
+        if A is not None and B is not None and A[3] >> 16 == B[3] >> 16:
+            span(A, B, st[B[3] >> 16])
+            continue
+        if A is not None:
+            span(A, None, st[A[3] >> 16])
+        if B is not None:
+            span(None, B, st[B[3] >> 16])
     return out, writes
 
 
-def _check_all(flat, wins, plan, wants):
+def _check_all(flat, wins, plan, wants, tails=None):
+    tt = None if tails is None else torch.from_numpy(tails)
     got_plain = lap_plain(torch.from_numpy(flat), torch.from_numpy(wins),
-                          plan)
-    got_wrap = lap(torch.from_numpy(flat), torch.from_numpy(wins), plan)
-    got_replay, writes = lap_replay(flat, wins, plan)
+                          plan, tt)
+    got_wrap = lap(torch.from_numpy(flat), torch.from_numpy(wins), plan,
+                   tails=tt)
+    got_replay, writes = lap_replay(flat, wins, plan, tails)
     assert (writes == 1).all()          # every sample, once
     for k, want in enumerate(wants):
         for got in (got_plain, got_wrap, torch.from_numpy(got_replay)):
@@ -218,6 +289,31 @@ def test_lap_seeded_cases_every_blocksize():
     _check_all(*lap_inputs(cases))
 
 
+def test_lap_tails_and_edge_spans():
+    """The chunked decode's lap: seeded streams of every blocksize pair
+    in CASE_PAIRS whose lap starts from a tail that reaches past the
+    second center, trimmed from before the first center to half the last
+    block past the last, in one batch: replay, plain and wrapper against
+    the host C's sum into a buffer that holds the tail."""
+    cases = [lap_case(bs0, bs1, 30, (1, 2, 6)[k % 3], k, trim=False)
+             for k, (bs0, bs1) in enumerate(CASE_PAIRS)]
+    flat, wins, plan, tails, wants = tail_inputs(cases, seed=3)
+    _check_all(flat, wins, plan, wants, tails)
+    for (_, n, pos, _, _, lo, hi), s in zip(plan.streams, plan.st):
+        assert lo < pos[0] + n[0] // 2 and s[6] + s[7] > pos[1] + n[1] // 2
+    # one packet: its two edge spans only
+    flat, wins, plan, tails, wants = tail_inputs(
+        [lap_case(256, 2048, 2, 2, 9, trim=False)], seed=4)
+    one = LapPlan([(ch, n[:1], pos[:1], blk[:1], win[:1], lo,
+                    int(pos[0] + n[0]))
+                   for ch, n, pos, blk, win, lo, _ in plan.streams],
+                  [tuple(plan.st[0, 4:])])
+    got, writes = lap_replay(flat, wins, one, tails)
+    plain = lap_plain(torch.from_numpy(flat), torch.from_numpy(wins), one,
+                      torch.from_numpy(tails))
+    assert (writes == 1).all() and _same(got, plain.numpy())
+
+
 def test_lap_signed_zero_and_subnormal_products():
     """Products that are -0.0 (a -0.0 sample, or a negative subnormal
     times a window that rounds it away) and products that are subnormal:
@@ -252,9 +348,10 @@ def test_lap_signed_zero_and_subnormal_products():
 @pytest.mark.parametrize("pair", MODE_PAIRS)
 def test_at_most_two_nonzero_contributors(pair):
     """For every (lW, W, nW) transition (a de Bruijn sequence of W holds
-    all eight), a sample has a nonzero window in at most two blocks, and
-    in [c_{p-1}, c_p) only in blocks p-1 and p: the premise of the
-    kernel's span ownership."""
+    all eight), a sample has a nonzero window in at most two blocks, in
+    [c_{p-1}, c_p) only in blocks p-1 and p, before the first center only
+    in block 0 and after the last only in the last block: the premise of
+    the kernel's span ownership."""
     bs0, bs1 = pair
     W = np.array([0, 0, 0, 1, 0, 1, 1, 1, 0, 0, 1, 1, 0, 1, 0, 0],
                  np.int32)
@@ -274,6 +371,8 @@ def test_at_most_two_nonzero_contributors(pair):
         span = nz[:, centers[p - 1]:centers[p]]
         others = np.delete(span, [p - 1, p], axis=0)
         assert not others.any(), p
+    assert not nz[1:, :centers[0]].any()
+    assert not nz[:-1, centers[-1]:].any()
 
 
 def test_lap_wrapper_refuses_bad_input():
@@ -289,3 +388,7 @@ def test_lap_wrapper_refuses_bad_input():
         LapKernel._checked(plan, len(flat) - 1, len(wins))
     with pytest.raises(ValueError, match="outside `wins`"):
         LapKernel._checked(plan, len(flat), len(wins) - 1)
+    flat, wins, plan, tails, _ = tail_inputs([lap_case(256, 2048, 12, 2, 3)])
+    LapKernel._checked(plan, len(flat), len(wins), len(tails))
+    with pytest.raises(ValueError, match="outside `tails`"):
+        LapKernel._checked(plan, len(flat), len(wins), len(tails) - 4)

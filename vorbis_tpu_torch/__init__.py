@@ -8,9 +8,10 @@ codec's headers, codebooks, floor1/residue decode and decoder, encsetup,
 the psy tables, window, the numpy MDCT, data/) are its own line-aligned
 copies.  Device code is plain torch on an explicit device; the
 hand-written kernels (the floor1 greedy fit `csrc/floor_fit.cu`, the M3
-scan `csrc/m3_scan.cu`, the decode's IMDCT `csrc/imdct.cu`) are built
-with nvcc and the host C (`csrc/host_ogg.c`, `csrc/host_decode.c`) with
-cc at first use (`native.py`).
+scan `csrc/m3_scan.cu`, the decode's IMDCT `csrc/imdct.cu` and its
+windowed lap `csrc/lap.cu`) are built with nvcc and the host C
+(`csrc/host_ogg.c`, `csrc/host_decode.c`) with cc at first use
+(`native.py`).  The decode's `ov_*` layer is `vorbisfile.py`.
 
 Importing the package sets the fp32 policy the reference runs under:
 the JAX side computes its matmuls at Precision.HIGHEST, so TF32 is off
@@ -32,9 +33,17 @@ def fp32_policy_ok() -> bool:
 
 
 def __getattr__(name):
-    """The fast decode, imported at first use (as vorbis_tpu exports
-    it): `vorbis_tpu_torch.decode_ogg_fast`, `decode_ogg_fast_batch`."""
-    if name in ("decode_ogg_fast", "decode_ogg_fast_batch"):
+    """The decode API, imported at first use (as vorbis_tpu exports it):
+    `decode_ogg_fast`, `decode_ogg_fast_batch`, `FastDecoder`, the
+    `ov_*` layer's `OggVorbisFile` and `decode_file`, and the scalar
+    `decode_ogg`."""
+    if name in ("decode_ogg_fast", "decode_ogg_fast_batch", "FastDecoder"):
         from .models import fastdec
         return getattr(fastdec, name)
+    if name in ("OggVorbisFile", "decode_file"):
+        from . import vorbisfile
+        return getattr(vorbisfile, name)
+    if name == "decode_ogg":
+        from .codec.decoder import decode_ogg
+        return decode_ogg
     raise AttributeError(name)

@@ -58,6 +58,18 @@ class BitReader:
     def bits_remaining(self) -> int:
         return self.nbits - self.pos
 
+    def readbytes(self, n: int) -> bytes:
+        """Read n whole bytes (8 bits each, LSB-first stream order)."""
+        if self.pos & 7 == 0:
+            byte = self.pos >> 3
+            if self.pos + 8 * n > self.nbits:
+                self.pos = self.nbits
+                raise EndOfPacket
+            out = self.data[byte:byte + n].tobytes()
+            self.pos += 8 * n
+            return out
+        return bytes(self.read(8) for _ in range(n))
+
     def read(self, n: int) -> int:
         """Read n bits (0..64) LSB-first; raises EndOfPacket on overrun."""
         if n == 0:

@@ -40,8 +40,12 @@ it where the text is the same.  The port's differences:
   runs the same staged path with the plain versions on the CPU;
   device=False is the fused host-C drain (vn_decode_stream), the JAX
   package's default;
-- `_render_curves` (which nothing calls) and `FastStreamDecoder` (whose
-  caller, vorbis_tpu/vorbisfile.py, is not ported) stay behind.
+- `FastStreamDecoder` (the chunked decode of vorbisfile.py) takes the
+  same `device`: its staged chunk (`_synth_device`) runs one IMDCT launch
+  a blocksize and one lap launch a chunk, full rate and halfrate, with
+  the previous chunk's lap tail kept on the device as the next lap's
+  initial values;
+- `_render_curves` (which nothing calls) stays behind.
 """
 
 from __future__ import annotations
@@ -295,6 +299,350 @@ class FastDecoder:
                                   np.asarray(eoss, bool))
         return out[:, lo:hi]
 
+
+class FastStreamDecoder:
+    """Stateful CHUNKED fast decode: K packets per native call with the
+    lap tail + granulepos state carried across calls — the incremental
+    mirror of FastDecoder.decode_arrays, serving `ov_read`-style
+    streaming reads, post-seek reads, and halfrate at drain speed
+    (reference: the rolling synthesis buffer in
+    lib/block.c:1023-1157 vorbis_synthesis_blockin + the read loop in
+    lib/vorbisfile.c:1680-1779,2252).
+
+    Each feed() decodes its packets through ONE fused native call
+    (vn_decode_stream: Huffman parse, residue, coupling, floor render,
+    IMDCT, windowed lap) into a buffer pre-initialized with the
+    previous chunk's windowed lap tail; the scatter-add is linear, so
+    chunked accumulation is bitwise-identical to the whole-stream
+    drain.  The LAST packet of every feed is held back until the next
+    call reveals its successor's block flag (the right-half window of
+    block k needs nW = W[k+1]); EOS packets flush immediately.
+
+    halfrate (hs=1) runs the staged variant: native packet parse
+    (vn_parse_packets) + batched half-size IMDCT + numpy windowed
+    scatter-add with half-unit geometry — same math as the scalar
+    halfrate Decoder, batched.
+
+    Granulepos semantics mirror the scalar blockin exactly: the first
+    label sets the position (start-trim / eos end-cut within the
+    current window), later labels only cut at EOS; damaged packets
+    (scan_W < 0 with an audio-type first byte) are dropped and counted
+    in `holes` — non-audio packets are dropped silently, like the
+    scalar loop's NotAudioPacket skip.
+
+    The port adds `device`, as decode_ogg_fast reads it: "cuda" (the
+    default, or True, or a CUDA torch.device) and "cpu" run every chunk,
+    full rate and halfrate, through the staged device chunk
+    (`_synth_device`: csrc/imdct.cu and csrc/lap.cu on a card, their
+    plain versions on the CPU); device=False is the JAX package's
+    chunk above (vn_decode_stream, or _synth_staged under halfrate)."""
+
+    def __init__(self, dec: FastDecoder, hs: int = 0, device="cuda"):
+        vi = dec.vi
+        if hs and vi.blocksizes[0] <= 64:
+            raise FastDecodeUnsupported("blocksize too small for "
+                                        "halfrate")
+        self.device = _device(device)
+        self._tail = None             # device: the lap tail, on it
+        self._pinned = {}             # device: staging buffers, by name
+        self.dec = dec
+        self.vi = vi
+        self.ch = vi.channels
+        self.bs = vi.blocksizes
+        self.hs = hs
+        # carry state
+        self.prev_W = -1              # W of last processed packet
+        self.tail = np.zeros((self.ch, 0), np.float32)
+        self.pend = None              # held-back (bytes, gp, eos)
+        self.granulepos = -1
+        self.sample_count = -1
+        self.holes = 0                # damaged packets dropped
+        self._K0 = 32                 # first-feed parse size (grows)
+        self._last = []               # last <=3 processed packets
+        self._flushed = False
+
+    def take_holes(self) -> int:
+        h, self.holes = self.holes, 0
+        return h
+
+    def last_packets(self):
+        """Raw bytes of the last <=3 processed packets (for priming a
+        scalar Decoder's lap state, e.g. crosslap)."""
+        return list(self._last)
+
+    def feed(self, pkts) -> np.ndarray:
+        """pkts: list of (packet_bytes, granulepos_or_None, eos).
+        Returns newly final PCM (ch, k) — empty until enough packets
+        have arrived."""
+        allp = ([self.pend] if self.pend is not None else []) + \
+            list(pkts)
+        self.pend = None
+        if not allp:
+            return np.zeros((self.ch, 0), np.float32)
+        if allp[-1][2]:               # eos: no holdback, nW=W (same
+            return self._process(allp, None)   # as the whole-stream drain)
+        if len(allp) == 1:
+            self.pend = allp[0]
+            return np.zeros((self.ch, 0), np.float32)
+        self.pend = allp[-1]
+        # successor W of the last processed packet, from the held-back
+        # packet (so every right-half window is the true one)
+        nW_last = self._scan_one_W(self.pend[0])
+        return self._process(allp[:-1], nW_last)
+
+    def flush(self) -> np.ndarray:
+        """End of packet stream without an EOS flag (truncated
+        stream): process the held-back packet with nW = its own W."""
+        if self.pend is None:
+            return np.zeros((self.ch, 0), np.float32)
+        p, self.pend = self.pend, None
+        return self._process([p], None)
+
+    # ---- internals ---------------------------------------------------
+    def _scan_one_W(self, pk: bytes):
+        from ..codec.nativeparse import scan_W
+        blob = np.frombuffer(pk + b"\x00" * 8, np.uint8)
+        w = scan_W(self.dec.tables, blob, np.zeros(1, np.int64),
+                   np.asarray([len(pk) * 8], np.int64))
+        return int(w[0])
+
+    def _process(self, pkts, nW_last):
+        from ..codec.nativeparse import scan_W
+        ch, hs = self.ch, self.hs
+        bs0, bs1 = self.bs
+        sizes = np.asarray([len(p) for p, _, _ in pkts], np.int64)
+        off = np.zeros(len(pkts), np.int64)
+        np.cumsum(sizes[:-1], out=off[1:])
+        blob = np.frombuffer(
+            b"".join(p for p, _, _ in pkts) + b"\x00" * 8, np.uint8)
+        W = scan_W(self.dec.tables, blob, off, sizes * 8)
+        good = W >= 0
+        if not good.all():
+            for i in np.flatnonzero(~good):
+                if not (pkts[i][0][:1] and pkts[i][0][0] & 1):
+                    self.holes += 1   # audio-type packet, bad syntax
+            keep = np.flatnonzero(good)
+            if not len(keep):
+                return np.zeros((ch, 0), np.float32)
+            pkts = [pkts[i] for i in keep]
+            sizes, off, W = sizes[keep], off[keep], W[keep]
+        m = len(pkts)
+        self._last = ([p for p, _, _ in pkts[-3:]]
+                      if m >= 3 else (self._last
+                                      + [p for p, _, _ in pkts])[-3:])
+
+        # local geometry, in half units under halfrate
+        ns = np.where(W == 1, bs1, bs0).astype(np.int64)
+        lW = np.concatenate([[max(self.prev_W, 0)], W[:-1]])
+        advf = ns // 4 + np.where(lW == 1, bs1, bs0) // 4  # full-rate
+        adv = advf >> hs
+        first_ever = self.prev_W < 0
+        fg = bs1 >> hs                # front guard (window reach-back)
+        if first_ever:
+            cum = np.concatenate([[0], np.cumsum(adv[1:])])
+            centers = fg + (ns[0] >> (1 + hs)) + cum
+        else:
+            centers = fg + np.cumsum(adv)
+        starts = centers - (ns >> (1 + hs))
+        assert starts.min() >= 0, starts.min()
+        # cover every block's full span: a long block right before a
+        # short final block overhangs the last center + half block
+        outlen = int(max(centers[-1] + (ns[-1] >> (1 + hs)),
+                         (starts + (ns >> hs)).max())) + 8
+        out = (np.zeros((ch, outlen), np.float32) if self.device is None
+               else None)
+        tl = self.tail.shape[1]
+        if tl:
+            out[:, fg:fg + tl] = self.tail
+        nWv = np.concatenate([W[1:], [W[-1] if nW_last is None
+                                      or nW_last < 0 else nW_last]])
+        winid = (lW * 4 + W * 2 + nWv).astype(np.int32)
+        if self.device is not None:
+            out = self._synth_device(blob, off, sizes * 8, W, winid,
+                                     starts, centers, first_ever)
+        elif hs:
+            self._synth_staged(blob, off, sizes * 8, W, lW, nWv,
+                               starts, out)
+        else:
+            from ..codec.nativeparse import decode_stream
+            wins, win_off = _win_table(bs0, bs1)
+            decode_stream(self.dec.tables, blob, off, sizes * 8,
+                          np.ascontiguousarray(starts),
+                          np.ascontiguousarray(winid), wins, win_off,
+                          out, np.ascontiguousarray(W))
+
+        # ---- granulepos walk (scalar blockin semantics) ----
+        emit_from = int(centers[0]) if first_ever else fg
+        emit_to = int(centers[-1])
+        cuts = []
+        win_lo = emit_from            # current window start
+        for i in range(m):
+            cur = int(centers[i])
+            if self.sample_count < 0:
+                self.sample_count = 0
+            else:
+                self.sample_count += int(advf[i])
+            gp_i, eos_i = pkts[i][1], pkts[i][2]
+            vgp = -1 if gp_i is None else int(gp_i)
+            if self.granulepos == -1:
+                if vgp != -1:
+                    self.granulepos = vgp
+                    if self.sample_count > vgp:
+                        extra = (self.sample_count - vgp) >> hs
+                        extra = min(extra, cur - win_lo)
+                        if eos_i:
+                            cuts.append((cur - extra, cur))
+                        else:
+                            cuts.append((win_lo, win_lo + extra))
+            else:
+                self.granulepos += int(advf[i])
+                if vgp != -1 and self.granulepos != vgp:
+                    if self.granulepos > vgp:
+                        extra = (self.granulepos - vgp) >> hs
+                        if extra and eos_i:
+                            extra = min(extra, cur - win_lo)
+                            cuts.append((cur - extra, cur))
+                    self.granulepos = vgp
+            win_lo = cur
+
+        self.prev_W = int(W[-1])
+        self.tail = out[:, emit_to:emit_to
+                        + (int(ns[-1]) >> (1 + hs))].copy()
+        if not cuts:
+            return out[:, emit_from:emit_to]
+        keepers, pos = [], emit_from
+        for a, b in sorted(cuts):
+            a, b = max(a, pos), min(b, emit_to)
+            if a > pos:
+                keepers.append(out[:, pos:a])
+            pos = max(pos, b)
+        if pos < emit_to:
+            keepers.append(out[:, pos:emit_to])
+        if not keepers:
+            return np.zeros((ch, 0), np.float32)
+        return np.concatenate(keepers, 1)
+
+    def _synth_staged(self, blob, off, bits, W, lW, nWv, starts, out):
+        """Halfrate chunk synthesis: native parse -> batched half-size
+        IMDCT -> windowed scatter-add at half-unit geometry (the
+        batched mirror of the scalar halfrate blockin,
+        reference: lib/synthesis.c:166 vorbis_synthesis_halfrate)."""
+        from ..codec.nativeparse import parse_packet_arrays
+        bs0, bs1 = self.bs
+        hs = self.hs
+        _, _, _, _, res = parse_packet_arrays(
+            self.dec.tables, blob, off, bits)
+        m = len(W)
+        pcm = [None] * m
+        for Wv in (0, 1):
+            idx = np.flatnonzero(W == Wv)
+            if not len(idx):
+                continue
+            nh = (bs1 if Wv else bs0) >> hs
+            stack = np.ascontiguousarray(
+                res[idx][:, :, :nh // 2].reshape(-1, nh // 2))
+            from ..native import imdct_batch
+            blocks = imdct_batch(stack, nh)
+            blocks = blocks.reshape(len(idx), self.ch, nh)
+            for j, k in enumerate(idx):
+                pcm[k] = blocks[j]
+        for k in range(m):
+            key = (int(lW[k]), int(W[k]), int(nWv[k]))
+            wv = hybrid_window(bs0 >> hs, bs1 >> hs, *key)
+            o = int(starts[k])
+            out[:, o:o + len(wv)] += pcm[k] * wv
+
+    def _staging(self, name, size, dtype):
+        """`size` elements of this decoder's pinned host buffer `name`,
+        grown (doubling) to the largest chunk, so a chunk allocates no
+        pinned memory once the stream has warmed."""
+        buf = self._pinned.get(name)
+        if buf is None or buf.numel() < size:
+            old = 0 if buf is None else buf.numel()
+            buf = torch.empty(max(size, 2 * old), dtype=dtype,
+                              pin_memory=True)
+            self._pinned[name] = buf
+        return buf[:size]
+
+    def _synth_device(self, blob, off, bits, W, winid, starts, centers,
+                      first_ever):
+        """The port's staged chunk on self.device, full rate and halfrate:
+        the packet parse in the host C, one H2D copy of the chunk's padded
+        spectra (and one of the tables), one IMDCT launch a blocksize
+        present at n >> hs (under halfrate each row's first n/4 floats, as
+        _synth_staged reads them), one lap launch with the window table of
+        (bs0 >> hs, bs1 >> hs), the PCM back through the decoder's pinned
+        buffer.  Returns a (ch, emit_to) array holding [emit_from,
+        emit_to) of _process's local geometry; the columns before
+        emit_from are not written.
+
+        The JAX chunk adds its blocks into a buffer that holds the
+        previous chunk's tail at fg: its sum past its last center, over
+        half the last block.  The lap's trim here runs that far past
+        emit_to, so its output ends with the tail, which stays on the
+        device (`_tail`) and is the next chunk's lap's initial values:
+        the kernel writes (tail + a) + b, the JAX chunk's sum, whatever
+        window the carried block had (a damaged held-back packet leaves
+        it the long-long window, which reaches past the next center)."""
+        ch, hs, dev = self.ch, self.hs, self.device
+        cuda = dev.type == "cuda"
+        bs0, bs1 = self.bs
+        _, _, _, _, res = parse_packet_arrays(
+            self.dec.tables, blob, off, bits)
+        n = np.where(W == 1, bs1, bs0).astype(np.int64) >> hs
+        lo = int(centers[0]) if first_ever else bs1 >> hs   # emit_from
+        hi = int(centers[-1])                               # emit_to
+        end = hi + int(n[-1]) // 2                          # + the tail
+        # the blocks, a group a blocksize
+        base = 0
+        blk = np.zeros(len(W), np.int64)
+        rows = {}
+        for nb in map(int, np.unique(n)):
+            idx = np.flatnonzero(n == nb)
+            blk[idx] = base + np.arange(len(idx)) * (ch * nb)
+            rows[nb] = (base, ((idx[:, None] * ch + np.arange(ch))
+                               * res.shape[2]).reshape(-1))
+            base += len(idx) * ch * nb
+        woff = _win_table(bs0 >> hs, bs1 >> hs)[1]
+        tail = self._tail                    # (PCM, offset, stride, length)
+        plan = LapPlan([(ch, n, starts, blk, woff[winid], lo, end)],
+                       [None if tail is None
+                        else (tail[1], tail[2], bs1 >> hs, tail[3])])
+        tabs = np.concatenate([r for _, r in rows.values()]
+                              + [plan.pk.reshape(-1), plan.st.reshape(-1)])
+        if cuda:
+            tabs_h = self._staging("tables", len(tabs), torch.int64)
+            tabs_h.numpy()[:] = tabs
+            tabs_d = tabs_h.to(dev, non_blocking=True)
+        else:
+            tabs_d = torch.from_numpy(tabs)
+        spec = torch.from_numpy(res.reshape(-1)).to(dev)
+        blocks = torch.empty(base, dtype=torch.float32, device=dev)
+        t = 0
+        for nb, (b0, offs) in rows.items():
+            R = len(offs)
+            imdct(spec, nb, rows=offs, out=blocks[b0:b0 + R * nb].view(R, nb),
+                  rows_dev=tabs_d[t:t + R])
+            t += R
+        npk = plan.pk.size
+        wins = _batch_windows(((bs0 >> hs, bs1 >> hs),), dev)
+        out = lap(blocks, wins, plan,
+                  tables=(tabs_d[t:t + npk], tabs_d[t + npk:]),
+                  tails=None if tail is None else tail[0])
+        self._tail = (out, hi - lo, end - lo, end - hi)
+        pcm = np.empty((ch, hi), np.float32)
+        v = plan.out_view(out, 0)
+        if cuda:
+            h = self._staging("pcm", v.numel(), torch.float32)
+            h.copy_(out, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+            done.synchronize()
+            v = h.view(ch, end - lo)
+        pcm[:, lo:hi] = v[:, :hi - lo].numpy()
+        return pcm
+
+
 _DEC_CACHE = {}                  # header bytes -> FastDecoder
 _DEC_CACHE_MAX = 16
 
@@ -316,8 +664,9 @@ def _decoder_for(header_pkts):
 
 
 def _device(device):
-    """device= of the entry points -> None (the fused host-C drain) or
-    the torch.device whose IMDCT the staged path runs."""
+    """device= of the entry points (decode_ogg_fast, FastStreamDecoder,
+    OggVorbisFile) -> None (the host-C path) or the torch.device whose
+    IMDCT and lap the staged path runs."""
     if device is False:
         return None
     if device is True:
@@ -326,14 +675,15 @@ def _device(device):
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
-                "decode_ogg_fast runs the IMDCT on the card by default and "
-                "no CUDA device is available: pass device=\"cpu\" (the "
-                "IMDCT in plain PyTorch on the CPU) or device=False (the "
-                "fused host-C drain)")
+                "the fast decode (decode_ogg_fast, OggVorbisFile) runs the "
+                "IMDCT and the lap on the card by default and no CUDA "
+                "device is available: pass device=\"cpu\" (their plain "
+                "PyTorch versions on the CPU) or device=False (the host-C "
+                "path)")
         return dev
     if dev.type == "cpu":
         return dev
-    raise ValueError(f"decode_ogg_fast: unsupported device {device!r}")
+    raise ValueError(f"fast decode: unsupported device {device!r}")
 
 
 def _scan_job(data):

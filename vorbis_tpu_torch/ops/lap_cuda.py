@@ -1,23 +1,25 @@
 """Windowed lapped overlap-add with the granulepos trim as a hand-written
 Hopper kernel (counterpart of the host C lap the JAX package's decode
 runs, vorbis_tpu/models/fastdec.py `FastDecoder._native_lap` ->
-vn_lap_add, then the cut of `_trim_range`).
+vn_lap_add, then the cut of `_trim_range`, and of its chunked decode's
+sum into the previous chunk's lap tail).
 
 `csrc/lap.cu` writes every stream's trimmed (ch, hi - lo) PCM once: a
-sample in [c_{p-1}, c_p) (c_p packet p's center) is
-fadd(fadd(+0, block p-1 x window), block p x window), which equals the
-host C's packet-order sum into a zeroed buffer bit for bit (the source
-argues it).  `lap_plain` is that sum itself in eager PyTorch: the window
-multiply and a per-packet slice add in packet order into a `torch.zeros`
-buffer, then the trim.
+sample in [c_{p-1}, c_p) (c_p packet p's center) is its initial value
+(the stream's tail there, else +0) plus block p-1 x window, plus block p
+x window, which equals the host C's packet-order sum into that buffer bit
+for bit (the source argues it).  `lap_plain` is that sum itself in eager
+PyTorch: the tail copied into a `torch.zeros` buffer, the window multiply
+and a per-packet slice add in packet order, then the trim.
 
 `LapPlan` describes a batch of streams (per packet its block, position,
-window and blocksize; per stream its channels and [lo, hi)), made on the
-host by models/fastdec.py.  `lap(blocks, wins, plan)` is the wrapper the
-decode calls: on a CPU tensor it runs `lap_plain`; on a CUDA tensor it
-launches the kernel or raises (no fall-back).  `lap.launches` counts the
-kernel's launches and nothing else.  The library is compiled by nvcc at
-first use into build/vorbis_tpu_torch/ and bound with ctypes.
+window and blocksize; per stream its channels, [lo, hi) and optionally
+its tail), made on the host by models/fastdec.py.
+`lap(blocks, wins, plan, tails=...)` is the wrapper the decode calls: on
+a CPU tensor it runs `lap_plain`; on a CUDA tensor it launches the kernel
+or raises (no fall-back).  `lap.launches` counts the kernel's launches
+and nothing else.  The library is compiled by nvcc at first use into
+build/vorbis_tpu_torch/ and bound with ctypes.
 """
 
 from __future__ import annotations
@@ -47,7 +49,7 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()[0]))
     fn = lib.vtt_lap
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_long, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_long, ctypes.c_void_p]
     return lib
 
 
@@ -58,12 +60,17 @@ class LapPlan:
     channel-0 block in the batch's `blocks` (channel c at + c * n) and of
     its window in the batch's `wins`, and the trim [lo, hi).  Each
     stream's (ch, hi - lo) PCM lies at `out_off[k]` of the output.
+    `tails[k]`, where given, is stream k's tail (offset, stride, pos,
+    length): its initial values, channel c's at offset + c * stride of
+    the wrapper's `tails`, for the samples [pos, pos + length) of its
+    lapped coordinates (the rest start at +0).
 
-    `pk` (packets, 4) and `st` (streams, 4) are the kernel's tables:
+    `pk` (packets, 4) and `st` (streams, 8) are the kernel's tables:
     block, position, window, (stream << 16) | n a packet; lo, hi,
-    channels, output offset a stream."""
+    channels, output offset, tail offset, stride, pos, length a
+    stream."""
 
-    def __init__(self, streams):
+    def __init__(self, streams, tails=None):
         self.streams = streams
         cols, st, off = [], [], 0
         self.out_off = []
@@ -75,13 +82,14 @@ class LapPlan:
                                   np.asarray(pos, np.int64),
                                   np.asarray(win, np.int64),
                                   (k << 16) | n], axis=1).reshape(-1, 4))
-            st.append((lo, hi, ch, off))
+            tail = None if tails is None else tails[k]
+            st.append((lo, hi, ch, off, *(tail or (0, 0, 0, 0))))
             self.out_off.append(off)
             off += ch * max(0, hi - lo)
         self.total = off
         self.pk = (np.concatenate(cols) if cols
                    else np.zeros((0, 4), np.int64))
-        self.st = np.asarray(st, np.int64).reshape(-1, 4)
+        self.st = np.asarray(st, np.int64).reshape(-1, 8)
 
     def out_view(self, out: torch.Tensor, k: int) -> torch.Tensor:
         """Stream k's (ch, hi - lo) PCM in the flat output `out`."""
@@ -90,19 +98,24 @@ class LapPlan:
         return out[o:o + ch * max(0, hi - lo)].view(ch, max(0, hi - lo))
 
 
-def lap_plain(blocks: torch.Tensor, wins: torch.Tensor,
-              plan: LapPlan) -> torch.Tensor:
+def lap_plain(blocks: torch.Tensor, wins: torch.Tensor, plan: LapPlan,
+              tails: torch.Tensor | None = None) -> torch.Tensor:
     """The lap of `plan` in eager PyTorch on blocks' device: per stream,
-    each packet's blocks times its window added in packet order into a
-    zeroed buffer (`d += s * w`, vn_lap_add's order), then the trim.
-    Returns the flat output (plan.total floats)."""
+    a zeroed buffer that takes its tail, each packet's blocks times its
+    window added into it in packet order (`d += s * w`, vn_lap_add's
+    order), then the trim.  Returns the flat output (plan.total floats)."""
     out = torch.zeros(plan.total, dtype=torch.float32, device=blocks.device)
     for k, (ch, n, pos, blk, win, lo, hi) in enumerate(plan.streams):
         if hi <= lo:
             continue
-        length = int(max(int(p) + int(m) for p, m in zip(pos, n)))
+        t_off, t_stride, t_pos, t_len = map(int, plan.st[k, 4:])
+        length = max([hi, t_pos + t_len]
+                     + [int(p) + int(m) for p, m in zip(pos, n)])
         buf = torch.zeros((ch, length), dtype=torch.float32,
                           device=blocks.device)
+        if t_len:
+            buf[:, t_pos:t_pos + t_len] = tails[t_off:].as_strided(
+                (ch, t_len), (t_stride, 1))
         for m, p, b, w in zip(n, pos, blk, win):
             m, p, b, w = int(m), int(p), int(b), int(w)
             buf[:, p:p + m] += blocks[b:b + ch * m].view(ch, m) \
@@ -122,28 +135,34 @@ class LapKernel:
         self.launches = 0
 
     def __call__(self, blocks: torch.Tensor, wins: torch.Tensor,
-                 plan: LapPlan, tables=None) -> torch.Tensor:
+                 plan: LapPlan, tables=None,
+                 tails: torch.Tensor | None = None) -> torch.Tensor:
         """`tables`, the plan's (pk, st) already on the card, saves their
-        copy."""
+        copy; `tails` holds the streams' tails (LapPlan's `tails`)."""
         if blocks.device.type == "cpu":
-            return lap_plain(blocks, wins, plan)
+            return lap_plain(blocks, wins, plan, tails)
         if blocks.device.type != "cuda":
             raise ValueError(f"lap: unsupported device {blocks.device}")
-        for name, t in (("blocks", blocks), ("wins", wins)):
+        named = [("blocks", blocks), ("wins", wins)]
+        if tails is not None:
+            named.append(("tails", tails))
+        for name, t in named:
             if t.dtype != torch.float32 or t.dim() != 1 \
                     or not t.is_contiguous() or t.device != blocks.device:
                 raise ValueError(f"lap: {name} must be a contiguous 1-D "
                                  f"float32 tensor on {blocks.device}")
-        pk, st = self._checked(plan, blocks.numel(), wins.numel())
+        pk, st = self._checked(plan, blocks.numel(), wins.numel(),
+                               0 if tails is None else tails.numel())
         if tables is None:
             tables = tuple(torch.from_numpy(a).to(blocks.device)
                            for a in (pk, st))
         out = torch.empty(plan.total, dtype=torch.float32,
                           device=blocks.device)
-        if len(pk) < 2 or plan.total == 0:
+        if not len(pk) or plan.total == 0:
             return out
         rc = load_library().vtt_lap(
-            blocks.data_ptr(), wins.data_ptr(), tables[0].data_ptr(),
+            blocks.data_ptr(), wins.data_ptr(),
+            None if tails is None else tails.data_ptr(), tables[0].data_ptr(),
             tables[1].data_ptr(), out.data_ptr(), len(pk),
             torch.cuda.current_stream(blocks.device).cuda_stream)
         if rc != 0:
@@ -152,11 +171,15 @@ class LapKernel:
         return out
 
     @staticmethod
-    def _checked(plan, nblocks, nwins):
+    def _checked(plan, nblocks, nwins, ntails=0):
         """The plan's tables, after the checks that keep every read of
-        the kernel inside `blocks` and `wins`."""
+        the kernel inside `blocks`, `wins` and `tails`."""
         pk, st = plan.pk, plan.st
-        for ch, n, pos, blk, win, lo, hi in plan.streams:
+        for (ch, n, pos, blk, win, lo, hi), s in zip(plan.streams, st):
+            t_off, t_stride, t_pos, t_len = map(int, s[4:])
+            if t_len and (t_off < 0 or t_stride < t_len or t_pos < 0
+                          or t_off + (ch - 1) * t_stride + t_len > ntails):
+                raise ValueError("lap: a tail lies outside `tails`")
             n = np.asarray(n, np.int64)
             if not len(n):
                 continue
