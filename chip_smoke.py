@@ -162,12 +162,28 @@ Phases (any failure raises and the script exits non-zero):
      plain version on a card pass; read_float(4096) and halfrate
      x-realtime and the pcm_seek + first read latency, card and host,
      three runs each; both kernels' times at one 256-packet chunk's
-     shapes, full rate and halfrate.
+     shapes, full rate and halfrate;
+  7. the sharded encode step, the roundtrip pipeline and LBG training
+     (vorbis_tpu_torch.parallel, models.pipeline, vq): 7a the framed
+     encode step of FastEncoder(2, 44100, 0.5) on 2,048 frames of
+     _signal(48, 44100, 0) split over a mesh of [cuda:0] * 4 (and every
+     card where there are several) bitwise against one device, nbits
+     within the static budget, one floor launch a shard, the floor
+     kernel against its plain version at a shard's rows, frames/s split
+     and whole; 7b TorchCodecPipeline(2, 44100, 0.5).roundtrip_step on
+     (4, 2, 256, 2048) frames split 2 x 4 over cuda:0, equal in value
+     to the unsplit step (each sp shard starts its lap from the previous
+     shard's halo), two IMDCT and two lap launches a shard and no plain
+     version, DeviceSynthesis against imdct_plain + lap_plain on the
+     card, the card against the CPU, encode_quantize_step card against
+     CPU (>= 90% of qpost rows), the roundtrip's times; 7c lbg_train of
+     65,536 clustered 4-dim points into 256 entries on the card against
+     numpy (final MSE within 25%), both times.
 Phase 4b then runs once more under torch.profiler and prints the
 device's busy share (4d profiles the same 16-stream batch as 4c, with
 switching).  Launch counts are set to 0 just before each main
-path (4, 4b, 4c, 4d, 4e, 4f, 4g, 6's decode runs and each card pass
-of 6b) and read just after it.
+path (4, 4b, 4c, 4d, 4e, 4f, 4g, 6's decode runs, each card pass
+of 6b and 7's split steps) and read just after it.
 It prints the kernel record as one JSON line, then the result line.
 """
 
@@ -2329,6 +2345,250 @@ def _phase_vorbisfile(smi, keep):
     return launches[0], launches[1], rec
 
 
+def _median_s(fn, reps=3):
+    """Median and spread of `reps` timed calls of fn (each synchronised):
+    (median s, _spread text)."""
+    import torch
+    ts = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t0)
+    return sorted(ts)[len(ts) // 2], _spread(ts)
+
+
+def _phase_pipeline(smi):
+    """Phase 7: the sharded encode step, the roundtrip pipeline and LBG
+    training on the card.  7a: the first 2,048 frames of
+    TorchCodecPipeline.frame of _signal(48, 44100, 0) / 32768 as (F, ch,
+    n) through sharded_encode_step on a mesh of [cuda:0] * 4 (and of
+    every card where there are several), bitwise against
+    make_framed_step(2048) on one device, every nbits > 0 and <= 8 * wb
+    (no packet cut at the static budget); the floor kernel's launches
+    (one a shard); frames/s sharded and single (median of 3).  7b:
+    frames (4, 2, 256, 2048) of _signal seeds 0-3 through the roundtrip
+    on a 2 x 4 mesh of cuda:0, equal in value to the unsharded step, err
+    within 1e-6 relative; the IMDCT and lap launches (two each a shard)
+    and no plain version on the card pass; DeviceSynthesis on the card
+    equal in value to imdct_plain + lap_plain on the same spectra on the
+    card; encode_quantize_step of stream 0 (512 rows) on the card and on
+    the CPU, >= 90% of qpost rows equal; the roundtrip's time.  7c: LBG,
+    65,536 clustered 4-dim points, 256 entries, iters = 40, on the card
+    and on numpy: final MSE within 25%, both times.  Returns the
+    record (launches of each kernel, readings)."""
+    import numpy as np
+    import pytest
+    import torch
+    from vorbis_tpu_torch.models.fastenc import FastEncoder
+    from vorbis_tpu_torch.models.pipeline import TorchCodecPipeline
+    from vorbis_tpu_torch.ops import imdct_cuda, lap_cuda
+    from vorbis_tpu_torch.ops.encdevice import DeviceFastEncode
+    from vorbis_tpu_torch.ops.imdct_cuda import imdct, imdct_plain
+    from vorbis_tpu_torch.ops.lap_cuda import lap, lap_plain
+    from vorbis_tpu_torch.parallel import (make_codec_mesh,
+                                           sharded_encode_step,
+                                           sharded_roundtrip_step)
+    from vorbis_tpu_torch.vq import lbg_train
+    cuda0 = torch.device("cuda", 0)
+    rec = {"card": smi}
+
+    # 7a. the sharded encode step
+    fe = FastEncoder(2, 44100, 0.5)
+    pipe = TorchCodecPipeline(2, 44100, 0.5)
+    F = 2048
+    fr = pipe.frame(_signal(48, 44100, 0).astype(np.float32) / 32768.0)
+    frames = torch.from_numpy(np.ascontiguousarray(
+        fr[:, :F].transpose(1, 0, 2))).to(cuda0)
+    dev = DeviceFastEncode(fe, chunk_packets=F)
+    wb = dev.plan.wb
+    single = dev.make_framed_step(F)
+    pk1, nb1 = single(frames)
+    if not (bool((nb1 > 0).all()) and int(nb1.max()) <= 8 * wb):
+        raise RuntimeError(f"7a: nbits {int(nb1.min())}..{int(nb1.max())} "
+                           f"outside 1..{8 * wb} (wb = {wb})")
+    meshes = {"4 x cuda:0": make_codec_mesh(devices=[cuda0] * 4)}
+    if torch.cuda.device_count() > 1:
+        meshes[f"{torch.cuda.device_count()} cards"] = make_codec_mesh()
+    single_s, single_txt = _median_s(lambda: single(frames))
+    rec["encode"] = {"F": F, "wb": wb, "bits": int(nb1.sum()),
+                     "single_frames_per_s": F / single_s}
+    for name, mesh in meshes.items():
+        step = sharded_encode_step(dev, mesh, F)
+        torch.cuda.synchronize()
+        fe.floor.launches = 0                   # the main path's run
+        pk, nb = step(frames)
+        torch.cuda.synchronize()
+        fl = fe.floor.launches
+        same = torch.equal(pk, pk1) and torch.equal(nb, nb1)
+        rows = int((pk != pk1).any(1).sum())
+        print(f"[7a] sharded encode on {name} ({mesh.shape}): {F} frames, "
+              f"packets bitwise equal to one device: {same} ({rows} rows "
+              f"differ), nbits {int(nb.min())}..{int(nb.max())} <= "
+              f"{8 * wb}, floor launches {fl}")
+        if not same:
+            raise RuntimeError(f"7a: sharded packets differ on {name}")
+        want_fl = sum(d == cuda0 for d in mesh.flat)
+        if fl != want_fl:
+            raise RuntimeError(f"7a: {fl} floor launches, {want_fl} "
+                               f"expected (one a shard on cuda:0)")
+        rec["encode"].setdefault("floor_launches", fl)
+        sh_s, sh_txt = _median_s(lambda: step(frames))
+        rec["encode"][f"sharded_frames_per_s {name}"] = F / sh_s
+        print(f"[7a] {name}: {F / sh_s:.1f} frames/s sharded "
+              f"({sh_txt}) against {F / single_s:.1f} frames/s on one "
+              f"device ({single_txt}); one card, so no speed-up is "
+              f"claimed  [{smi}]")
+
+    # the floor kernel against its plain version at one shard's rows
+    _, lm, mk = fe.analysis.full_mask(frames[:F // 4].reshape(-1, fe.n))
+    quant, above, prefix, _ = fe.floor.prepare(lm, mk)
+    rec["floor_err"] = _check(fe.floor, f"7a shard ({F // 4} frames, 2 ch)",
+                              quant, above, prefix)
+
+    # 7b. the roundtrip
+    S, FR = 4, 256
+    frames4 = np.stack([pipe.frame(_signal(6, 44100, s).astype(np.float32)
+                                   / 32768.0)[:, :FR] for s in range(S)])
+    x = torch.from_numpy(frames4).to(cuda0)
+    mesh = make_codec_mesh(devices=[cuda0] * 8)
+    rstep = sharded_roundtrip_step(pipe, mesh)
+    plain_calls = [0]
+    mp = pytest.MonkeyPatch()
+
+    def counted(module, name):
+        real = getattr(module, name)
+
+        def wrapper(*a, **kw):
+            plain_calls[0] += 1
+            return real(*a, **kw)
+        mp.setattr(module, name, wrapper)
+
+    counted(imdct_cuda, "imdct_plain")
+    counted(lap_cuda, "lap_plain")
+    try:
+        torch.cuda.synchronize()
+        imdct.launches = lap.launches = 0       # the main path's run
+        pcm, err = rstep(x)
+        torch.cuda.synchronize()
+        li, ll = imdct.launches, lap.launches
+        pcm1, err1 = pipe.roundtrip_step(x)
+        torch.cuda.synchronize()
+        li1, ll1 = imdct.launches - li, lap.launches - ll
+    finally:
+        mp.undo()
+    equal = torch.equal(pcm, pcm1)
+    rel = abs(float(err) - float(err1)) / float(err1)
+    print(f"[7b] roundtrip {tuple(x.shape)} on {mesh.shape} of cuda:0: pcm "
+          f"{tuple(pcm.shape)} equal in value to the unsharded step: "
+          f"{equal} (max |diff| {float((pcm - pcm1).abs().max()):.3g}), "
+          f"err {float(err):.9g} against {float(err1):.9g} (rel "
+          f"{rel:.3g}); launches sharded IMDCT {li}, lap {ll}; unsharded "
+          f"IMDCT {li1}, lap {ll1}; plain calls {plain_calls[0]}")
+    if not equal or rel > 1e-6 or not np.isfinite(float(err)):
+        raise RuntimeError("7b: the sharded roundtrip differs")
+    if (li, ll) != (2 * mesh.size, 2 * mesh.size) or (li1, ll1) != (2, 2) \
+            or plain_calls[0]:
+        raise RuntimeError("7b: launches or plain calls off")
+    # DeviceSynthesis on the card against the plain versions on the card
+    md, logmdct, mask = pipe.analysis.full_mask(x)
+    quant = torch.where(logmdct >= mask, md, 0.0)
+    syn = pipe.synthesis
+    got = syn(quant)
+    n, n2 = pipe.n, pipe.n // 2
+    plan = syn._plan(S * 2, FR, False, False)[0]
+    want = lap_plain(imdct_plain(quant.reshape(-1, n2), n).reshape(-1),
+                     syn.window, plan).reshape(got.shape)
+    same_syn = torch.equal(got, want)
+    print(f"[7b] DeviceSynthesis on the card equal in value to imdct_plain "
+          f"+ lap_plain on the card: {same_syn} (max |diff| "
+          f"{float((got - want).abs().max()):.3g}; bits differ at "
+          f"{int((got.view(torch.int32) != want.view(torch.int32)).sum())} "
+          f"samples)")
+    if not same_syn:
+        raise RuntimeError("7b: DeviceSynthesis differs from its plain "
+                           "versions")
+    # both kernels at one synthesis's shapes (2,048 rows, 8 streams of
+    # 256 blocks), warm L2: ms from CUDA graphs, call_ms from CUDA events
+    # over 50 calls from Python (the wrapper's host cost included)
+    spec = quant.reshape(-1, n2)
+    blocks = imdct(spec, n).reshape(-1)
+    tables = syn._plan(S * 2, FR, False, False)[1]
+    kern = {}
+    for name, fn, plain_fn, work in (
+            ("imdct", lambda: imdct(spec, n),
+             lambda: imdct_plain(spec, n), _imdct_work(n, spec.shape[0])),
+            ("lap", lambda: lap(blocks, syn.window, plan, tables=tables),
+             lambda: lap_plain(blocks, syn.window, plan), _lap_work(plan))):
+        ms, call_ms = _graph_ms(fn), _cuda_ms(fn, 50)
+        plain_ms = _cuda_ms(plain_fn, 3)
+        bound_ms, by = _roofline(*work)
+        kern[name] = {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": by,
+                      "share": bound_ms / ms}
+        print(f"[7b] {name} kernel at the roundtrip's shapes: {ms:.5f} ms "
+              f"(graphs), {call_ms:.5f} ms as calls, bound {bound_ms:.5f} "
+              f"ms by {by} ({bound_ms / ms:.1%}), plain {plain_ms:.3f} ms  "
+              f"[{smi}]")
+    cpu_pcm, cpu_err = TorchCodecPipeline(2, 44100, 0.5, device="cpu") \
+        .roundtrip_step(frames4)
+    print(f"[7b] card against the CPU: max |pcm diff| "
+          f"{float((pcm.cpu() - cpu_pcm).abs().max()):.3g} of "
+          f"{float(cpu_pcm.abs().max()):.3g}, err {float(err):.9g} against "
+          f"{float(cpu_err):.9g}")
+    sh_s, sh_txt = _median_s(lambda: rstep(x))
+    un_s, un_txt = _median_s(lambda: pipe.roundtrip_step(x))
+    print(f"[7b] roundtrip of {S * 2 * FR} frames: sharded {sh_txt}, "
+          f"unsharded {un_txt}  [{smi}]")
+    # encode_quantize_step, card against CPU
+    pipe_cpu = TorchCodecPipeline(2, 44100, 0.5, device="cpu")
+    rows = frames4[0].reshape(-1, n)
+    fe_launch0 = pipe.floor_fit.launches
+    qc, rc = pipe.encode_quantize_step(torch.from_numpy(rows).to(cuda0))
+    torch.cuda.synchronize()
+    fq = pipe.floor_fit.launches - fe_launch0
+    qh, rh = pipe_cpu.encode_quantize_step(rows)
+    q_share = float((qc.cpu() == qh).all(1).float().mean())
+    r_share = float((rc.cpu() == rh).all(1).float().mean())
+    print(f"[7b] encode_quantize_step of {len(rows)} rows, card against the "
+          f"CPU: qpost rows equal {q_share:.4f}, residue rows equal "
+          f"{r_share:.4f}; floor launches {fq}")
+    if q_share < 0.9 or fq != 1:
+        raise RuntimeError("7b: encode_quantize_step card vs CPU")
+    rec["roundtrip"] = {"frames": S * 2 * FR, "sharded_s": sh_s,
+                        "unsharded_s": un_s, "imdct_launches": li,
+                        "lap_launches": ll, "qpost_rows_equal": q_share}
+
+    # 7c. LBG
+    rng = np.random.RandomState(0)
+    centers = rng.randn(256, 4).astype(np.float32) * 3
+    pts = (centers[rng.randint(0, 256, 65536)]
+           + rng.randn(65536, 4).astype(np.float32) * 0.25) \
+        .astype(np.float32)
+    lbg_train(pts[:4096], 16, iters=8)           # warm: first cuBLAS call
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cc, ac, hc = lbg_train(pts, 256, iters=40)
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cn, an, hn = lbg_train(pts, 256, iters=40, use_torch=False)
+    t_np = time.perf_counter() - t0
+    gap = abs(hc[-1] - hn[-1]) / hn[-1]
+    print(f"[7c] LBG 65536 x 4 -> 256 entries, iters 40: card {t_card:.4f} s "
+          f"({len(hc)} steps, final MSE {hc[-1]:.6g}), numpy {t_np:.4f} s "
+          f"({len(hn)} steps, {hn[-1]:.6g}); gap {gap:.4f} (bound 0.25)  "
+          f"[{smi}]")
+    if gap >= 0.25:
+        raise RuntimeError("7c: LBG on the card off the numpy path")
+    rec["lbg"] = {"card_s": t_card, "numpy_s": t_np, "steps": len(hc),
+                  "mse_gap": gap}
+    rec["floor"] = rec["encode"]["floor_launches"] + fq
+    rec["imdct"], rec["lap"] = li + li1, ll + ll1
+    rec["kernels"] = kern
+    return rec
+
+
 def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2826,14 +3086,25 @@ def main():
                            if k.startswith("lap")}}
     _lap(t_start, "6b")
 
+    # 7. the sharded encode step, the roundtrip pipeline (DeviceSynthesis
+    # on the IMDCT and lap kernels) and LBG training on the card
+    p7 = _phase_pipeline(smi)
+    imdct_rec["launches"] += p7["imdct"]
+    lap_rec["launches"] += p7["lap"]
+    imdct_rec["at_pipeline"] = {"launches": p7["imdct"],
+                                **p7["kernels"]["imdct"]}
+    lap_rec["at_pipeline"] = {"launches": p7["lap"], **p7["kernels"]["lap"]}
+    _lap(t_start, "7")
+
     print(f"[time] {time.perf_counter() - t_start:.1f} s of command time")
     print(json.dumps({"kernels": [{
         "name": "floor1_greedy_fit", "route": "cuda",
         "source": "vorbis_tpu_torch/csrc/floor_fit.cu",
         "replaces": "vorbis_tpu/ops/floor_pallas.py:289",
         "launches": launches + launches_s + launches_b + sum(
-            v[0] for v in launches_sw.values()),
-        "max_abs_err": max_err,
+            v[0] for v in launches_sw.values()) + p7["floor"],
+        "at_pipeline": {"launches": p7["floor"]},
+        "max_abs_err": max(max_err, p7["floor_err"]),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "share": share, "at_51": fl_rec_51,
         "library_ms": None}, {

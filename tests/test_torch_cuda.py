@@ -3,8 +3,9 @@ csrc/m3_scan.cu, csrc/imdct.cu, csrc/lap.cu) against their plain PyTorch
 versions (the floor fit on the 5.1 looks too, M3 on six channels, the
 IMDCT at every blocksize and the lap at every blocksize and on -0.0 and
 subnormal products, both against the host C), the managed 15-blob
-finish on the card against the same step on the CPU, and the fast
-decode on the card against the host-C drain.  A CUDA
+finish on the card against the same step on the CPU, the fast
+decode on the card against the host-C drain, and the sharded encode
+step, the roundtrip pipeline and LBG training on the card.  A CUDA
 kernel has no CPU mode, so each test here skips without a card.
 
 The GPU machine has no JAX, so this file imports neither jax nor
@@ -27,7 +28,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import _click_train, _rows_equal
+from chip_smoke import _click_train, _rows_equal, _signal
 from vorbis_tpu_torch.codec.encoder import Encoder
 from vorbis_tpu_torch.models import encsetup
 from vorbis_tpu_torch.models.fastenc import FastEncoder as TFE
@@ -443,3 +444,130 @@ def test_faststream_damaged_holdback_on_cuda(cuda, monkeypatch):
     assert sum(g.shape[1] for g in got) > 3 * 44100
     chunks.check()
     assert not plain
+
+
+def _cuda_mesh(size):
+    """A mesh of `size` entries that repeats cuda:0 (one card stands in
+    for several), and one over every card where there are several."""
+    from vorbis_tpu_torch.parallel import make_codec_mesh
+    meshes = [make_codec_mesh(devices=[torch.device("cuda", 0)] * size)]
+    if torch.cuda.device_count() > 1:
+        meshes.append(make_codec_mesh())
+    return meshes
+
+
+def test_sharded_encode_on_cuda(cuda):
+    """The framed encode step split over a mesh on the card, bitwise
+    equal to one device's step, each shard one floor-kernel launch."""
+    from vorbis_tpu_torch.ops.encdevice import DeviceFastEncode
+    from vorbis_tpu_torch.parallel import sharded_encode_step
+    fe = TFE(2, 44100, 0.5)
+    F = 64
+    dev = DeviceFastEncode(fe, chunk_packets=F)
+    frames = torch.from_numpy((np.random.RandomState(0).randn(
+        F, 2, fe.n) * 0.1).astype(np.float32)).cuda()
+    pk1, nb1 = dev.make_framed_step(F)(frames)
+    assert bool((nb1 > 0).all()) and int(nb1.max()) <= 8 * dev.plan.wb
+    for mesh in _cuda_mesh(4):
+        step = sharded_encode_step(dev, mesh, F)
+        fe.floor.launches = 0
+        pk, nb = step(frames)
+        torch.cuda.synchronize()
+        assert torch.equal(pk, pk1) and torch.equal(nb, nb1)
+        assert fe.floor.launches == sum(d == torch.device("cuda", 0)
+                                        for d in mesh.flat)
+
+
+def test_roundtrip_on_cuda(cuda, monkeypatch):
+    """The roundtrip sharded 2 x 4 on the card equal in value to the
+    unsharded step (err within 1e-6 relative), two IMDCT and two lap
+    launches a shard and no plain version; DeviceSynthesis on the card
+    equal in value to imdct_plain + lap_plain on the same spectra."""
+    from vorbis_tpu_torch.models.pipeline import TorchCodecPipeline
+    from vorbis_tpu_torch.ops import imdct_cuda, lap_cuda
+    from vorbis_tpu_torch.ops.imdct_cuda import imdct, imdct_plain
+    from vorbis_tpu_torch.ops.lap_cuda import lap, lap_plain
+    from vorbis_tpu_torch.parallel import sharded_roundtrip_step
+    pipe = TorchCodecPipeline(2, 44100, 0.5)
+    n, n2 = pipe.n, pipe.n // 2
+    x = torch.from_numpy((np.random.RandomState(1).randn(
+        4, 2, 16, n) * 0.1).astype(np.float32)).cuda()
+    md, logmdct, mask = pipe.analysis.full_mask(x)
+    quant = torch.where(logmdct >= mask, md, 0.0)
+    got = pipe.synthesis(quant)
+    plan = pipe.synthesis._plan(8, 16, False, False)[0]
+    want = lap_plain(imdct_plain(quant.reshape(-1, n2), n).reshape(-1),
+                     pipe.synthesis.window, plan).reshape(got.shape)
+    assert torch.equal(got, want)
+    plain = []
+    monkeypatch.setattr(imdct_cuda, "imdct_plain",
+                        lambda *a: plain.append("imdct"))
+    monkeypatch.setattr(lap_cuda, "lap_plain",
+                        lambda *a: plain.append("lap"))
+    pcm1, err1 = pipe.roundtrip_step(x)
+    for mesh in _cuda_mesh(8):
+        imdct.launches = lap.launches = 0
+        pcm, err = sharded_roundtrip_step(pipe, mesh)(x)
+        torch.cuda.synchronize()
+        assert (imdct.launches, lap.launches) == (2 * mesh.size,) * 2
+        assert torch.equal(pcm, pcm1)
+        assert abs(float(err) - float(err1)) <= 1e-6 * float(err1)
+    assert not plain
+
+
+def test_lbg_on_cuda(cuda):
+    """LBG on the card (the default) within 25% of the numpy path's final
+    MSE; one step's assignments and counts equal to the CPU step's on
+    clustered points, the codes within an ulp (float64 atomics sum a
+    cell in any order, then round once)."""
+    from vorbis_tpu_torch.vq import lbg_train
+    from vorbis_tpu_torch.vq.vqgen import _make_step
+    rng = np.random.RandomState(0)
+    centers = rng.randn(64, 4).astype(np.float32) * 3
+    pts = (centers[rng.randint(0, 64, 8192)]
+           + rng.randn(8192, 4).astype(np.float32) * 0.25).astype(np.float32)
+    _, _, hc = lbg_train(pts, 64, iters=20)
+    _, _, hn = lbg_train(pts, 64, iters=20, use_torch=False)
+    assert abs(hc[-1] - hn[-1]) / hn[-1] < 0.25
+    codes = centers + rng.randn(64, 4).astype(np.float32) * 0.05
+    c, a, n, _, _ = _make_step("cuda")(pts, codes.copy())
+    cc, ac, nc, _, _ = _make_step("cpu")(pts, codes.copy())
+    assert np.array_equal(a, ac) and np.array_equal(n, nc)
+    assert np.abs(c.view(np.int32).astype(np.int64)
+                  - cc.view(np.int32).astype(np.int64)).max() <= 1
+
+
+def test_mixed_device_mesh_on_cuda(cuda):
+    """A mesh of the card and the CPU: each shard runs on its own
+    device's copy of the encoder and the pipeline (FastEncoder.to,
+    TorchCodecPipeline.to) and the halo crosses devices.  Card and CPU
+    round otherwise (cuFFT, cuBLAS), so the bounds of the card-vs-CPU
+    phases: >= 90% of packets equal; the roundtrip's pcm within 1e-5 of
+    its scale and err within 1e-4 relative of the card's own step."""
+    from vorbis_tpu_torch.models.pipeline import TorchCodecPipeline
+    from vorbis_tpu_torch.ops.encdevice import DeviceFastEncode
+    from vorbis_tpu_torch.parallel import (make_codec_mesh,
+                                           sharded_encode_step,
+                                           sharded_roundtrip_step)
+    mesh = make_codec_mesh(devices=["cuda", "cpu"])
+    assert mesh.distinct() == [torch.device("cuda", 0), torch.device("cpu")]
+    fe = TFE(2, 44100, 0.5)
+    pipe = TorchCodecPipeline(2, 44100, 0.5)
+    F = 16
+    dev = DeviceFastEncode(fe, chunk_packets=F)
+    fr = [pipe.frame(_signal(1, 44100, s).astype(np.float32) / 32768.0)
+          for s in (0, 1)]                  # (2, 42, n) each
+    frames = torch.from_numpy(np.ascontiguousarray(
+        fr[0][:, :F].transpose(1, 0, 2)))
+    pk, nb = sharded_encode_step(dev, mesh, F)(frames)
+    pk1, nb1 = dev.make_framed_step(F)(frames.cuda())
+    assert pk.device == pk1.device and nb.device == nb1.device
+    same = (pk == pk1).all(1) & (nb == nb1)
+    assert float(same.float().mean()) >= 0.9
+    assert torch.equal(pk[:F // 2], pk1[:F // 2])       # the card's half
+    x = torch.from_numpy(np.stack([f[:, :8] for f in fr]))
+    pcm, err = sharded_roundtrip_step(pipe, mesh)(x)
+    pcm1, err1 = pipe.roundtrip_step(x.cuda())
+    assert pcm.device == pcm1.device
+    assert float((pcm - pcm1).abs().max()) <= 1e-5 * float(pcm1.abs().max())
+    assert abs(float(err) - float(err1)) <= 1e-4 * float(err1)

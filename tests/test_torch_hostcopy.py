@@ -7,7 +7,9 @@ native/vorbisnative.c vn_rescue_walk; csrc/host_decode.c function by
 function against native/vorbisnative.c), with the decode slice's copies
 (codec/floor0_codec.py, codec/nativeparse.py, the copied functions of
 models/fastdec.py, FastStreamDecoder and vorbisfile.py but for their
-device lines).  numpy
+device lines) and the training slice's (vq/huffbuild.py,
+vq/latticebuild.py, vq/training.py, lbg_train's host loop but for its
+device lines, TorchCodecPipeline.frame, local_book_besterror).  numpy
 only: every comparison is exact (bytes, integers, float32 arrays bit for
 bit)."""
 
@@ -468,3 +470,72 @@ def test_rescue_walk_has_no_python_fallback(monkeypatch):
             native.rescue_walk(T, T, np.array([8, 3]), 24)
     finally:
         native.host_library.cache_clear()
+
+
+def _docstring_plus(src, port, end):
+    """port is src with one paragraph added before the module docstring's
+    closing quotes, which follow `end`; returns the paragraph."""
+    para = re.search(re.escape(end) + r'(\n\n.*?)\n"""', port, re.S).group(1)
+    assert port == src.replace(end + '\n"""', end + para + '\n"""', 1)
+    return para
+
+
+def test_vq_host_modules_line_aligned_copies():
+    """vq/huffbuild.py and vq/latticebuild.py are their sources byte for
+    byte; vq/training.py and vq/__init__.py add one paragraph to the
+    module docstring, and nothing else."""
+    def text(pkg, name):
+        return open(os.path.join(ROOT, pkg, "vq", name)).read()
+
+    for name in ("huffbuild.py", "latticebuild.py"):
+        assert text("vorbis_tpu_torch", name) == text("vorbis_tpu", name)
+    para = _docstring_plus(text("vorbis_tpu", "training.py"),
+                           text("vorbis_tpu_torch", "training.py"),
+                           "equivalents.")
+    assert "Copy of vorbis_tpu/vq/training.py" in para
+    para = _docstring_plus(text("vorbis_tpu", "__init__.py"),
+                           text("vorbis_tpu_torch", "__init__.py"),
+                           "distance computations.")
+    assert "Counterpart of vorbis_tpu/vq" in para
+
+
+# The lines by which the port's lbg_train differs from its source: the
+# step's device (the card by default) in place of use_jax.
+LBG_DEVICE_LINES = [
+    '              seed: int = 0, use_jax: bool = True,',
+    '              seed: int = 0, use_torch: bool = True, device=None,',
+    '    assignments (N,) int64, mse history list)."""',
+    '    assignments (N,) int64, mse history list).  use_torch: the step on',
+    '    `device` (default "cuda": with no card that raises, and the CPU',
+    '    takes device="cpu"); False: the numpy step."""',
+    '    run = _make_step(use_jax)',
+    '    if use_torch and device is None:',
+    '        if not torch.cuda.is_available():',
+    '            raise RuntimeError(',
+    '                "lbg_train runs on the card by default and no CUDA "',
+    '                "device is available: pass device=\\"cpu\\" (or "',
+    '                "use_torch=False) to train on the CPU")',
+    '        device = "cuda"',
+    '    run = _make_step(device if use_torch else None)']
+
+
+def test_lbg_host_loop_and_copied_functions():
+    """lbg_train's host loop is its source's line for line but for the
+    device lines; _pairwise_sq, TorchCodecPipeline.frame and the codec's
+    local_book_besterror (with _enc_book_fields) are their sources'
+    text."""
+    def defs(pkg, *rel):
+        return _py_defs(os.path.join(ROOT, pkg, *rel))
+
+    j, t = (defs(p, "vq", "vqgen.py") for p in ("vorbis_tpu",
+                                                "vorbis_tpu_torch"))
+    assert _changed_lines(j["lbg_train"], t["lbg_train"]) \
+        == LBG_DEVICE_LINES
+    assert t["_pairwise_sq"] == j["_pairwise_sq"]
+    j, t = (defs(p, "models", "pipeline.py") for p in ("vorbis_tpu",
+                                                       "vorbis_tpu_torch"))
+    assert t["TorchCodecPipeline.frame"] == j["TpuCodecPipeline.frame"]
+    j, t = (defs(p, "codec", "residue_codec.py")
+            for p in ("vorbis_tpu", "vorbis_tpu_torch"))
+    for k in ("local_book_besterror", "_enc_book_fields"):
+        assert t[k] == j[k], k

@@ -3,8 +3,10 @@ nor the JAX package vorbis_tpu, and a process in which both imports fail
 can still encode with the port on the CPU (stateless, the default
 encoder with block switching and the cross-frame psy state, and managed
 ABR) and decode with the port's own decoders, the fast decode and the
-`ov_*` layer among them (the GPU machine has no JAX); the test files that hold the card tests import in such a process
-too.  The encoder and the fast decode run on the card unless the caller
+`ov_*` layer among them (the GPU machine has no JAX), and run a sharded
+roundtrip of the pipeline; the test files that hold the card tests
+import in such a process too.  The encoder, the fast decode, the
+pipeline, the mesh and LBG training run on the card unless the caller
 asks for the CPU."""
 
 import os
@@ -66,6 +68,20 @@ vf = OggVorbisFile(ogg, device="cpu")
 assert np.array_equal(vf.read_all_float(), out)
 vf.pcm_seek(1000)
 assert np.array_equal(vf.read_float(4096), out[:, 1000:5096])
+# the roundtrip pipeline, sharded over a mesh that repeats the CPU, and
+# the modules of the dry run and VQ training
+import torch
+import vorbis_tpu_torch.graft
+import vorbis_tpu_torch.vq
+from vorbis_tpu_torch.models.pipeline import TorchCodecPipeline
+from vorbis_tpu_torch.parallel import make_codec_mesh, sharded_roundtrip_step
+pipe = TorchCodecPipeline(2, 44100, 0.5, device="cpu")
+frames = np.random.RandomState(0).randn(1, 2, 4, pipe.n).astype(np.float32)
+mesh = make_codec_mesh(devices=[torch.device("cpu")] * 2)
+pcm, err = sharded_roundtrip_step(pipe, mesh)(frames)
+want, want_err = pipe.roundtrip_step(frames)
+assert torch.equal(pcm, want) and pcm.shape == (1, 2, 2 * pipe.n), pcm.shape
+assert abs(float(err) - float(want_err)) <= 1e-6 * float(want_err)
 bad = sorted(m for m in sys.modules if m.startswith("jax.")
              and m not in preloaded)
 assert not bad, bad
@@ -137,6 +153,33 @@ def test_fast_decoder_defaults_to_the_card():
                  lambda: decode_file(ogg)):
         with pytest.raises(RuntimeError, match='device="cpu"'):
             call()
+
+
+def test_pipeline_mesh_and_lbg_default_to_the_card():
+    """TorchCodecPipeline, make_codec_mesh and lbg_train take the card
+    by default: with no card each raises and names the way to the CPU,
+    and the mesh takes no CPU in its place."""
+    from vorbis_tpu_torch.models.pipeline import TorchCodecPipeline
+    from vorbis_tpu_torch.parallel import make_codec_mesh
+    from vorbis_tpu_torch.vq import lbg_train
+    pts = np.random.RandomState(0).randn(64, 2).astype(np.float32)
+    if torch.cuda.is_available():
+        assert TorchCodecPipeline().device.type == "cuda"
+        mesh = make_codec_mesh()
+        assert mesh.size == torch.cuda.device_count()
+        assert all(d.type == "cuda" for d in mesh.flat)
+        with pytest.raises(RuntimeError, match="devices asked for"):
+            make_codec_mesh(torch.cuda.device_count() + 1)
+        lbg_train(pts, 4, iters=4)
+        return
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        TorchCodecPipeline()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_codec_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_codec_mesh(4)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        lbg_train(pts, 4, iters=4)
 
 
 CARD_PROBE = r"""

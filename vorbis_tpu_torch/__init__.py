@@ -11,7 +11,9 @@ hand-written kernels (the floor1 greedy fit `csrc/floor_fit.cu`, the M3
 scan `csrc/m3_scan.cu`, the decode's IMDCT `csrc/imdct.cu` and its
 windowed lap `csrc/lap.cu`) are built with nvcc and the host C
 (`csrc/host_ogg.c`, `csrc/host_decode.c`) with cc at first use
-(`native.py`).  The decode's `ov_*` layer is `vorbisfile.py`.
+(`native.py`).  The decode's `ov_*` layer is `vorbisfile.py`; the
+roundtrip pipeline `models/pipeline.py`, its split over a list of
+devices `parallel/`, the dry run `graft.py` and VQ training `vq/`.
 
 Importing the package sets the fp32 policy the reference runs under:
 the JAX side computes its matmuls at Precision.HIGHEST, so TF32 is off

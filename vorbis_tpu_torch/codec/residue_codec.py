@@ -8,9 +8,9 @@ are grouped after stage s-1 (phrase words interleave with stage 0).
 A truncated packet mid-residue is a normal stop: everything decoded so
 far is kept.
 
-Copy of vorbis_tpu/codec/residue_codec.py :1-200, kept line-aligned with
-it: the decode side and `_enc_book_fields`, which the device lattice VQ
-reads; the scalar encoder's search and packing stay behind.
+Copy of vorbis_tpu/codec/residue_codec.py :1-250, kept line-aligned with
+it: the decode side, `_enc_book_fields` (the device VQ) and the search
+`local_book_besterror` (vq/training.py); the encoder's packing stays out.
 """
 
 from __future__ import annotations
@@ -201,3 +201,54 @@ def _enc_book_fields(book):
         qv = maptype1_quantvals(sb.entries, sb.dim)
         book._enc_fields = (minval, delta, qv)
     return book._enc_fields
+
+
+def local_book_besterror(book, a, off):
+    """Nearest-entry search with error feed-forward: quantizes a[off:
+    off+dim] in place (subtracting the chosen entry's values) and
+    returns the entry index."""
+    dim = book.dim
+    minval, delta, qv = _enc_book_fields(book)
+    ze = qv >> 1
+    index = 0
+    p = [0] * dim
+    for o in range(dim - 1, -1, -1):
+        if delta != 1:
+            v = (int(a[off + o]) - minval + (delta >> 1)) // delta \
+                if (int(a[off + o]) - minval + (delta >> 1)) >= 0 else \
+                -((-(int(a[off + o]) - minval + (delta >> 1))) // delta)
+        else:
+            v = int(a[off + o]) - minval
+        m = ((ze - v) << 1) - 1 if v < ze else ((v - ze) << 1)
+        index = index * qv + (0 if m < 0 else (qv - 1 if m >= qv else m))
+        p[o] = v * delta + minval
+    if book.lengths[index] <= 0:
+        # lattice miss: brute-force scan following the vq tool's value
+        # patterning
+        best = -1
+        # C uses a fixed e[8]; the odometer walk can step one past the
+        # active dims on the final iteration (res0.c:363-367), so keep
+        # guard slots like the C array does
+        e = [0] * (dim + 2)
+        maxval = minval + delta * (qv - 1)
+        for i in range(book.entries):
+            if book.lengths[i] > 0:
+                this = 0
+                for j in range(dim):
+                    val = e[j] - int(a[off + j])
+                    this += val * val
+                if best == -1 or this < best:
+                    p = list(e)
+                    best = this
+                    index = i
+            j = 0
+            while e[j] >= maxval:
+                e[j] = 0
+                j += 1
+            if e[j] >= 0:
+                e[j] += delta
+            e[j] = -e[j]
+    if index > -1:
+        for i in range(dim):
+            a[off + i] -= p[i]
+    return index

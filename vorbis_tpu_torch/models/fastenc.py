@@ -163,6 +163,10 @@ class FastEncoder:
                     "on the CPU")
             device = "cuda"
         self.device = torch.device(device)
+        # what `to` builds the same encoder from on another device
+        self._config = dict(ch=ch, rate=rate, quality=quality,
+                            switching=switching, coupling=coupling,
+                            bitrate=bitrate, psy_state=psy_state)
         self.managed = bitrate is not None
         if self.managed:
             mx, nom, mn = bitrate
@@ -239,6 +243,13 @@ class FastEncoder:
             vi.blocksizes[0] != vi.blocksizes[1]
             and any(m.blockflag == 0 for m in vi.modes))
         self.psy_state = bool(psy_state)
+
+    def to(self, device) -> "FastEncoder":
+        """This encoder's configuration on `device`, its tables built
+        there (self where it already runs on that device)."""
+        if torch.device(device) == self.device:
+            return self
+        return FastEncoder(**self._config, device=device)
 
     def ctx(self, W: int = 1):
         """Per-mode component bundle; the long ctx is the encoder

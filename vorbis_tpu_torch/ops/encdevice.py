@@ -1367,6 +1367,23 @@ class DeviceFastEncode:
 
         return step
 
+    def make_framed_step(self, F, wb=None):
+        """Returns a callable frames (F, ch, n) float32 on the device ->
+        (packets (F, wb) uint8, nbits (F,) int32) for pre-framed input:
+        the shardable entry point (the frame axis splits over a mesh,
+        parallel/mesh.sharded_encode_step).  Rows are wb bytes
+        (plan.wb by default): a packet longer than that is cut, as in
+        the JAX step; the encoder's own redo at worst_bytes
+        (models/fastenc.py _drain) is not this step's."""
+        wb = wb or self.plan.wb
+        n, ch = self.n, self.ch
+
+        def step(frames):
+            flat = frames.reshape(F * ch, n)
+            return self.encode_flat(flat, F, wb)
+
+        return step
+
     def _gather_frames(self, x64, starts, F):
         """(ch, R, 64) PCM rows + (F,) 64-aligned sample offsets ->
         flat (F*ch, n) float32 frames in frame-major (F, ch) order;

@@ -1,6 +1,8 @@
 """Torch counterpart of vorbis_tpu/ops/jaxdsp.py: the encoder's device
 analysis spine (window -> MDCT -> log spectrum -> bark noise fit ->
-tone mask -> stateless offset/mix), batched over frames and channels.
+tone mask -> stateless offset/mix), batched over frames and channels,
+and the roundtrip pipeline's synthesis (DeviceSynthesis: the decode's
+IMDCT and lap kernels).
 
 Same formulas and float32 op order as the JAX module, in torch idiom:
 static index tables are tensor gathers, `segment_max` is
@@ -16,6 +18,7 @@ Reference behavior being reproduced (file:line of the reference tree):
 - bark_noise_hybridmp least-squares noise fit: lib/psy.c:3480
 - noise companding: lib/psy.c _vp_noisemask
 - window + forward MDCT + log spectrum: lib/mdct.c, lib/scales.h:43-52
+- IMDCT + window + overlap-add: lib/mdct.c mdct_backward, lib/block.c
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ import torch
 from ..convert import device_tables
 from ..utils.scales import todB
 from . import psy as PSY
+from .imdct_cuda import imdct
+from .lap_cuda import LapPlan, lap
 from .mdct import mdct_basis_np
 from .window import hybrid_window
 
@@ -511,6 +516,76 @@ class DeviceToneMask:
                            torch.clamp_max(minv, self.tone_abs_limit),
                            NEGINF)
         return torch.maximum(flr, minv)
+
+
+class DeviceSynthesis:
+    """Batched decoder back half on `device`: spectrum -> IMDCT ->
+    window -> overlap-add (reference: lib/mdct.c mdct_backward +
+    lib/block.c vorbis_synthesis_blockin lapping), counterpart of
+    jaxdsp.DeviceSynthesis.
+
+    On the card it is the decode's two kernels and nothing between
+    them: one launch of csrc/imdct.cu for every row of the batch, then
+    one of csrc/lap.cu, each leading index one stream whose frame f is a
+    long-long block at f*n/2, trimmed to [0, F*n/2).  On the CPU the
+    same two wrappers run their plain versions.  The lap sums every
+    sample from +0 ((+0 + prev) + cur), where the JAX module leaves
+    frame 0's first half unsummed: a -0.0 there reads +0.0, equal in
+    value.  `tail` and `with_halo` carry the one cross-frame dependency
+    between shards of the frame axis (parallel/mesh.py): a shard's
+    `with_halo` also returns its last frame's windowed second half (the
+    lap run n/2 past the trim), which the next shard takes as `tail`,
+    its streams' initial values over [0, n/2)."""
+
+    def __init__(self, n=2048, *, device):
+        self.n = n
+        self.device = torch.device(device)
+        self.window = torch.from_numpy(
+            hybrid_window(n // 8, n, 1, 1, 1)).to(self.device)
+        self._plans = {}
+
+    def __call__(self, spec, tail=None):
+        """spec: (..., F, n/2) -> pcm (..., F*n/2) long-block stream;
+        tail: (..., n/2), added under frame 0's first half."""
+        return self._synth(spec, tail, False)[0]
+
+    def with_halo(self, spec, tail=None):
+        """(pcm (..., F*n/2), halo (..., n/2)): the halo is the last
+        frame's windowed second half, the next shard's `tail`."""
+        return self._synth(spec, tail, True)
+
+    def _plan(self, S, F, tail, halo):
+        """The lap of S streams of F frames (LapPlan, with its tables on
+        the device), made once for each shape."""
+        key = (S, F, tail, halo)
+        if key not in self._plans:
+            n, n2 = self.n, self.n // 2
+            f = np.arange(F, dtype=np.int64)
+            plan = LapPlan(
+                [(1, np.full(F, n), f * n2, (k * F + f) * n,
+                  np.zeros(F, np.int64), 0, F * n2 + (n2 if halo else 0))
+                 for k in range(S)],
+                tails=[(k * n2, n2, 0, n2) for k in range(S)] if tail
+                else None)
+            tables = (None if self.device.type == "cpu" else tuple(
+                torch.from_numpy(a).to(self.device) for a in (plan.pk,
+                                                              plan.st)))
+            self._plans[key] = (plan, tables)
+        return self._plans[key]
+
+    def _synth(self, spec, tail, halo):
+        n, n2 = self.n, self.n // 2
+        lead, F = spec.shape[:-2], spec.shape[-2]
+        S = int(np.prod(lead, dtype=np.int64))
+        blocks = imdct(spec.reshape(S * F, n2).contiguous(), n)
+        plan, tables = self._plan(S, F, tail is not None, halo)
+        out = lap(blocks.reshape(-1), self.window, plan, tables=tables,
+                  tails=None if tail is None
+                  else tail.reshape(S * n2).contiguous())
+        out = out.reshape(S, -1)
+        pcm = out[:, :F * n2].reshape(lead + (F * n2,))
+        return pcm, (out[:, F * n2:].reshape(lead + (n2,)) if halo
+                     else None)
 
 
 def block_cumsum(x, base=16):
