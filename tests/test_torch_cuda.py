@@ -4,8 +4,10 @@ versions (the floor fit on the 5.1 looks too, M3 on six channels, the
 IMDCT at every blocksize and the lap at every blocksize and on -0.0 and
 subnormal products, both against the host C), the managed 15-blob
 finish on the card against the same step on the CPU, the fast
-decode on the card against the host-C drain, and the sharded encode
-step, the roundtrip pipeline and LBG training on the card.  A CUDA
+decode on the card against the host-C drain, the sharded encode
+step, the roundtrip pipeline and LBG training on the card, and one
+configuration of the corpus gate that holds the card's FastEncoder to
+the port's golden encoder (chip_smoke.py phase 8).  A CUDA
 kernel has no CPU mode, so each test here skips without a card.
 
 The GPU machine has no JAX, so this file imports neither jax nor
@@ -571,3 +573,27 @@ def test_mixed_device_mesh_on_cuda(cuda):
     assert pcm.device == pcm1.device
     assert float((pcm - pcm1).abs().max()) <= 1e-5 * float(pcm1.abs().max())
     assert abs(float(err) - float(err1)) <= 1e-4 * float(err1)
+
+
+def test_golden_gate_on_cuda(cuda):
+    """One configuration of chip_smoke.py phase 8: FastEncoder(2, 16000,
+    0.5) on the card (the 512/1024 blocksizes) on 1 s of the mix signal
+    and on quiet-after-loud, held to the port's golden encoder by
+    tests/test_quality_gates.py _gate's bounds (RMS error below 1.1 times
+    the golden stream's, segmental SNR within 2 dB, size ratio in
+    [0.65, 1.2]), both streams decoded on the card; the encodes launch
+    the floor kernel, the decodes the IMDCT and lap kernels."""
+    from chip_smoke import GATES, _gate_one, _gate_signal
+    from vorbis_tpu_torch import encode_vbr_stream
+    from vorbis_tpu_torch.ops.imdct_cuda import imdct
+    from vorbis_tpu_torch.ops.lap_cuda import lap
+    q, rate, ratio = GATES[2]
+    assert rate == 16000
+    fe = TFE(2, rate, q)
+    i0, l0 = imdct.launches, lap.launches
+    for kind in ("mix", "qal"):
+        pcm = _gate_signal(kind, rate, 1.0, 2)
+        _gate_one(kind, pcm, fe.encode(pcm), encode_vbr_stream(pcm, rate, q),
+                  ratio, (0.65, 1.2))
+    assert fe.floor.launches > 0
+    assert imdct.launches > i0 and lap.launches > l0

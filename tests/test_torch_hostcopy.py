@@ -9,9 +9,13 @@ function against native/vorbisnative.c), with the decode slice's copies
 models/fastdec.py, FastStreamDecoder and vorbisfile.py but for their
 device lines) and the training slice's (vq/huffbuild.py,
 vq/latticebuild.py, vq/training.py, lbg_train's host loop but for its
-device lines, TorchCodecPipeline.frame, local_book_besterror).  numpy
-only: every comparison is exact (bytes, integers, float32 arrays bit for
-bit)."""
+device lines, TorchCodecPipeline.frame, local_book_besterror) and the
+golden encoder's (codec/encoder.py, ops/psy.py, ops/envelope.py,
+ops/rdft.py, ops/window.py, utils/analysis_dump.py and the encode
+halves of codec/floor1_codec.py and codec/residue_codec.py: whole files
+but for COPY_LINES; the numpy todB_np and unitnorm_np of
+utils/scales.py).  numpy only: every comparison is exact (bytes,
+integers, float32 arrays bit for bit)."""
 
 import filecmp
 import os
@@ -125,17 +129,96 @@ def test_mdct_and_imdct_bitwise(n):
     assert _same(T_mdct.imdct(spec, n), J_mdct.imdct(spec, n))
 
 
+# The lines by which the golden encoder's host copies differ from their
+# sources ("-" the source's, "+" the port's), besides the paragraph each
+# adds to its module docstring: the numpy todB and unitnorm take their
+# own names in the port's utils/scales.py (its todB and unitnorm are on
+# torch tensors), and the port's codebook decodes a run in Python (no
+# native decoder).
+COPY_LINES = {
+    "codec/encoder.py": [
+        "- from ..utils.scales import todB",
+        "+ from ..utils.scales import todB_np as todB"],
+    "codec/floor1_codec.py": [],
+    "codec/residue_codec.py": [
+        '-     same-book codewords decodes in one native call."""',
+        '+     same-book codewords decodes in one decode_run call."""'],
+    "ops/envelope.py": [
+        "- from ..utils.scales import todB",
+        "+ from ..utils.scales import todB_np as todB"],
+    "ops/psy.py": [
+        "- from ..utils.scales import fromOC, toBARK, toOC, unitnorm",
+        "+ from ..utils.scales import fromOC, toBARK, toOC, unitnorm_np as "
+        "unitnorm"],
+    "ops/rdft.py": [],
+    "ops/window.py": [],
+    "utils/analysis_dump.py": [],
+}
+
+
+def _copy_and_note(rel):
+    """(source text, port text without the paragraph it adds to its
+    module docstring, that paragraph)."""
+    src, port = (open(os.path.join(ROOT, pkg, *rel.split("/"))).read()
+                 for pkg in ("vorbis_tpu", "vorbis_tpu_torch"))
+    i = port.index("\n\nCopy of vorbis_tpu/" + rel)
+    j = port.index('"""', i)
+    para = port[i + 2:j].rstrip("\n")
+    # the source closes its docstring on a line of its own or after text
+    own = port[:i] + "\n" + port[j:]
+    return src, own if src.startswith(port[:i] + '\n"""') else \
+        port[:i] + port[j:], para
+
+
+def _listed_diff(rel):
+    import difflib
+    src, port, para = _copy_and_note(rel)
+    assert para.startswith(f"Copy of vorbis_tpu/{rel}, kept line-aligned "
+                           "with it"), para
+    return [ln for ln in difflib.ndiff(src.splitlines(), port.splitlines())
+            if ln[:2] in ("- ", "+ ")]
+
+
 def test_envelope_constants_line_aligned_copy():
-    """ops/envelope.py holds lines 22-32 of its source, at the same
-    lines, with the same values."""
-    lines = [open(os.path.join(ROOT, pkg, "ops", "envelope.py")).read()
-             .splitlines()[21:32]
-             for pkg in ("vorbis_tpu", "vorbis_tpu_torch")]
-    assert lines[0] == lines[1] and lines[0][0] == "VE_PRE = 16"
-    names = [ln.split(" = ")[0] for ln in lines[0] if " = " in ln]
-    assert len(names) == 10
+    """ops/envelope.py is its whole source, line for line (the scalar
+    detector of the golden encoder with the constants the batched one
+    reads), but for COPY_LINES, with the same values."""
+    assert _listed_diff("ops/envelope.py") == COPY_LINES["ops/envelope.py"]
+    names = [k for k in vars(J_env) if k.isupper()]
+    assert len(names) >= 10 and "VE_PRE" in names
     for k in names:
         assert _same(getattr(T_env, k), getattr(J_env, k)), k
+
+
+@pytest.mark.parametrize("rel", sorted(set(COPY_LINES)
+                                       - {"ops/envelope.py"}))
+def test_golden_encoder_line_aligned_copies(rel):
+    """The golden encoder's host modules are their sources, line for
+    line, but for COPY_LINES and one paragraph added to the module
+    docstring; every function and class of the source is there."""
+    assert _listed_diff(rel) == COPY_LINES[rel]
+    assert _py_defs(os.path.join(ROOT, "vorbis_tpu_torch", *rel.split(
+        "/"))).keys() == _py_defs(os.path.join(ROOT, "vorbis_tpu",
+                                               *rel.split("/"))).keys()
+
+
+def test_scales_numpy_branches_equal_source():
+    """utils/scales.py's todB_np and unitnorm_np are the source's numpy
+    branches: equal bit for bit on float32 arrays and scalars (signed
+    zeros, subnormals, infinities, NaN), and both raise on a float64
+    scalar, as the source's todB does."""
+    import vorbis_tpu.utils.scales as JS
+    import vorbis_tpu_torch.utils.scales as TS
+    rng = np.random.RandomState(6)
+    x = np.concatenate([rng.randn(4096).astype(np.float32) * 1e3,
+                        np.array([0.0, -0.0, 1e-42, -1e-42, np.inf, -np.inf,
+                                  np.nan], np.float32)])
+    for a in (x, x[5], np.float32(-0.0)):
+        assert _same(TS.todB_np(a), JS.todB(a))
+        assert _same(TS.unitnorm_np(a), JS.unitnorm(a))
+    for f in (TS.todB_np, JS.todB):
+        with pytest.raises(ValueError):
+            f(np.float64(0.5))
 
 
 def test_reservoir_chooser_line_aligned_copy():

@@ -5,9 +5,10 @@ encoder with block switching and the cross-frame psy state, and managed
 ABR) and decode with the port's own decoders, the fast decode and the
 `ov_*` layer among them (the GPU machine has no JAX), and run a sharded
 roundtrip of the pipeline; the test files that hold the card tests
-import in such a process too.  The encoder, the fast decode, the
-pipeline, the mesh and LBG training run on the card unless the caller
-asks for the CPU."""
+import in such a process too, and so do the package's exports of its
+encoders (`FastEncoder`, the golden `encode_vbr_stream`).  The encoder,
+the fast decode, the pipeline, the mesh and LBG training run on the
+card unless the caller asks for the CPU."""
 
 import os
 import re
@@ -211,3 +212,38 @@ def test_card_test_files_import_without_jax():
                        env={**os.environ, "OMP_NUM_THREADS": "1"})
     assert r.returncode == 0, r.stderr[-4000:]
     assert r.stdout.strip() == f"ok {len(paths)}", r.stdout
+
+
+EXPORTS = r"""
+import sys
+sys.modules["jax"] = None          # any `import jax` now raises
+sys.modules["vorbis_tpu"] = None   # and so does `import vorbis_tpu...`
+sys.path.insert(0, {root!r})
+import vorbis_tpu_torch
+from vorbis_tpu_torch.codec.encoder import encode_vbr_stream
+from vorbis_tpu_torch.models.fastenc import FastEncoder
+assert vorbis_tpu_torch.encode_vbr_stream is encode_vbr_stream
+assert vorbis_tpu_torch.FastEncoder is FastEncoder
+assert "encode_vbr_stream" in vorbis_tpu_torch.__doc__
+assert "FastEncoder" in vorbis_tpu_torch.__doc__
+import numpy as np     # and the golden encoder runs (its lazy imports)
+t = np.arange(4000) / 8000
+ogg = encode_vbr_stream(np.sin(2 * np.pi * 440 * t)[None].astype(np.float32),
+                        8000, 0.2)
+assert ogg[:4] == b"OggS" and len(ogg) > 3000, len(ogg)
+bad = sorted(m for m in sys.modules if (m == "jax" or m.startswith("jax.")
+             or m.startswith("vorbis_tpu.")) and sys.modules[m] is not None)
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_package_exports_golden_and_fast_encoders():
+    """vorbis_tpu_torch.encode_vbr_stream and vorbis_tpu_torch.FastEncoder
+    resolve (as vorbis_tpu exports them), and the golden encoder encodes,
+    in a process where jax and vorbis_tpu cannot be imported."""
+    r = subprocess.run([sys.executable, "-c", EXPORTS.format(root=ROOT)],
+                       capture_output=True, text=True, timeout=300,
+                       env={**os.environ, "OMP_NUM_THREADS": "1"})
+    assert r.returncode == 0, r.stderr[-4000:]
+    assert r.stdout.strip() == "ok", r.stdout

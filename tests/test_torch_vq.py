@@ -1,8 +1,11 @@
 """The port's VQ training toolchain (vorbis_tpu_torch/vq/: vqgen.py's LBG
 on a torch device, and the line-aligned copies huffbuild.py,
 latticebuild.py and training.py) on test_vq.py's cases, with the port's
-own codebook and bit layers, and one LBG step against the JAX
-package's.  JAX is imported only inside that one test.
+own codebook and bit layers, one LBG step against the JAX package's,
+and the encode-dump-retrain loop of test_vq.py on the port's golden
+encoder, whose TRAINER hooks must collect what the JAX package's
+encoder collects on the same clip.  JAX is imported only inside the
+LBG test (the JAX package's encoder and collector are numpy).
 
 Tolerances: the LBG cases keep test_vq.py's assertions (the torch step
 on the CPU in place of JAX's: final MSE within 25% of the numpy path's);
@@ -215,3 +218,78 @@ def test_training_collector_dump(tmp_path):
     assert len(files) == 3
     assert open(files[0]).read() == "1, -2,\n"
     assert T.TRAINER is None
+
+
+def _collect(enc_mod, setup_mod, training, pcm):
+    """The training streams one encode of `pcm` (stereo, 44.1 kHz, q0.4)
+    feeds a package's collector through its codec's TRAINER hooks."""
+    enc = enc_mod.Encoder(setup_mod.setup_vbr(2, 44100, 0.4))
+    training.TRAINER = training.TrainingCollector()
+    try:
+        enc.write(pcm)
+        enc.end_of_stream()
+        enc.pump()
+    finally:
+        col, training.TRAINER = training.TRAINER, None
+    return col
+
+
+def test_training_loop_closure(tmp_path):
+    """test_vq.py test_training_loop_closure on the port: the port's
+    golden encoder feeds vorbis_tpu_torch.vq.training.TRAINER through the
+    copied hooks; its res, resaux and floor streams (keys, symbols and
+    vectors) equal those the JAX package's encoder gives its own
+    collector on the same 1 s mix clip; then the .vqd dump, the
+    regenerated phrasebook (a valid canonical tree, a cost within 15% of
+    the shipped book's, usable for encode) and metrics/distribution over
+    a residue book's dump, as there."""
+    import vorbis_tpu.codec.encoder as JE
+    import vorbis_tpu.models.encsetup as JS
+    import vorbis_tpu.vq.training as JT
+    from tests import oracle
+    from vorbis_tpu_torch.codec import encoder as E
+    from vorbis_tpu_torch.codec.residue_codec import ResidueLook
+    from vorbis_tpu_torch.models import encsetup
+    from vorbis_tpu_torch.vq import training as T
+
+    pcm = oracle.make_test_signal(seconds=1.0, kind="mix")
+    col = _collect(E, encsetup, T, pcm)
+    jcol = _collect(JE, JS, JT, pcm)
+    assert col.resaux and col.res and col.floor
+    for name in ("resaux", "floor"):
+        assert dict(getattr(col, name)) == dict(getattr(jcol, name)), name
+    assert col.res.keys() == jcol.res.keys()
+    for k in col.res:
+        assert len(col.res[k]) == len(jcol.res[k]), k
+        assert all(a.dtype == b.dtype and a.tobytes() == b.tobytes()
+                   for a, b in zip(col.res[k], jcol.res[k])), k
+
+    # .vqd dump round (the reference's file interchange)
+    files = col.dump_vqd(str(tmp_path / "train"))
+    assert files and all(len(open(f).read()) > 0 for f in files)
+
+    # regenerate the phrasebook lengths from the port's own stream
+    setup = encsetup.setup_vbr(2, 44100, 0.4)
+    gkey, syms = max(col.resaux.items(), key=lambda kv: len(kv[1]))
+    shipped = setup.vi.books[int(gkey[1:])]
+    lengths = T.regenerate_huff_lengths(syms, shipped.entries)
+    assert make_codewords(lengths) is not None      # valid tree
+    hist = occupancy_from_entries(np.asarray(syms, np.int64),
+                                  shipped.entries, guard=0)
+    cost_new = lengths_to_bits(lengths, hist)
+    cost_shipped = int((np.asarray(shipped.lengths)[
+        np.asarray(syms, np.int64)]).sum())
+    assert cost_new <= 1.15 * cost_shipped, (cost_new, cost_shipped)
+    nb = T.rebuild_book(shipped, lengths)
+    assert all(nb.lengths[s] > 0 for s in set(syms))
+
+    # metrics/distribution equivalents run over a residue book's dump
+    rkey, vecs = max(col.res.items(), key=lambda kv: len(kv[1]))
+    cls, st = (int(x[1:]) for x in rkey.split("_")[1:])
+    look = ResidueLook(setup.vi.residues[0], setup.vi.books)
+    book = look.partbooks[cls][st]
+    m = T.metrics(book, np.stack(vecs[:500]))
+    assert m["count"] > 0 and np.isfinite(m["mse"])
+    assert m["used_cells"] > 0
+    d = T.distribution(np.stack(vecs[:500]))
+    assert d["count"] > 0 and d["hist"].sum() == d["count"]

@@ -4,9 +4,14 @@ The JAX package `vorbis_tpu` stays the reference; this package mirrors
 its layout and names (`ops/torchdsp.py` is the counterpart of
 `ops/jaxdsp.py`, `ops/floor_cuda.py` of `ops/floor_pallas.py`, and so
 on) and imports nothing of it: the host layers it runs (bitstream, the
-codec's headers, codebooks, floor1/residue decode and decoder, encsetup,
-the psy tables, window, the numpy MDCT, data/) are its own line-aligned
-copies.  Device code is plain torch on an explicit device; the
+codec's headers, codebooks, floor1 and residue codecs and decoder,
+encsetup, the psy model, envelope, window, rdft, the numpy MDCT, data/)
+are its own line-aligned copies.  The package exports the encoders as
+vorbis_tpu does: `FastEncoder` (the device encoder, on the card unless
+the caller passes device="cpu") and `encode_vbr_stream(pcm, rate, q)`,
+the scalar golden encoder (host numpy, `codec/encoder.py`: the same
+bytes as the JAX package's), which the port's quality gates hold
+`FastEncoder` to.  Device code is plain torch on an explicit device; the
 hand-written kernels (the floor1 greedy fit `csrc/floor_fit.cu`, the M3
 scan `csrc/m3_scan.cu`, the decode's IMDCT `csrc/imdct.cu` and its
 windowed lap `csrc/lap.cu`) are built with nvcc and the host C
@@ -35,10 +40,17 @@ def fp32_policy_ok() -> bool:
 
 
 def __getattr__(name):
-    """The decode API, imported at first use (as vorbis_tpu exports it):
-    `decode_ogg_fast`, `decode_ogg_fast_batch`, `FastDecoder`, the
-    `ov_*` layer's `OggVorbisFile` and `decode_file`, and the scalar
+    """The public API, imported at first use (as vorbis_tpu exports it):
+    the encoders `FastEncoder` and the golden `encode_vbr_stream`, the
+    decode's `decode_ogg_fast`, `decode_ogg_fast_batch`, `FastDecoder`,
+    the `ov_*` layer's `OggVorbisFile` and `decode_file`, and the scalar
     `decode_ogg`."""
+    if name == "FastEncoder":
+        from .models.fastenc import FastEncoder
+        return FastEncoder
+    if name == "encode_vbr_stream":
+        from .codec.encoder import encode_vbr_stream
+        return encode_vbr_stream
     if name in ("decode_ogg_fast", "decode_ogg_fast_batch", "FastDecoder"):
         from .models import fastdec
         return getattr(fastdec, name)

@@ -8,9 +8,11 @@ are grouped after stage s-1 (phrase words interleave with stage 0).
 A truncated packet mid-residue is a normal stop: everything decoded so
 far is kept.
 
-Copy of vorbis_tpu/codec/residue_codec.py :1-250, kept line-aligned with
-it: the decode side, `_enc_book_fields` (the device VQ) and the search
-`local_book_besterror` (vq/training.py); the encoder's packing stays out.
+Copy of vorbis_tpu/codec/residue_codec.py, kept line-aligned with it:
+the decode side, `_enc_book_fields` (the device VQ), the search
+`local_book_besterror` (vq/training.py) and the golden encoder's
+classify and pack (`res_class`, `res_forward`, with the TRAIN_RES and
+TRAIN_RESAUX hooks into the port's vq/training.py).
 """
 
 from __future__ import annotations
@@ -252,3 +254,167 @@ def local_book_besterror(book, a, off):
         for i in range(dim):
             a[off + i] -= p[i]
     return index
+
+
+def encodepart(w, vec, off, n, book, train_key=None):
+    from ..vq import training as _T
+    step = n // book.dim
+    for i in range(step):
+        if _T.TRAINER is not None and train_key is not None:
+            # TRAIN_RES: pre-quantization residual sub-vector
+            # (res0.c:380-405 dump hook)
+            _T.TRAINER.add_res(train_key,
+                               vec[off + i * book.dim:
+                                   off + (i + 1) * book.dim])
+        entry = local_book_besterror(book, vec, off + i * book.dim)
+        book.encode(w, entry)
+
+
+def res01_class(look: ResidueLook, in_ch, ch):
+    info = look.info
+    spp = info.grouping
+    n = info.end - info.begin
+    partvals = n // spp
+    scale = np.float32(100.0) / np.float32(spp)
+    partword = np.zeros((ch, partvals), dtype=np.int64)
+    cm1 = info.classmetric1
+    cm2 = info.classmetric2
+    for j in range(ch):
+        seg = np.abs(np.asarray(in_ch[j][info.begin:info.begin
+                                         + partvals * spp],
+                                dtype=np.int64)).reshape(partvals, spp)
+        mx = seg.max(axis=1)
+        ent = (seg.sum(axis=1).astype(np.float64)
+               * np.float64(scale)).astype(np.int64)
+        for i in range(partvals):
+            k = 0
+            while k < info.partitions - 1:
+                if mx[i] <= cm1[k] and (cm2[k] < 0 or ent[i] < cm2[k]):
+                    break
+                k += 1
+            partword[j][i] = k
+    return partword
+
+
+def res2_class(look: ResidueLook, in_ch, ch):
+    info = look.info
+    spp = info.grouping
+    n = info.end - info.begin
+    partvals = n // spp
+    partword = np.zeros((1, partvals), dtype=np.int64)
+    cm1 = info.classmetric1
+    cm2 = info.classmetric2
+    l = info.begin // ch
+    for i in range(partvals):
+        magmax = 0
+        angmax = 0
+        for j in range(0, spp, ch):
+            v = abs(int(in_ch[0][l]))
+            if v > magmax:
+                magmax = v
+            for k in range(1, ch):
+                v = abs(int(in_ch[k][l]))
+                if v > angmax:
+                    angmax = v
+            l += 1
+        j = 0
+        while j < info.partitions - 1:
+            if magmax <= cm1[j] and angmax <= cm2[j]:
+                break
+            j += 1
+        partword[0][i] = j
+    return partword
+
+
+def res01_forward(w, look: ResidueLook, in_ch, ch, partword,
+                  entries=None):
+    """Encode residues (types 0/1 layout; res2 calls with the
+    interleaved single vector).
+
+    entries: optional precomputed VQ decisions (e.g. from the device
+    fast path, ops/residue_device.py): entries[j][s][i] is an int
+    array of the partition's per-value entry numbers with each
+    sub-vector's entry at index t*book.dim; when given, the
+    local_book_besterror scans are skipped and the codewords are
+    emitted directly."""
+    info = look.info
+    spp = info.grouping
+    possible = info.partitions
+    ppw = look.dim
+    n = info.end - info.begin
+    partvals = n // spp
+    stages = look.stages
+    for s in range(stages):
+        i = 0
+        while i < partvals:
+            if s == 0:
+                for j in range(ch):
+                    val = int(partword[j][i])
+                    for k in range(1, ppw):
+                        val *= possible
+                        if i + k < partvals:
+                            val += int(partword[j][i + k])
+                    if val < look.phrasebook.entries:
+                        from ..vq import training as _T
+                        if _T.TRAINER is not None:
+                            # TRAIN_RESAUX: phrase-word symbol stream
+                            _T.TRAINER.add_resaux(
+                                f"g{info.groupbook}", val)
+                        look.phrasebook.encode(w, val)
+            k = 0
+            while k < ppw and i < partvals:
+                offset = i * spp + info.begin
+                for j in range(ch):
+                    cls = int(partword[j][i])
+                    if info.secondstages[cls] & (1 << s):
+                        book = look.partbooks[cls][s]
+                        if book is not None:
+                            if entries is not None:
+                                row = np.asarray(entries[j][s][i])
+                                ents = row[::book.dim]
+                                if hasattr(w, "write_array"):
+                                    w.write_array(
+                                        book.codewords[ents],
+                                        book.lengths[ents])
+                                else:
+                                    for e in ents:
+                                        book.encode(w, int(e))
+                            else:
+                                encodepart(w, in_ch[j], offset, spp,
+                                           book,
+                                           f"g{info.groupbook}"
+                                           f"_c{cls}_s{s}")
+                k += 1
+                i += 1
+
+
+def res_forward(w, look: ResidueLook, bundle, nonzero, restype,
+                partword=None):
+    """Top-level residue forward pass for a channel bundle of int
+    residue vectors (numpy int64, mutated by error feed-forward)."""
+    if restype == 2:
+        n2 = len(bundle[0])
+        ch = len(bundle)
+        if not any(nonzero):
+            return
+        work = np.empty(n2 * ch, dtype=np.int64)
+        for i, v in enumerate(bundle):
+            work[i::ch] = v
+        res01_forward(w, look, [work], 1, partword)
+        return
+    used = [bundle[i] for i in range(len(bundle)) if nonzero[i]]
+    if used:
+        res01_forward(w, look, used, len(used), partword)
+
+
+def res_class(look: ResidueLook, bundle, nonzero, restype):
+    if restype == 2:
+        if not any(nonzero):
+            return None
+        # _2class walks the per-channel vectors directly (the
+        # interleave only happens in the forward pass)
+        return res2_class(look, bundle, len(bundle))
+    used = [bundle[i] for i in range(len(bundle)) if nonzero[i]]
+    if not used:
+        return None
+    return res01_class(look, used, len(used))

@@ -7,7 +7,8 @@ lookup, bit packing) run on `device` for a batch of frames at a time
 (ops/psydevice.py), slices the packed packets and pages Ogg in its own
 host C (csrc/host_ogg.c).  The output is a valid Vorbis stream, not
 byte-identical to aoTuV (see the JAX module's docstring); for
-byte-identical output use vorbis_tpu.codec.encoder.Encoder.
+byte-identical output use the port's golden encoder,
+vorbis_tpu_torch.codec.encoder (`Encoder`, `encode_vbr_stream`).
 
 Ported here: `FastEncoder.__init__` (host setup), `ctx`, `dev`, the
 stateless long-only `encode` (switching=False, psy_state=False),

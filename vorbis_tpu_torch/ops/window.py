@@ -39,3 +39,9 @@ def hybrid_window(bs0: int, bs1: int, lW: int, W: int, nW: int) -> np.ndarray:
     w[rightend:] = 0.0
     return w
 
+
+def apply_window(pcm, bs0, bs1, lW, W, nW, xp=np):
+    """pcm (..., n) -> windowed (..., n), float32-exact (the reference
+    multiplies each sample by at most one window coefficient, so one
+    fused elementwise multiply reproduces it)."""
+    return pcm * xp.asarray(hybrid_window(bs0, bs1, lW, W, nW))

@@ -3,8 +3,10 @@
 The numpy half is a copy of vorbis_tpu/utils/scales.py, kept
 line-aligned with it: the todB constants and the init-time scalar
 conversions (`toBARK`, `toOC`, `fromOC`) that the psy tables
-(ops/psy.py) are built from.  The array functions are the port's own,
-on torch tensors:
+(ops/psy.py) are built from, and the numpy branches of `todB` and
+`unitnorm` as `todB_np` and `unitnorm_np` (the golden encoder's host
+copies run them).  `todB` and `unitnorm` are the port's own, on torch
+tensors:
 
 todB is the IEEE-754 bit-cast linear approximation (lib/scales.h), not
 20log10: reinterpret |x| as an integer, then u * 7.17711438e-7f -
@@ -38,6 +40,27 @@ def unitnorm(x: torch.Tensor) -> torch.Tensor:
     """+-1 with the sign of x (bit trick: sign bit | 1.0f)."""
     u = x.to(torch.float32).view(torch.int32)
     return ((u & -0x80000000) | 0x3F800000).view(torch.float32)
+
+
+# The numpy branches of the source's todB and unitnorm (its xp=np path),
+# under names of their own: the host copies (the golden encoder's
+# codec/encoder.py, ops/psy.py, ops/envelope.py) import them as todB and
+# unitnorm.
+
+def todB_np(x):
+    """Vectorized bit-cast 20log10 approximation, float32-exact."""
+    # as in the source: a float64 or Python scalar raises here
+    np.abs(x).view(np.uint32)
+    u = (np.asarray(x, dtype=np.float32).view(np.uint32)
+         & np.uint32(0x7FFFFFFF))
+    return u.astype(np.float32) * _TODB_SCALE - _TODB_BIAS
+
+
+def unitnorm_np(x):
+    """+-1 with the sign of x (bit trick: sign bit | 1.0f)."""
+    u = np.asarray(x, dtype=np.float32).view(np.uint32)
+    return ((u & np.uint32(0x80000000)) | np.uint32(0x3F800000)).view(
+        np.float32)
 
 
 # Init-time scalar versions.  The C macros use f-suffixed float

@@ -17,8 +17,9 @@ and `distribution`/`metrics` provide the vq/ toolchain's analysis
 equivalents.
 
 Copy of vorbis_tpu/vq/training.py, kept line-aligned with it.  The
-port's codec does not call the TRAINER hooks yet: they come with its
-scalar (golden) encoder.
+port's golden encoder feeds it through the codec's copied hooks
+(codec/residue_codec.py encodepart and res01_forward, codec/
+floor1_codec.py floor1_encode).
 """
 
 from __future__ import annotations
