@@ -68,8 +68,10 @@ Phases (any failure raises and the script exits non-zero):
      long batch (2,048 rows of n = 2,048, per-row window ids) and a short
      batch (512 rows of n = 256), the 5.1 encoder's long and short blocks
      and phase 8's 16 kHz blocksizes (512, 1,024); both kernels' times
-     (CUDA graphs) at the first two, their bounds by bytes, the plain
-     versions' times and the library calls beside them (fp32
+     (CUDA graphs, median and spread of three rounds) at the first two,
+     in turns with the first designs (commit 0716f4b's, with
+     --mdct-fwd-baseline and --bark-fit-baseline), their bounds by bytes,
+     the plain versions' times and the library calls beside them (fp32
      torch.matmul and a float64 GEMM against the dense MDCT basis, a
      float32 torch.cumsum of the five prefix arrays); then
      FastEncoder(1, 44100, 0.5).encode_hostpack of 10 s on the card, its
@@ -1543,7 +1545,82 @@ def _bark_fit_work(n2, rows, fixed):
     return rows * n2 * 12 + 2 * n2 * 4, rows * n2 * per
 
 
-def _phase_front(fsw, f51, smi):
+# sha256 of the first designs of csrc/mdct_fwd.cu and csrc/bark_fit.cu
+# (commit 0716f4b), whose C interfaces equal this design's
+FRONT_BASELINE_SHA256 = {
+    "mdct_fwd": ("61c5ae62c7f19e79d9cff1a411b2e6507f8bcd9a44c60f338d341c"
+                 "1d5158a16c"),
+    "bark_fit": ("15e68d1c5cbfe78c74ce5b3309a053f3bf633cec9881c342ded391"
+                 "6757b9e1f9")}
+
+
+class _FrontBaseline:
+    """The first design of an analysis-front kernel (one CTA a row: `git
+    show 0716f4b:vorbis_tpu_torch/csrc/mdct_fwd.cu`, or bark_fit.cu),
+    built from `source` under its own library name for timing in turns.
+    Its entry point takes this design's arguments; any other source is
+    refused (its hash differs)."""
+
+    def __init__(self, source, name):
+        import ctypes
+        import hashlib
+        from pathlib import Path
+        from vorbis_tpu_torch.native import build_library
+        from vorbis_tpu_torch.ops import bark_cuda, floor_cuda, mdct_cuda
+        digest = hashlib.sha256(Path(source).read_bytes()).hexdigest()
+        if digest != FRONT_BASELINE_SHA256[name]:
+            raise RuntimeError(f"--{name.replace('_', '-')}-baseline "
+                               f"{source} is not commit 0716f4b's "
+                               f"{name}.cu (sha256 {digest})")
+        so, _ = build_library(Path(source), floor_cuda.nvcc,
+                              floor_cuda.NVCC_FLAGS, f"lib{name}_baseline")
+        self.fn = getattr(ctypes.CDLL(str(so)), f"vtt_{name}")
+        ours = getattr((mdct_cuda if name == "mdct_fwd" else bark_cuda)
+                       .load_library(), f"vtt_{name}")
+        self.fn.restype, self.fn.argtypes = ours.restype, ours.argtypes
+
+    def mdct_fwd(self, fr, win, wid, md, lm):
+        import torch
+        from vorbis_tpu_torch.ops.mdct_cuda import mdct_fwd
+        n = fr.shape[1]
+        rc = self.fn(fr.data_ptr(), win.data_ptr(),
+                     None if wid is None else wid.data_ptr(),
+                     md.data_ptr(), lm.data_ptr(), fr.shape[0], n,
+                     mdct_fwd.table(n, fr.device).data_ptr(),
+                     torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"baseline mdct_fwd launch failed: {rc}")
+
+    def bark_fit(self, md, tabs, fit1, dB):
+        import torch
+        rc = self.fn(md.data_ptr(), tabs["bark_lo32"].data_ptr(),
+                     tabs["bark_hi32"].data_ptr(), fit1.data_ptr(),
+                     dB.data_ptr(), md.shape[0], md.shape[1], tabs["i1"],
+                     tabs["i2"], tabs["j1"], tabs["j2"], tabs["fixed"],
+                     torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"baseline bark_fit launch failed: {rc}")
+
+
+def _turns(mine, theirs, rounds=3):
+    """ms a call (CUDA graphs) of `mine`, and of `theirs` where given,
+    over `rounds` rounds of (mine, theirs, theirs, mine), or of mine
+    twice: two lists of times."""
+    a, b = [], []
+    for _ in range(rounds):
+        a.append(_graph_ms(mine))
+        b += [_graph_ms(theirs), _graph_ms(theirs)] if theirs else []
+        a.append(_graph_ms(mine))
+    return a, b
+
+
+def _med(ts):
+    """(median, min, max) of the times ts."""
+    ts = sorted(ts)
+    return ts[len(ts) // 2], ts[0], ts[-1]
+
+
+def _phase_front(fsw, f51, smi, baselines=None):
     """Phase 3i: the analysis front's two kernels against their plain
     versions, bitwise, at the main path's shapes: 4d's long batch (2,048
     rows of n = 2,048 with per-row window ids) and a short batch (512
@@ -1552,7 +1629,10 @@ def _phase_front(fsw, f51, smi):
     and 1,024); each kernel's time (CUDA graphs), bound and plain time,
     and the library calls beside them: an fp32 torch.matmul and the
     float64 GEMM of the port before (the MDCT against its dense basis),
-    one float32 torch.cumsum of the five prefix arrays (the bark fit).
+    one float32 torch.cumsum of the five prefix arrays (the bark fit).  Each
+    kernel's time is the median of three rounds, in turns with its first
+    design where `baselines` ({name: _FrontBaseline}) has it, whose
+    output must equal this design's and which must be the slower.
     Then FastEncoder(1, 44100, 0.5).encode_hostpack of 10 s on the card
     held to the device packer's packets.  Returns the two kernels'
     records for the JSON line."""
@@ -1602,8 +1682,39 @@ def _phase_front(fsw, f51, smi):
         if name not in ("4d long", "short n=256"):
             continue
         md = got[0]
-        m_ms = _graph_ms(lambda: mdct_fwd(*args))
-        b_ms = _graph_ms(lambda: bark_fit(md, da.bark))
+        mbase = (baselines or {}).get("mdct_fwd")
+        bbase = (baselines or {}).get("bark_fit")
+        outs = (torch.empty_like(md), torch.empty_like(md),
+                torch.empty_like(md), torch.empty_like(fb[1]))
+        wid32 = None if wid is None else wid.int()
+        m_t, m_base = _turns(
+            lambda: mdct_fwd(*args),
+            mbase and (lambda: mbase.mdct_fwd(fr, win, wid32, *outs[:2])))
+        b_t, b_base = _turns(
+            lambda: bark_fit(md, da.bark),
+            bbase and (lambda: bbase.bark_fit(md, da.bark, *outs[2:])))
+        torch.cuda.synchronize()
+        for key, base, o, w in (("mdct_fwd", mbase, outs[:2], got),
+                                ("bark_fit", bbase, outs[2:], fb)):
+            if base and not all(torch.equal(x.view(torch.int32),
+                                            y.view(torch.int32))
+                                for x, y in zip(o, w)):
+                raise RuntimeError(f"front {name}: the first {key} differs "
+                                   f"from this design")
+        m_ms, b_ms = _med(m_t)[0], _med(b_t)[0]
+        for key, t, tb in (("mdct_fwd", m_t, m_base),
+                           ("bark_fit", b_t, b_base)):
+            print(f"[front] {name} {key} in turns (ms, CUDA graphs; "
+                  f"median, min-max of {len(t)}): this design "
+                  "%.5f (%.5f-%.5f)" % _med(t)
+                  + (", first design %.5f (%.5f-%.5f), %.2fx faster" % (
+                      *_med(tb), _med(tb)[0] / _med(t)[0]) if tb else "")
+                  + f"; rounds {[round(v, 5) for v in t]}"
+                  + (f" against {[round(v, 5) for v in tb]}" if tb else "")
+                  + f" ({smi})")
+            if tb and _med(t)[0] >= _med(tb)[0]:
+                raise RuntimeError(f"front {name}: {key} is not faster "
+                                   f"than its first design")
         m_plain = _cuda_ms(lambda: mdct_fwd_plain(*args), 3)
         b_plain = _cuda_ms(lambda: bark_fit_plain(md, da.bark), 3)
         w = (fr * (win[wid] if ids else win)).contiguous()
@@ -1631,10 +1742,15 @@ def _phase_front(fsw, f51, smi):
               f"arrays {b_lib:.5f} ms ({smi})")
         recs[name] = (dict(rows=len(fr), n=n, ms=m_ms, plain_ms=m_plain,
                            bound_ms=m_bound, bound_by=m_by,
-                           library_ms=m_lib, float64_gemm_ms=m_lib64),
+                           library_ms=m_lib, float64_gemm_ms=m_lib64,
+                           rounds_ms=m_t,
+                           baseline_ms=_med(m_base)[0] if m_base else None,
+                           baseline_rounds_ms=m_base or None),
                       dict(rows=len(fr), n2=n // 2, ms=b_ms,
                            plain_ms=b_plain, bound_ms=b_bound,
-                           bound_by=b_by, library_ms=b_lib))
+                           bound_by=b_by, library_ms=b_lib, rounds_ms=b_t,
+                           baseline_ms=_med(b_base)[0] if b_base else None,
+                           baseline_rounds_ms=b_base or None))
     # the host-pack encode on the card against the device packer
     pcm = _signal(10, 44100, 2)[:1]
     hp = FastEncoder(1, 44100, 0.5).encode_hostpack(pcm)
@@ -3098,6 +3214,13 @@ def main():
                     help="the lap kernel before tails (git show e1480c3:"
                          "vorbis_tpu_torch/csrc/lap.cu, checked by its hash) "
                          "to time in turns with this one in phase 6")
+    for name in ("mdct_fwd", "bark_fit"):
+        ap.add_argument(f"--{name.replace('_', '-')}-baseline",
+                        metavar="SOURCE",
+                        help=f"the first csrc/{name}.cu (git show 0716f4b:"
+                             f"vorbis_tpu_torch/csrc/{name}.cu, checked by "
+                             f"its hash) to time in turns with this one in "
+                             f"phase 3i")
     args = ap.parse_args()
     t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(HERE, "vorbis_tpu_torch")):
@@ -3263,7 +3386,10 @@ def main():
 
     # 3i. the analysis front's two kernels at the main path's shapes,
     # and the host-pack encode against the device packer
-    front_rec = _phase_front(fsw, f51, smi)
+    front_rec = _phase_front(fsw, f51, smi, {
+        name: _FrontBaseline(src, name) for name, src in (
+            ("mdct_fwd", args.mdct_fwd_baseline),
+            ("bark_fit", args.bark_fit_baseline)) if src})
     _lap(t_start, "3i")
 
     # 4. main path at real size

@@ -239,33 +239,76 @@ def _front_frames(n, R, seed):
     x = (rng.randn(R, n) * 10.0 ** rng.uniform(-3, 1, (R, 1))
          ).astype(np.float32)
     x[0, :6] = [0.0, -0.0, 1e-45, -1e-45, 1e-40, -3e-39]
-    x[1] = 0.0
+    x[1:2] = 0.0
     x[2::7] *= np.float32(1e-38)
     return x
 
 
 def test_analysis_front_kernels_on_cuda(cuda):
     """csrc/mdct_fwd.cu and csrc/bark_fit.cu against their plain versions
-    on the card, bitwise: the MDCT at every blocksize 64-8192 with one
-    window and with per-row window ids, the bark fit on each region shape
-    the modes make, and DeviceAnalysis.spectra on the card against the
-    same call on the CPU, one launch of each kernel a call."""
-    from vorbis_tpu_torch.ops.bark_cuda import bark_fit, bark_fit_plain
+    on the card, bitwise, one launch a call: the MDCT at every blocksize
+    64-8192 with one window and with per-row window ids, the bark fit on
+    the 44.1 kHz long look's windows at every n/2 = 32-4096, both at row
+    counts that leave a warp's row group or a CTA part-filled (1, 3, 33,
+    200) and just past one grid of the main path's shapes (n = 2048 and
+    256, n/2 = 1024 and 128), on frames with +-0, subnormal and
+    underflowing rows; the bark fit on each region shape the modes
+    make, and DeviceAnalysis.spectra on the card against the same call
+    on the CPU."""
+    from vorbis_tpu_torch.ops import psy as PSY
+    from vorbis_tpu_torch.ops.bark_cuda import (bark_fit, bark_fit_plain,
+                                                bark_tables)
     from vorbis_tpu_torch.ops.mdct_cuda import mdct_fwd, mdct_fwd_plain
-    from vorbis_tpu_torch.ops.torchdsp import DeviceAnalysis
+    from vorbis_tpu_torch.ops.torchdsp import DeviceAnalysis, bark_regions
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def same(got, want, what):
+        for g, w in zip(got, want):
+            assert torch.equal(g.view(torch.int32), w.view(torch.int32)), \
+                what
+
+    def mdct(args, what):
+        before = mdct_fwd.launches
+        got = mdct_fwd(*args)
+        torch.cuda.synchronize()
+        assert mdct_fwd.launches == before + 1
+        same(got, mdct_fwd_plain(*args), what)
+        return got[0]
+
+    def bark(md, tabs, what):
+        before = bark_fit.launches
+        got = bark_fit(md, tabs)
+        torch.cuda.synchronize()
+        assert bark_fit.launches == before + 1
+        same(got, bark_fit_plain(md, tabs), what)
+
+    setup = encsetup.setup_vbr_staged(2, 44100, 0.5).init()
+
+    def look_tables(n2):
+        """The 44.1 kHz long look's bark tables at n2 bins, on the card."""
+        look = PSY.PsyLook(setup.psy_params[-1], setup.psy_global, n2,
+                           44100)
+        reg = bark_regions(look, n2)
+        return bark_tables(*(reg[key] for key in (
+            "bark_lo", "bark_hi", "i1", "i2", "j1", "j2", "fixed")), "cuda")
+
+    # (n, rows): a grid of the main path's shapes and one row past it
+    past = {2048: 16 * sms + 1, 256: 64 * sms + 1}
     for k, n in enumerate((64, 128, 256, 512, 1024, 2048, 4096, 8192)):
-        x = torch.from_numpy(_front_frames(n, 200, k)).cuda()
+        tabs = look_tables(n // 2)
         rng = np.random.RandomState(100 + k)
         wins = torch.from_numpy(rng.rand(4, n).astype(np.float32)).cuda()
-        wid = torch.from_numpy(rng.randint(0, 4, 200)).cuda()
-        for args in ((x, wins[3].contiguous()), (x, wins, wid)):
-            before = mdct_fwd.launches
-            got = mdct_fwd(*args)
-            torch.cuda.synchronize()
-            assert mdct_fwd.launches == before + 1
-            for g, w in zip(got, mdct_fwd_plain(*args)):
-                assert torch.equal(g.view(torch.int32),
-                                   w.view(torch.int32)), n
+        for R in (1, 3, 33, 200) + ((past[n],) if n in past else ()):
+            x = torch.from_numpy(_front_frames(n, R, k + R)).cuda()
+            wid = torch.from_numpy(rng.randint(0, 4, R)).cuda()
+            mdct((x, wins[3].contiguous()), (n, R))
+            md = mdct((x, wins, wid), (n, R, "ids"))
+            bark(md, tabs, (n // 2, R))
+    # the bark fit just past one grid at n/2 = 1024 and 128
+    for n2, R in ((1024, 8 * sms + 1), (128, 16 * sms + 1)):
+        x = torch.from_numpy(_front_frames(2 * n2, R, n2)).cuda()
+        md = mdct_fwd(x, torch.ones(2 * n2, device="cuda"))[0]
+        bark(md, look_tables(n2), (n2, R))
     for ch, rate, q, W in ((2, 44100, 0.5, 1), (2, 44100, 0.5, 0),
                            (2, 44100, -0.1, 0), (2, 16000, 0.3, 1),
                            (1, 8000, 0.2, 0), (2, 44100, -0.1, 1)):
@@ -278,12 +321,7 @@ def test_analysis_front_kernels_on_cuda(cuda):
         wid = torch.from_numpy(np.random.RandomState(n).randint(0, 4, 96)
                                ) if W else None
         md = das[1].mdct(fr.cuda(), None if wid is None else wid.cuda())[0]
-        before = bark_fit.launches
-        got = bark_fit(md, das[1].bark)
-        torch.cuda.synchronize()
-        assert bark_fit.launches == before + 1
-        for g, w in zip(got, bark_fit_plain(md, das[1].bark)):
-            assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+        bark(md, das[1].bark, (rate, W))
         m0, b0 = mdct_fwd.launches, bark_fit.launches
         card = das[1].spectra(fr.cuda(), None if wid is None
                               else wid.cuda())

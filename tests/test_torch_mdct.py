@@ -13,9 +13,10 @@ both on the CPU, on the same numpy inputs: bitwise, no tolerance.
     on one configuration of each bark region shape the modes make
     (reflected low regions of 4, 11 and 21 bins; fixed windows of 15,
     100 and none).
-  * The kernels' index arithmetic (csrc/mdct_fwd.cu's fold and bit
-    reversal) replayed in numpy against ops/mdct.py's tables; the
-    kernels themselves run in tests/test_torch_cuda.py and chip_smoke.py.
+  * The kernels' index arithmetic (csrc/mdct_fwd.cu's fold, its 16-byte
+    chunks, and bit reversal) replayed in numpy against ops/mdct.py's
+    tables; the kernels themselves run in tests/test_torch_cuda.py and
+    chip_smoke.py, their schedules in tests/test_torch_front_schedule.py.
 """
 
 import numpy as np
@@ -152,11 +153,13 @@ def test_front_bitwise_against_spectra(jax_front, case):
     assert np.array_equal(dB.numpy(), want[3])
 
 
-@pytest.mark.parametrize("n", [64, 128, 256, 2048, 8192])
+@pytest.mark.parametrize("n", [64, 128, 256, 512, 1024, 2048, 4096, 8192])
 def test_kernel_index_arithmetic(n):
-    """csrc/mdct_fwd.cu computes the fold's gathers and signs and stage
-    C's bit reversal from the item index; replayed here against the
-    tables the plain version gathers with."""
+    """csrc/mdct_fwd.cu computes the fold's gathers and signs, as two
+    16-byte chunks an item (a0, a2 words 2, 0 of chunk cA; a1, a3 words
+    1, 3 of chunk cB), and stage C's bit reversal from the item index;
+    replayed here against the tables the plain version gathers with
+    (tests/test_torch_front_schedule.py replays the whole schedule)."""
     tf = _mdct_forward_index_tables(n)
     tb = _imdct_index_tables(n)
     n2, n4, n8 = n >> 1, n >> 2, n >> 3
@@ -178,6 +181,14 @@ def test_kernel_index_arithmetic(n):
         assert a == tuple(int(tf[f"a{i}"][k]) for i in range(4)), k
         assert s == (tf["s0"][k], tf["s1"][k]), k
         assert tf["tix"][k] == n2 - 2 * (k + 1)
+        # the kernel's chunks: region by region as above
+        if k < n8 // 2:
+            cA, cB = (n2 + n4) // 4 - k - 1, (n2 + n4) // 4 + k
+        elif k < (n2 - n8) // 2:
+            cA, cB = (n2 + n4) // 4 - k - 1, k - n8 // 2
+        else:
+            cA, cB = n // 4 - (k - (n2 - n8) // 2) - 1, k - n8 // 2
+        assert a == (4 * cA + 2, 4 * cB + 1, 4 * cA, 4 * cB + 3), k
     for m in range(n8):
         e1 = int(f"{m:032b}"[::-1], 2) >> (33 - log2n)
         e0 = ((~e1) & (n2 - 1)) - 1

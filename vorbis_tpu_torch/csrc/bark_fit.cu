@@ -23,11 +23,48 @@
 // five prefix sums, ten gathered differences, the terms, a division):
 // 12 bytes against ~150 flops a bin is 12.5 flops a byte, below the
 // card's 20 (67 TFLOP/s fp32 over 3.35 TB/s), so the traffic's time is
-// the bound.  The design is the simple one, speed is later work: one CTA
-// a row; the row's five prefix arrays (5 n2 floats), its work vector and
-// the block totals in shared memory; every phase spread over the CTA's
-// threads and separated by __syncthreads; the region tables (bark_lo,
-// bark_hi) read through the read-only cache.
+// the bound.  What costs is latency: the sums are serial chains of 16 and
+// the fit gathers a window's two edges a bin.  The design:
+//
+// - Teams own rows.  A team of TT threads (one warp, or two when a row
+//   has 64 blocks of 16 or the batch is small) owns G rows of NB = n2/16
+//   blocks (G = TT/NB at short rows of a large batch, else 1); the
+//   phases of a row are separated by __syncwarp or the team's named
+//   barrier only, and the grid is persistent: the SMs times the CTAs
+//   resident a SM, each team striding over row groups.
+// - Block sums in registers.  Thread t owns blocks t, t + TT, ... of the
+//   team's rows; it reads a block's 16 values with four 16-byte shared
+//   loads, computes y and the five summands once a bin and sums each
+//   array's 16 in turn (five independent chains).  A first sweep keeps
+//   only the block totals (t1); a second, after the totals' chains, sums
+//   again and adds each block's exclusive prefix, so no block sum is
+//   stored twice.
+// - Totals in the same order.  One thread a (array, row, 16 blocks)
+//   chain sums the level-1 totals in turn, in place in t1; one thread an
+//   (array, row) chain sums the level-2 totals (the last of each level-1
+//   chain) into t2.  A block's exclusive prefix is its predecessor's
+//   level-1 value, plus that value's level-2 exclusive prefix in a single
+//   add: the adds of xla_f32.block_cumsum, no tree-shaped scan.
+// - The five prefix arrays in the team's shared slice, written once a
+//   pass: a bin's N, X, XX and Y as one 16-byte word, so that the fit
+//   gathers a window edge with one 16-byte and one 4-byte load, and XY
+//   alone; both XOR-swizzled (16-byte word e of each aligned 16 at
+//   e ^ ((e >> 4) & 7); XY's word e of each aligned 32 at
+//   e ^ 4 ((e >> 5) & 3)) so that the blocks' stores and the fit's
+//   gathers of neighbouring bins hit distinct banks.
+// - The fit runs bin t + TT j on thread t, FU bins at a time with their
+//   gathers issued before any store, so its gathers are of neighbouring
+//   words and fit1 and dB are written with coalesced stores.  Pass 1
+//   writes fit1 (logmdct - work needs nothing of pass 2); work crosses
+//   to pass 2 in W, the slice's n2-float vector that held logmdct, in the
+//   thread that computed it; md is read once, coalesced, LU loads a
+//   thread in flight.
+// - The bark windows are staged once a CTA, lo and hi packed as two
+//   16-bit halves of one word; the fixed window is computed.
+// - The rounding rules are those of the one-CTA-a-row design this one
+//   replaced: D fuses its square in a reflected region of at most
+//   SQUARE_FUSED_MAX bins, bins from k2 take bin k2 - 1's terms, XLA's
+//   NaN-propagating max and min, the saturating float -> int conversion.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -74,8 +111,11 @@ __device__ __forceinline__ float xmin(float a, float b)
     return (a != a || a < b) ? a : b;
 }
 
-constexpr int THREADS = 256;
 constexpr int MAX_N2 = 4096;
+constexpr int MAX_THREADS = 256;
+constexpr int FU = 4;                         // bins a thread a fit step
+constexpr int LU = 8;                         // md loads a thread in flight
+constexpr int SMEM_MAX = 232448;              // 227 KB, a CTA's most
 // todB's scale, and -764.6161886f + .345f (+ 140) as XLA folds them
 constexpr float TODB_SCALE = 0x1.815182p-21f;
 constexpr float TODB_C345 = -0x1.7e22b8p+9f;
@@ -89,116 +129,207 @@ __device__ __forceinline__ float todb_u(float m)
     return (float)(__float_as_int(m) & 0x7fffffff);
 }
 
-struct Smem {
-    float *P[5];      // N, X, XX, Y, XY: n2 floats each
-    float *t1[5];     // level-1 block totals: ceil(n2 / 16) each
-    float *t2[5];     // level-2 block totals: ceil(n2 / 256) each
-    float *work;      // n2
+// the bin arrays' swizzle: word e of each aligned 32 at e ^ 4((e >> 5) & 3)
+__device__ __forceinline__ int sw(int e)
+{
+    return e ^ (((e >> 5) & 3) << 2);
+}
+
+// the four arrays' swizzle in 16-byte words: word e of each aligned 16
+// at e ^ ((e >> 4) & 7)
+__device__ __forceinline__ int qs(int e)
+{
+    return e ^ ((e >> 4) & 7);
+}
+
+// t1's padding, one word a 16, so the level-1 chains hit distinct banks
+__device__ __forceinline__ int t1p(int q)
+{
+    return q + (q >> 4);
+}
+
+// A warp's slice for rows of n2 bins, G rows a warp (floats): the prefix
+// arrays N, X, XX, Y as one 16-byte word a bin (Q, 4 R floats; R = G n2p,
+// rows n2p = 16 NB apart) and XY (R), W (R), the level-1 totals t1
+// ((array, row, block) padded) and the level-2 prefixes t2 ((array, row,
+// chain)).
+struct Layout {
+    int n2, NB, n2p, G, R, nc, t1w, wfl;
 };
 
-// element i of prefix array a for y (y[0] given as y0)
-__device__ __forceinline__ float elem(int a, int i, float y, float y0)
+__host__ __device__ inline Layout layout(int n2, int G)
+{
+    Layout L;
+    L.n2 = n2;
+    L.NB = (n2 + 15) >> 4;
+    L.n2p = 16 * L.NB;
+    L.G = G;
+    L.R = G * L.n2p;
+    L.nc = (L.NB + 15) >> 4;
+    int t1n = 5 * G * L.NB;
+    L.t1w = t1n + (t1n >> 4) + 1;
+    L.wfl = (6 * L.R + L.t1w + 5 * G * L.nc + 3) & ~3;
+    return L;
+}
+
+// the five summands of bin i whose value is y (bin 0: the half weight)
+__device__ __forceinline__ void summands(float y, int i, float *e)
 {
     float w = fmul(y, y);
     if (i == 0) {
-        float w0h = fmul(w, 0.5f);
-        switch (a) {
-        case 0: case 1: return w0h;
-        case 3: return fmul(w0h, y0);
-        default: return 0.0f;
+        float h = fmul(w, 0.5f);
+        e[0] = h;
+        e[1] = h;
+        e[2] = 0.0f;
+        e[3] = fmul(h, y);
+        e[4] = 0.0f;
+    } else {
+        float x = (float)i;
+        float wx = fmul(w, x);
+        e[0] = w;
+        e[1] = wx;
+        e[2] = fmul(wx, x);
+        e[3] = fmul(w, y);
+        e[4] = fmul(wx, y);
+    }
+}
+
+// Block b of row r: its 16 values (pass 1: y, from XY's slots; pass 2:
+// work, from W), the summands and their sums in turn.  FINAL false: the
+// five totals to t1.  FINAL true: each sum plus the block's exclusive
+// prefix (none for block 0) into the prefix arrays, a bin's N, X, XX, Y
+// one 16-byte store, XY four bins a store.  The padding bins of
+// a row whose n2 is no multiple of 16 sum zeros, as block_cumsum pads.
+template <bool FINAL>
+__device__ __forceinline__ void sweep(float *P, const float *src,
+                                      float *t1, const float *t2,
+                                      const Layout &L, int r, int b,
+                                      bool pass2)
+{
+    const int base = r * L.n2p + 16 * b;
+    float y[16];
+#pragma unroll
+    for (int q = 0; q < 4; q++) {
+        float4 v = *(const float4 *)(src + sw(base + 4 * q));
+        y[4 * q] = v.x;
+        y[4 * q + 1] = v.y;
+        y[4 * q + 2] = v.z;
+        y[4 * q + 3] = v.w;
+    }
+#pragma unroll
+    for (int k = 0; k < 16; k++) {
+        if (pass2)
+            y[k] = xmax(y[k], 1.0f);
+        if (16 * b + k >= L.n2)
+            y[k] = 0.0f;
+    }
+    float excl[5];
+    if (FINAL && b > 0) {
+        const int c = (b - 1) >> 4;
+#pragma unroll
+        for (int a = 0; a < 5; a++) {
+            const int ar = a * L.G + r;
+            float e = t1[t1p(ar * L.NB + b - 1)];
+            excl[a] = c ? fadd(e, t2[ar * L.nc + c - 1]) : e;
         }
     }
-    float x = (float)i;
-    float wx = fmul(w, x);
-    switch (a) {
-    case 0: return w;
-    case 1: return wx;
-    case 2: return fmul(wx, x);
-    case 3: return fmul(w, y);
-    default: return fmul(wx, y);
-    }
-}
-
-// In place, the sequential sum inside each block of 16 of the len values
-// v[0..len) of each of the five arrays.  Returns nothing; syncs.
-__device__ void inner16(float *const *v, int len)
-{
-    int nb = (len + 15) >> 4;
-    for (int it = threadIdx.x; it < 5 * nb; it += THREADS) {
-        int a = it / nb, b = it - a * nb;
-        float *p = v[a] + 16 * b;
-        int e = len - 16 * b < 16 ? len - 16 * b : 16;
-        float s = p[0];
-        for (int i = 1; i < e; i++) {
-            s = fadd(s, p[i]);
-            p[i] = s;
+    float s[5], o[5], xy[4];
+#pragma unroll
+    for (int k = 0; k < 16; k++) {
+        float e[5];
+        summands(y[k], 16 * b + k, e);
+#pragma unroll
+        for (int a = 0; a < 5; a++) {
+            s[a] = k ? fadd(s[a], e[a]) : e[a];
+            if (FINAL)
+                o[a] = b ? fadd(s[a], excl[a]) : s[a];
+        }
+        if (FINAL) {
+            ((float4 *)P)[qs(base + k)] = make_float4(o[0], o[1], o[2],
+                                                      o[3]);
+            xy[k & 3] = o[4];
+            if ((k & 3) == 3)
+                *(float4 *)(P + 4 * L.R + sw(base + k - 3)) =
+                    make_float4(xy[0], xy[1], xy[2], xy[3]);
         }
     }
-    __syncthreads();
-}
-
-// dst[a][b] = the total of block b of src[a] (its last inner sum: the
-// padding of a short last block adds zeros, which change nothing)
-__device__ void totals(float *const *src, int len, float *const *dst)
-{
-    int nb = (len + 15) >> 4;
-    for (int it = threadIdx.x; it < 5 * nb; it += THREADS) {
-        int a = it / nb, b = it - a * nb;
-        int last = 16 * b + 15 < len ? 16 * b + 15 : len - 1;
-        dst[a][b] = src[a][last];
-    }
-    __syncthreads();
-}
-
-// v[a][i] += excl(pre[a])[i / 16]: block 0 adds 0, block b the inclusive
-// prefix pre[a][b - 1] of the totals
-__device__ void add_excl(float *const *v, int len, float *const *pre)
-{
-    for (int it = threadIdx.x; it < 5 * len; it += THREADS) {
-        int a = it / len, i = it - a * len;
-        int b = i >> 4;
-        v[a][i] = fadd(v[a][i], b ? pre[a][b - 1] : 0.0f);
-    }
-    __syncthreads();
-}
-
-// the five prefix sums of y (in work when pass 2, else from md) in the
-// block order of jnp.cumsum on the CPU (torchdsp.block_cumsum)
-__device__ void prefix(const Smem &s, int n2, const float *mdrow, int pass)
-{
-    float y0;
-    if (pass == 1)
-        y0 = xmax(ffma(todb_u(mdrow[0]), TODB_SCALE, TODB_C140), 1.0f);
-    else
-        y0 = xmax(s.work[0], 1.0f);
-    for (int i = threadIdx.x; i < n2; i += THREADS) {
-        float y = pass == 1
-            ? xmax(ffma(todb_u(mdrow[i]), TODB_SCALE, TODB_C140), 1.0f)
-            : xmax(s.work[i], 1.0f);
+    if (!FINAL) {
 #pragma unroll
         for (int a = 0; a < 5; a++)
-            s.P[a][i] = elem(a, i, y, y0);
-    }
-    __syncthreads();
-    int n1 = (n2 + 15) >> 4, n2b = (n1 + 15) >> 4;
-    inner16(s.P, n2);
-    if (n1 > 1) {
-        totals(s.P, n2, s.t1);
-        inner16(s.t1, n1);
-        if (n2b > 1) {
-            totals(s.t1, n1, s.t2);
-            inner16(s.t2, n2b);     // n2b <= 16: one block
-            add_excl(s.t1, n1, s.t2);
-        }
-        add_excl(s.P, n2, s.t1);
+            t1[t1p((a * L.G + r) * L.NB + b)] = s[a];
     }
 }
 
-// R of bin i for the regions [0, k1) reflected, [k1, k2) plain, the fit
-// of bin k2 - 1 extrapolated over [k2, n2) (A = B = 0, D = 1 if k2 = 0)
-__device__ __forceinline__ float fit_region(const Smem &s, int i, int n2,
-                                            const int *lo, const int *hi,
-                                            int fixed, int k1, int k2)
+// the team's threads: TT of them, 32 (one warp, __syncwarp) or more (a
+// named barrier of the team's warps, barrier 0 being __syncthreads')
+__device__ __forceinline__ void team_sync(int team, int TT)
+{
+    if (TT == 32)
+        __syncwarp();
+    else
+        asm volatile("bar.sync %0, %1;" :: "r"(team + 1), "r"(TT)
+                     : "memory");
+}
+
+// every block of the team's rows through sweep<FINAL>, thread tt taking
+// blocks tt, tt + TT, ...
+template <bool FINAL>
+__device__ __forceinline__ void sweeps(float *P, const float *src,
+                                       float *t1, const float *t2,
+                                       const Layout &L, int tt, int TT,
+                                       bool pass2)
+{
+    for (int s = tt; s < L.G * L.NB; s += TT) {
+        int r = L.G == 1 ? 0 : s / L.NB;
+        int b = s - r * L.NB;
+        sweep<FINAL>(P, src, t1, t2, L, r, b, pass2);
+    }
+}
+
+// The level-1 chains: the totals of each (array, row) in blocks of 16,
+// each block summed in turn in place, one thread a block.  Then the
+// level-2 chains: each (array, row)'s level-1 chains' last values summed
+// in turn into t2 (the inclusive prefix of every chain but the last).
+__device__ __forceinline__ void chains(float *t1, float *t2, const Layout &L,
+                                       int tt, int TT, int team)
+{
+    for (int it = tt; it < 5 * L.G * L.nc; it += TT) {
+        const int ar = it / L.nc, c = it - ar * L.nc;
+        const int q0 = ar * L.NB + 16 * c;
+        const int len = min(16, L.NB - 16 * c);
+        float v[16];
+#pragma unroll
+        for (int k = 0; k < 16; k++)
+            if (k < len)
+                v[k] = t1[t1p(q0 + k)];
+        float s = v[0];
+#pragma unroll
+        for (int k = 1; k < 16; k++)
+            if (k < len) {
+                s = fadd(s, v[k]);
+                t1[t1p(q0 + k)] = s;
+            }
+    }
+    if (L.nc < 2)
+        return;
+    team_sync(team, TT);
+    for (int ar = tt; ar < 5 * L.G; ar += TT) {
+        float s = 0.0f;
+        for (int c = 0; c + 1 < L.nc; c++) {
+            float v = t1[t1p(ar * L.NB + 16 * c + 15)];
+            s = c ? fadd(s, v) : v;
+            t2[ar * L.nc + c] = s;
+        }
+    }
+}
+
+// R of bin i of row rb / n2p for the regions [0, k1) reflected, [k1, k2)
+// plain, the fit of bin k2 - 1 extrapolated over [k2, n2) (A = B = 0,
+// D = 1 if k2 = 0); tab: the packed bark windows, or none for the fixed
+// window of `fixed` bins
+__device__ __forceinline__ float fit(const float *P, const Layout &L,
+                                     int rb, int i, const int *tab,
+                                     int fixed, int k1, int k2)
 {
     int k = i;
     if (k >= k2) {
@@ -207,31 +338,35 @@ __device__ __forceinline__ float fit_region(const Smem &s, int i, int n2,
         k = k2 - 1;
     }
     int l, h;
-    if (lo) {
-        l = __ldg(lo + k);
-        h = __ldg(hi + k);
+    if (tab) {
+        int t = tab[k];
+        l = (int)(short)(t & 0xffff);
+        h = t >> 16;
     } else {
-        h = k + fixed / 2 < n2 - 1 ? k + fixed / 2 : n2 - 1;
+        h = k + fixed / 2 < L.n2 - 1 ? k + fixed / 2 : L.n2 - 1;
         l = k + fixed / 2 - fixed;
     }
     // (jaxdsp._ls_terms; the extrapolated bins share bin k2 - 1's A, B,
     // D, not its x)
-    const float *N = s.P[0], *X = s.P[1], *XX = s.P[2], *Y = s.P[3],
-                *XY = s.P[4];
-    bool neg = k < k1;
+    const bool neg = k < k1;
+    const int eh = rb + h, el = rb + (neg ? -l : l);
+    const float4 qh = ((const float4 *)P)[qs(eh)];
+    const float4 ql = ((const float4 *)P)[qs(el)];
+    const float *XY = P + 4 * L.R;
+    const float xyh = XY[sw(eh)], xyl = XY[sw(el)];
     float tN, tX, tXX, tY, tXY, D;
     if (neg) {
-        tN = fadd(N[h], N[-l]);
-        tX = fsub(X[h], X[-l]);
-        tXX = fadd(XX[h], XX[-l]);
-        tY = fadd(Y[h], Y[-l]);
-        tXY = fsub(XY[h], XY[-l]);
+        tN = fadd(qh.x, ql.x);
+        tX = fsub(qh.y, ql.y);
+        tXX = fadd(qh.z, ql.z);
+        tY = fadd(qh.w, ql.w);
+        tXY = fsub(xyh, xyl);
     } else {
-        tN = fsub(N[h], N[l]);
-        tX = fsub(X[h], X[l]);
-        tXX = fsub(XX[h], XX[l]);
-        tY = fsub(Y[h], Y[l]);
-        tXY = fsub(XY[h], XY[l]);
+        tN = fsub(qh.x, ql.x);
+        tX = fsub(qh.y, ql.y);
+        tXX = fsub(qh.z, ql.z);
+        tY = fsub(qh.w, ql.w);
+        tXY = fsub(xyh, xyl);
     }
     if (neg && k1 <= SQUARE_FUSED_MAX)
         D = ffma(-tX, tX, fmul(tN, tXX));
@@ -242,50 +377,111 @@ __device__ __forceinline__ float fit_region(const Smem &s, int i, int n2,
     return fdiv(ffma((float)i, B, A), D);
 }
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(MAX_THREADS)
 bark_fit_rows(const float *__restrict__ md, const int *__restrict__ blo,
               const int *__restrict__ bhi, float *__restrict__ fit1,
-              int *__restrict__ dB, long rows, int n2, int i1, int i2,
-              int j1, int j2, int fixed)
+              int *__restrict__ dB, long rows, int n2, int G, int TT,
+              int i1, int i2, int j1, int j2, int fixed)
 {
-    extern __shared__ float smem[];
-    int n1 = (n2 + 15) >> 4, nb2 = (n1 + 15) >> 4;
-    Smem s;
-    float *p = smem;
-    for (int a = 0; a < 5; a++, p += n2)
-        s.P[a] = p;
-    for (int a = 0; a < 5; a++, p += n1)
-        s.t1[a] = p;
-    for (int a = 0; a < 5; a++, p += nb2)
-        s.t2[a] = p;
-    s.work = p;
-    for (long row = blockIdx.x; row < rows; row += gridDim.x) {
-        const float *m = md + row * (long)n2;
-        // pass 1: bark window, offset 140
-        prefix(s, n2, m, 1);
-        for (int i = threadIdx.x; i < n2; i += THREADS) {
-            float R = fit_region(s, i, n2, blo, bhi, 0, i1, i2);
-            float mask = fadd(xmax(R, 0.0f), -140.0f);
-            float lm = ffma(todb_u(m[i]), TODB_SCALE, TODB_C345);
-            s.work[i] = fsub(lm, mask);
+    extern __shared__ float4 sm4[];
+    const Layout L = layout(n2, G);
+    // a team of TT threads (one or more warps) owns each row group
+    const int tt = threadIdx.x % TT, team = threadIdx.x / TT;
+    const int teams = blockDim.x / TT;
+    int *tab = (int *)sm4;
+    float *P = (float *)sm4 + ((n2 + 3) & ~3) + team * L.wfl;
+    float *XY = P + 4 * L.R, *W = P + 5 * L.R, *t1 = P + 6 * L.R;
+    float *t2 = t1 + L.t1w;
+#pragma unroll 4
+    for (int k = threadIdx.x; k < n2; k += blockDim.x)
+        tab[k] = (__ldg(blo + k) & 0xffff) | (__ldg(bhi + k) << 16);
+    __syncthreads();
+
+    const long ngroups = (rows + G - 1) / G;
+    for (long grp = (long)blockIdx.x * teams + team; grp < ngroups;
+         grp += (long)gridDim.x * teams) {
+        const long row0 = grp * G;
+        const int nr = rows - row0 < G ? (int)(rows - row0) : G;
+        // md once, in the fit's order: logmdct into W, pass 1's y into
+        // XY's slots
+        for (int r = 0; r < nr; r++) {
+            const float *m = md + (row0 + r) * (long)n2;
+            const int rb = r * L.n2p;
+            // LU loads a thread in flight before their stores
+            for (int i0 = tt; i0 < n2; i0 += TT * LU) {
+                float v[LU];
+#pragma unroll
+                for (int u = 0; u < LU; u++)
+                    if (i0 + TT * u < n2)
+                        v[u] = __ldg(m + i0 + TT * u);
+#pragma unroll
+                for (int u = 0; u < LU; u++) {
+                    const int i = i0 + TT * u;
+                    if (i >= n2)
+                        break;
+                    float x = todb_u(v[u]);
+                    W[sw(rb + i)] = ffma(x, TODB_SCALE, TODB_C345);
+                    XY[sw(rb + i)] = xmax(ffma(x, TODB_SCALE, TODB_C140),
+                                          1.0f);
+                }
+            }
         }
-        __syncthreads();
-        // pass 2: the residual at offset 0, fixed-window minimum
-        prefix(s, n2, m, 2);
-        for (int i = threadIdx.x; i < n2; i += THREADS) {
-            float mask2 = xmax(fit_region(s, i, n2, blo, bhi, 0, i1, i2),
-                               0.0f);
-            if (fixed > 0)
-                mask2 = xmin(mask2, xmax(fit_region(s, i, n2, nullptr,
-                                                    nullptr, fixed, j1, j2),
-                                         0.0f));
-            float lm = ffma(todb_u(m[i]), TODB_SCALE, TODB_C345);
-            fit1[row * (long)n2 + i] = fsub(lm, s.work[i]);
-            // float -> int32 truncates, saturates and takes NaN to 0
-            int v = __float2int_rz(fadd(mask2, 0.5f));
-            dB[row * (long)n2 + i] = v < 0 ? 0 : (v > 39 ? 39 : v);
+        team_sync(team, TT);
+#pragma unroll 1
+        for (int pass = 1; pass <= 2; pass++) {
+            const float *src = pass == 1 ? XY : W;
+            sweeps<false>(P, src, t1, t2, L, tt, TT, pass == 2);
+            team_sync(team, TT);
+            chains(t1, t2, L, tt, TT, team);
+            team_sync(team, TT);
+            sweeps<true>(P, src, t1, t2, L, tt, TT, pass == 2);
+            team_sync(team, TT);
+            for (int r = 0; r < nr; r++) {
+                const long o = (row0 + r) * (long)n2;
+                const int rb = r * L.n2p;
+                // FU bins a thread at a time, their gathers all issued
+                // before the stores (which might alias them)
+                for (int i0 = tt; i0 < n2; i0 += TT * FU) {
+                    float R[FU], S[FU];
+#pragma unroll
+                    for (int u = 0; u < FU; u++) {
+                        const int i = i0 + TT * u;
+                        if (i >= n2)
+                            break;
+                        R[u] = fit(P, L, rb, i, tab, 0, i1, i2);
+                        // pass 1: logmdct; pass 2: the fixed window's fit
+                        if (pass == 1)
+                            S[u] = W[sw(rb + i)];
+                        else if (fixed > 0)
+                            S[u] = fit(P, L, rb, i, nullptr, fixed, j1, j2);
+                    }
+#pragma unroll
+                    for (int u = 0; u < FU; u++) {
+                        const int i = i0 + TT * u;
+                        if (i >= n2)
+                            break;
+                        if (pass == 1) {
+                            // pass 1: bark window, offset 140
+                            float mask = fadd(xmax(R[u], 0.0f), -140.0f);
+                            float work = fsub(S[u], mask);
+                            fit1[o + i] = fsub(S[u], work);
+                            W[sw(rb + i)] = work;
+                        } else {
+                            // pass 2: the residual at offset 0, with the
+                            // fixed-window minimum
+                            float mask2 = xmax(R[u], 0.0f);
+                            if (fixed > 0)
+                                mask2 = xmin(mask2, xmax(S[u], 0.0f));
+                            // float -> int32 truncates, saturates and
+                            // takes NaN to 0
+                            int v = __float2int_rz(fadd(mask2, 0.5f));
+                            dB[o + i] = v < 0 ? 0 : (v > 39 ? 39 : v);
+                        }
+                    }
+                }
+            }
+            team_sync(team, TT);
         }
-        __syncthreads();
     }
 }
 
@@ -313,19 +509,48 @@ extern "C" int vtt_bark_fit(const float *md, const int *blo, const int *bhi,
     if (sms[dev] == 0) {
         e = cudaFuncSetAttribute(bark_fit_rows,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (5 * MAX_N2 + 5 * 256 + 5 * 16 + MAX_N2)
-                                     * (int)sizeof(float));
+                                 SMEM_MAX);
         if (e == cudaSuccess)
             e = cudaDeviceGetAttribute(&sms[dev],
                                        cudaDevAttrMultiProcessorCount, dev);
         if (e != cudaSuccess)
             return (int)e;
     }
-    int n1 = (n2 + 15) >> 4, nb2 = (n1 + 15) >> 4;
-    size_t smem = (size_t)(5 * n2 + 5 * n1 + 5 * nb2 + n2) * sizeof(float);
-    long cap = 8L * sms[dev];
-    unsigned grid = (unsigned)(rows < cap ? rows : cap);
-    bark_fit_rows<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-        md, blo, bhi, fit1, dB, rows, n2, i1, i2, j1, j2, fixed);
+    const long S = sms[dev];
+    const int NB = (n2 + 15) >> 4;
+    // a team of tw warps a row group: two when a row has 64 blocks or
+    // more or when the batch is small (latency, not throughput, counts),
+    // else one
+    const int tw = NB >= 64 || rows < 16 * S ? 2 : 1;
+    const int TT = 32 * tw;
+    // rows a team: enough for every thread a block when the batch gives
+    // each of four teams a SM a group, else one
+    const int gmax = NB >= TT ? 1 : TT / NB;
+    long g = rows / (4 * S);
+    const int G = g < 1 ? 1 : (g < gmax ? (int)g : gmax);
+    const Layout L = layout(n2, G);
+    const long tabw = (n2 + 3) & ~3;
+    const long ngroups = (rows + G - 1) / G;
+    long teams = (SMEM_MAX / 4 - tabw) / L.wfl;
+    long spread = (ngroups + S - 1) / S;
+    if (teams > MAX_THREADS / TT)
+        teams = MAX_THREADS / TT;
+    if (teams > spread)
+        teams = spread;
+    if (teams < 1)
+        return (int)cudaErrorInvalidConfiguration;
+    const size_t smem = (size_t)(tabw + teams * L.wfl) * sizeof(float);
+    int per_sm = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, bark_fit_rows, (int)(teams * TT), smem);
+    if (e != cudaSuccess)
+        return (int)e;
+    if (per_sm < 1)
+        return (int)cudaErrorLaunchOutOfResources;
+    long want = (ngroups + teams - 1) / teams, cap = S * per_sm;
+    unsigned grid = (unsigned)(want < cap ? want : cap);
+    bark_fit_rows<<<grid, (unsigned)(teams * TT), smem,
+                    (cudaStream_t)stream>>>(md, blo, bhi, fit1, dB, rows, n2,
+                                            G, TT, i1, i2, j1, j2, fixed);
     return (int)cudaGetLastError();
 }

@@ -23,12 +23,39 @@
 // stays in L1/L2) and writes n: 8 bytes a sample against ~40 float32
 // operations at n = 2048 (H100 SXM: 3.35 TB/s, 67 TFLOP/s fp32), so the
 // least time is the traffic's.  No tensor cores and no TF32: bitwise
-// equality allows neither.  The design is the simple one, speed is later
-// work: one CTA a row, its n/2-float working vector in shared memory,
-// the stages separated by __syncthreads, the trig table read through
-// the read-only cache; the fold, each radix-2 stage and the bitreverse
-// stage spread over the CTA's threads, the 32-point tail one block of 32
-// a thread, the final rotation fused into the bitreverse stage.
+// equality allows neither.  The design is csrc/imdct.cu's:
+//
+// - Persistent CTAs, warps that own whole rows.  A warp owns G rows, at
+//   most 2048/n (one above 2048), so that every lane owns one 32-point
+//   tail of a full group (two and four at n = 4096 and 8192); a small
+//   batch takes fewer rows a warp (down to one) and more warps.  Stages
+//   are separated by __syncwarp only; the CTA's __syncthreads follow the
+//   table staging.
+// - At n >= 1024 (STAGED) everything a row reads comes from shared
+//   memory.  T (n + n/4 floats) and, gathered from it, the radix-2
+//   stages' twiddles in the order a warp reads them (n/2 - 32 floats) are
+//   staged once a CTA; cp.async 16-byte copies bring a row group's frames
+//   and their windows (the one window, or the row's of four, which stay
+//   in L1) into the warp's buffers, the first group's with T, the next
+//   group's as soon as the fold has read the current one, so the copy
+//   runs under the radix-2 stages, the tails and the final stage.  The
+//   fold reads a lane's four samples as two 16-byte words of consecutive
+//   chunks (a0 and a2 share one, a1 and a3 another), bank-free, and the
+//   window's the same way; each loop takes a few items a lane at a time,
+//   their shared loads issued before their stores.
+// - Below 1024 a row is a few hundred cycles of work and the kernel's
+//   time is latency: the fold reads frames and windows with the same
+//   16-byte words straight from global memory, every stage reads T
+//   through L1, and nothing is staged or waited for.
+// - Two radix-2 stages a pass on four (c, s)-pairs held in registers (one
+//   radix-2 pass when the count is odd), each pass's index arithmetic
+//   from constants (the stages are template arguments); the working
+//   vector XOR-swizzled at 16-byte granularity within each 32-float chunk
+//   (chunk k's word i at i ^ 4 (k & 7)), so that the fold's pair stores,
+//   the stages' pair loads and the tails' chunk loads hit distinct banks.
+// - The bitreverse stage feeds the final rotation and todB in registers,
+//   one m a lane at a time, and writes md and logmdct with coalesced
+//   stores (neighbouring lanes, neighbouring words, up or down).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -67,8 +94,6 @@ constexpr float cPI3_8 = 0.38268343f;
 // todB's scale, and -764.6161886f + .345f as XLA folds them (float32)
 constexpr float TODB_SCALE = 0x1.815182p-21f;
 constexpr float TODB_C345 = -0x1.7e22b8p+9f;
-
-constexpr int THREADS = 256;
 
 // The 8-point tail on x[0..7]; p[0], p[1], p[4], p[5] (when p) are the
 // unrounded factors of x0, x1, x4, x5 = p * cos(pi/4), which the add or
@@ -189,111 +214,388 @@ __device__ __forceinline__ void bf32_xla(float *x)
     bf16_xla(y + 16, nullptr, x + 16);
 }
 
+// the working vector's swizzle: word i of 32-float chunk k at i ^ 4(k & 7)
+__device__ __forceinline__ int ys(int e)
+{
+    return e ^ (((e >> 5) & 7) << 2);
+}
+
+__device__ __forceinline__ void cp_async16(void *smem, const void *gmem)
+{
+    unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                 :: "r"(s), "l"(gmem));
+}
+// the same through L1: a table of windows is read row after row
+__device__ __forceinline__ void cp_async16_ca(void *smem, const void *gmem)
+{
+    unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n"
+                 :: "r"(s), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit()
+{
+    asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all()
+{
+    asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+// one radix-2 butterfly on (c, s)-pairs lo and hi with twiddle w = (Tc,
+// Ts): hi + lo, and the rotation of hi - lo as fma(r1, Ts, r0*Tc),
+// fma(r1, Tc, -(r0*Ts))
+__device__ __forceinline__ void bfly(float2 &lo, float2 &hi, float2 w)
+{
+    float r0 = fsub(hi.x, lo.x), r1 = fsub(hi.y, lo.y);
+    hi = make_float2(fadd(hi.x, lo.x), fadd(hi.y, lo.y));
+    lo = make_float2(ffma(r1, w.y, fmul(r0, w.x)),
+                     ffma(r1, w.x, -fmul(r0, w.y)));
+}
+
 template <int LOGN>
-__global__ void __launch_bounds__(THREADS)
+struct Cfg {
+    static constexpr int N = 1 << LOGN, N2 = N >> 1, N4 = N >> 2;
+    static constexpr int N8 = N >> 3;
+    static constexpr int GMAX = N <= 2048 ? 2048 / N : 1;   // rows a warp
+    static constexpr int WARPS = N <= 2048 ? 8 : (N == 4096 ? 4 : 2);
+    static constexpr int NST = LOGN - 6;                  // radix-2 stages
+    static constexpr int TLEN = N + N4;
+    static constexpr int TWLEN = NST ? N2 - 32 : 0;
+    // n >= 1024: frames, windows and tables staged in shared memory and
+    // several items a lane at a time; below, where a row is a few hundred
+    // cycles of work and latency is all, the fold reads frames and
+    // windows and every stage T straight from global memory (L1)
+    static constexpr bool STAGED = N >= 1024;
+    static constexpr int TSM = STAGED ? TLEN + TWLEN : 0;
+    // a warp's frames, their windows and its working vectors
+    static constexpr int WFL = GMAX * (STAGED ? 2 * N + N2 : N2);
+    static constexpr int SMEM = (TSM + WARPS * WFL) * 4;
+    // items a lane takes at a time (loads before stores) in the fold and
+    // the two kinds of radix-2 pass
+    static constexpr int FB = STAGED ? 4 : 1;
+    static constexpr int B2 = STAGED ? 4 : 1;
+    static constexpr int B4 = STAGED ? 2 : 1;
+};
+
+// twiddle offset (in pairs) of stage s: stage s' holds (N2 >> s') / 4,
+// so the stages before s hold N2/2 - N2/2^(s+1)
+template <int N2>
+__device__ __forceinline__ int tw_off(int s)
+{
+    return (N2 >> 1) - (N2 >> (s + 1));
+}
+
+// twiddle m of stage s: tw's pair (t = tw at the stage's offset), or
+// T's pair at stride 4 << s
+template <int LOGN>
+__device__ __forceinline__ float2 twid(const float2 *t, const float *T,
+                                       int s, int m)
+{
+    if constexpr (Cfg<LOGN>::STAGED) {
+        return t[m];
+    } else {
+        const int nc = (Cfg<LOGN>::N2 >> s) >> 2;
+        return *(const float2 *)(T + (4 << s) * (nc - 1 - m));
+    }
+}
+
+// one radix-2 stage (P = N2 >> S) over a warp's G rows
+template <int LOGN, int S>
+__device__ __forceinline__ void pass2(float *y, const float2 *tw,
+                                      const float *T, int G, int lane)
+{
+    using C = Cfg<LOGN>;
+    constexpr int s = S, P = C::N2 >> s, nc = P >> 2;
+    const float2 *t = tw + tw_off<C::N2>(s);
+    const int items = G * (C::N2 >> 2);
+    // four items a lane at a time, loads before the stores
+    for (int u0 = lane; u0 < items; u0 += 32 * C::B2) {
+        float2 vl[C::B2], vh[C::B2];
+        int lo[C::B2];
+#pragma unroll
+        for (int q = 0; q < C::B2; q++) {
+            int u = u0 + 32 * q;
+            if (u >= items)
+                break;
+            int r = u / (C::N2 >> 2), k = u % (C::N2 >> 2);
+            int b = k / nc, m = k % nc;
+            lo[q] = r * C::N2 + b * P + 2 * m;
+            vl[q] = *(float2 *)(y + ys(lo[q]));
+            vh[q] = *(float2 *)(y + ys(lo[q] + (P >> 1)));
+            bfly(vl[q], vh[q], twid<LOGN>(t, T, s, m));
+        }
+#pragma unroll
+        for (int q = 0; q < C::B2; q++) {
+            if (u0 + 32 * q >= items)
+                break;
+            *(float2 *)(y + ys(lo[q])) = vl[q];
+            *(float2 *)(y + ys(lo[q] + (P >> 1))) = vh[q];
+        }
+    }
+}
+
+// two radix-2 stages S and S + 1 (P = N2 >> S) in one pass: an item
+// holds pairs q0, q0 + P/4, q0 + P/2, q0 + 3P/4 of one block, which the
+// two stages' butterflies touch and no other item does
+template <int LOGN, int S>
+__device__ __forceinline__ void pass4(float *y, const float2 *tw,
+                                      const float *T, int G, int lane)
+{
+    using C = Cfg<LOGN>;
+    constexpr int s = S, P = C::N2 >> s, nm = P >> 3;
+    const float2 *t0 = tw + tw_off<C::N2>(s);
+    const float2 *t1 = tw + tw_off<C::N2>(s + 1);
+    const int items = G * (C::N2 >> 3);
+    // two items a lane at a time, loads before the stores
+    for (int u0 = lane; u0 < items; u0 += 32 * C::B4) {
+        float2 v[C::B4][4];
+        int q0[C::B4];
+#pragma unroll
+        for (int q = 0; q < C::B4; q++) {
+            int u = u0 + 32 * q;
+            if (u >= items)
+                break;
+            int r = u / (C::N2 >> 3), k = u % (C::N2 >> 3);
+            int b = k / nm, m = k % nm;
+            q0[q] = r * C::N2 + b * P + 2 * m;
+#pragma unroll
+            for (int j = 0; j < 4; j++)
+                v[q][j] = *(float2 *)(y + ys(q0[q] + j * (P >> 2)));
+            bfly(v[q][0], v[q][2], twid<LOGN>(t0, T, s, m));
+            bfly(v[q][1], v[q][3], twid<LOGN>(t0, T, s, m + nm));
+            float2 w = twid<LOGN>(t1, T, s + 1, m);
+            bfly(v[q][0], v[q][1], w);
+            bfly(v[q][2], v[q][3], w);
+        }
+#pragma unroll
+        for (int q = 0; q < C::B4; q++) {
+            if (u0 + 32 * q >= items)
+                break;
+#pragma unroll
+            for (int j = 0; j < 4; j++)
+                *(float2 *)(y + ys(q0[q] + j * (P >> 2))) = v[q][j];
+        }
+    }
+}
+
+// the radix-2 stages S .. NST - 1, two a pass (the last alone when their
+// count is odd), each pass's indices from constants
+template <int LOGN, int S>
+__device__ __forceinline__ void stages(float *y, const float2 *tw,
+                                       const float *T, int G, int lane)
+{
+    if constexpr (S + 1 < Cfg<LOGN>::NST) {
+        pass4<LOGN, S>(y, tw, T, G, lane);
+        __syncwarp();
+        stages<LOGN, S + 2>(y, tw, T, G, lane);
+    } else if constexpr (S < Cfg<LOGN>::NST) {
+        pass2<LOGN, S>(y, tw, T, G, lane);
+        __syncwarp();
+    }
+}
+
+__device__ __forceinline__ float logspec(float v)
+{
+    return ffma((float)(__float_as_int(v) & 0x7fffffff), TODB_SCALE,
+                TODB_C345);
+}
+
+template <int LOGN>
+__global__ void __launch_bounds__(Cfg<LOGN>::WARPS * 32)
 mdct_fwd_rows(const float *__restrict__ frames,
               const float *__restrict__ win, const int *__restrict__ wid,
               float *__restrict__ md, float *__restrict__ logmdct,
-              long rows, const float *__restrict__ T)
+              long rows, int G, const float *__restrict__ Tg)
 {
-    constexpr int N = 1 << LOGN, N2 = N >> 1, N4 = N >> 2, N8 = N >> 3;
-    __shared__ float y[N2];
-    for (long row = blockIdx.x; row < rows; row += gridDim.x) {
-        const float *fr = frames + row * (long)N;
-        const float *w = win + (wid ? (long)wid[row] * N : 0L);
-        // fold into the working vector and the first rotation
-        for (int k = threadIdx.x; k < N4; k += THREADS) {
-            int a0, a1, a2, a3;
-            bool neg0, neg1;
-            if (k < N8 / 2) {
-                a0 = N2 + N4 - 4 * k - 2; a1 = N2 + N4 + 4 * k + 1;
-                a2 = N2 + N4 - 4 * k - 4; a3 = N2 + N4 + 4 * k + 3;
-                neg0 = false; neg1 = false;
-            } else if (k < (N2 - N8) / 2) {
-                int j = k - N8 / 2;
-                a0 = N2 + N4 - 4 * k - 2; a1 = 1 + 4 * j;
-                a2 = N2 + N4 - 4 * k - 4; a3 = 3 + 4 * j;
-                neg0 = false; neg1 = true;
-            } else {
-                int m = k - (N2 - N8) / 2, j = k - N8 / 2;
-                a0 = N - 4 * m - 2; a1 = 1 + 4 * j;
-                a2 = N - 4 * m - 4; a3 = 3 + 4 * j;
-                neg0 = true; neg1 = true;
+    using C = Cfg<LOGN>;
+    constexpr int N = C::N, N2 = C::N2, N4 = C::N4, N8 = C::N8;
+    extern __shared__ float4 sm4[];
+    float *sm = (float *)sm4;
+    float *Ts = sm;                                  // TLEN
+    float2 *tw = (float2 *)(sm + C::TLEN);           // TWLEN / 2 pairs
+    const float *T = C::STAGED ? Ts : Tg;
+    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+    const int warps = blockDim.x >> 5;
+    float *xb = sm + C::TSM + w * C::WFL;              // G frames
+    float *wb = xb + C::GMAX * N;                      // their windows
+    float *y = C::STAGED ? wb + C::GMAX * N : xb;      // G vectors
+
+    const long ngroups = (rows + G - 1) / G;
+    const long stride = (long)gridDim.x * warps;
+    long grp = (long)blockIdx.x * warps + w;
+
+    // the row group's frames and windows into the warp's buffers, 16
+    // bytes a copy
+    auto stage = [&](long g) {
+        for (int q = lane; q < G * N4; q += 32) {
+            int r = q / N4, j = q % N4;
+            long row = g * G + r;
+            if (row < rows) {
+                cp_async16(xb + 4 * q, frames + row * (long)N + 4 * j);
+                cp_async16_ca(wb + 4 * q, win + (wid ? (long)wid[row] * N
+                                                     : 0L) + 4 * j);
             }
-            float x0 = fmul(fr[a0], __ldg(w + a0));
-            float x1 = fmul(fr[a1], __ldg(w + a1));
-            float x2 = fmul(fr[a2], __ldg(w + a2));
-            float x3 = fmul(fr[a3], __ldg(w + a3));
-            float r0 = fadd(neg0 ? -x0 : x0, neg1 ? -x1 : x1);
-            float r1 = fadd(neg0 ? -x2 : x2, neg1 ? -x3 : x3);
-            int t = N2 - 2 * (k + 1);
-            float tc = __ldg(T + t), ts = __ldg(T + t + 1);
-            y[2 * k] = ffma(r1, ts, fmul(r0, tc));
-            y[2 * k + 1] = ffma(r1, tc, -fmul(r0, ts));
         }
+        cp_async_commit();
+    };
+
+    // the first group's copy and T's run together; the twiddles are
+    // gathered from the staged T
+    if constexpr (C::STAGED) {
+        if (grp < ngroups)
+            stage(grp);
+        for (int i = threadIdx.x; i < C::TLEN / 4; i += blockDim.x)
+            cp_async16(Ts + 4 * i, Tg + 4 * i);
+        cp_async_commit();
+        cp_async_wait_all();
         __syncthreads();
-        // radix-2 stages, P = n/2 down to 64
-        for (int P = N2, stride = 4; P > 32; P >>= 1, stride <<= 1) {
-            const int nc = P >> 2;
-            for (int it = threadIdx.x; it < N2 / 4; it += THREADS) {
-                int b = it / nc, j = it - b * nc;
-                float *lo = y + b * P + 2 * j;
-                float *hi = lo + (P >> 1);
-                float rr0 = fsub(hi[0], lo[0]), rr1 = fsub(hi[1], lo[1]);
-                hi[0] = fadd(hi[0], lo[0]);
-                hi[1] = fadd(hi[1], lo[1]);
-                int t = stride * (nc - 1 - j);
-                float tc = __ldg(T + t), ts = __ldg(T + t + 1);
-                lo[0] = ffma(rr1, ts, fmul(rr0, tc));
-                lo[1] = ffma(rr1, tc, -fmul(rr0, ts));
-            }
-            __syncthreads();
-        }
-        // 32-point tails, one block a thread
-        for (int b = threadIdx.x; b < N2 / 32; b += THREADS) {
-            float x[32];
-#pragma unroll
-            for (int i = 0; i < 32; i++)
-                x[i] = y[32 * b + i];
-            bf32_xla(x);
-#pragma unroll
-            for (int i = 0; i < 32; i++)
-                y[32 * b + i] = x[i];
-        }
-        __syncthreads();
-        // bitreverse + half-angle rotation (pair m of the lower half and
-        // pair n/8-1-m of the upper), then the final rotation of both
-        float *o = md + row * (long)N2;
-        float *lg = logmdct + row * (long)N2;
-        const float scale = 4.0f / N;
-        for (int m = threadIdx.x; m < N8; m += THREADS) {
-            int e1 = (int)(__brev((unsigned)m) >> (33 - LOGN));
-            int e0 = ((~e1) & (N2 - 1)) - 1;
-            float a0 = y[e0], a1 = y[e0 + 1], b0 = y[e1], b1 = y[e1 + 1];
-            float tc = __ldg(T + N + 2 * m), ts = __ldg(T + N + 2 * m + 1);
-            float rr0 = fsub(a1, b1), rr1 = fadd(a0, b0);
-            float rr2 = ffma(rr1, tc, fmul(rr0, ts));
-            float rr3 = ffma(rr1, ts, -fmul(rr0, tc));
-            float s = fadd(a1, b1), d = fsub(a0, b0);
-            float w0[2] = {ffma(0.5f, s, rr2), ffma(0.5f, s, -rr2)};
-            float w1[2] = {ffma(0.5f, d, rr3), ffma(-0.5f, d, rr3)};
-            int pair[2] = {m, N4 - 1 - m};
-#pragma unroll
-            for (int h = 0; h < 2; h++) {
-                int i = pair[h];
-                float dc = __ldg(T + N2 + 2 * i), ds = __ldg(T + N2 + 2 * i + 1);
-                float f = fmul(ffma(w0[h], dc, fmul(w1[h], ds)), scale);
-                float bk = fmul(ffma(w0[h], ds, -fmul(w1[h], dc)), scale);
-                o[i] = f;
-                o[N2 - 1 - i] = bk;
-                float uf = (float)(__float_as_int(f) & 0x7fffffff);
-                float ub = (float)(__float_as_int(bk) & 0x7fffffff);
-                lg[i] = ffma(uf, TODB_SCALE, TODB_C345);
-                lg[N2 - 1 - i] = ffma(ub, TODB_SCALE, TODB_C345);
+        // stage s, pair j: T at stride (nc - 1 - j), stride = 4 << s
+        for (int s = 0; s < C::NST; s++) {
+            const int nc = (N2 >> s) >> 2;
+            for (int j = threadIdx.x; j < nc; j += blockDim.x) {
+                int t = (4 << s) * (nc - 1 - j);
+                tw[tw_off<N2>(s) + j] = make_float2(Ts[t], Ts[t + 1]);
             }
         }
         __syncthreads();
     }
+
+    for (; grp < ngroups; grp += stride) {
+        if constexpr (C::STAGED) {
+            cp_async_wait_all();
+            __syncwarp();
+        }
+
+        // the fold and the first rotation: item (r, k) reads a0, a2 from
+        // one 16-byte chunk (offsets 2, 0) and a1, a3 from another (1, 3)
+        // of row r's frame and window (staged, or from global memory);
+        // FB items a lane at a time, the loads before the stores
+        for (int u0 = lane; u0 < G * N4; u0 += 32 * C::FB) {
+            float2 o[C::FB];
+            int dst[C::FB];
+#pragma unroll
+            for (int q = 0; q < C::FB; q++) {
+                int u = u0 + 32 * q;
+                if (u >= G * N4)
+                    break;
+                int r = u / N4, k = u % N4;
+                int cA, cB;
+                bool neg0, neg1;
+                if (k < N8 / 2) {
+                    cA = (N2 + N4) / 4 - k - 1; cB = (N2 + N4) / 4 + k;
+                    neg0 = false; neg1 = false;
+                } else if (k < (N2 - N8) / 2) {
+                    cA = (N2 + N4) / 4 - k - 1; cB = k - N8 / 2;
+                    neg0 = false; neg1 = true;
+                } else {
+                    cA = N / 4 - (k - (N2 - N8) / 2) - 1; cB = k - N8 / 2;
+                    neg0 = true; neg1 = true;
+                }
+                float4 fa, fb, wa, wc;
+                if constexpr (C::STAGED) {
+                    const float4 *f4 = (const float4 *)(xb + r * N);
+                    const float4 *w4 = (const float4 *)(wb + r * N);
+                    fa = f4[cA]; fb = f4[cB]; wa = w4[cA]; wc = w4[cB];
+                } else {
+                    // a row past the end reads the last (nothing of it
+                    // is stored)
+                    long row = grp * G + r < rows ? grp * G + r : rows - 1;
+                    const float4 *f4 = (const float4 *)(frames + row * N);
+                    const float4 *w4 = (const float4 *)(
+                        win + (wid ? (long)__ldg(wid + row) * N : 0L));
+                    fa = __ldg(f4 + cA); fb = __ldg(f4 + cB);
+                    wa = __ldg(w4 + cA); wc = __ldg(w4 + cB);
+                }
+                float x0 = fmul(fa.z, wa.z), x2 = fmul(fa.x, wa.x);
+                float x1 = fmul(fb.y, wc.y), x3 = fmul(fb.w, wc.w);
+                float r0 = fadd(neg0 ? -x0 : x0, neg1 ? -x1 : x1);
+                float r1 = fadd(neg0 ? -x2 : x2, neg1 ? -x3 : x3);
+                float2 t = *(const float2 *)(T + N2 - 2 * (k + 1));
+                o[q] = make_float2(ffma(r1, t.y, fmul(r0, t.x)),
+                                   ffma(r1, t.x, -fmul(r0, t.y)));
+                dst[q] = ys(r * N2 + 2 * k);
+            }
+#pragma unroll
+            for (int q = 0; q < C::FB; q++) {
+                if (u0 + 32 * q >= G * N4)
+                    break;
+                *(float2 *)(y + dst[q]) = o[q];
+            }
+        }
+        __syncwarp();
+        // the buffers are free: the next group's copy runs under the rest
+        if constexpr (C::STAGED)
+            if (grp + stride < ngroups)
+                stage(grp + stride);
+
+        // radix-2 stages P = N2 .. 64, two a pass
+        stages<LOGN, 0>(y, tw, T, G, lane);
+
+        // the 32-point tails: one 32-float chunk a lane, in registers
+#pragma unroll 1
+        for (int c = lane; c < G * (N2 >> 5); c += 32) {
+            float v[32];
+            float4 *p = (float4 *)(y + 32 * c);
+#pragma unroll
+            for (int k = 0; k < 8; k++) {
+                float4 q = p[k ^ (c & 7)];
+                v[4 * k] = q.x; v[4 * k + 1] = q.y;
+                v[4 * k + 2] = q.z; v[4 * k + 3] = q.w;
+            }
+            bf32_xla(v);
+#pragma unroll
+            for (int k = 0; k < 8; k++)
+                p[k ^ (c & 7)] = make_float4(v[4 * k], v[4 * k + 1],
+                                             v[4 * k + 2], v[4 * k + 3]);
+        }
+        __syncwarp();
+
+        // bitreverse + half-angle rotation and the final rotation: item
+        // (r, m) gives the pairs m and N4-1-m, md and logmdct at m,
+        // N2-1-m, N4-1-m and N4+m: neighbouring lanes store neighbouring
+        // words
+        const float scale = 4.0f / N;
+        for (int u = lane; u < G * N8; u += 32) {
+            int r = u / N8, m = u % N8;
+            long row = grp * G + r;
+            float2 tC = *(const float2 *)(T + N + 2 * m);
+            float2 tD = *(const float2 *)(T + N2 + 2 * m);
+            float2 tR = *(const float2 *)(T + N - 2 - 2 * m);  // N4-1-m
+            int e1 = (int)(__brev((unsigned)m) >> (33 - LOGN));
+            int e0 = ((~e1) & (N2 - 1)) - 1;
+            float2 A = *(const float2 *)(y + ys(r * N2 + e0));
+            float2 B = *(const float2 *)(y + ys(r * N2 + e1));
+            float rr0 = fsub(A.y, B.y), rr1 = fadd(A.x, B.x);
+            float rr2 = ffma(rr1, tC.x, fmul(rr0, tC.y));
+            float rr3 = ffma(rr1, tC.y, -fmul(rr0, tC.x));
+            float sm_ = fadd(A.y, B.y), d = fsub(A.x, B.x);
+            // pair m
+            float w0 = ffma(0.5f, sm_, rr2), w1 = ffma(0.5f, d, rr3);
+            float f = fmul(ffma(w0, tD.x, fmul(w1, tD.y)), scale);
+            float bk = fmul(ffma(w0, tD.y, -fmul(w1, tD.x)), scale);
+            // pair N4-1-m
+            w0 = ffma(0.5f, sm_, -rr2);
+            w1 = ffma(-0.5f, d, rr3);
+            float f2 = fmul(ffma(w0, tR.x, fmul(w1, tR.y)), scale);
+            float bk2 = fmul(ffma(w0, tR.y, -fmul(w1, tR.x)), scale);
+            if (row < rows) {
+                // pair i: md[i] = f, md[N2-1-i] = bk
+                float *o = md + row * (long)N2;
+                float *lg = logmdct + row * (long)N2;
+                o[m] = f;
+                o[N2 - 1 - m] = bk;
+                o[N4 - 1 - m] = f2;
+                o[N4 + m] = bk2;
+                lg[m] = logspec(f);
+                lg[N2 - 1 - m] = logspec(bk);
+                lg[N4 - 1 - m] = logspec(f2);
+                lg[N4 + m] = logspec(bk2);
+            }
+        }
+        __syncwarp();
+    }
+    cp_async_wait_all();
 }
 
 template <int LOGN>
@@ -301,7 +603,8 @@ int launch(const float *frames, const float *win, const int *wid,
            float *md, float *logmdct, long rows, const float *T,
            cudaStream_t st)
 {
-    static int sms[64];
+    using C = Cfg<LOGN>;
+    static int sms[64];                     // by device ordinal
     int dev = 0;
     cudaError_t e = cudaGetDevice(&dev);
     if (e != cudaSuccess)
@@ -309,15 +612,37 @@ int launch(const float *frames, const float *win, const int *wid,
     if (dev < 0 || dev >= 64)
         return (int)cudaErrorInvalidDevice;
     if (sms[dev] == 0) {
-        e = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
-                                   dev);
+        e = cudaFuncSetAttribute(mdct_fwd_rows<LOGN>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 C::SMEM);
+        if (e == cudaSuccess)
+            e = cudaDeviceGetAttribute(&sms[dev],
+                                       cudaDevAttrMultiProcessorCount, dev);
         if (e != cudaSuccess)
             return (int)e;
     }
-    long cap = 16L * sms[dev];
-    unsigned grid = (unsigned)(rows < cap ? rows : cap);
-    mdct_fwd_rows<LOGN><<<grid, THREADS, 0, st>>>(frames, win, wid, md,
-                                                  logmdct, rows, T);
+    const long S = sms[dev];
+    // rows a warp: GMAX (every lane a tail) when the batch gives each of
+    // eight warps a SM a group, else fewer (a power of two), down to one
+    int G = C::GMAX;
+    while (G > 1 && rows < 8 * S * G)
+        G >>= 1;
+    const long ngroups = (rows + G - 1) / G;
+    long warps = (ngroups + S - 1) / S;
+    if (warps > C::WARPS)
+        warps = C::WARPS;
+    const size_t smem = (size_t)(C::TSM + warps * C::WFL) * 4;
+    int per_sm = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, mdct_fwd_rows<LOGN>, (int)warps * 32, smem);
+    if (e != cudaSuccess)
+        return (int)e;
+    if (per_sm < 1)
+        return (int)cudaErrorLaunchOutOfResources;
+    long want = (ngroups + warps - 1) / warps, cap = S * per_sm;
+    unsigned grid = (unsigned)(want < cap ? want : cap);
+    mdct_fwd_rows<LOGN><<<grid, (unsigned)warps * 32, smem, st>>>(
+        frames, win, wid, md, logmdct, rows, G, T);
     return (int)cudaGetLastError();
 }
 
@@ -325,8 +650,8 @@ int launch(const float *frames, const float *win, const int *wid,
 
 // frames: (rows, n) float32; win: the window (n floats) or, with wid
 // (rows int32 ids), a table of windows (id * n + i); md, logmdct: (rows,
-// n/2) outputs; T: ops/mdct.py's trig table (n + n/4 floats).  Returns a
-// cudaError_t.
+// n/2) outputs; T: ops/mdct.py's trig table (n + n/4 floats).  frames
+// and win 16-byte aligned.  Returns a cudaError_t.
 extern "C" int vtt_mdct_fwd(const float *frames, const float *win,
                             const int *wid, float *md, float *logmdct,
                             long rows, int n, const float *T, void *stream)
@@ -335,6 +660,8 @@ extern "C" int vtt_mdct_fwd(const float *frames, const float *win,
         return (int)cudaErrorInvalidValue;
     if (rows == 0)
         return 0;
+    if (((uintptr_t)frames | (uintptr_t)win) & 15)
+        return (int)cudaErrorMisalignedAddress;
     cudaStream_t st = (cudaStream_t)stream;
     switch (n) {
     case 64: return launch<6>(frames, win, wid, md, logmdct, rows, T, st);

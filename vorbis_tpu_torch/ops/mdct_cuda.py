@@ -329,6 +329,11 @@ class MdctFwdKernel:
                 raise ValueError(f"mdct_fwd: wid must be ({R},) on "
                                  f"{frames.device}")
             wid = wid.to(torch.int32).contiguous()
+        # the kernel copies frames and reads windows 16 bytes at a time
+        if frames.data_ptr() % 16:
+            frames = frames.clone()
+        if win.data_ptr() % 16:
+            win = win.clone()
         md = torch.empty((R, n // 2), dtype=torch.float32,
                          device=frames.device)
         lm = torch.empty_like(md)

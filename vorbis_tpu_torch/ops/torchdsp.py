@@ -49,6 +49,34 @@ def _c(v) -> float:
     return float(f32(v))
 
 
+def bark_regions(look, n2):
+    """The bark noise fit's tables of a psy look at n2 bins: the windows
+    (bark_lo, bark_hi clipped to the spectrum; bark_hi_raw), the
+    reflected low region [0, i1) and the plain one [i1, i2) of the bark
+    windows, and the same [0, j1), [j1, j2) of the `fixed`-bin window."""
+    bark = np.asarray(look.bark)
+    lo = (bark >> 16).astype(np.int64)
+    hi_raw = (bark & 0xFFFF).astype(np.int32)
+    hi = hi_raw.astype(np.int64)
+    i1 = 0
+    while i1 < n2 and lo[i1] < 0 and -lo[i1] < n2 and hi[i1] < n2:
+        i1 += 1
+    i2 = i1
+    while i2 < n2 and 0 <= lo[i2] < n2 and hi[i2] < n2:
+        i2 += 1
+    fixed = int(look.vi["noisewindowfixed"])
+    hi_f = np.arange(n2) + fixed // 2
+    lo_f = hi_f - fixed
+    j1 = 0
+    while j1 < n2 and hi_f[j1] < n2 and lo_f[j1] < 0:
+        j1 += 1
+    j2 = j1
+    while j2 < n2 and hi_f[j2] < n2 and lo_f[j2] >= 0:
+        j2 += 1
+    return dict(bark_lo=lo, bark_hi=np.minimum(hi, n2 - 1),
+                bark_hi_raw=hi_raw, i1=i1, i2=i2, j1=j1, j2=j2, fixed=fixed)
+
+
 class DeviceAnalysis:
     """Batched encoder analysis spine on `device`: window -> MDCT ->
     log spectrum -> two-pass bark noise fit -> companded noise mask.
@@ -98,32 +126,13 @@ class DeviceAnalysis:
         else:
             tabs["window"] = np.asarray(
                 hybrid_window(bs[0], bs[1], 0, 0, 0), np.float32)
-        bark = np.asarray(look.bark)
-        tabs["bark_lo"] = (bark >> 16).astype(np.int64)
-        self.bark_hi_raw = (bark & 0xFFFF).astype(np.int32)
-        tabs["bark_hi"] = np.minimum(self.bark_hi_raw, n2 - 1).astype(
-            np.int64)
-        lo = (bark >> 16).astype(np.int64)
-        hi = self.bark_hi_raw.astype(np.int64)
-        i1 = 0
-        while i1 < n2 and lo[i1] < 0 and -lo[i1] < n2 and hi[i1] < n2:
-            i1 += 1
-        i2 = i1
-        while i2 < n2 and 0 <= lo[i2] < n2 and hi[i2] < n2:
-            i2 += 1
-        self.i1, self.i2 = i1, i2
-        fixed = int(look.vi["noisewindowfixed"])
+        reg = bark_regions(look, n2)
+        tabs["bark_lo"], tabs["bark_hi"] = reg["bark_lo"], reg["bark_hi"]
+        self.bark_hi_raw = reg["bark_hi_raw"]
+        i1, i2, j1, j2, fixed = (reg[k] for k in ("i1", "i2", "j1", "j2",
+                                                  "fixed"))
+        self.i1, self.i2, self.j1, self.j2 = i1, i2, j1, j2
         self.fixed = fixed
-        idx = np.arange(n2)
-        hi_f = idx + fixed // 2
-        lo_f = hi_f - fixed
-        j1 = 0
-        while j1 < n2 and hi_f[j1] < n2 and lo_f[j1] < 0:
-            j1 += 1
-        j2 = j1
-        while j2 < n2 and hi_f[j2] < n2 and lo_f[j2] >= 0:
-            j2 += 1
-        self.j1, self.j2 = j1, j2
         tabs["noisecompand"] = np.asarray(look.vi["noisecompand"],
                                           np.float32)
         tabs["noiseoffsets"] = np.asarray(look.noiseoffset,
