@@ -9,11 +9,12 @@ vorbis_tpu and no network:
 
 Phases (any failure raises and the script exits non-zero):
   1. device: the card, its name and power limit, the fp32 policy;
-  2. build: nvcc compiles csrc/floor_fit.cu, csrc/m3_scan.cu,
-     csrc/imdct.cu, csrc/lap.cu, csrc/mdct_fwd.cu and csrc/bark_fit.cu
-     and cc compiles csrc/host_ogg.c (Ogg CRC and pager, rescue walk,
-     schedule), csrc/host_decode.c (the decode's page walk, packet
-     parse, host IMDCT and lap, with -ffp-contract=off) and
+  2. build: nvcc compiles csrc/floor_fit.cu, csrc/floor_encode.cu,
+     csrc/m3_scan.cu, csrc/imdct.cu, csrc/lap.cu, csrc/mdct_fwd.cu and
+     csrc/bark_fit.cu and cc compiles csrc/host_ogg.c (Ogg CRC and
+     pager, rescue walk, schedule), csrc/host_decode.c (the decode's
+     page walk, packet parse, host IMDCT and lap, with
+     -ffp-contract=off) and
      csrc/host_pack.c (the host-pack encode's bit packers) into
      build/vorbis_tpu_torch/, all builds started together;
   3. kernel vs plain: the floor-fit kernel against its plain PyTorch
@@ -77,6 +78,22 @@ Phases (any failure raises and the script exits non-zero):
      FastEncoder(1, 44100, 0.5).encode_hostpack of 10 s on the card, its
      packets equal to the device packer's (switching and the psy state
      off) and its stream decoded to the exact length;
+  3j. (run right after 3, before 3b) the floor's post coding:
+     csrc/floor_encode.cu (the wrap coding, the curve render and the
+     floor's columns in one launch) bitwise against its plain version
+     (the finish's _floor_wrap, render and _floor_fields) on the posts
+     of a recorded long finish batch of 4d's click train (2,048 frames, 4,096 rows) and a short one (512 rows),
+     their first 1 and 3 rows, the managed encoder's stacked 15-blob rows,
+     the 5.1 encoder's three looks, FastEncoder(2, 16000 and 32000, 0.5)'s
+     looks and tests/floor_encode_cases.py's synthetic rows at each of
+     them; its time at the two 4d batches (CUDA graphs, median and spread
+     of six), bound by bytes, share, the plain trio's time and device
+     kernels (no library call computes it); and the two batches split by
+     stage (noise-mask tail, tone mask, M3, mix, floor fit, floor encode,
+     coupling, classify, VQ, residue fields, merge, pack, the rest): each
+     stage alone on its recorded inputs, device kernels and device ms
+     under torch.profiler and ms a call, and the whole step with the
+     kernel and with the plain trio in its place;
   4. main path: FastEncoder(2, 44100, 0.5, switching=False,
      psy_state=False).encode of 60 s of 44.1 kHz stereo int16 (bench.py's
      signal, seed 0), from a CUDA tensor and from host numpy; the stream
@@ -215,7 +232,8 @@ switching).  Launch counts are set to 0 just before each main
 path (4, 4b, 4c, 4d, 4e, 4f, 4g, 6's decode runs, each card pass
 of 6b, 7's split steps and 8's encodes and decodes) and read just
 after it; every main-path encode of 4-4g and 8 must launch both
-analysis-front kernels.
+analysis-front kernels, and the floor-encode kernel as often as the
+floor fit (one launch a finish call a floor look).
 It prints the kernel record as one JSON line, then the result line.
 """
 
@@ -1280,12 +1298,12 @@ def _phase_managed_leg(fm, smi):
     torch.cuda.synchronize()
     for k in _kernels_of(fm):
         k.launches = 0
-    _front_reset()
+    _path_reset()
     t0 = time.perf_counter()
     oggs = fm.encode_managed_batch(streams)
     torch.cuda.synchronize()
     t_m = time.perf_counter() - t0
-    _front_add("4f")
+    _path_add("4f")
     fl = fm.floor.launches + fm._short_ctx.floor.launches
     m3_n = fm._short_ctx.m3_scan.launches
     lm = dict(fm.last_managed)
@@ -1489,32 +1507,36 @@ def _phase_51_kernels(f51, smi):
 
 # -- the analysis front: csrc/mdct_fwd.cu and csrc/bark_fit.cu ------------
 
-# (mdct_fwd, bark_fit) launches of each main-path run, by phase
-FRONT_LAUNCHES = {}
+# (mdct_fwd, bark_fit, floor_encode) launches of each main-path run, by
+# phase
+PATH_LAUNCHES = {}
 
 
-def _front():
-    """The analysis front's two kernel wrappers: every DeviceAnalysis's
-    spectra call launches both."""
+def _path_kernels():
+    """The kernel wrappers that every main-path encode launches besides
+    the floor fit and M3: the analysis front's two (each DeviceAnalysis
+    spectra call launches both) and the floor's post coding (once a
+    finish call a floor look)."""
     from vorbis_tpu_torch.ops.bark_cuda import bark_fit
+    from vorbis_tpu_torch.ops.floor_encode_cuda import floor_encode
     from vorbis_tpu_torch.ops.mdct_cuda import mdct_fwd
-    return mdct_fwd, bark_fit
+    return mdct_fwd, bark_fit, floor_encode
 
 
-def _front_reset():
-    for k in _front():
+def _path_reset():
+    for k in _path_kernels():
         k.launches = 0
 
 
-def _front_add(phase):
-    """Add the front kernels' launches since _front_reset to `phase`;
-    a main-path run that launched either no time fails."""
-    m, b = (k.launches for k in _front())
-    if m == 0 or b == 0:
-        raise RuntimeError(f"{phase}: the analysis front launched mdct_fwd "
-                           f"{m} and bark_fit {b} times")
-    pm, pb = FRONT_LAUNCHES.get(phase, (0, 0))
-    FRONT_LAUNCHES[phase] = (pm + m, pb + b)
+def _path_add(phase):
+    """Add the _path_kernels' launches since _path_reset to `phase`;
+    a main-path run that launched one of them no time fails."""
+    counts = [k.launches for k in _path_kernels()]
+    if min(counts) == 0:
+        raise RuntimeError(f"{phase}: mdct_fwd, bark_fit and floor_encode "
+                           f"launched {counts} times")
+    PATH_LAUNCHES[phase] = tuple(
+        a + b for a, b in zip(PATH_LAUNCHES.get(phase, (0, 0, 0)), counts))
 
 
 def _mdct_fwd_work(n, rows, nwin):
@@ -1642,7 +1664,7 @@ def _phase_front(fsw, f51, smi, baselines=None):
     from vorbis_tpu_torch.ops.bark_cuda import bark_fit_plain
     from vorbis_tpu_torch.ops.mdct import mdct_basis_np
     from vorbis_tpu_torch.ops.mdct_cuda import mdct_fwd_plain
-    mdct_fwd, bark_fit = _front()
+    mdct_fwd, bark_fit, _ = _path_kernels()
     f16 = FastEncoder(2, 16000, 0.5)
     cases = [("4d long", fsw.analysis, _signal, 44100, 2048, True),
              ("short n=256", fsw.ctx(0).analysis, _click_train, 44100, 512,
@@ -1776,6 +1798,307 @@ def _phase_front(fsw, f51, smi, baselines=None):
     return rec
 
 
+# -- the floor's post coding: csrc/floor_encode.cu --------------------------
+
+# Operations of csrc/floor_encode.cu a row, counted from its source, once
+# each (not once a lane where the warp repeats a step):
+#  - a bin of the curve: the interval and segment loads, the two tests,
+#    the DDA (difference, abs, offset, multiply, the three conversions and
+#    the sign select and add), the clamp, the table load and the store:
+#    16 integer operations, and 2 float32 ones (the add and the divide);
+#  - a post: its load, the quantization (mask, shift or divide, or) and
+#    store, 6; its step of the wrap (neighbour and x loads, the
+#    prediction, the flag test, the code, the stores), 28; its sorted
+#    position's two scans (a load and a test a post passed, at least one
+#    each way), the two clamps and the store, 16;
+#  - a column: the sub-book choice (a compare a sub-book tried), the
+#    book load, the length's mask and two stores, 10.
+OPS_FENC_PER_BIN = 16
+F32_FENC_PER_BIN = 2
+OPS_FENC_PER_POST = 6 + 28 + 16
+OPS_FENC_PER_COL = 10
+
+
+def _fenc_bound(cfg, B):
+    """(bound ms, bound_by, bytes, int32 ops, float32 ops) of one
+    floor_encode call on B rows of the finish config cfg: posts and used
+    read once, the curve and the columns written once, the blob read
+    once; the operations as counted above."""
+    t = cfg.floor_enc
+    nbytes = B * (t.P * 4 + 1 + t.n * 4 + t.fc * 12) + t.blob.numel() * 4
+    int_ops = B * (t.n * OPS_FENC_PER_BIN + t.P * OPS_FENC_PER_POST
+                   + t.fc * OPS_FENC_PER_COL)
+    f32_ops = B * t.n * F32_FENC_PER_BIN
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(int_ops / INT32_OPS_PER_S, f32_ops / F32_OPS_PER_S) * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", nbytes, int_ops, f32_ops)
+
+
+def _device_profile(fn):
+    """(device kernels, their device ms) of one call of fn, from
+    torch.profiler's device-side events."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    return (sum(e.count for e in kern),
+            sum(e.self_device_time_total for e in kern) / 1e3)
+
+
+def _patched(targets, calls):
+    """Wrap each (label, object, attribute) of `targets` so that a call
+    appends (label, the original, args, kwargs) to `calls`; returns the
+    function that undoes it."""
+    undo = []
+    for label, obj, attr in targets:
+        if not hasattr(obj, attr):
+            continue
+        orig = getattr(obj, attr)
+        own = attr in vars(obj)
+
+        def wrap(*a, _l=label, _f=orig, **kw):
+            calls.append((_l, _f, a, kw))
+            return _f(*a, **kw)
+
+        setattr(obj, attr, wrap)
+        undo.append((obj, attr, orig, own))
+
+    def restore():
+        for obj, attr, orig, own in reversed(undo):
+            if own:
+                setattr(obj, attr, orig)
+            else:
+                delattr(obj, attr)
+    return restore
+
+
+def _record_floor_encode(run):
+    """floor_encode's calls while run() encodes: {id(cfg): (cfg, posts,
+    used)} of each floor config's first call, in call order."""
+    from vorbis_tpu_torch.ops import encdevice
+    calls = []
+    restore = _patched([("floor encode", encdevice, "floor_encode")],
+                       calls)
+    try:
+        run()
+    finally:
+        restore()
+    first = {}
+    for _, _, (cfg, posts, used), _ in calls:
+        first.setdefault(id(cfg), (cfg, posts, used))
+    return list(first.values())
+
+
+def _fenc_check(name, cfg, posts, used):
+    """floor_encode's kernel against its plain version on the card,
+    bitwise (the curve by bit pattern); returns the largest difference."""
+    import torch
+    from vorbis_tpu_torch.ops.floor_encode_cuda import (floor_encode,
+                                                        floor_encode_plain)
+    got = floor_encode(cfg, posts, used)
+    want = floor_encode_plain(cfg, posts, used)
+    torch.cuda.synchronize()
+    same = [torch.equal(got[0].view(torch.int32), want[0].view(torch.int32)),
+            torch.equal(got[1], want[1]), torch.equal(got[2], want[2])]
+    err = max(float((g.double() - w.double()).abs().max())
+              if g.numel() else 0.0 for g, w in zip(got, want))
+    t = cfg.floor_enc
+    print(f"[floor encode] {name}: B={posts.shape[0]} P={t.P} n={t.n} "
+          f"FC={t.fc}: curve, vals, lens "
+          + ("bitwise equal to the plain version" if all(same) else
+             f"DIFFER {same}") + f", max_abs_err {err}")
+    if not all(same):
+        raise RuntimeError(f"floor encode {name}: kernel != plain")
+    return err
+
+
+# the finish step's stages for the split (ROADMAP 2): (label, where the
+# finish step reaches it, attribute); the objects are bound in _split
+SPLIT_STAGES = (
+    ("noise-mask tail", "psydevice", "noisemask_tail"),
+    ("tone mask", "analysis", "tonemask"),
+    ("M3", "ctx", "m3_scan"), ("M3", "psydevice", "m3_apply"),
+    ("mix", "analysis", "mix_m4_m1"),
+    ("floor fit", "ctx", "floor"),
+    ("floor encode", "encdevice", "floor_encode"),
+    ("coupling", "dev", "_couple_quantize"),
+    ("classify", "dev", "_classify2"),
+    ("VQ", "dev", "_vq_stages"),
+    ("residue fields", "dev", "_residue_fields"),
+    ("merge", "encdevice", "merge_columns"),
+    ("pack", "encdevice", "pack_bits"))
+
+
+def _split(fe, W, step, args, smi):
+    """One recorded finish batch split by stage: the step runs once with
+    its stages wrapped (SPLIT_STAGES, from here: the program has no
+    switch for it), then each stage alone on its recorded inputs under
+    torch.profiler (device kernels, device ms) and timed with CUDA
+    events (ms a call, the host's issue included), the whole step
+    likewise, with the kernel and with the plain trio in its place.
+    Returns ({stage: (kernels, device ms, ms)}, the recorded floor_encode
+    call's (cfg, posts, used))."""
+    import torch
+    from vorbis_tpu_torch.ops import encdevice, psydevice
+    from vorbis_tpu_torch.ops.floor_encode_cuda import floor_encode_plain
+    ctx = fe.ctx(W)
+    owners = dict(psydevice=psydevice, encdevice=encdevice, ctx=ctx,
+                  analysis=ctx.analysis, dev=fe._dev_for(W))
+    calls = []
+    restore = _patched([(lb, owners[o], a) for lb, o, a in SPLIT_STAGES],
+                       calls)
+    try:
+        step(*args)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    rows = {}
+    for label, f, a, kw in calls:
+        k, dms = _device_profile(lambda: f(*a, **kw))
+        ms = _cuda_ms(lambda: f(*a, **kw), 3)
+        r = rows.get(label, (0, 0.0, 0.0))
+        rows[label] = (r[0] + k, r[1] + dms, r[2] + ms)
+    whole = (*_device_profile(lambda: step(*args)),
+             _cuda_ms(lambda: step(*args), 3))
+    rows["other"] = tuple(w - sum(r[i] for r in rows.values())
+                          for i, w in enumerate(whole))
+    fcall = next(a for lb, _, a, _ in calls if lb == "floor encode")
+    rows["floor encode, plain trio"] = (
+        *_device_profile(lambda: floor_encode_plain(*fcall)),
+        _cuda_ms(lambda: floor_encode_plain(*fcall), 3))
+    kernel = encdevice.floor_encode
+    encdevice.floor_encode = floor_encode_plain
+    try:
+        rows["step, plain trio"] = (
+            *_device_profile(lambda: step(*args)),
+            _cuda_ms(lambda: step(*args), 3))
+    finally:
+        encdevice.floor_encode = kernel
+    rows["step"] = whole
+    B = fcall[1].shape[0]
+    if rows["floor encode"][0] != 1:
+        print(f"[split] W={W}: the profiler saw {rows['floor encode'][0]} "
+              f"device kernels of one floor_encode launch: the counts "
+              f"below miss some")
+    for label, (k, dms, ms) in rows.items():
+        print(f"[split] W={W} {B} rows: {label}: {k} device kernels, "
+              f"device {dms:.4f} ms, {ms:.4f} ms a call")
+    print(f"[split] W={W}: the step with the floor-encode kernel "
+          f"{whole[0]} device kernels ({whole[1]:.4f} ms on the device, "
+          f"{whole[2]:.4f} ms a call), with the plain trio "
+          f"{rows['step, plain trio'][0]} ({rows['step, plain trio'][1]:.4f}"
+          f" ms, {rows['step, plain trio'][2]:.4f} ms) ({smi})")
+    return rows, fcall
+
+
+def _phase_floor_encode(fsw, fm, f51, smi):
+    """Phase 3j: the floor's post coding (csrc/floor_encode.cu) against
+    its plain version, bitwise, on the inputs the main path gives it: a
+    recorded long finish batch of 4d's click train (2,048 frames, 4,096
+    rows) and a short one (256 frames, 512 rows), their first 1 and 3
+    rows, the managed encoder's stacked 15-blob rows (long and short),
+    the 5.1 encoder's three looks, phase 8's 16 and 32 kHz looks, and
+    tests/floor_encode_cases.py's synthetic rows at every one of those
+    looks; its time at the two 4d batches (CUDA graphs, median and
+    spread of six), its bound and share, the plain trio's time and device
+    kernels; and the two 4d batches split by stage (_split).  Returns the
+    kernel's record for the JSON line."""
+    import torch
+    from vorbis_tpu_torch.models.fastenc import FastEncoder
+    from vorbis_tpu_torch.ops.floor_encode_cuda import (floor_encode,
+                                                        floor_encode_plain)
+    synthetic = _test_module("floor_encode_cases").synthetic
+    # 4d's click train: the finish step and arguments of the first long
+    # batch (B_long = 2048) and the first short one (B_short = 256)
+    steps = {}
+    step_of = fsw._finish_step
+
+    def spy(W, B, wb=None):
+        step = step_of(W, B, wb)
+
+        def rec(*a):
+            steps.setdefault(W, (step, a))
+            return step(*a)
+        return rec
+
+    fsw._finish_step = spy
+    try:
+        fsw.encode_batch([torch.from_numpy(_click_train(30, 44100, k))
+                          .cuda() for k in range(3)])
+    finally:
+        del fsw._finish_step
+    split, cases = {}, []
+    for W, label in ((1, "4d long batch"), (0, "4d short batch")):
+        step, a = steps[W]
+        split[label], call = _split(fsw, W, step, a, smi)
+        cases.append((label, *call))
+    cfg, posts, used = cases[0][1:]
+    if posts.shape[0] != 4096 or cases[1][2].shape[0] != 512:
+        raise RuntimeError(f"4d batches of {posts.shape[0]} and "
+                           f"{cases[1][2].shape[0]} rows")
+    cases += [("4d long batch, first rows", cfg, posts[:b].contiguous(),
+               used[:b].contiguous()) for b in (1, 3)]
+    # the managed stacked rows, the 5.1 looks, phase 8's 16 and 32 kHz
+    for label, run in (
+            ("managed", lambda: fm.encode_managed_batch(
+                [torch.from_numpy(_click_train(10, 44100, 3)).cuda()],
+                B_long=256, B_short=256)),
+            ("5.1", lambda: f51.encode_batch([torch.from_numpy(
+                _click_train51(5, 48000, 0)).cuda()])),
+            ("16 kHz", lambda: FastEncoder(2, 16000, 0.5).encode(
+                _gate_signal("mix", 16000, 1.0, 2))),
+            ("32 kHz", lambda: FastEncoder(2, 32000, 0.5).encode(
+                _gate_signal("mix", 32000, 1.0, 2)))):
+        recorded = _record_floor_encode(run)
+        if label == "5.1" and sorted(c.P for c, _, _ in recorded) \
+                != [2, 2, 13, 29]:
+            raise RuntimeError(f"5.1 floor configs "
+                               f"{[c.P for c, _, _ in recorded]}")
+        cases += [(f"{label} P={c.P} n={c.floor_enc.n}", c, p, u)
+                  for c, p, u in recorded]
+    err = 0.0
+    seen = {}
+    for name, c, p, u in cases:
+        err = max(err, _fenc_check(name, c, p, u))
+        seen.setdefault(id(c), (name, c))
+    for k, (name, c) in enumerate(seen.values()):
+        sp, su, _ = synthetic(c, 100 + k)
+        err = max(err, _fenc_check(
+            f"{name.split(',')[0]}, synthetic", c,
+            torch.from_numpy(sp).cuda(), torch.from_numpy(su).cuda()))
+    rec = {}
+    for name, c, p, u in cases[:2]:
+        t, _ = _turns(lambda: floor_encode(c, p, u), None)
+        ms, lo, hi = _med(t)
+        plain_k, plain_dev = _device_profile(
+            lambda: floor_encode_plain(c, p, u))
+        plain_ms = _cuda_ms(lambda: floor_encode_plain(c, p, u), 3)
+        bound_ms, by, nb, io, fo = _fenc_bound(c, p.shape[0])
+        print(f"[floor encode] {name} B={p.shape[0]}: kernel {ms:.5f} ms "
+              f"(CUDA graphs; median of {len(t)}, {lo:.5f}-{hi:.5f}); "
+              f"bound {bound_ms * 1e3:.3f} us by {by} ({nb} bytes, {io} "
+              f"int32 + {fo} float32 operations), share "
+              f"{100 * bound_ms / ms:.1f}%; plain trio {plain_ms:.4f} ms a "
+              f"call, {plain_k} device kernels ({plain_dev:.4f} ms on the "
+              f"device); library call: none ({smi})")
+        rec[name] = dict(rows=p.shape[0], P=c.P, n=c.floor_enc.n,
+                         ms=ms, rounds_ms=t, plain_ms=plain_ms,
+                         plain_kernels=plain_k, bound_ms=bound_ms,
+                         bound_by=by, share=bound_ms / ms,
+                         split={k: list(v) for k, v in split[name].items()})
+    main = rec["4d long batch"]
+    return dict({k: main[k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by")},
+                max_abs_err=err, library_ms=None, at_long=main,
+                at_short=rec["4d short batch"])
+
+
 def _decode(ogg):
     """One stream through the port's fast decode with the IMDCT on the
     card (phase 3h holds it bitwise against the port's scalar decoder):
@@ -1830,12 +2153,12 @@ def _leg_51(f51, smi, keep, leg, gen, secs, S, rate):
     groups = _floor_groups(f51)
     for k in _kernels_of(f51):
         k.launches = 0
-    _front_reset()
+    _path_reset()
     t0 = time.perf_counter()
     oggs = f51.encode_batch(streams)
     torch.cuda.synchronize()
     t = time.perf_counter() - t0
-    _front_add("4g")
+    _path_add("4g")
     fl = {k: w.launches for k, w in groups.items()}
     m3_n = m3.launches
     prof = dict(f51.last_profile)
@@ -3144,13 +3467,13 @@ def _phase_golden(smi):
                 raise RuntimeError(f"FastEncoder defaults to {fe.device}")
             for k in _kernels_of(fe):
                 k.launches = 0                  # this path's run
-            _front_reset()
+            _path_reset()
             for kind in kinds:
                 fast[kind, q, rate, secs, ch] = fe.encode(
                     _gate_signal(kind, rate, secs, ch))
             torch.cuda.synchronize()
             launches[0] += _launches(fe)
-            _front_add("8")
+            _path_add("8")
             if fe._short_ctx is not None:
                 launches[1] += fe._short_ctx.m3_scan.launches
         t_card = time.perf_counter() - t0
@@ -3247,10 +3570,12 @@ def main():
 
     # 2. build: one compiler process per source, all started together
     from vorbis_tpu_torch import native
-    from vorbis_tpu_torch.ops import (bark_cuda, floor_cuda, imdct_cuda,
+    from vorbis_tpu_torch.ops import (bark_cuda, floor_cuda,
+                                      floor_encode_cuda, imdct_cuda,
                                       lap_cuda, m3_cuda, mdct_cuda)
     t0 = time.perf_counter()
     jobs = {"floor_fit.cu": floor_cuda.build,
+            "floor_encode.cu": floor_encode_cuda.build,
             "m3_scan.cu": m3_cuda.build,
             "imdct.cu": imdct_cuda.build,
             "lap.cu": lap_cuda.build,
@@ -3263,6 +3588,7 @@ def main():
         futs = {k: ex.submit(f) for k, f in jobs.items()}
         built = {k: f.result() for k, f in futs.items()}
     floor_cuda.load_library()
+    floor_encode_cuda.load_library()
     m3_cuda.load_library()
     imdct_cuda.load_library()
     lap_cuda.load_library()
@@ -3356,24 +3682,34 @@ def main():
     print("[kernel] time against B (ms): " + ", ".join(sweep))
     _lap(t_start, "3")
 
-    # 3b. the M3 scan kernel vs its plain version, times and bounds
+    # the encoders of phases 3b-4g
     fsw = FastEncoder(2, 44100, 0.5)
     if not (fsw.switching and fsw.psy_state):
         raise RuntimeError("switching and psy_state are not the defaults")
+    abr = (-1, 128000, -1)
+    fm = FastEncoder(2, 44100, bitrate=abr)
+    fm_cpu = FastEncoder(2, 44100, bitrate=abr, device="cpu")
+    f51 = FastEncoder(6, 48000, 0.4)
+
+    # 3j. the floor's post coding at the main path's shapes, and 4d's
+    # finish batches split by stage.  It runs first of the 3x phases: its
+    # split counts each stage's device kernels with torch.profiler, which
+    # after phases 3b-3i saw three device events fewer a profiled call,
+    # the floor-encode kernel among them
+    fenc_rec = _phase_floor_encode(fsw, fm, f51, smi)
+    _lap(t_start, "3j")
+
+    # 3b. the M3 scan kernel vs its plain version, times and bounds
     m3_rec = _phase_m3(fsw, smi, args.m3_baseline)
     _lap(t_start, "3b")
 
     # 3f. the managed finish: stacked floor fit, M3 calls, card vs CPU
-    abr = (-1, 128000, -1)
-    fm = FastEncoder(2, 44100, bitrate=abr)
-    fm_cpu = FastEncoder(2, 44100, bitrate=abr, device="cpu")
     fl_err_m, m3_err_m = _phase_managed_kernels(fm, fm_cpu, smi)
     max_err = max(max_err, fl_err_m)
     m3_rec["max_abs_err"] = max(m3_rec["max_abs_err"], m3_err_m)
     _lap(t_start, "3f")
 
     # 3g. both kernels at the shapes of the 5.1 encoder
-    f51 = FastEncoder(6, 48000, 0.4)
     fl_err_51, fl_rec_51, m3_err_51, m3_rec_51 = _phase_51_kernels(f51, smi)
     max_err = max(max_err, fl_err_51)
     m3_rec["max_abs_err"] = max(m3_rec["max_abs_err"], m3_err_51)
@@ -3398,13 +3734,13 @@ def main():
     fe.encode(pcm_dev)                              # warm-up
     torch.cuda.synchronize()
     floor.launches = 0
-    _front_reset()
+    _path_reset()
     t0 = time.perf_counter()
     ogg = fe.encode(pcm_dev)
     torch.cuda.synchronize()
     t_dev = time.perf_counter() - t0
     launches = floor.launches
-    _front_add("4")
+    _path_add("4")
     nchunks = -(-((pcm16.shape[1] + 3 * hop - fe.n) // hop + 1) // CF)
     if launches < nchunks:
         raise RuntimeError(f"floor kernel launched {launches} times for "
@@ -3443,13 +3779,13 @@ def main():
     fs.encode(pcm_dev)                              # warm-up
     torch.cuda.synchronize()
     _reset_launches(fs)
-    _front_reset()
+    _path_reset()
     t0 = time.perf_counter()
     ogg_s = fs.encode(pcm_dev)
     torch.cuda.synchronize()
     t_sdev = time.perf_counter() - t0
     launches_s = _launches(fs)
-    _front_add("4b")
+    _path_add("4b")
     prof_s = dict(fs.last_profile)
     t0 = time.perf_counter()
     if fs.encode(pcm16) != ogg_s:
@@ -3488,13 +3824,13 @@ def main():
     fs.encode_batch(streams[:2])                    # warm-up at B=2048
     torch.cuda.synchronize()
     _reset_launches(fs)
-    _front_reset()
+    _path_reset()
     t0 = time.perf_counter()
     oggs = fs.encode_batch(streams)
     torch.cuda.synchronize()
     t_batch = time.perf_counter() - t0
     launches_b = _launches(fs)
-    _front_add("4c")
+    _path_add("4c")
     prof_b = dict(fs.last_profile)
     if launches_b == 0:
         raise RuntimeError("multi-stream: the floor kernel never launched")
@@ -3525,12 +3861,12 @@ def main():
         torch.cuda.synchronize()
         for k in _kernels_of(fsw):
             k.launches = 0
-        _front_reset()
+        _path_reset()
         t0 = time.perf_counter()
         oggs = fsw.encode_batch(streams)
         torch.cuda.synchronize()
         t_sw = time.perf_counter() - t0
-        _front_add("4d")
+        _path_add("4d")
         fl_long = fsw.floor.launches
         fl_short = fsw._short_ctx.floor.launches
         m3_n = fsw._short_ctx.m3_scan.launches
@@ -3596,12 +3932,12 @@ def main():
     torch.cuda.synchronize()
     for k in _kernels_of(fsw):
         k.launches = 0
-    _front_reset()
+    _path_reset()
     t0 = time.perf_counter()
     ogg_e = fsw.encode(click0)
     torch.cuda.synchronize()
     t_e = time.perf_counter() - t0
-    _front_add("4e")
+    _path_add("4e")
     launches_sw["encode"] = (fsw.floor.launches
                              + fsw._short_ctx.floor.launches,
                              fsw._short_ctx.m3_scan.launches)
@@ -3746,6 +4082,18 @@ def main():
     lap_rec["at_golden"] = {"launches": p8_lap}
     _lap(t_start, "8")
 
+    # the floor's post coding: one launch a finish call a floor look, as
+    # the floor fit, in every main-path run
+    fits = {"4": launches, "4b": launches_s, "4c": launches_b,
+            "4d": launches_sw["signal"][0] + launches_sw["click_train"][0],
+            "4e": launches_sw["encode"][0],
+            "4f": launches_sw["managed"][0], "4g": launches_sw["5.1"][0],
+            "8": p8_floor}
+    fenc = {k: v[2] for k, v in PATH_LAUNCHES.items()}
+    print(f"[floor encode] launches by phase {fenc}, floor fit's {fits}")
+    if fenc != fits:
+        raise RuntimeError("floor_encode did not launch once a finish call "
+                           "a floor look")
     print(f"[time] {time.perf_counter() - t_start:.1f} s of command time")
     print(json.dumps({"kernels": [{
         "name": "floor1_greedy_fit", "route": "cuda",
@@ -3759,6 +4107,12 @@ def main():
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "share": share, "at_51": fl_rec_51,
         "library_ms": None}, {
+        "name": "floor_encode", "route": "cuda",
+        "source": "vorbis_tpu_torch/csrc/floor_encode.cu",
+        "replaces": "vorbis_tpu/ops/encdevice.py:671-765 (_floor_wrap, "
+                    "_floor_fields) and vorbis_tpu/ops/floor_device.py:396 "
+                    "(render), jitted XLA",
+        "launches": sum(fenc.values()), "by_phase": fenc, **fenc_rec}, {
         "name": "m3_tempmdct_scan", "route": "cuda",
         "source": "vorbis_tpu_torch/csrc/m3_scan.cu",
         "replaces": "vorbis_tpu/ops/psydevice.py:498",
@@ -3778,16 +4132,16 @@ def main():
         "source": "vorbis_tpu_torch/csrc/mdct_fwd.cu",
         "replaces": "vorbis_tpu/ops/jaxdsp.py:271-272 (mdct_forward, "
                     "mdct.py:383, and log_spectrum in the jitted spectra)",
-        "launches": sum(m for m, _ in FRONT_LAUNCHES.values()),
-        "by_phase": {k: m for k, (m, _) in FRONT_LAUNCHES.items()},
+        "launches": sum(v[0] for v in PATH_LAUNCHES.values()),
+        "by_phase": {k: v[0] for k, v in PATH_LAUNCHES.items()},
         **front_rec["mdct_fwd"]}, {
         "name": "bark_fit", "route": "cuda",
         "source": "vorbis_tpu_torch/csrc/bark_fit.cu",
         "replaces": "vorbis_tpu/ops/jaxdsp.py:273-284 (the two bark_fit "
                     "calls, :93, and the compand index of the jitted "
                     "spectra)",
-        "launches": sum(b for _, b in FRONT_LAUNCHES.values()),
-        "by_phase": {k: b for k, (_, b) in FRONT_LAUNCHES.items()},
+        "launches": sum(v[1] for v in PATH_LAUNCHES.values()),
+        "by_phase": {k: v[1] for k, v in PATH_LAUNCHES.items()},
         **front_rec["bark_fit"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

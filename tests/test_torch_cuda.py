@@ -1,6 +1,6 @@
 """Tests that need the card: the port's CUDA kernels (csrc/floor_fit.cu,
-csrc/m3_scan.cu, csrc/imdct.cu, csrc/lap.cu, csrc/mdct_fwd.cu,
-csrc/bark_fit.cu) against their plain PyTorch versions (the floor fit on
+csrc/floor_encode.cu, csrc/m3_scan.cu, csrc/imdct.cu, csrc/lap.cu,
+csrc/mdct_fwd.cu, csrc/bark_fit.cu) against their plain PyTorch versions (the floor fit on
 the 5.1 looks too, M3 on six channels, the IMDCT at every blocksize and
 the lap at every blocksize and on -0.0 and subnormal products, both
 against the host C, the forward MDCT at every blocksize and the bark
@@ -32,7 +32,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import _click_train, _rows_equal, _signal
+from chip_smoke import _click_train, _rows_equal, _signal, _test_module
 from vorbis_tpu_torch.codec.encoder import Encoder
 from vorbis_tpu_torch.models import encsetup
 from vorbis_tpu_torch.models.fastenc import FastEncoder as TFE
@@ -137,6 +137,38 @@ def test_floor_kernel_51_looks_on_cuda(cuda):
                                     torch.from_numpy(mk).cuda())
             assert torch.equal(kf.fit(q, a, p), kf.fit_plain(q, a, p))
         assert kf.launches == 2
+
+
+def test_floor_encode_kernel_on_cuda(cuda):
+    """csrc/floor_encode.cu against its plain version (the finish's wrap,
+    render and fields on the card), bitwise, at three looks: the long and
+    short floors of FastEncoder(2, 44100, 0.5) and the LFE's of
+    FastEncoder(6, 48000, 0.4), on tests/floor_encode_cases.py's
+    synthetic rows and on random posts, B = 1 and a few thousand rows."""
+    from vorbis_tpu_torch.ops.floor_encode_cuda import (floor_encode,
+                                                        floor_encode_plain)
+    synthetic = _test_module("floor_encode_cases").synthetic
+    f2, f51 = TFE(2, 44100, 0.5), TFE(6, 48000, 0.4)
+    cfgs = [f2._dev_for(1), f2._dev_for(0), f51._dev_for(1).groups[1]]
+    assert [c.P for c in cfgs] == [29, 19, 2]
+    for k, cfg in enumerate(cfgs):
+        posts, used, _ = synthetic(cfg, 20 + k)
+        rng = np.random.RandomState(k)
+        rnd = rng.randint(0, 1024, (3000, cfg.P)) \
+            | np.where(rng.rand(3000, cfg.P) < 0.4, 0x8000, 0)
+        for p, u in ((posts, used), (rnd.astype(np.int32),
+                                     rng.rand(3000) < 0.9),
+                     (posts[:1], used[:1])):
+            p, u = torch.from_numpy(p).cuda(), torch.from_numpy(u).cuda()
+            before = floor_encode.launches
+            got = floor_encode(cfg, p, u)
+            torch.cuda.synchronize()
+            assert floor_encode.launches == before + 1
+            want = floor_encode_plain(cfg, p, u)
+            assert torch.equal(got[0].view(torch.int32),
+                               want[0].view(torch.int32))
+            assert torch.equal(got[1], want[1])
+            assert torch.equal(got[2], want[2])
 
 
 def test_managed_finish15_on_cuda(cuda):

@@ -5,9 +5,10 @@ lib/res0.c _01forward + lib/codebook.c vorbis_book_encode + libogg
 oggpack_write):
 
   framing -> window/MDCT/FFT -> psy mask -> floor1 fit (CUDA kernel)
-  -> post wrap coding -> floor curve render -> stereo coupling ->
-  residue classify + lattice VQ -> codeword lookup -> bit-field
-  columns -> LSB-first bit packing
+  -> post wrap coding, floor curve render and floor columns (one CUDA
+  kernel, ops/floor_encode_cuda.py) -> stereo coupling -> residue
+  classify + lattice VQ -> codeword lookup -> bit-field columns ->
+  LSB-first bit packing
 
 The host receives only (packed packet bytes, bit counts).  The port
 covers the stateless step (`make_step`), the frame-gather step
@@ -42,6 +43,7 @@ import torch
 
 from ..bitstream.bitpack import ilog
 from ..convert import device_tables
+from .floor_encode_cuda import FloorEncodeConfig, floor_encode
 
 f32 = np.float32
 i32 = torch.int32
@@ -486,8 +488,12 @@ class DeviceFastEncode:
 
     def _prepare_config_device(self, cfg):
         """One floor+residue config's tables (cfg: self or a submap's
-        namespace), onto cfg."""
+        namespace), onto cfg: among them the floor-encode kernel's blob
+        and the plain version's stages (`cfg.floor_enc`)."""
         dev = self.device
+        cfg.floor_enc = FloorEncodeConfig(
+            self, cfg, cfg.floor if self.multi else self.ctx.floor,
+            self.ctx.fromdB)
         for p in cfg.fl_parts:
             tabs = dict(maxval=p["maxval"].astype(np.int32))
             if p["csubbits"]:
@@ -1144,13 +1150,11 @@ class DeviceFastEncode:
             posts, used = g.floor(
                 lg3[:, gs, :fln].reshape(F * nc, fln).contiguous(),
                 mk3[:, gs, :fln].reshape(F * nc, fln).contiguous())
-            codes, qposts = self._floor_wrap(posts, cfg=g)
-            curve = g.floor.render(qposts, self.ctx.fromdB)
+            curve, fv, fl = floor_encode(g, posts, used)
             if fln < n2:
                 curve = torch.nn.functional.pad(curve, (0, n2 - fln),
                                                 value=1e-10)
             inband = bins < fln
-            fv, fl = self._floor_fields(codes, used, cfg=g)
             fv = fv.reshape(F, nc, -1)
             fl = fl.reshape(F, nc, -1)
             for j, c in enumerate(g.channels):
@@ -1302,8 +1306,7 @@ class DeviceFastEncode:
         noise-normalize budget."""
         ctx = self.ctx
         ch = self.ch
-        codes, qposts = self._floor_wrap(posts)
-        curve = ctx.floor.render(qposts, ctx.fromdB)
+        curve, fv, fl = floor_encode(self, posts, used)
         if lowpass is not None:
             # per-row sliding lowpass: zero residues at and above the
             # blob's bin limit (psy.c:5126-5131)
@@ -1335,7 +1338,6 @@ class DeviceFastEncode:
             pw = self._classify(res)
             entries = self._vq_stages(res, pw)
             used_p = used.reshape(F, ch)
-        fv, fl = self._floor_fields(codes, used)
         hdr_v, hdr_l = self._header(F, wid, md.device)
         fv = fv.reshape(F, -1)
         fl = fl.reshape(F, -1)
