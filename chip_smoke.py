@@ -10,8 +10,8 @@ vorbis_tpu and no network:
 Phases (any failure raises and the script exits non-zero):
   1. device: the card, its name and power limit, the fp32 policy;
   2. build: nvcc compiles csrc/floor_fit.cu, csrc/floor_encode.cu,
-     csrc/m3_scan.cu, csrc/imdct.cu, csrc/lap.cu, csrc/mdct_fwd.cu and
-     csrc/bark_fit.cu and cc compiles csrc/host_ogg.c (Ogg CRC and
+     csrc/m3_scan.cu, csrc/imdct.cu, csrc/lap.cu, csrc/mdct_fwd.cu,
+     csrc/bark_fit.cu and csrc/tone_mask.cu and cc compiles csrc/host_ogg.c (Ogg CRC and
      pager, rescue walk, schedule), csrc/host_decode.c (the decode's
      page walk, packet parse, host IMDCT and lap, with
      -ffp-contract=off) and
@@ -101,8 +101,22 @@ Phases (any failure raises and the script exits non-zero):
      stage (noise-mask tail, tone mask, M3, mix, floor fit, floor encode,
      coupling, classify, VQ, residue fields, merge, pack, the rest): each
      stage alone on its recorded inputs, device kernels and device ms
-     under torch.profiler and ms a call, and the whole step with the
-     kernel and with the plain trio in its place;
+     under torch.profiler and ms a call, the plain trio and the plain
+     tone mask alone, and the whole step with both kernels, with the
+     plain trio in the floor-encode kernel's place and with the plain
+     tone mask in the tone-mask kernel's place;
+  3k. the tone mask: csrc/tone_mask.cu (the octave groups' maxima, the
+     curve seeding, the chase and the windowed min with the ATH floor in
+     one launch) bitwise against its plain version (the JAX package's
+     passes) on the tone-mask calls 3j recorded: 4d's long and short
+     finish batch, the managed encoder's long and short steps, the 5.1
+     encoder's two looks and the 16 and 32 kHz looks, and on
+     tests/tone_mask_cases.py's seeded and edge rows (a silent row, a
+     global max of 0, levels saturated at both ends, local != global)
+     at each of those looks; the build's registers, shared memory a
+     block and blocks an SM; its time at the two 4d batches (CUDA
+     graphs, median and spread of six), its bound and share, the plain
+     version's time and device kernels (no library call computes it);
   4. main path: FastEncoder(2, 44100, 0.5, switching=False,
      psy_state=False).encode of 60 s of 44.1 kHz stereo int16 (bench.py's
      signal, seed 0), from a CUDA tensor and from host numpy; the stream
@@ -248,10 +262,13 @@ device's busy share (4d profiles the same 16-stream batch as 4c, with
 switching).  Launch counts are set to 0 just before each main
 path (4, 4b, 4c, 4d, 4e, 4f, 4g, 6's decode runs, each card pass
 of 6b, 7's split steps and 8's encodes and decodes) and read just
-after it; every main-path encode of 3i's host pack, 4-4g, 7b's
-encode_quantize_step and 8 must launch both analysis-front kernels, and
-the floor-encode kernel as often as the floor fit (one launch a finish
-call, or a device step, a floor look).
+after it; every main-path encode of 3i's host pack, 4-4g, 7a's split
+step, 7b's encode_quantize_step and 8 must launch both analysis-front
+kernels, the floor-encode kernel as often as the floor fit (one launch a
+finish call, or a device step, a floor look) and the tone-mask kernel
+once a finish step or DeviceAnalysis.mask_components call (the two
+callers are counted apart from the kernel's wrapper).  Phase 5 prints
+the differing packets' indices.
 It prints the kernel record as one JSON line, then the result line.
 """
 
@@ -1525,36 +1542,65 @@ def _phase_51_kernels(f51, smi):
 
 # -- the analysis front: csrc/mdct_fwd.cu and csrc/bark_fit.cu ------------
 
-# (mdct_fwd, bark_fit, floor_encode) launches of each main-path run, by
-# phase
+# (mdct_fwd, bark_fit, floor_encode, tone_mask) launches of each
+# main-path run, by phase
 PATH_LAUNCHES = {}
+# the calls that reach the tone mask since _path_reset: the finish
+# steps' (each calls psydevice.noisemask_tail once) and
+# DeviceAnalysis.mask_components' (the stateless steps, the host pack,
+# the pipeline)
+TONE_CALLS = [0]
 
 
 def _path_kernels():
     """The kernel wrappers that every main-path encode launches besides
     the floor fit and M3: the analysis front's two (each DeviceAnalysis
-    spectra call launches both) and the floor's post coding (once a
-    finish call a floor look)."""
+    spectra call launches both), the floor's post coding (once a finish
+    call a floor look) and the tone mask (once a finish step or
+    mask_components call)."""
     from vorbis_tpu_torch.ops.bark_cuda import bark_fit
     from vorbis_tpu_torch.ops.floor_encode_cuda import floor_encode
     from vorbis_tpu_torch.ops.mdct_cuda import mdct_fwd
-    return mdct_fwd, bark_fit, floor_encode
+    from vorbis_tpu_torch.ops.tone_mask_cuda import tone_mask
+    return mdct_fwd, bark_fit, floor_encode, tone_mask
+
+
+def _count_tone_calls():
+    """Count, in TONE_CALLS, the calls of psydevice.noisemask_tail and of
+    DeviceAnalysis.mask_components from here on: each is one call of the
+    tone mask on the main path, counted apart from its wrapper."""
+    from vorbis_tpu_torch.ops import psydevice, torchdsp
+    for owner, name in ((psydevice, "noisemask_tail"),
+                        (torchdsp.DeviceAnalysis, "mask_components")):
+        real = getattr(owner, name)
+
+        def counted(*a, _real=real, **kw):
+            TONE_CALLS[0] += 1
+            return _real(*a, **kw)
+        setattr(owner, name, counted)
 
 
 def _path_reset():
     for k in _path_kernels():
         k.launches = 0
+    TONE_CALLS[0] = 0
 
 
 def _path_add(phase):
     """Add the _path_kernels' launches since _path_reset to `phase`;
-    a main-path run that launched one of them no time fails."""
+    a main-path run that launched one of them no time, or the tone mask
+    otherwise than once a finish step or mask_components call, fails."""
     counts = [k.launches for k in _path_kernels()]
     if min(counts) == 0:
-        raise RuntimeError(f"{phase}: mdct_fwd, bark_fit and floor_encode "
-                           f"launched {counts} times")
+        raise RuntimeError(f"{phase}: mdct_fwd, bark_fit, floor_encode and "
+                           f"tone_mask launched {counts} times")
+    if counts[3] != TONE_CALLS[0]:
+        raise RuntimeError(f"{phase}: tone_mask launched {counts[3]} times "
+                           f"for {TONE_CALLS[0]} finish steps and "
+                           f"mask_components calls")
     PATH_LAUNCHES[phase] = tuple(
-        a + b for a, b in zip(PATH_LAUNCHES.get(phase, (0, 0, 0)), counts))
+        a + b for a, b in zip(PATH_LAUNCHES.get(phase, (0,) * len(counts)),
+                              counts))
 
 
 def _mdct_fwd_work(n, rows, nwin):
@@ -1684,7 +1730,7 @@ def _phase_front(fsw, f51, smi, baselines=None):
     from vorbis_tpu_torch.ops.bark_cuda import bark_fit_plain
     from vorbis_tpu_torch.ops.mdct import mdct_basis_np
     from vorbis_tpu_torch.ops.mdct_cuda import mdct_fwd_plain
-    mdct_fwd, bark_fit, _ = _path_kernels()
+    mdct_fwd, bark_fit = _path_kernels()[:2]
     f16 = FastEncoder(2, 16000, 0.5)
     cases = [("4d long", fsw.analysis, _signal, 44100, 2048, True),
              ("short n=256", fsw.ctx(0).analysis, _click_train, 44100, 512,
@@ -2147,12 +2193,15 @@ def _split(fe, W, step, args, smi):
     switch for it), then each stage alone on its recorded inputs under
     torch.profiler (device kernels, device ms) and timed with CUDA
     events (ms a call, the host's issue included), the whole step
-    likewise, with the kernel and with the plain trio in its place.
-    Returns ({stage: (kernels, device ms, ms)}, the recorded floor_encode
-    call's (cfg, posts, used))."""
+    likewise, with the kernel and with the plain trio in its place, and
+    with the plain tone mask in the tone-mask kernel's place.  Returns
+    ({stage: (kernels, device ms, ms)}, the recorded floor_encode call's
+    (cfg, posts, used), the recorded tone-mask call's (DeviceToneMask,
+    logfft, global, local))."""
     import torch
     from vorbis_tpu_torch.ops import encdevice, psydevice
     from vorbis_tpu_torch.ops.floor_encode_cuda import floor_encode_plain
+    from vorbis_tpu_torch.ops.tone_mask_cuda import tone_mask_plain
     ctx = fe.ctx(W)
     owners = dict(psydevice=psydevice, encdevice=encdevice, ctx=ctx,
                   analysis=ctx.analysis, dev=fe._dev_for(W))
@@ -2186,12 +2235,30 @@ def _split(fe, W, step, args, smi):
             _cuda_ms(lambda: step(*args), 3))
     finally:
         encdevice.floor_encode = kernel
+    # the tone mask: its plain version alone, and the step with it in the
+    # kernel's place
+    tm, targs = next((f, a) for lb, f, a, _ in calls if lb == "tone mask")
+    rows["tone mask, plain"] = (
+        *_device_profile(lambda: tone_mask_plain(tm, *targs)),
+        _cuda_ms(lambda: tone_mask_plain(tm, *targs), 3))
+    ctx.analysis.tonemask = lambda *a: tone_mask_plain(tm, *a)
+    try:
+        rows["step, plain tone mask"] = (
+            *_device_profile(lambda: step(*args)),
+            _cuda_ms(lambda: step(*args), 3))
+    finally:
+        ctx.analysis.tonemask = tm
     rows["step"] = whole
     B = fcall[1].shape[0]
-    if rows["floor encode"][0] != 1:
-        print(f"[split] W={W}: the profiler saw {rows['floor encode'][0]} "
-              f"device kernels of one floor_encode launch: the counts "
-              f"below miss some")
+    for label, what in (("floor encode", "floor_encode"),
+                        ("tone mask", "tone_mask")):
+        if rows[label][0] > 1:
+            raise RuntimeError(f"3j W={W}: one {what} call ran "
+                               f"{rows[label][0]} device kernels")
+        if rows[label][0] != 1:
+            print(f"[split] W={W}: the profiler saw {rows[label][0]} "
+                  f"device kernels of one {what} launch: the counts "
+                  f"below miss some")
     for label, (k, dms, ms) in rows.items():
         print(f"[split] W={W} {B} rows: {label}: {k} device kernels, "
               f"device {dms:.4f} ms, {ms:.4f} ms a call")
@@ -2199,8 +2266,11 @@ def _split(fe, W, step, args, smi):
           f"{whole[0]} device kernels ({whole[1]:.4f} ms on the device, "
           f"{whole[2]:.4f} ms a call), with the plain trio "
           f"{rows['step, plain trio'][0]} ({rows['step, plain trio'][1]:.4f}"
-          f" ms, {rows['step, plain trio'][2]:.4f} ms) ({smi})")
-    return rows, fcall
+          f" ms, {rows['step, plain trio'][2]:.4f} ms), with the plain tone "
+          f"mask {rows['step, plain tone mask'][0]} "
+          f"({rows['step, plain tone mask'][1]:.4f} ms, "
+          f"{rows['step, plain tone mask'][2]:.4f} ms) ({smi})")
+    return rows, fcall, (tm, *targs)
 
 
 def _phase_floor_encode(fsw, fm, f51, smi, baseline=None, report=""):
@@ -2218,10 +2288,14 @@ def _phase_floor_encode(fsw, fm, f51, smi, baseline=None, report=""):
     design where `baseline`, a _FencBaseline, is given, whose outputs must
     equal this design's), its bound and share, the plain trio's time and
     device kernels; and the two 4d batches split by stage (_split).
-    Returns the kernel's record for the JSON line."""
+    Returns the kernel's record for the JSON line, and the tone-mask
+    calls recorded on the way for phase 3k: [(label, DeviceToneMask,
+    logfft, global, local)] of the two 4d batches and each look's first
+    call in the managed, 5.1, 16 and 32 kHz runs."""
     import numpy as np
     import torch
     from vorbis_tpu_torch.models.fastenc import FastEncoder
+    from vorbis_tpu_torch.ops import torchdsp
     from vorbis_tpu_torch.ops.floor_encode_cuda import (floor_encode,
                                                         floor_encode_plain)
     synthetic = _test_module("floor_encode_cases").synthetic
@@ -2244,11 +2318,12 @@ def _phase_floor_encode(fsw, fm, f51, smi, baseline=None, report=""):
                           .cuda() for k in range(3)])
     finally:
         del fsw._finish_step
-    split, cases = {}, []
+    split, cases, tone_cases = {}, [], []
     for W, label in ((1, "4d long batch"), (0, "4d short batch")):
         step, a = steps[W]
-        split[label], call = _split(fsw, W, step, a, smi)
+        split[label], call, tcall = _split(fsw, W, step, a, smi)
         cases.append((label, *call))
+        tone_cases.append((label, *tcall))
     cfg, posts, used = cases[0][1:]
     if posts.shape[0] != 4096 or cases[1][2].shape[0] != 512:
         raise RuntimeError(f"4d batches of {posts.shape[0]} and "
@@ -2266,7 +2341,18 @@ def _phase_floor_encode(fsw, fm, f51, smi, baseline=None, report=""):
                 _gate_signal("mix", 16000, 1.0, 2))),
             ("32 kHz", lambda: FastEncoder(2, 32000, 0.5).encode(
                 _gate_signal("mix", 32000, 1.0, 2)))):
-        recorded = _record_floor_encode(run)
+        tcalls = []
+        restore = _patched([("tone mask", torchdsp.DeviceToneMask,
+                             "__call__")], tcalls)
+        try:
+            recorded = _record_floor_encode(run)
+        finally:
+            restore()
+        first = {}
+        for _, _, (tm, *targs), _ in tcalls:
+            first.setdefault(id(tm), (tm, *targs))
+        tone_cases += [(f"{label} n={v[0].look.n}", *v)
+                       for v in first.values()]
         if label == "5.1" and sorted(c.P for c, _, _ in recorded) \
                 != [2, 2, 13, 29]:
             raise RuntimeError(f"5.1 floor configs "
@@ -2350,6 +2436,124 @@ def _phase_floor_encode(fsw, fm, f51, smi, baseline=None, report=""):
     main = rec["4d long batch"]
     return dict({k: main[k] for k in ("ms", "plain_ms", "bound_ms",
                                       "bound_by")},
+                max_abs_err=err, library_ms=None, at_long=main,
+                at_short=rec["4d short batch"]), tone_cases
+
+
+# The tone mask's own arithmetic, whatever a kernel's schedule: float32
+# operations
+#  - a row: the attenuation's add and max, 2;
+#  - a bin: its group's max, the ATH floor's add and the final max, 3;
+#  - a group: the audibility's add and compare, the level's add,
+#    subtract and multiply, its window's finiteness test and clamp, 7
+#    (and the level's conversion and two clamps, 3 int32);
+#  - a deposit, counted on this run's data (seed_deposits): the curve's
+#    add and the max, 2;
+#  - the chase: a max for each of the linesper - 1 lines below a line;
+#  - a window: a min for each of its lines past the first.
+F32_TM_PER_ROW, F32_TM_PER_BIN, F32_TM_PER_GROUP = 2, 3, 7
+OPS_TM_PER_GROUP, F32_TM_PER_DEPOSIT = 3, 2
+
+
+def _tone_bound(tm, logfft, gspec, lspec):
+    """(bound ms, bound_by, bytes, int32 ops, float32 ops) of one tone_mask
+    call: logfft and the maxima read once, the tone written once, the blob
+    read once; the function's operations as counted above."""
+    from vorbis_tpu_torch.ops.tone_mask_cuda import (blob_tables,
+                                                     seed_deposits)
+    R, n = logfft.shape
+    tb = blob_tables(tm.blob)
+    G, T_, lp = tb["G"], tb["T"], tb["linesper"]
+    chase = T_ * (lp - 1) - lp * (lp - 1) // 2
+    wmins = int((tb["win_hi"] - tb["win_lo"]).sum())
+    nbytes = R * (2 * n * 4 + 2 * 4) + tm.blob.numel() * 4
+    int_ops = R * G * OPS_TM_PER_GROUP
+    f32_ops = (R * (F32_TM_PER_ROW + n * F32_TM_PER_BIN
+                    + G * F32_TM_PER_GROUP + chase + wmins)
+               + F32_TM_PER_DEPOSIT * seed_deposits(tm, logfft, gspec, lspec))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(int_ops / INT32_OPS_PER_S, f32_ops / F32_OPS_PER_S) * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", nbytes, int_ops, f32_ops)
+
+
+def _tone_check(name, tm, logfft, gspec, lspec):
+    """tone_mask's kernel against its plain version on the card, by bit
+    pattern; returns the largest difference."""
+    import torch
+    from vorbis_tpu_torch.ops.tone_mask_cuda import (tone_mask,
+                                                     tone_mask_plain)
+    got = tone_mask(tm, logfft, gspec, lspec)
+    want = tone_mask_plain(tm, logfft, gspec, lspec)
+    torch.cuda.synchronize()
+    same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+    err = float((got.double() - want.double()).abs().max())
+    print(f"[tone mask] {name}: {tuple(logfft.shape)} rows x bins, "
+          f"T={tm.total} G={tm.n_groups} W={tm.blob_dims[2]}: "
+          + ("bitwise equal to the plain version" if same else "DIFFERS")
+          + f", max_abs_err {err}")
+    if not same:
+        raise RuntimeError(f"tone mask {name}: kernel != plain")
+    return err
+
+
+def _phase_tone_mask(cases, smi, report=""):
+    """Phase 3k: the tone mask (csrc/tone_mask.cu) against its plain
+    version, bitwise, on the calls 3j recorded (`cases`: 4d's long and
+    short finish batch, the managed step's, the 5.1 looks', phase 8's 16
+    and 32 kHz looks') and on tests/tone_mask_cases.py's seeded and edge
+    rows at each of those looks; the build's registers (`report`), shared
+    memory a block and blocks an SM; its time at the two 4d batches (CUDA
+    graphs, median and spread of six), its bound and share, the plain
+    version's time and device kernels (no single library call computes
+    it).  Returns the kernel's record for the JSON line."""
+    import ctypes
+    import torch
+    from vorbis_tpu_torch.ops.tone_mask_cuda import (load_library,
+                                                     tone_mask,
+                                                     tone_mask_plain)
+    inputs = _test_module("tone_mask_cases").inputs
+    err, looks = 0.0, {}
+    for name, tm, lf, g, l in cases:
+        err = max(err, _tone_check(name, tm, lf, g, l))
+        looks.setdefault(id(tm), (name, tm))
+    for k, (name, tm) in enumerate(looks.values()):
+        args = (torch.from_numpy(a).cuda()
+                for a in inputs(tm.look.n, 300 + k, 251))
+        err = max(err, _tone_check(f"{name}, seeded and edge rows", tm,
+                                   *args))
+    per_sm = load_library().vtt_tone_mask_blocks_per_sm
+    build = [ln.strip() for ln in report.splitlines()
+             if "registers" in ln or "stack" in ln]
+    rec = {}
+    for name, tm, lf, g, l in cases[:2]:
+        smem = ctypes.c_int(0)
+        blocks = per_sm(*tm.blob_dims, ctypes.byref(smem))
+        t, _ = _turns(lambda: tone_mask(tm, lf, g, l), None)
+        ms, lo, hi = _med(t)
+        plain_k, plain_dev = _device_profile(
+            lambda: tone_mask_plain(tm, lf, g, l))
+        plain_ms = _cuda_ms(lambda: tone_mask_plain(tm, lf, g, l), 3)
+        bound_ms, by, nb, io, fo = _tone_bound(tm, lf, g, l)
+        print(f"[tone mask] {name}: build {build or 'cached'}; "
+              f"{smem.value} bytes of shared memory a block, {blocks} "
+              f"blocks an SM")
+        print(f"[tone mask] {name} {lf.shape[0]} rows of n={lf.shape[1]}: "
+              f"kernel {ms:.5f} ms (CUDA graphs; median of {len(t)}, "
+              f"{lo:.5f}-{hi:.5f}); bound {bound_ms * 1e3:.3f} us by {by} "
+              f"({nb} bytes, {io} int32 + {fo} float32 operations), share "
+              f"{100 * bound_ms / ms:.1f}%; plain {plain_ms:.4f} ms a call, "
+              f"{plain_k} device kernels ({plain_dev:.4f} ms on the "
+              f"device); library call: none ({smi})")
+        rec[name] = dict(rows=lf.shape[0], n=lf.shape[1], ms=ms,
+                         rounds_ms=t, plain_ms=plain_ms,
+                         plain_kernels=plain_k, plain_device_ms=plain_dev,
+                         bound_ms=bound_ms, bound_by=by,
+                         share=bound_ms / ms, shared_bytes=smem.value,
+                         blocks_per_sm=blocks)
+    main = rec["4d long batch"]
+    return dict({k: main[k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "share")},
                 max_abs_err=err, library_ms=None, at_long=main,
                 at_short=rec["4d short batch"])
 
@@ -3449,9 +3653,12 @@ def _phase_pipeline(smi):
         step = sharded_encode_step(dev, mesh, F)
         torch.cuda.synchronize()
         fe.floor.launches = 0                   # the main path's run
+        _path_reset()
         pk, nb = step(frames)
         torch.cuda.synchronize()
+        _path_add("7a")
         fl = fe.floor.launches
+        rec["floor_7a"] = rec.get("floor_7a", 0) + fl
         same = torch.equal(pk, pk1) and torch.equal(nb, nb1)
         rows = int((pk != pk1).any(1).sum())
         print(f"[7a] sharded encode on {name} ({mesh.shape}): {F} frames, "
@@ -3847,7 +4054,8 @@ def main():
     from vorbis_tpu_torch import native
     from vorbis_tpu_torch.ops import (bark_cuda, floor_cuda,
                                       floor_encode_cuda, imdct_cuda,
-                                      lap_cuda, m3_cuda, mdct_cuda)
+                                      lap_cuda, m3_cuda, mdct_cuda,
+                                      tone_mask_cuda)
     t0 = time.perf_counter()
     jobs = {"floor_fit.cu": floor_cuda.build,
             "floor_encode.cu": floor_encode_cuda.build,
@@ -3856,6 +4064,7 @@ def main():
             "lap.cu": lap_cuda.build,
             "mdct_fwd.cu": mdct_cuda.build,
             "bark_fit.cu": bark_cuda.build,
+            "tone_mask.cu": tone_mask_cuda.build,
             "host_ogg.c": native.build_host,
             "host_decode.c": native.build_decode,
             "host_pack.c": native.build_pack}
@@ -3869,6 +4078,7 @@ def main():
     lap_cuda.load_library()
     mdct_cuda.load_library()
     bark_cuda.load_library()
+    tone_mask_cuda.load_library()
     native.host_library()
     native.decode_library()
     native.pack_library()
@@ -3879,6 +4089,9 @@ def main():
         for line in log.splitlines():
             if "registers" in line or "Compiling entry" in line:
                 print(f"[build]   {line.strip()}")
+
+    # every call of the tone mask's two callers is counted from here on
+    _count_tone_calls()
 
     # 3. kernel vs plain
     from vorbis_tpu_torch.codec.encoder import Encoder
@@ -3971,12 +4184,17 @@ def main():
     # split counts each stage's device kernels with torch.profiler, which
     # after phases 3b-3i saw three device events fewer a profiled call,
     # the floor-encode kernel among them
-    fenc_rec = _phase_floor_encode(
+    fenc_rec, tone_cases = _phase_floor_encode(
         fsw, fm, f51, smi,
         _FencBaseline(args.floor_encode_baseline)
         if args.floor_encode_baseline else None,
         built["floor_encode.cu"][1])
     _lap(t_start, "3j")
+
+    # 3k. the tone mask on 3j's recorded calls, its times and bound
+    tone_rec = _phase_tone_mask(tone_cases, smi, built["tone_mask.cu"][1])
+    del tone_cases
+    _lap(t_start, "3k")
 
     # 3b. the M3 scan kernel vs its plain version, times and bounds
     m3_rec = _phase_m3(fsw, smi, args.m3_baseline)
@@ -4254,10 +4472,11 @@ def main():
     on_card = _packets(dev, torch.from_numpy(clip).cuda())
     on_cpu = _packets(fe_cpu.dev, torch.from_numpy(clip))
     same = sum(a == b for a, b in zip(on_card, on_cpu))
-    print(f"[card-vs-cpu] identical packets {same}/{len(on_card)}")
+    differ = [i for i, (a, b) in enumerate(zip(on_card, on_cpu)) if a != b]
+    print(f"[card-vs-cpu] identical packets {same}/{len(on_card)} "
+          f"(differing {differ})")
     if same < 0.9 * len(on_card):
         raise RuntimeError("card and CPU packets differ in more than 10%")
-    differ = [i for i, (a, b) in enumerate(zip(on_card, on_cpu)) if a != b]
     if differ:
         _localize(dev, fe_cpu.dev, torch.from_numpy(clip).cuda(),
                   torch.from_numpy(clip), differ[0], len(on_card))
@@ -4375,12 +4594,17 @@ def main():
             "4d": launches_sw["signal"][0] + launches_sw["click_train"][0],
             "4e": launches_sw["encode"][0],
             "4f": launches_sw["managed"][0], "4g": launches_sw["5.1"][0],
-            "7b": p7["floor_7b"], "8": p8_floor}
+            "7a": p7["floor_7a"], "7b": p7["floor_7b"], "8": p8_floor}
     fenc = {k: v[2] for k, v in PATH_LAUNCHES.items()}
     print(f"[floor encode] launches by phase {fenc}, floor fit's {fits}")
     if fenc != fits:
         raise RuntimeError("floor_encode did not launch once a finish call "
                            "a floor look")
+    # the tone mask: one launch a finish step or mask_components call,
+    # held phase by phase in _path_add
+    tone = {k: v[3] for k, v in PATH_LAUNCHES.items()}
+    print(f"[tone mask] launches by phase {tone}, each equal to the "
+          f"phase's finish steps and mask_components calls")
     print(f"[time] {time.perf_counter() - t_start:.1f} s of command time")
     print(json.dumps({"kernels": [{
         "name": "floor1_greedy_fit", "route": "cuda",
@@ -4429,7 +4653,12 @@ def main():
                     "spectra)",
         "launches": sum(v[1] for v in PATH_LAUNCHES.values()),
         "by_phase": {k: v[1] for k, v in PATH_LAUNCHES.items()},
-        **front_rec["bark_fit"]}]}))
+        **front_rec["bark_fit"]}, {
+        "name": "tone_mask", "route": "cuda",
+        "source": "vorbis_tpu_torch/csrc/tone_mask.cu",
+        "replaces": "vorbis_tpu/ops/jaxdsp.py:477-558 (DeviceToneMask."
+                    "__call__, jitted XLA)",
+        "launches": sum(tone.values()), "by_phase": tone, **tone_rec}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

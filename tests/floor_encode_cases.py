@@ -13,8 +13,8 @@ quant_q - 1, and rows with used false.  `dense_config(seed, device)`
 is a config on a dense floor1 look (65 posts over n = 128).
 `phase5_fit`, `fit_moments` and `running_sum32` rebuild the floor fit's
 inputs and prefix moments on chip_smoke.py phase 5's clip, for the tests
-that pin ROADMAP §3's open fault (the prefix sums round in float32 on
-the card and in float64 on the CPU).
+that hold the prefix sums to one float64 sum rounded once, on the CPU
+and on the card (a float32 running sum moves posts).
 """
 
 import numpy as np
@@ -151,7 +151,8 @@ def phase5_fit(fe, pcm16):
 def fit_moments(fit, logmdct, mask):
     """fit.prepare(logmdct, mask)'s (quant, above, prefix) and the moments
     its prefix sums (ops/floor_device.py _moments: the input of its
-    torch.cumsum, (B, S, 6) float32)."""
+    torch.cumsum, (B, S, 6), the float32 moments widened to float64 and
+    returned as float32, exactly)."""
     import torch
     seen = []
     cumsum = torch.cumsum
@@ -165,7 +166,7 @@ def fit_moments(fit, logmdct, mask):
         quant, above, prefix, _ = fit.prepare(logmdct, mask)
     finally:
         torch.cumsum = cumsum
-    return quant, above, prefix, seen[-1]
+    return quant, above, prefix, seen[-1].float()
 
 
 def running_sum32(moments):

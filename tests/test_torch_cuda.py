@@ -1,6 +1,8 @@
 """Tests that need the card: the port's CUDA kernels (csrc/floor_fit.cu,
 csrc/floor_encode.cu, csrc/m3_scan.cu, csrc/imdct.cu, csrc/lap.cu,
-csrc/mdct_fwd.cu, csrc/bark_fit.cu) against their plain PyTorch versions (the floor fit on
+csrc/mdct_fwd.cu, csrc/bark_fit.cu, csrc/tone_mask.cu) against their
+plain PyTorch versions (the floor fit's prefix sums against the CPU's,
+the tone mask at every encoder look, the floor fit on
 the 5.1 looks too, M3 on six channels, the IMDCT at every blocksize and
 the lap at every blocksize and on -0.0 and subnormal products, both
 against the host C, the forward MDCT at every blocksize and the bark
@@ -186,29 +188,62 @@ def test_floor_encode_kernel_on_cuda(cuda):
                 assert torch.equal(g, w)
 
 
-def test_fit_prefix_sums_round_in_float32_on_cuda(cuda):
-    """ROADMAP §3's open fault, pinned on the card: the floor fit's prefix
-    moments (ops/floor_device.py _moments' torch.cumsum of float32) are a
-    float32 running sum on the card, where the CPU accumulates them in
-    float64 (test_torch_floor.py::
-    test_fit_prefix_sums_round_in_float64_on_the_cpu).  On the CPU's
+def test_tone_mask_kernel_on_cuda(cuda):
+    """csrc/tone_mask.cu against tone_mask_plain on the card, bitwise, at
+    every look of tests/tone_mask_cases.py (44.1 kHz, 5.1 at 48 kHz, 16
+    and 32 kHz, long and short) at B = 1, 1,001 and 4,096 rows, the edge
+    rows among them, and at the edge rows alone; one launch a call."""
+    from vorbis_tpu_torch.ops.tone_mask_cuda import tone_mask, tone_mask_plain
+    cases = _test_module("tone_mask_cases")
+    edges = len(cases.EDGE)
+    for k, case in enumerate(cases.LOOKS):
+        tm = cases.port_look(case, "cuda")
+        n = tm.look.n
+        assert (n, tm.total, tm.n_groups) == cases.SHAPES[case]
+        big = cases.inputs(n, 40 + k, 4096 - edges)
+        for rows in (slice(0, 1), slice(0, 1001), slice(0, 4096),
+                     slice(4096 - edges, 4096)):
+            args = [torch.from_numpy(np.ascontiguousarray(a[rows])).cuda()
+                    for a in big]
+            before = tone_mask.launches
+            got = tone_mask(tm, *args)
+            torch.cuda.synchronize()
+            assert tone_mask.launches == before + 1
+            want = tone_mask_plain(tm, *args)
+            assert torch.equal(got.view(torch.int32),
+                               want.view(torch.int32)), (case, rows)
+
+
+def test_fit_prefix_sums_equal_the_cpu_on_cuda(cuda):
+    """The floor fit's prefix moments (ops/floor_device.py _moments) sum
+    in float64 and round once on the card as on the CPU: on the CPU's
     spectra and mask of chip_smoke.py phase 5's clip, moved to the card,
-    quant and above are equal, the prefix is not, and the card's fit
-    differs from the CPU's in 20 posts by one quantum, 2 of them in
-    packet 34's rows."""
+    quant, above and the prefix equal the CPU's bitwise and so do all
+    5,104 fit posts; on random moments up to B = 20,000 rows (weighted
+    fractions and squares up to 2^30) the card's float64 prefix equals
+    the CPU's."""
     cases = _test_module("floor_encode_cases")
     kw = dict(switching=False, psy_state=False)
     fc, fg = TFE(2, 44100, 0.5, device="cpu", **kw), TFE(2, 44100, 0.5, **kw)
     lm, mk = cases.phase5_fit(fc, _signal(60, 44100, 0))
-    qc, ac, pc, _ = cases.fit_moments(fc.dev.ctx.floor, lm, mk)
+    qc, ac, pc, mc = cases.fit_moments(fc.dev.ctx.floor, lm, mk)
     fit = fg.dev.ctx.floor
     qg, ag, pg, mg = cases.fit_moments(fit, lm.cuda(), mk.cuda())
     assert torch.equal(qg.cpu(), qc) and torch.equal(ag.cpu(), ac)
-    assert torch.equal(pg, cases.running_sum32(mg))
-    assert not torch.equal(pg.cpu(), pc)
-    d = fit.fit(qg, ag, pg).cpu() - fc.dev.ctx.floor.fit(qc, ac, pc)
-    assert int((d != 0).sum()) == 20 and int(d.abs().max()) == 1
-    assert int((d[68:70] != 0).sum()) == 2
+    assert torch.equal(mg.cpu(), mc)
+    assert torch.equal(pg.cpu(), pc)
+    assert not torch.equal(pc, cases.running_sum32(mc))
+    posts_g, posts_c = fit.fit(qg, ag, pg).cpu(), fc.dev.ctx.floor.fit(
+        qc, ac, pc)
+    assert posts_c.numel() == 5104 and torch.equal(posts_g, posts_c)
+    rng = np.random.RandomState(5)
+    S = pc.shape[1] - 1
+    for B in (1, 1001, 20000):
+        scale = np.float32(2.0) ** rng.randint(-21, 31, (B, S, 6))
+        m = torch.from_numpy((rng.rand(B, S, 6) * scale).astype(np.float32))
+        want = torch.cumsum(m, dim=-2)
+        got = torch.cumsum(m.cuda().double(), dim=-2).float().cpu()
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 def test_managed_finish15_on_cuda(cuda):

@@ -20,9 +20,10 @@ Tolerances and why:
     at most 1% of posts, none by more than one quantum.
   * quantize_posts / render: integer math and an exact f32 divide ->
     bitwise.
-  * the prefix moments' accumulation (ROADMAP §3's open fault): the
-    CPU's torch.cumsum sums in float64, the card's in float32; pinned
-    on chip_smoke.py phase 5's clip, exact counts.
+  * the prefix moments' accumulation: one float64 sum a segment after
+    another, rounded once, on every device (a float32 running sum, what
+    the card's torch.cumsum of float32 gives, moves posts); pinned on
+    chip_smoke.py phase 5's clip, exact counts.
 The kernel itself (csrc/floor_fit.cu) needs a CUDA device: its test is
 in test_torch_cuda.py, which imports no JAX (the GPU machine has none);
 chip_smoke.py holds it to the plain version on every run.
@@ -260,14 +261,13 @@ def test_floor_tables_bitwise(look):
 
 
 def test_fit_prefix_sums_round_in_float64_on_the_cpu():
-    """ROADMAP §3's open fault, pinned on the CPU: the floor fit's prefix
-    moments (ops/floor_device.py _moments, a torch.cumsum of float32)
-    accumulate in float64 on the CPU and in float32 on the card
-    (test_torch_cuda.py::test_fit_prefix_sums_round_in_float32_on_cuda),
-    so equal rows can fit other posts.  On chip_smoke.py phase 5's clip a
-    float32 running sum of the same moments moves 20 posts by one
-    quantum, 2 of them in packet 34's rows: what phase 5 reads on the
-    card, the first stage that differs in that packet."""
+    """The floor fit's prefix moments (ops/floor_device.py _moments)
+    are the float64 sum of the float32 moments rounded once, what torch's
+    CPU cumsum of float32 gives; the card sums the same way
+    (test_torch_cuda.py::test_fit_prefix_sums_equal_the_cpu_on_cuda).
+    On chip_smoke.py phase 5's clip a float32 running sum of the same
+    moments, what the card's cumsum of float32 gave, moves 20 posts by
+    one quantum, 2 of them in packet 34's rows."""
     from chip_smoke import _signal
     from tests.floor_encode_cases import (fit_moments, phase5_fit,
                                           running_sum32)

@@ -8,8 +8,9 @@ of the source and the flags, and bound with ctypes: the host C
 walk and the blockout schedule; `csrc/host_decode.c`: the decode half of
 native/vorbisnative.c, with the source's own flags; `csrc/host_pack.c`:
 the host-pack encode's bit packers) with `cc`, the CUDA kernels
-(`ops/floor_cuda.py`, `ops/m3_cuda.py`, `ops/imdct_cuda.py`,
-`ops/lap_cuda.py`, `ops/mdct_cuda.py`, `ops/bark_cuda.py`) with `nvcc`.
+(`ops/floor_cuda.py`, `ops/floor_encode_cuda.py`, `ops/m3_cuda.py`,
+`ops/imdct_cuda.py`, `ops/lap_cuda.py`, `ops/mdct_cuda.py`,
+`ops/bark_cuda.py`, `ops/tone_mask_cuda.py`) with `nvcc`.
 There is no fall-back: a missing compiler or a failed build raises.
 """
 

@@ -125,7 +125,10 @@ class DeviceFloorFit:
         # fit_line weight: (bn+an)*tw/(an+1)+1 per segment (f32)
         w = ((bn + an) * float(self.tw) / (an + 1.0) + 1.0)[..., None]
         wm = Bv + A * w
-        prefix = torch.cumsum(wm, dim=-2)
+        # the prefix sums in float64, one segment after another, rounded
+        # once: on the CPU torch.cumsum of float32 accumulates so, where
+        # the card's would add in float32
+        prefix = torch.cumsum(wm.double(), dim=-2).float()
         zero = torch.zeros_like(prefix[..., :1, :])
         return torch.cat([zero, prefix], dim=-2), an
 

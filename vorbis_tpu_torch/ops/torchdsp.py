@@ -13,7 +13,9 @@ csrc/bark_fit.cu (both passes of the noise fit), which round as XLA:CPU
 compiles the JAX spectra, its fused multiply-adds and flush-to-zero
 included (ops/mdct_cuda.py, ops/bark_cuda.py): their outputs equal the
 JAX package's bitwise on the CPU, and the card's equal the CPU's.  The
-tone analysis's FFT still rounds in another order than XLA's
+tone mask is one kernel too, csrc/tone_mask.cu (ops/tone_mask_cuda.py),
+bitwise equal to its plain version, the JAX module's passes.  The tone
+analysis's FFT still rounds in another order than XLA's
 (tests/test_torch_analysis.py states the bounds).
 
 Reference behavior being reproduced (file:line of the reference tree):
@@ -36,6 +38,7 @@ from .imdct_cuda import imdct
 from .lap_cuda import LapPlan, lap
 from .mdct import mdct_basis_np
 from .mdct_cuda import mdct_fwd
+from .tone_mask_cuda import H, pack_blob, tone_mask
 from .window import hybrid_window
 from .xla_f32 import block_cumsum
 
@@ -285,7 +288,9 @@ class DeviceAnalysis:
 class DeviceToneMask:
     """Batched fast-path tone masking (reference: lib/psy.c
     _vp_tonemask / seed_loop / seed_chase / max_seeds); host setup is
-    line-aligned with jaxdsp.DeviceToneMask.__init__.
+    line-aligned with jaxdsp.DeviceToneMask.__init__.  A call is one
+    launch of csrc/tone_mask.cu on the card (ops/tone_mask_cuda.py, its
+    tables in `blob`), on the CPU the plain version, tone_mask_plain:
 
       - per-octave-group spectral max  -> scatter_reduce amax
       - curve seeding                  -> 56 static gathers + running
@@ -378,63 +383,18 @@ class DeviceToneMask:
         self.ath_adjatt = _c(look.vi["ath_adjatt"])
         self.ath_maxatt = _c(look.vi["ath_maxatt"])
         self.max_curve_dB = _c(look.vi["max_curve_dB"])
+        # the kernel's tables, one blob on the device
+        blob = pack_blob(n, self.linesper, self.p_levels, dict(
+            group_first=first, group_band=oc_band, line2group=line2group,
+            ath=tabs["ath"], win_start=starts, win_end=ends,
+            curve_rows=tabs["curve_rows"]), look.vi)
+        self.blob_dims = tuple(int(blob[H[k]]) for k in ("G", "T", "W"))
+        self.blob = torch.from_numpy(blob).to(self.device)
 
     def __call__(self, logfft, global_specmax, local_specmax):
-        """logfft: (R, n); specmax (R,) tensors."""
-        att = torch.clamp_min(local_specmax + self.ath_adjatt,
-                              self.ath_maxatt)
-        flr = self.ath + att[..., None]
-        # per-group max
-        lead = logfft.shape[:-1]
-        gmax = torch.full(lead + (self.n_groups,), -float("inf"),
-                          dtype=torch.float32, device=logfft.device)
-        gmax = gmax.scatter_reduce(-1, self.group_id.expand(logfft.shape),
-                                   logfft, "amax", include_self=True)
-        dBoffset = self.max_curve_dB - global_specmax[..., None]
-        level = torch.clamp(((gmax + dBoffset - _c(PSY.P_LEVEL_0))
-                             * _c(0.1)).to(torch.int32),
-                            0, self.p_levels - 1)
-        rows = self.group_band * self.p_levels + level      # (R, G)
-        curves = self.curve_rows[rows]                      # (R, G, 2+E)
-        post0 = curves[..., 0].to(torch.int32)
-        post1 = curves[..., 1].to(torch.int32)
-        audible = gmax + 6.0 > flr[..., self.group_first]
-        # seed deposit: 56 static gathers + running max
-        seed = torch.full(lead + (self.total,), NEGINF,
-                          dtype=torch.float32, device=logfft.device)
-        for k in range(PSY.EHMER_MAX):
-            vk = gmax + curves[..., 2 + k]
-            act = (k >= post0) & (k < post1) & audible
-            vk = torch.where(act, vk, NEGINF)
-            contrib = vk[..., self.seed_src[k]]
-            contrib = torch.where(self.seed_ok[k], contrib, NEGINF)
-            seed = torch.maximum(seed, contrib)
-        # chase: extend seeds across one eighth-octave (sliding max)
-        ext = seed
-        for s in range(1, self.linesper):
-            shifted = torch.nn.functional.pad(seed[..., :-s], (s, 0),
-                                              value=NEGINF)
-            ext = torch.maximum(ext, shifted)
-        # windowed min over [start_j, end_j] back in the linear domain:
-        # sparse-table (dyadic) range-min
-        run = torch.where(ext > NEGINF, ext, float("inf"))
-        levels = [run]
-        for k in range(self.kmax):
-            prev = levels[-1]
-            sh = 1 << k
-            levels.append(torch.minimum(prev, torch.nn.functional.pad(
-                prev[..., sh:], (0, sh), value=float("inf"))))
-        minv = torch.full(flr.shape, float("inf"), dtype=torch.float32,
-                          device=logfft.device)
-        for k in self.levels_used:
-            a = levels[k][..., self.win_lo]
-            b = levels[k][..., self.win_hi[k]]
-            minv = torch.where(self.k_mask[k], torch.minimum(a, b), minv)
-        # seedless windows must stay at the ATH floor
-        minv = torch.where(torch.isfinite(minv),
-                           torch.clamp_max(minv, self.tone_abs_limit),
-                           NEGINF)
-        return torch.maximum(flr, minv)
+        """logfft: (R, n); specmax (R,) tensors.  One launch of
+        csrc/tone_mask.cu on the card, the plain version on the CPU."""
+        return tone_mask(self, logfft, global_specmax, local_specmax)
 
 
 class DeviceSynthesis:
