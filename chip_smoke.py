@@ -113,10 +113,18 @@ Phases (any failure raises and the script exits non-zero):
      encoder's two looks and the 16 and 32 kHz looks, and on
      tests/tone_mask_cases.py's seeded and edge rows (a silent row, a
      global max of 0, levels saturated at both ends, local != global)
-     at each of those looks; the build's registers, shared memory a
-     block and blocks an SM; its time at the two 4d batches (CUDA
-     graphs, median and spread of six), its bound and share, the plain
+     and its stress rows (every group at its widest span, a single
+     depositing group) at each of those looks; the build's registers,
+     shared memory a block and blocks an SM; its time at the two 4d
+     batches (CUDA graphs, median and spread of six; in turns with PR
+     17's design, commit c40e5f8's, with --tone-mask-baseline, whose
+     outputs must equal this design's), its bound and share, the plain
      version's time and device kernels (no library call computes it);
+     and where a block's time goes: a timing build of the same source
+     (-DVTT_TONE_TIMING, clock64 stamps a warp at each phase's end and
+     barrier) prints the slowest warp's cycles a phase at the two 4d
+     batches, and with the baseline the same of the first design, its
+     source stamped at its barriers;
   4. main path: FastEncoder(2, 44100, 0.5, switching=False,
      psy_state=False).encode of 60 s of 44.1 kHz stereo int16 (bench.py's
      signal, seed 0), from a CUDA tensor and from host numpy; the stream
@@ -1962,6 +1970,163 @@ class _FencBaseline:
         return out
 
 
+# sha256 of the first design of csrc/tone_mask.cu (commit c40e5f8): its C
+# entry point vtt_tone_mask takes G, T and W where this design's takes the
+# header, and it finds its tables in this design's blob through the
+# header's first 24 words
+TONE_BASELINE_SHA256 = ("74e39f5b10d906dacf9cb2596a288d31f9777f0c4e45115e"
+                        "25e5b8e619f4223d")
+
+
+def _tone_call(fn, tm, logfft, gspec, lspec, *extra):
+    """tone (R, n) of one call of this design's vtt_tone_mask entry point
+    `fn` (the library's, or a timing build's, whose `extra` is the
+    stamps' pointer) on the look's blob and header, on the current
+    stream."""
+    import torch
+    out = torch.empty_like(logfft)
+    rc = fn(logfft.data_ptr(), gspec.data_ptr(), lspec.data_ptr(),
+            tm.blob.data_ptr(), tm.blob_head.ctypes.data, tm.blob.numel(),
+            out.data_ptr(), logfft.shape[0],
+            torch.cuda.current_stream().cuda_stream, *extra)
+    if rc != 0:
+        raise RuntimeError(f"tone mask launch failed: cudaError {rc}")
+    return out
+
+
+def _tone_call_baseline(fn, tm, logfft, gspec, lspec, *extra):
+    """As _tone_call for the first design's entry point (G, T, W in
+    place of the header)."""
+    import torch
+    out = torch.empty_like(logfft)
+    rc = fn(logfft.data_ptr(), gspec.data_ptr(), lspec.data_ptr(),
+            tm.blob.data_ptr(), tm.blob.numel(), *tm.blob_dims,
+            out.data_ptr(), logfft.shape[0],
+            torch.cuda.current_stream().cuda_stream, *extra)
+    if rc != 0:
+        raise RuntimeError(f"baseline tone mask launch failed: "
+                           f"cudaError {rc}")
+    return out
+
+
+def _tone_lib(source, stem, argtypes, flags=()):
+    """vtt_tone_mask of `source` built under its own library name with
+    the port's nvcc flags and `flags`."""
+    import ctypes
+    from vorbis_tpu_torch.native import build_library
+    from vorbis_tpu_torch.ops import floor_cuda
+    so, _ = build_library(source, floor_cuda.nvcc,
+                          (*floor_cuda.NVCC_FLAGS, *flags), stem)
+    fn = ctypes.CDLL(str(so)).vtt_tone_mask
+    fn.restype, fn.argtypes = ctypes.c_int, argtypes
+    return fn
+
+
+def _tone_argtypes(baseline=False, stamps=False):
+    """vtt_tone_mask's ctypes arguments: this design's or the first
+    design's, with the timing build's stamps last where asked."""
+    import ctypes
+    p, i = ctypes.c_void_p, ctypes.c_int
+    head = [p] * 4 + [i] * 4 if baseline else [p] * 5 + [i]
+    return head + [p, i, p] + [p] * stamps
+
+
+# the stamps a warp of a timing build: a phase's start (after the barrier
+# before it) and end (before the barrier after it), six phases each
+TONE_STAMPS = 12
+TONE_PHASES = ("group max", "groups and scan", "deposits", "chase",
+               "windows", "store")
+TONE_PHASES_BASELINE = ("init", "group max", "groups and deposits",
+                        "chase", "windows", "store")
+
+
+class _ToneBaseline:
+    """The first design of csrc/tone_mask.cu (a thread a group walks its
+    deposits, a thread a window its lines: `git show c40e5f8:vorbis_tpu_
+    torch/csrc/tone_mask.cu`), built from `source` under its own library
+    name, called on this design's blob (the header's first 24 words are
+    its layout) for timing in turns; any other source is refused (its
+    hash differs).  `timing()` builds it with a clock64 stamp a warp
+    before and after each of its five barriers and at its start and end,
+    inserted into a copy of its text, as this design's timing build
+    stamps its phases."""
+
+    def __init__(self, source):
+        import hashlib
+        from pathlib import Path
+        self.source = Path(source)
+        digest = hashlib.sha256(self.source.read_bytes()).hexdigest()
+        if digest != TONE_BASELINE_SHA256:
+            raise RuntimeError(f"--tone-mask-baseline {source} is not "
+                               f"commit c40e5f8's tone_mask.cu (sha256 "
+                               f"{digest})")
+        self.fn = _tone_lib(self.source, "libtonemask_baseline",
+                            _tone_argtypes(baseline=True))
+
+    def __call__(self, tm, logfft, gspec, lspec):
+        return _tone_call_baseline(self.fn, tm, logfft, gspec, lspec)
+
+    def timing(self):
+        """The stamped copy's vtt_tone_mask: its last argument the
+        stamps (TONE_STAMPS int64 a warp a row)."""
+        text = self.source.read_text()
+        stamp = "VTT_STAMP();"
+        edits = [
+            ("float* __restrict__ out) {\n  extern __shared__ int smem[];",
+             "float* __restrict__ out, long long* __restrict__ stamps) {\n"
+             "  extern __shared__ int smem[];\n  int vtt_st = 0;\n  "
+             + stamp, 1),
+            ("  __syncthreads();", f"  {stamp}\n  __syncthreads();\n  "
+             f"{stamp}", 5),
+            ("\n}\n\nsize_t smem_bytes", f"\n  {stamp}\n}}\n\n"
+             "size_t smem_bytes", 1),
+            ("void* stream) {", "void* stream, void* stamps) {", 1),
+            ("(const int*)blob, (float*)out);",
+             "(const int*)blob, (float*)out, (long long*)stamps);", 1)]
+        for old, new, count in edits:
+            if text.count(old) != count:
+                raise RuntimeError(f"baseline stamps: {old!r} found "
+                                   f"{text.count(old)} times")
+            text = text.replace(old, new)
+        macro = ("#define VTT_STAMP() do { if ((threadIdx.x & 31) == 0) "
+                 "stamps[((size_t)blockIdx.x * (blockDim.x >> 5) + "
+                 f"(threadIdx.x >> 5)) * {TONE_STAMPS} + vtt_st] = "
+                 "clock64(); ++vtt_st; } while (0)\n")
+        text = text.replace("namespace {", macro + "namespace {", 1)
+        from vorbis_tpu_torch.native import BUILD_DIR
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        stamped = BUILD_DIR / "tone_mask_c40e5f8_stamped.cu"
+        stamped.write_text(text)
+        return _tone_lib(stamped, "libtonemask_baseline_timing",
+                         _tone_argtypes(baseline=True, stamps=True))
+
+
+def _tone_phases(call, R):
+    """Where a block's time goes, from one call `call(stamps pointer)` of
+    a timing build on R rows: for each of the six phases the slowest
+    warp's cycles (a warp's start to its end of the phase's work; mean
+    over the rows) and the phase's span in the block (the first warp's
+    start to the last warp's end; mean), and the block's cycles, start to
+    end (mean and median)."""
+    import numpy as np
+    import torch
+    warps = 256 // 32
+    st = torch.zeros(R * warps * TONE_STAMPS, dtype=torch.int64,
+                     device="cuda")
+    call(st.data_ptr())
+    torch.cuda.synchronize()
+    s = st.view(R, warps, TONE_STAMPS).cpu().numpy()
+    slowest, span = [], []
+    for k in range(TONE_STAMPS // 2):
+        slowest.append(float((s[:, :, 2 * k + 1]
+                              - s[:, :, 2 * k]).max(1).mean()))
+        span.append(float((s[:, :, 2 * k + 1].max(1)
+                           - s[:, :, 2 * k].min(1)).mean()))
+    block = s[:, :, -1].max(1) - s[:, :, 0].min(1)
+    return dict(slowest=slowest, span=span, block=float(block.mean()),
+                block_median=float(np.median(block)))
+
+
 def _device_profile(fn):
     """(device kernels, their device ms) of one call of fn, from
     torch.profiler's device-side events."""
@@ -2497,39 +2662,58 @@ def _tone_check(name, tm, logfft, gspec, lspec):
     return err
 
 
-def _phase_tone_mask(cases, smi, report=""):
+def _phase_tone_mask(cases, smi, report="", baseline=None):
     """Phase 3k: the tone mask (csrc/tone_mask.cu) against its plain
     version, bitwise, on the calls 3j recorded (`cases`: 4d's long and
     short finish batch, the managed step's, the 5.1 looks', phase 8's 16
-    and 32 kHz looks') and on tests/tone_mask_cases.py's seeded and edge
-    rows at each of those looks; the build's registers (`report`), shared
-    memory a block and blocks an SM; its time at the two 4d batches (CUDA
-    graphs, median and spread of six), its bound and share, the plain
+    and 32 kHz looks) and on tests/tone_mask_cases.py's seeded, edge and
+    stress rows at each of those looks; the build's registers (`report`),
+    shared memory a block and blocks an SM; its time at the two 4d
+    batches (CUDA graphs, median and spread of six; in turns with the
+    first design where `baseline`, a _ToneBaseline, is given, whose
+    output must equal this design's), its bound and share, the plain
     version's time and device kernels (no single library call computes
-    it).  Returns the kernel's record for the JSON line."""
+    it); and where a block's time goes at the two batches (_tone_phases
+    of the timing build, and of the baseline's stamped copy).  Returns the kernel's
+    record for the JSON line."""
     import ctypes
     import torch
-    from vorbis_tpu_torch.ops.tone_mask_cuda import (load_library,
+    from vorbis_tpu_torch.ops.tone_mask_cuda import (SOURCE, load_library,
                                                      tone_mask,
                                                      tone_mask_plain)
-    inputs = _test_module("tone_mask_cases").inputs
+    tmc = _test_module("tone_mask_cases")
     err, looks = 0.0, {}
     for name, tm, lf, g, l in cases:
         err = max(err, _tone_check(name, tm, lf, g, l))
         looks.setdefault(id(tm), (name, tm))
     for k, (name, tm) in enumerate(looks.values()):
-        args = (torch.from_numpy(a).cuda()
-                for a in inputs(tm.look.n, 300 + k, 251))
-        err = max(err, _tone_check(f"{name}, seeded and edge rows", tm,
-                                   *args))
+        for rows, host in (("seeded and edge", tmc.inputs(tm.look.n, 300 + k,
+                                                          251)),
+                           ("stress", tmc.stress_rows(tm))):
+            err = max(err, _tone_check(
+                f"{name}, {rows} rows", tm,
+                *(torch.from_numpy(a).cuda() for a in host)))
     per_sm = load_library().vtt_tone_mask_blocks_per_sm
     build = [ln.strip() for ln in report.splitlines()
              if "registers" in ln or "stack" in ln]
+    timed = _tone_lib(SOURCE, "libtonemask_timing",
+                      _tone_argtypes(stamps=True), ("-DVTT_TONE_TIMING",))
+    btimed = baseline.timing() if baseline is not None else None
     rec = {}
     for name, tm, lf, g, l in cases[:2]:
         smem = ctypes.c_int(0)
-        blocks = per_sm(*tm.blob_dims, ctypes.byref(smem))
-        t, _ = _turns(lambda: tone_mask(tm, lf, g, l), None)
+        blocks = per_sm(tm.blob_head.ctypes.data, ctypes.byref(smem))
+        mine = (lambda tm=tm, lf=lf, g=g, l=l: tone_mask(tm, lf, g, l))
+        theirs = None
+        if baseline is not None:
+            theirs = (lambda tm=tm, lf=lf, g=g, l=l: baseline(tm, lf, g, l))
+            same = torch.equal(theirs().view(torch.int32),
+                               mine().view(torch.int32))
+            torch.cuda.synchronize()
+            if not same:
+                raise RuntimeError(f"3k {name}: the first design's output "
+                                   f"differs from this one's")
+        t, tb = _turns(mine, theirs)
         ms, lo, hi = _med(t)
         plain_k, plain_dev = _device_profile(
             lambda: tone_mask_plain(tm, lf, g, l))
@@ -2545,12 +2729,38 @@ def _phase_tone_mask(cases, smi, report=""):
               f"{100 * bound_ms / ms:.1f}%; plain {plain_ms:.4f} ms a call, "
               f"{plain_k} device kernels ({plain_dev:.4f} ms on the "
               f"device); library call: none ({smi})")
+        extra = {}
+        if tb:
+            bms, blo, bhi = _med(tb)
+            print(f"[tone mask] {name}: in turns, the first design (c40e5f8) "
+                  f"{bms:.5f} ms ({blo:.5f}-{bhi:.5f}), share "
+                  f"{100 * bound_ms / bms:.1f}%, against this design's "
+                  f"{ms:.5f} ms ({100 * bound_ms / ms:.1f}%), "
+                  f"{bms / ms:.2f}x, outputs equal ({smi})")
+            extra = dict(baseline_ms=bms, baseline_rounds_ms=tb,
+                         baseline_share=bound_ms / bms)
+        for label, fn, call, names in (
+                ("this design", timed, _tone_call, TONE_PHASES),
+                ("the first design", btimed, _tone_call_baseline,
+                 TONE_PHASES_BASELINE)):
+            if fn is None:
+                continue
+            ph = _tone_phases(lambda p, fn=fn, call=call, tm=tm, lf=lf, g=g,
+                              l=l: call(fn, tm, lf, g, l, p), lf.shape[0])
+            print(f"[tone mask] {name}, {label}: a block {ph['block']:.0f} "
+                  f"cycles (median {ph['block_median']:.0f}); a phase, the "
+                  f"slowest warp / the block's span: " + ", ".join(
+                      f"{n} {w:.0f} / {sp:.0f}" for n, w, sp in
+                      zip(names, ph["slowest"], ph["span"]))
+                  + f" (timing build, clock64; {smi})")
+            extra["phases" if fn is timed else "baseline_phases"] = dict(
+                ph, names=list(names))
         rec[name] = dict(rows=lf.shape[0], n=lf.shape[1], ms=ms,
                          rounds_ms=t, plain_ms=plain_ms,
                          plain_kernels=plain_k, plain_device_ms=plain_dev,
                          bound_ms=bound_ms, bound_by=by,
                          share=bound_ms / ms, shared_bytes=smem.value,
-                         blocks_per_sm=blocks)
+                         blocks_per_sm=blocks, **extra)
     main = rec["4d long batch"]
     return dict({k: main[k] for k in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "share")},
@@ -4019,6 +4229,10 @@ def main():
                          "vorbis_tpu_torch/csrc/floor_encode.cu, checked by "
                          "its hash) to time in turns with this one in "
                          "phase 3j")
+    ap.add_argument("--tone-mask-baseline", metavar="SOURCE",
+                    help="the first csrc/tone_mask.cu (git show c40e5f8:"
+                         "vorbis_tpu_torch/csrc/tone_mask.cu, checked by its "
+                         "hash) to time in turns with this one in phase 3k")
     for name in ("mdct_fwd", "bark_fit"):
         ap.add_argument(f"--{name.replace('_', '-')}-baseline",
                         metavar="SOURCE",
@@ -4192,7 +4406,10 @@ def main():
     _lap(t_start, "3j")
 
     # 3k. the tone mask on 3j's recorded calls, its times and bound
-    tone_rec = _phase_tone_mask(tone_cases, smi, built["tone_mask.cu"][1])
+    tone_rec = _phase_tone_mask(
+        tone_cases, smi, built["tone_mask.cu"][1],
+        _ToneBaseline(args.tone_mask_baseline)
+        if args.tone_mask_baseline else None)
     del tone_cases
     _lap(t_start, "3k")
 

@@ -191,8 +191,10 @@ def test_floor_encode_kernel_on_cuda(cuda):
 def test_tone_mask_kernel_on_cuda(cuda):
     """csrc/tone_mask.cu against tone_mask_plain on the card, bitwise, at
     every look of tests/tone_mask_cases.py (44.1 kHz, 5.1 at 48 kHz, 16
-    and 32 kHz, long and short) at B = 1, 1,001 and 4,096 rows, the edge
-    rows among them, and at the edge rows alone; one launch a call."""
+    and 32 kHz, long and short) at B = 1, 3, 513, 1,001 and 4,096 rows,
+    the edge rows among them, at the edge rows alone, and on the stress
+    rows (every group at its widest span, a single depositing group)
+    alone and mixed into 513 rows; one launch a call."""
     from vorbis_tpu_torch.ops.tone_mask_cuda import tone_mask, tone_mask_plain
     cases = _test_module("tone_mask_cases")
     edges = len(cases.EDGE)
@@ -201,17 +203,22 @@ def test_tone_mask_kernel_on_cuda(cuda):
         n = tm.look.n
         assert (n, tm.total, tm.n_groups) == cases.SHAPES[case]
         big = cases.inputs(n, 40 + k, 4096 - edges)
-        for rows in (slice(0, 1), slice(0, 1001), slice(0, 4096),
-                     slice(4096 - edges, 4096)):
-            args = [torch.from_numpy(np.ascontiguousarray(a[rows])).cuda()
-                    for a in big]
+        stress = cases.stress_rows(tm)
+        mixed = [np.concatenate([s, b[:511]]) for s, b in zip(stress, big)]
+        batches = [[a[rows] for a in big]
+                   for rows in (slice(0, 1), slice(0, 3), slice(0, 513),
+                                slice(0, 1001), slice(0, 4096),
+                                slice(4096 - edges, 4096))]
+        for host in batches + [list(stress), mixed]:
+            args = [torch.from_numpy(np.ascontiguousarray(a)).cuda()
+                    for a in host]
             before = tone_mask.launches
             got = tone_mask(tm, *args)
             torch.cuda.synchronize()
             assert tone_mask.launches == before + 1
             want = tone_mask_plain(tm, *args)
             assert torch.equal(got.view(torch.int32),
-                               want.view(torch.int32)), (case, rows)
+                               want.view(torch.int32)), (case, len(host[0]))
 
 
 def test_fit_prefix_sums_equal_the_cpu_on_cuda(cuda):

@@ -24,11 +24,12 @@ import jax
 from vorbis_tpu.models import encsetup as J_encsetup
 from vorbis_tpu.ops import jaxdsp as J
 from vorbis_tpu.ops import psy as J_psy
-from vorbis_tpu_torch.ops.tone_mask_cuda import (NEGINF, blob_tables,
+from vorbis_tpu_torch.ops.tone_mask_cuda import (NEGINF, PIECE, blob_tables,
                                                  seed_deposits, tone_mask,
-                                                 tone_mask_plain)
+                                                 tone_mask_plain,
+                                                 window_pieces)
 from tests.tone_mask_cases import (LOOKS, ROWS, SHAPES, inputs, port_look,
-                                   psy_look)
+                                   psy_look, stress_rows)
 
 # one torch thread a pytest-xdist worker (see test_torch_analysis.py)
 torch.set_num_threads(1)
@@ -87,33 +88,33 @@ def _unordered(e):
     return np.where(e >= 0, e, e ^ np.int32(0x7FFFFFFF)).view(f32)
 
 
+ORD_INF = np.int32(0x7F800000)          # _ordered(+inf)
+INT_MAX = np.iinfo(np.int32).max
+
+
 def _state(tb, lf, gs, ls):
     """The kernel's steps 1-2 (csrc/tone_mask.cu) on the blob's tables:
-    the group maxima by warp segments, as ordered words (gmax), and each
-    group's floor, audibility, level and curve row."""
+    the group maxima 4 bins a thread (each run of one group in a quad
+    carries its max back to its first bin, whose word takes the max), as
+    ordered words (gmax), and each group's floor, audibility, level and
+    curve row."""
     R, n = lf.shape
     G = tb["G"]
-    gmax = np.full((R, G), _ordered(f32(-np.inf)), np.int32)
-    lane = np.arange(32)
-    for base in range(0, n, 32):
-        j = base + lane
-        inn = j < n
-        v = np.where(inn, _ordered(lf[:, np.minimum(j, n - 1)]),
-                     np.iinfo(np.int32).min)
-        gid = np.where(inn, tb["bin_group"][np.minimum(j, n - 1)], -1)
-        for d in (1, 2, 4, 8, 16):       # shuffles read the old values
-            ov = np.concatenate([v[:, :d], v[:, :-d]], 1)
-            og = np.concatenate([gid[:d], gid[:-d]])
-            v = np.where((lane >= d) & (og == gid), np.maximum(v, ov), v)
-        nxt = np.concatenate([gid[1:], gid[:1]])
-        for ln in np.nonzero(inn & ((lane == 31) | (j == n - 1)
-                                    | (nxt != gid)))[0]:
-            g = gid[ln]
-            gmax[:, g] = np.maximum(gmax[:, g], v[:, ln])
+    v = _ordered(lf).reshape(R, n // 4, 4)
+    g = tb["bin_group"].reshape(n // 4, 4)
+    for k in (2, 1, 0):
+        same = g[:, k] == g[:, k + 1]
+        v[:, :, k] = np.where(same, np.maximum(v[:, :, k], v[:, :, k + 1]),
+                              v[:, :, k])
+    first = np.ones_like(g, bool)
+    first[:, 1:] = g[:, 1:] != g[:, :-1]
+    gmax = np.full((G, R), _ordered(f32(-np.inf)), np.int32)
+    np.maximum.at(gmax, g[first], v[:, first].T)
+    gmax = gmax.T
     att = np.maximum(ls + tb["ath_adjatt"], tb["ath_maxatt"])
     dboff = tb["max_curve_dB"] - gs
     gm = _unordered(gmax)
-    flr = tb["ath"][tb["group_first"]][None, :] + att[:, None]
+    flr = tb["group_static"][:, 0].view(f32)[None, :] + att[:, None]
     audible = (gm + f32(6.0)) > flr
     level = ((((gm + dboff[:, None]) - f32(30.0)) * f32(0.1))
              .astype(np.int32))
@@ -123,10 +124,10 @@ def _state(tb, lf, gs, ls):
 
 
 def _deposits(tb, st):
-    """A group's deposits in the kernel's step 3: (its curve rows (R, G,
-    58), each step's line (1, G, EHMER_MAX), the steps it deposits: its
-    curve row's [post0, post1), lines 1..T-1, audible groups that own a
-    line)."""
+    """A group's deposits in the first design's step 3: (its curve rows
+    (R, G, 58), each step's line (1, G, EHMER_MAX), the steps it deposits:
+    its curve row's [post0, post1), lines 1..T-1, audible groups that own
+    a line)."""
     T_, lp = tb["T"], tb["linesper"]
     c = tb["curves"][st["row"]]                       # (R, G, 58)
     k = np.arange(tb["ehmer_max"])
@@ -139,34 +140,113 @@ def _deposits(tb, st):
     return c, t, act
 
 
+def _listing(tb, st):
+    """The kernel's step 2 after the group maxima: each group's count of
+    in-range deposits (R, G) from its static and posts words at its
+    level, and its word (first curve index | first line << 16)."""
+    static = tb["group_static"].astype(np.int64)
+    g = np.arange(tb["G"])[None, :]
+    k0 = tb["group_k0"][g, st["level"]]
+    k1 = tb["group_k1"][g, st["level"]]
+    live = st["audible"] & (k1 > k0)
+    count = np.where(live, k1 - k0, 0)
+    word = ((static[:, 1][None, :] + st["level"] * tb["curve_w"] + 2 + k0)
+            | ((static[:, 2][None, :] + k0 * tb["linesper"]) << 16))
+    return count, np.where(live, word, 0)
+
+
+def _assign(off, count):
+    """The deposit phase's assignment as the kernel makes it, on one
+    row's depositing groups' exclusive offsets off and counts: each
+    group sets its start's bit in its 32-deposit chunk's word (but at a
+    chunk's first deposit) and names itself the first group of each
+    chunk whose first deposit it holds; a deposit's group is its chunk's
+    first plus the starts at or below its lane.  Returns the group of
+    each deposit."""
+    N = int(off[-1] + count[-1]) if len(off) else 0
+    nch = -(-N // 32)
+    starts = np.zeros(nch, np.int64)
+    first = np.full(nch, -1, np.int64)
+    for k, (o, c) in enumerate(zip(off, count)):
+        if o & 31:
+            assert not starts[o >> 5] >> (o & 31) & 1
+            starts[o >> 5] |= 1 << (o & 31)
+        first[(o + 31) >> 5:((o + c - 1) >> 5) + 1] = k
+    assert (first >= 0).all()
+    i = np.arange(N)
+    bits = (starts[i >> 5][:, None] >> np.arange(32)) & 1
+    return first[i >> 5] + (bits * (np.arange(32) <= (i & 31)[:, None])
+                            ).sum(1)
+
+
+def _columns(line, T_):
+    """A line's word in the kernel's seed buffer: a column a residue mod
+    8, column 0 the padding below line 0."""
+    cols = ((T_ + 7) >> 3) + 1
+    return (line & 7) * cols + (line >> 3) + 1
+
+
+def _chase(seed, lp):
+    """The chase as the kernel's threads run it, 8 lines a thread: line
+    8a + s takes the prefix max of block a's columns 0..s and the suffix
+    max of block a - 1's columns s + 1..7 (ordered NEGINF below line 0
+    and from T up); ordered +inf where no seed reached."""
+    assert lp == 8          # the kernel's kLinesPer
+    R, T_ = seed.shape
+    neg = _ordered(f32(NEGINF))
+    A = (T_ + 7) >> 3
+    blocks = np.full((R, A + 1, 8), neg, np.int32)   # block -1 first
+    blocks.reshape(R, -1)[:, 8:8 + T_] = seed
+    p = np.maximum.accumulate(blocks[:, 1:], axis=2)
+    q = np.maximum.accumulate(blocks[:, :-1, ::-1], axis=2)[:, :, ::-1]
+    run = p.copy()
+    run[:, :, :7] = np.maximum(p[:, :, :7], q[:, :, 1:])
+    run = run.reshape(R, 8 * A)[:, :T_]
+    return np.where(run > neg, run, ORD_INF)
+
+
 def replay(tb, lf, gs, ls):
     """The kernel's schedule in numpy, read from the blob by its offsets:
-    the warp-segment group max, a group's deposits (_deposits) as a max
-    of ordered words, the chase a line over the linesper lines at and
-    below it, the min over each window's lines, then the clamp and the
-    floor a bin."""
+    the warp-segment group max, the listing of the depositing groups by
+    an exclusive scan of their counts, the deposits as the chunk words
+    assign them (_assign), from each group's curve index and line less
+    its offset, as a max of ordered words, the chase 4 lines a thread,
+    each window's pieces merged by an ordered min, then the clamp and
+    the floor a bin."""
     R, n = lf.shape
     T_, lp = tb["T"], tb["linesper"]
     st = _state(tb, lf, gs, ls)
-    c, t, act = _deposits(tb, st)
-    vals = _ordered(st["gm"][..., None] + c[..., 2:])
-    seed = np.full((R, T_), _ordered(f32(NEGINF)), np.int32)
-    r, g, kk = np.nonzero(act)
-    np.maximum.at(seed, (r, np.broadcast_to(t, act.shape)[r, g, kk]),
-                  vals[r, g, kk])
-    m = seed.copy()
-    for s in range(1, lp):
-        m[:, s:] = np.maximum(m[:, s:], seed[:, :-s])
-    e = _unordered(m)
-    run = np.where(e > f32(NEGINF), e, f32(np.inf)).astype(f32)
-    win = np.empty((R, tb["W"]), f32)
-    for w, (lo, hi) in enumerate(zip(tb["win_lo"], tb["win_hi"])):
-        mv = run[:, lo:min(hi, T_ - 1) + 1].min(1)
-        win[:, w] = np.where(np.isfinite(mv),
-                             np.minimum(mv, tb["tone_abs_limit"]),
-                             f32(NEGINF))
+    count, word = _listing(tb, st)
+    curves = tb["curves"].reshape(-1)
+    cols = ((T_ + 7) >> 3) + 1
+    words = np.full((R, 8 * cols), _ordered(f32(NEGINF)), np.int32)
+    for r in range(R):
+        live = np.nonzero(count[r])[0]
+        cnt = count[r, live]
+        off = np.cumsum(cnt) - cnt
+        group = _assign(off, cnt)
+        i = np.arange(len(group))
+        wd = word[r, live]
+        curve = ((wd & 0xFFFF) - off)[group] + i
+        at = (_columns(wd >> 16, T_) - off)[group] + i
+        vals = _ordered(st["gm"][r, live][group] + curves[curve])
+        np.maximum.at(words[r], at, vals)
+    # the columns read back by line: a group's deposits t + 8 i are its
+    # column's consecutive words
+    seed = words[:, _columns(np.arange(T_), T_)]
+    run = _chase(seed, lp)
+    plo, phi = tb["piece_lo"], tb["piece_hi"]
+    m = np.full((R, len(plo)), ORD_INF, np.int32)
+    for i in range(PIECE):
+        m = np.where(plo + i <= phi,
+                     np.minimum(m, run[:, np.minimum(plo + i, T_ - 1)]), m)
+    win = np.full((tb["W"], R), ORD_INF, np.int32)
+    np.minimum.at(win, tb["piece_win"], m.T)
+    win = win.T
+    value = np.where(win == ORD_INF, f32(NEGINF),
+                     np.minimum(_unordered(win), tb["tone_abs_limit"]))
     flr = tb["ath"][None, :] + st["att"][:, None]
-    return np.maximum(flr, win[:, tb["bin_win"]])
+    return np.maximum(flr, value[:, tb["bin_win"]])
 
 
 @pytest.mark.parametrize("case", LOOKS)
@@ -180,6 +260,77 @@ def test_kernel_schedule_replay(looks, case):
     want = tone_mask_plain(tt, _t(lf), _t(gs), _t(ls)).numpy()
     assert got.dtype == f32
     assert np.array_equal(got.view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.parametrize("case", LOOKS)
+def test_kernel_schedule_replay_on_stress_rows(case):
+    """The replay equals the plain version bit for bit on
+    tests/tone_mask_cases.py's stress rows: every group audible at its
+    widest in-range span (the most deposits a row of this look can
+    make: each group's count at that row is the largest over its curve
+    levels) and a row where a single group deposits."""
+    tt = port_look(case, "cpu")
+    tb = blob_tables(tt.blob)
+    lf, gs, ls = stress_rows(tt)
+    got = replay(tb, lf, gs, ls)
+    want = tone_mask_plain(tt, _t(lf), _t(gs), _t(ls)).numpy()
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
+    st = _state(tb, lf, gs, ls)
+    count = _listing(tb, st)[0]
+    assert st["audible"][0].all()
+    # the most deposits of each group over its levels, counted as the
+    # first design's schedule does (_deposits) from its own tables
+    best = np.zeros(tb["G"], np.int64)
+    for v in range(tb["p_levels"]):
+        lv = dict(st, level=np.full_like(st["level"], v),
+                  audible=np.ones_like(st["audible"]),
+                  row=tb["group_band"][None, :] * tb["p_levels"] + v)
+        best = np.maximum(best, _deposits(tb, lv)[2][0].sum(-1))
+    assert np.array_equal(count[0], best)
+    assert (count[1] > 0).sum() == 1
+
+
+@pytest.mark.parametrize("case", LOOKS)
+def test_scanned_offsets_count_seed_deposits(looks, case):
+    """The deposits that the block scan lists (the sum of the listed
+    groups' counts a row) are exactly seed_deposits' count, a row and in
+    all, and each group's count is its deposits in the first design's
+    schedule; the chunk words give each deposit its own group, and the
+    blob's chunk count holds every row's chunks."""
+    _, tt, (lf, gs, ls), _ = looks[case]
+    tb = blob_tables(tt.blob)
+    st = _state(tb, lf, gs, ls)
+    count = _listing(tb, st)[0]
+    act = _deposits(tb, st)[2]
+    assert np.array_equal(count, act.sum(-1))
+    for r in range(len(lf)):
+        cnt = count[r, np.nonzero(count[r])[0]]
+        group = _assign(np.cumsum(cnt) - cnt, cnt)
+        assert np.array_equal(group, np.repeat(np.arange(len(cnt)), cnt))
+        assert seed_deposits(tt, _t(lf[r:r + 1]), _t(gs[r:r + 1]),
+                             _t(ls[r:r + 1])) == cnt.sum()
+        assert -(-cnt.sum() // 32) <= tb["chunks"]
+    assert seed_deposits(tt, _t(lf), _t(gs), _t(ls)) == int(count.sum())
+
+
+@pytest.mark.parametrize("case", LOOKS)
+def test_window_pieces_cover_each_window_once(case):
+    """The blob's window pieces, read back by blob_tables, cover each
+    window's lines [lo, hi] exactly once, in order, each piece of at most
+    PIECE lines, and are window_pieces of the blob's windows."""
+    tb = blob_tables(port_look(case, "cpu").blob)
+    plo, phi, pw = tb["piece_lo"], tb["piece_hi"], tb["piece_win"]
+    assert tb["pieces"] == len(plo) > 0
+    assert ((phi >= plo) & (phi - plo < PIECE)).all()
+    assert (np.diff(pw) >= 0).all()
+    for w, (lo, hi) in enumerate(zip(tb["win_lo"], tb["win_hi"])):
+        mine = pw == w
+        lines = np.concatenate([np.arange(a, b + 1) for a, b in
+                                zip(plo[mine], phi[mine])])
+        assert np.array_equal(lines, np.arange(lo, hi + 1))
+    want = window_pieces(tb["win_lo"], tb["win_hi"])
+    for got, w in zip((plo, phi, pw), want):
+        assert np.array_equal(got, w)
 
 
 @pytest.mark.parametrize("case", LOOKS)
@@ -238,3 +389,27 @@ def test_blob_tables_equal_the_jax_look(looks, case):
     assert np.array_equal(got_src[got_ok], jt.seed_src[got_ok])
     for a in (tb["ath"], tb["curves"]):
         assert not (np.signbit(a) & (a == 0)).any()
+    # the redesign's group tables, from the same look: the ATH at the
+    # first bin, the curve rows' base, step 0's line and at each level
+    # the steps that deposit in range, counted from seed_ok's lines
+    static = tb["group_static"]
+    assert np.array_equal(static[:, 0],
+                          tb["ath"][tb["group_first"]].view(np.int32))
+    assert np.array_equal(static[:, 1],
+                          tb["group_band"] * jt.p_levels * tb["curve_w"])
+    owned = tb["group_base"] >= 0
+    assert np.array_equal(static[owned, 2], tb["group_base"][owned]
+                          + offs[0])
+    for v in range(jt.p_levels):
+        post = tb["curves"][tb["group_band"] * jt.p_levels + v, :2]
+        k = np.arange(tb["ehmer_max"])
+        dep = ((k >= post[:, :1].astype(np.int32))
+               & (k < post[:, 1:].astype(np.int32)) & owned[:, None]
+               & (got_ok[k[None, :], np.clip(tb["group_base"][:, None]
+                                              + offs, 0, T_ - 1)])
+               & (tb["group_base"][:, None] + offs >= 1)
+               & (tb["group_base"][:, None] + offs < T_))
+        k0, k1 = tb["group_k0"][:, v], tb["group_k1"][:, v]
+        assert np.array_equal(np.maximum(k1 - k0, 0), dep.sum(1))
+        has = dep.any(1)
+        assert np.array_equal(k0[has], dep[has].argmax(1))

@@ -12,7 +12,9 @@ W, rate)` the PsyLook of either package.  `inputs(n, seed, rows)` gives
 low floor) with global and local maxima as the encoders make them, then
 the EDGE rows: a silent row (every group inaudible), global_specmax = 0,
 a loud row whose curve level saturates at p_levels - 1, one whose level
-clamps at 0, and local != global.
+clamps at 0, and local != global.  `stress_rows(tm)` gives two rows that
+stress the kernel's partitions at a look: the most deposits a row can make
+and a single depositing group.
 """
 
 import numpy as np
@@ -80,3 +82,26 @@ def inputs(n, seed, rows=ROWS):
     e_glob = np.array([e[1] for e in edge], f32)
     return (np.concatenate([lf, e_lf]), np.concatenate([glob, e_glob]),
             np.concatenate([local, e_loc]))
+
+
+def stress_rows(tm):
+    """(logfft (2, n), global (2,), local (2,)) float32 at the look of tm
+    (a DeviceToneMask), read from its blob: row 0 puts each group's bins
+    at the middle of the curve level that gives the group its most
+    in-range deposits, the global max raised until every group clears its
+    floor by 10 dB, so every group deposits its widest span; row 1 is
+    silence but for the group with the most such deposits, alone."""
+    from vorbis_tpu_torch.ops.tone_mask_cuda import blob_tables
+    tb = blob_tables(tm.blob)
+    count = (tb["group_k1"] - tb["group_k0"]).clip(0)      # (G, levels)
+    level = count.argmax(1)
+    att = max(tb["ath_adjatt"], tb["ath_maxatt"])          # local = 0
+    mid = 10.0 * level + 35.0 - float(tb["max_curve_dB"])
+    gath = tb["group_static"][:, 0].view(f32)
+    glob = np.ceil(max(0.0, (gath + att - mid - 6.0).max())) + 10
+    gm = (mid + glob).astype(f32)
+    one = np.full(tb["n"], SILENT, f32)
+    g = int(count.max(1).argmax())
+    one[tb["bin_group"] == g] = gm[g]
+    return (np.stack([gm[tb["bin_group"]], one]),
+            np.full(2, glob, f32), np.zeros(2, f32))

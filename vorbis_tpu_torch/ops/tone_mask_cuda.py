@@ -5,12 +5,16 @@ lib/psy.c's _vp_tonemask / seed_loop / seed_chase / max_seeds).
 `csrc/tone_mask.cu` takes the log FFT spectrum logfft (R, n) float32 and
 the global and local spectral maxima (R,) float32 and returns the tone
 mask (R, n) float32, one block a row: the octave groups' maxima, the
-curve seeding, the eighth-octave chase and the windowed min with the ATH
-floor, each row's working set in shared memory.  Its tables come as one
-int32 blob a psy look (`pack_blob`: a header of offsets, HEADER, then
-each bin's group and window, the ATH, each group's first bin, band and
-owned octave line, each window's lines and the curve rows), built once by
-DeviceToneMask and kept on its device.
+curve seeding spread evenly over the block (the depositing groups listed
+by a block scan, 32 deposits a warp chunk), the eighth-octave chase 8
+lines a thread and the windowed min over static window pieces with the
+ATH floor, each row's working set in shared memory.  Its tables come as
+one int32 blob a psy look (`pack_blob`: a header of offsets, HEADER,
+then each bin's group and window, the ATH, each group's first bin, band
+and owned octave line, four words a group of its ATH, curve-row base,
+line and in-range steps at each level, each window's lines, the window
+pieces and the curve rows), built once by DeviceToneMask and kept on
+its device with its header on the host (`blob_head`, passed by value).
 
 `tone_mask_plain(tm, logfft, global_specmax, local_specmax)` is the plain
 version: the JAX package's passes as PyTorch ops (a scatter_reduce amax,
@@ -39,18 +43,24 @@ SOURCE = PKG / "csrc" / "tone_mask.cu"
 NEGINF = float(PSY.NEGINF)
 # the blob's header words, in order (csrc/tone_mask.cu H_*): sizes, then
 # the offsets of the tables in the blob, then the four constants' float32
-# bits, psy.c's two EHMER sizes and the blob's length
+# bits, psy.c's two EHMER sizes and the blob's length; the first 24 are the
+# first design's layout, the rest its redesign's tables and piece count
 HEADER = ("n", "T", "G", "W", "linesper", "p_levels", "ncurves", "curve_w",
           "bin_group", "bin_win", "ath", "group_first", "group_band",
           "group_base", "win_lo", "win_hi", "curves", "tone_abs_limit",
           "ath_adjatt", "ath_maxatt", "max_curve_dB", "ehmer_max",
-          "ehmer_offset", "words")
+          "ehmer_offset", "words", "group_static", "group_posts", "piece",
+          "pieces", "chunks")
 H = {k: i for i, k in enumerate(HEADER)}
 CONSTS = ("tone_abs_limit", "ath_adjatt", "ath_maxatt", "max_curve_dB")
 TABLES = {"bin_group": np.int32, "bin_win": np.int32, "ath": np.float32,
           "group_first": np.int32, "group_band": np.int32,
           "group_base": np.int32, "win_lo": np.int32, "win_hi": np.int32,
-          "curves": np.float32}
+          "curves": np.float32, "group_static": np.int32,
+          "group_posts": np.int32, "piece": np.int32}
+# the most lines of a window piece (csrc/tone_mask.cu kPiece); a piece's
+# word is its first line | its lines less one << 15 | its window << 18
+PIECE = 8
 
 
 def _c(v) -> float:
@@ -67,7 +77,15 @@ def pack_blob(n: int, linesper: int, p_levels: int, tables: dict,
     win_end (n,) (each bin's window of lines) and curve_rows (P_BANDS *
     p_levels, 2 + EHMER_MAX) float32; consts: CONSTS' values.  Each group
     keeps the line it owns (-1: none), each bin its window among the
-    distinct (start, end) pairs."""
+    distinct (start, end) pairs.  The redesign's tables, four words a
+    group: group_static (its ATH at its first bin as float32 bits, its
+    curve rows' first word, the line of its step 0, 0) and group_posts
+    (at each of the 8 curve levels, as 16-bit halves, k0 | k1 << 8: its
+    curve row's [post0, post1) cut to the steps whose line falls in
+    1..T-1, 0 | 0 where none is left or it owns no line); and the window
+    pieces (window_pieces) as words.  The header's `chunks` is the most
+    32-deposit chunks a row can fill.  Each table starts at a multiple of
+    4 words."""
     first = np.asarray(tables["group_first"], np.int64)
     G, T = len(first), len(tables["line2group"])
     group_id = np.searchsorted(first, np.arange(n), side="right") - 1
@@ -85,21 +103,49 @@ def pack_blob(n: int, linesper: int, p_levels: int, tables: dict,
         raise ValueError("tone mask: a window outside the octave lines")
     if curves.shape[1] != 2 + PSY.EHMER_MAX:
         raise ValueError(f"tone mask: curve rows of {curves.shape[1]}")
+    if curves.size >= 1 << 16 or len(wins) >= 1 << 13 or T >= 1 << 15:
+        raise ValueError("tone mask: tables too large for the words")
+    if p_levels != 8:
+        raise ValueError(f"tone mask: {p_levels} curve levels, not 8")
+    off = np.where(base >= 0, base - PSY.EHMER_OFFSET * linesper
+                   - (linesper >> 1), 0)
+    line = off[:, None] + np.arange(PSY.EHMER_MAX) * linesper
+    ok = (line >= 1) & (line < T) & (base >= 0)[:, None]
+    klo = np.where(ok.any(1), ok.argmax(1), 0)
+    khi = np.where(ok.any(1), PSY.EHMER_MAX - ok[:, ::-1].argmax(1), 0)
+    band = np.asarray(tables["group_band"], np.int64)
+    post = curves[band[:, None] * p_levels + np.arange(p_levels), :2] \
+        .astype(np.int32)
+    k0 = np.maximum(post[..., 0], klo[:, None])
+    k1 = np.minimum(post[..., 1], khi[:, None])
+    posts = np.where(k1 > k0, k0 | k1 << 8, 0)          # (G, 8)
+    static = np.stack([ath[first].view(np.int32),
+                       band * p_levels * curves.shape[1], off,
+                       np.zeros(G, np.int64)], 1)
+    piece_lo, piece_hi, piece_win = window_pieces(wins[:, 0], wins[:, 1])
     parts = dict(bin_group=group_id, bin_win=bin_win.reshape(-1), ath=ath,
                  group_first=first, group_band=tables["group_band"],
                  group_base=base, win_lo=wins[:, 0], win_hi=wins[:, 1],
-                 curves=curves.reshape(-1))
+                 curves=curves.reshape(-1), group_static=static,
+                 group_posts=posts[:, 0::2] | posts[:, 1::2] << 16,
+                 piece=piece_lo | (piece_hi - piece_lo) << 15
+                 | piece_win << 18)
     head = np.zeros(len(HEADER), np.int32)
     words, at = [head], len(HEADER)
     for name, dt in TABLES.items():
-        a = np.ascontiguousarray(parts[name], dt).view(np.int32)
+        pad = -at % 4
+        words.append(np.zeros(pad, np.int32))
+        at += pad
+        a = np.ascontiguousarray(parts[name], dt).view(np.int32) \
+            .reshape(-1)
         head[H[name]] = at
         words.append(a)
         at += len(a)
     head[[H[k] for k in ("n", "T", "G", "W", "linesper", "p_levels",
-                         "ncurves", "curve_w")]] = (
+                         "ncurves", "curve_w", "pieces", "chunks")]] = (
         n, T, G, len(wins), linesper, p_levels, curves.shape[0],
-        curves.shape[1])
+        curves.shape[1], len(piece_lo),
+        -(-int(((posts >> 8) - (posts & 0xFF)).max(1).sum()) // 32))
     for k in CONSTS:
         head[H[k]] = np.float32(consts[k]).view(np.int32)
     head[H["ehmer_max"]] = PSY.EHMER_MAX
@@ -108,21 +154,44 @@ def pack_blob(n: int, linesper: int, p_levels: int, tables: dict,
     return np.concatenate(words)
 
 
+def window_pieces(lo, hi, piece: int = PIECE):
+    """Each window [lo_w, hi_w] of lines cut into pieces of at most
+    `piece` lines, in window order: (piece_lo, piece_hi, piece_win)."""
+    lo, hi = np.asarray(lo, np.int64), np.asarray(hi, np.int64)
+    count = (hi - lo) // piece + 1
+    win = np.repeat(np.arange(len(lo)), count)
+    k = np.arange(len(win)) - np.repeat(np.cumsum(count) - count, count)
+    plo = lo[win] + k * piece
+    return plo, np.minimum(plo + piece - 1, hi[win]), win
+
+
 def blob_tables(blob) -> dict:
     """The blob read back by its header: the sizes, each table at its
     offset (bin_group, bin_win, ath, group_first, group_band, group_base,
-    win_lo, win_hi, curves (ncurves, curve_w)) and the constants."""
+    win_lo, win_hi, curves (ncurves, curve_w), group_static (G, 4),
+    group_posts (G, 4), piece) and the constants; the pieces' words
+    unpacked as piece_lo, piece_hi and piece_win, the posts' halves as
+    group_k0 and group_k1 (G, 8)."""
     b = np.asarray(blob.cpu() if torch.is_tensor(blob) else blob, np.int32)
     out = {k: int(b[H[k]]) for k in HEADER if k not in TABLES
            and k not in CONSTS}
-    sizes = dict(bin_group=out["n"], bin_win=out["n"], ath=out["n"],
-                 group_first=out["G"], group_band=out["G"],
-                 group_base=out["G"], win_lo=out["W"], win_hi=out["W"],
-                 curves=out["ncurves"] * out["curve_w"])
+    n, G, W, P = out["n"], out["G"], out["W"], out["pieces"]
+    sizes = dict(bin_group=n, bin_win=n, ath=n, group_first=G,
+                 group_band=G, group_base=G, win_lo=W, win_hi=W,
+                 curves=out["ncurves"] * out["curve_w"],
+                 group_static=4 * G, group_posts=4 * G, piece=P)
     for name, dt in TABLES.items():
         o = int(b[H[name]])
         out[name] = b[o:o + sizes[name]].view(dt)
     out["curves"] = out["curves"].reshape(out["ncurves"], out["curve_w"])
+    for k in ("group_static", "group_posts"):
+        out[k] = out[k].reshape(G, 4)
+    half = np.stack([out["group_posts"] & 0xFFFF,
+                     out["group_posts"] >> 16 & 0xFFFF], 2).reshape(G, 8)
+    out["group_k0"], out["group_k1"] = half & 0xFF, half >> 8
+    pc = out["piece"]
+    out["piece_lo"], out["piece_win"] = pc & 0x7FFF, pc >> 18
+    out["piece_hi"] = out["piece_lo"] + ((pc >> 15) & 7)
     for k in CONSTS:
         out[k] = b[H[k]:H[k] + 1].view(np.float32)[0]
     return out
@@ -221,11 +290,11 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()[0]))
     fn = lib.vtt_tone_mask
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p,
+                                           ctypes.c_int, ctypes.c_void_p])
     fn = lib.vtt_tone_mask_blocks_per_sm
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     return lib
 
 
@@ -264,11 +333,10 @@ class ToneMaskKernel:
         rows = out.numel() // n
         if rows == 0:
             return out
-        G, T, W = tm.blob_dims
         rc = load_library().vtt_tone_mask(
             logfft.data_ptr(), global_specmax.data_ptr(),
-            local_specmax.data_ptr(), tm.blob.data_ptr(), tm.blob.numel(),
-            G, T, W, out.data_ptr(), rows,
+            local_specmax.data_ptr(), tm.blob.data_ptr(),
+            tm.blob_head.ctypes.data, tm.blob.numel(), out.data_ptr(), rows,
             torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"tone_mask kernel launch failed: "

@@ -383,12 +383,14 @@ class DeviceToneMask:
         self.ath_adjatt = _c(look.vi["ath_adjatt"])
         self.ath_maxatt = _c(look.vi["ath_maxatt"])
         self.max_curve_dB = _c(look.vi["max_curve_dB"])
-        # the kernel's tables, one blob on the device
+        # the kernel's tables, one blob on the device, its header also
+        # on the host (the launch passes it by value)
         blob = pack_blob(n, self.linesper, self.p_levels, dict(
             group_first=first, group_band=oc_band, line2group=line2group,
             ath=tabs["ath"], win_start=starts, win_end=ends,
             curve_rows=tabs["curve_rows"]), look.vi)
         self.blob_dims = tuple(int(blob[H[k]]) for k in ("G", "T", "W"))
+        self.blob_head = np.ascontiguousarray(blob[:len(H)])
         self.blob = torch.from_numpy(blob).to(self.device)
 
     def __call__(self, logfft, global_specmax, local_specmax):
