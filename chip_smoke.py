@@ -11,7 +11,8 @@ Phases (any failure raises and the script exits non-zero):
   1. device: the card, its name and power limit, the fp32 policy;
   2. build: nvcc compiles csrc/floor_fit.cu, csrc/floor_encode.cu,
      csrc/m3_scan.cu, csrc/imdct.cu, csrc/lap.cu, csrc/mdct_fwd.cu,
-     csrc/bark_fit.cu and csrc/tone_mask.cu and cc compiles csrc/host_ogg.c (Ogg CRC and
+     csrc/bark_fit.cu, csrc/tone_mask.cu and csrc/residue_encode.cu and
+     cc compiles csrc/host_ogg.c (Ogg CRC and
      pager, rescue walk, schedule), csrc/host_decode.c (the decode's
      page walk, packet parse, host IMDCT and lap, with
      -ffp-contract=off) and
@@ -99,12 +100,17 @@ Phases (any failure raises and the script exits non-zero):
      bound by bytes, share, the plain trio's time and device kernels (no
      library call computes it); and the two batches split by
      stage (noise-mask tail, tone mask, M3, mix, floor fit, floor encode,
-     coupling, classify, VQ, residue fields, merge, pack, the rest): each
-     stage alone on its recorded inputs, device kernels and device ms
-     under torch.profiler and ms a call, the plain trio and the plain
-     tone mask alone, and the whole step with both kernels, with the
-     plain trio in the floor-encode kernel's place and with the plain
-     tone mask in the tone-mask kernel's place;
+     coupling, residue encode, merge, pack, the rest): each stage alone on
+     its recorded inputs, device kernels and device ms under
+     torch.profiler and ms a call, the floor's and the residue path's
+     plain trios and the plain tone mask alone, and the whole step with
+     the kernels, with the floor's plain trio in the floor-encode
+     kernel's place, with the residue path's plain trio in the residue
+     kernel's place and with the plain tone mask in the tone-mask
+     kernel's place; then each step captured in one CUDA graph on static
+     copies of its inputs (ROADMAP 2.16), with the residue kernel and with
+     its plain trio: the replay's packets and bit counts bitwise equal to
+     the eager step's, the eager and replayed ms a call in turns;
   3k. the tone mask: csrc/tone_mask.cu (the octave groups' maxima, the
      curve seeding, the chase and the windowed min with the ATH floor in
      one launch) bitwise against its plain version (the JAX package's
@@ -125,6 +131,19 @@ Phases (any failure raises and the script exits non-zero):
      barrier) prints the slowest warp's cycles a phase at the two 4d
      batches, and with the baseline the same of the first design, its
      source stamped at its barriers;
+  3l. the residue path: csrc/residue_encode.cu (the partition
+     classify, every stage's lattice VQ and the codeword columns in one
+     launch) bitwise, values and lengths, against its plain version (the
+     finish's classifier, _vq_stages and _residue_fields) on the residue
+     calls 3j recorded: 4d's long and short finish batch, the managed
+     encoder's 15-blob rows (long and short), the 5.1 encoder's two
+     submaps long and short, the 16 and 32 kHz configs, and on
+     tests/residue_encode_cases.py's seeded, threshold, zero, unused and
+     stress rows at each of those configs; the build's registers, shared
+     memory a block and blocks an SM; its time at the two 4d batches
+     (CUDA graphs, median and spread of six), its bound (bytes against
+     the function's own arithmetic on this run's classes) and share, the
+     plain trio's time and device kernels (no library call computes it);
   4. main path: FastEncoder(2, 44100, 0.5, switching=False,
      psy_state=False).encode of 60 s of 44.1 kHz stereo int16 (bench.py's
      signal, seed 0), from a CUDA tensor and from host numpy; the stream
@@ -182,9 +201,9 @@ Phases (any failure raises and the script exits non-zero):
      the CPU, byte for byte, >= 90% identical; for the first packet that
      differs, the first stage whose card and CPU outputs differ (spectra
      and masks, fit posts, the floor's post coding, coupled residues,
-     partition classes, VQ entries, packed bytes), with its size and
-     whether its inputs were equal (the floor's post coding differing on
-     equal inputs fails the phase);
+     the residue path's columns, packed bytes), with its size and
+     whether its inputs were equal (the floor's post coding or the
+     residue path differing on equal inputs fails the phase);
   5b. card vs CPU, stateful: the stateful packets of a 2 s clip
      (encode_batch at B_long=64), >= 90% identical; the count at encode's
      B_long=1024 and the stateless encode_batch's are printed beside it;
@@ -273,10 +292,13 @@ of 6b, 7's split steps and 8's encodes and decodes) and read just
 after it; every main-path encode of 3i's host pack, 4-4g, 7a's split
 step, 7b's encode_quantize_step and 8 must launch both analysis-front
 kernels, the floor-encode kernel as often as the floor fit (one launch a
-finish call, or a device step, a floor look) and the tone-mask kernel
+finish call, or a device step, a floor look), the tone-mask kernel
 once a finish step or DeviceAnalysis.mask_components call (the two
-callers are counted apart from the kernel's wrapper).  Phase 5 prints
-the differing packets' indices.
+callers are counted apart from the kernel's wrapper) and the residue
+kernel once a finish call a residue submap (finish_from_posts and each
+submap of _finish_multi, counted apart from its wrapper; 3i's host pack
+and 7b's step call no finish).  Phase 5 prints the differing packets'
+indices.
 It prints the kernel record as one JSON line, then the result line.
 """
 
@@ -1550,27 +1572,36 @@ def _phase_51_kernels(f51, smi):
 
 # -- the analysis front: csrc/mdct_fwd.cu and csrc/bark_fit.cu ------------
 
-# (mdct_fwd, bark_fit, floor_encode, tone_mask) launches of each
-# main-path run, by phase
+# (mdct_fwd, bark_fit, floor_encode, tone_mask, residue_encode) launches
+# of each main-path run, by phase
 PATH_LAUNCHES = {}
 # the calls that reach the tone mask since _path_reset: the finish
 # steps' (each calls psydevice.noisemask_tail once) and
 # DeviceAnalysis.mask_components' (the stateless steps, the host pack,
 # the pipeline)
 TONE_CALLS = [0]
+# the residue blocks of the finish calls since _path_reset: one a
+# finish_from_posts call, one a submap a _finish_multi call
+RES_CALLS = [0]
+# the main-path runs that call no finish step (the host pack's device
+# step, the pipeline's encode_quantize_step): the residue kernel is not
+# on their path
+NO_FINISH = ("3i", "7b")
 
 
 def _path_kernels():
     """The kernel wrappers that every main-path encode launches besides
     the floor fit and M3: the analysis front's two (each DeviceAnalysis
     spectra call launches both), the floor's post coding (once a finish
-    call a floor look) and the tone mask (once a finish step or
-    mask_components call)."""
+    call a floor look), the tone mask (once a finish step or
+    mask_components call) and the residue path (once a finish call a
+    residue submap)."""
     from vorbis_tpu_torch.ops.bark_cuda import bark_fit
     from vorbis_tpu_torch.ops.floor_encode_cuda import floor_encode
     from vorbis_tpu_torch.ops.mdct_cuda import mdct_fwd
+    from vorbis_tpu_torch.ops.residue_encode_cuda import residue_encode
     from vorbis_tpu_torch.ops.tone_mask_cuda import tone_mask
-    return mdct_fwd, bark_fit, floor_encode, tone_mask
+    return mdct_fwd, bark_fit, floor_encode, tone_mask, residue_encode
 
 
 def _count_tone_calls():
@@ -1588,24 +1619,53 @@ def _count_tone_calls():
         setattr(owner, name, counted)
 
 
+def _count_finish_calls():
+    """Count, in RES_CALLS, the residue blocks of the finish calls from
+    here on: one a DeviceFastEncode.finish_from_posts call (the
+    single-submap layouts and the managed pass), one a submap a
+    _finish_multi call (5.1); each is one call of the residue kernel,
+    counted apart from its wrapper."""
+    from vorbis_tpu_torch.ops.encdevice import DeviceFastEncode
+    real_one = DeviceFastEncode.finish_from_posts
+    real_multi = DeviceFastEncode._finish_multi
+
+    def one(self, *a, **kw):
+        RES_CALLS[0] += 1
+        return real_one(self, *a, **kw)
+
+    def multi(self, *a, **kw):
+        RES_CALLS[0] += len(self.groups)
+        return real_multi(self, *a, **kw)
+    DeviceFastEncode.finish_from_posts = one
+    DeviceFastEncode._finish_multi = multi
+
+
 def _path_reset():
     for k in _path_kernels():
         k.launches = 0
     TONE_CALLS[0] = 0
+    RES_CALLS[0] = 0
 
 
 def _path_add(phase):
     """Add the _path_kernels' launches since _path_reset to `phase`;
-    a main-path run that launched one of them no time, or the tone mask
-    otherwise than once a finish step or mask_components call, fails."""
+    a main-path run that launched one of them no time (the residue
+    kernel outside NO_FINISH), the tone mask otherwise than once a finish
+    step or mask_components call, or the residue kernel otherwise than
+    once a finish call a residue submap, fails."""
     counts = [k.launches for k in _path_kernels()]
-    if min(counts) == 0:
-        raise RuntimeError(f"{phase}: mdct_fwd, bark_fit, floor_encode and "
-                           f"tone_mask launched {counts} times")
+    if min(counts[:4]) == 0 or (phase not in NO_FINISH and counts[4] == 0):
+        raise RuntimeError(f"{phase}: mdct_fwd, bark_fit, floor_encode, "
+                           f"tone_mask and residue_encode launched {counts} "
+                           f"times")
     if counts[3] != TONE_CALLS[0]:
         raise RuntimeError(f"{phase}: tone_mask launched {counts[3]} times "
                            f"for {TONE_CALLS[0]} finish steps and "
                            f"mask_components calls")
+    if counts[4] != RES_CALLS[0]:
+        raise RuntimeError(f"{phase}: residue_encode launched {counts[4]} "
+                           f"times for {RES_CALLS[0]} finish calls x residue "
+                           f"submaps")
     PATH_LAUNCHES[phase] = tuple(
         a + b for a, b in zip(PATH_LAUNCHES.get(phase, (0,) * len(counts)),
                               counts))
@@ -2242,9 +2302,7 @@ SPLIT_STAGES = (
     ("floor fit", "ctx", "floor"),
     ("floor encode", "encdevice", "floor_encode"),
     ("coupling", "dev", "_couple_quantize"),
-    ("classify", "dev", "_classify2"),
-    ("VQ", "dev", "_vq_stages"),
-    ("residue fields", "dev", "_residue_fields"),
+    ("residue encode", "encdevice", "residue_encode"),
     ("merge", "encdevice", "merge_columns"),
     ("pack", "encdevice", "pack_bits"))
 
@@ -2257,8 +2315,8 @@ STAGES5 = (
     ("floor post coding (curve, codewords, lengths)", "encdevice",
      "floor_encode"),
     ("coupled residues (residues, any used)", "dev", "_couple_quantize"),
-    ("partition classes", "dev", "_classify2"),
-    ("VQ entries", "dev", "_vq_stages"),
+    ("residue path (classes, VQ and columns: vals, lens)", "encdevice",
+     "residue_encode"),
     ("packed bytes (packets, nbits)", "encdevice", "pack_bits"))
 
 
@@ -2344,9 +2402,10 @@ def _localize(dev_card, dev_cpu, chunk_card, chunk_cpu, f, F):
               f"{'equal' if same_in else 'differ'}; " + "; ".join(parts))
         if in_packet and first is None:
             first = label
-            if same_in and label.startswith("floor post coding"):
-                raise RuntimeError("5: the floor's post coding differs card "
-                                   "against CPU on equal inputs")
+            if same_in and label.startswith(("floor post coding",
+                                             "residue path")):
+                raise RuntimeError(f"5: the {label.split(' (')[0]} differs "
+                                   f"card against CPU on equal inputs")
     print(f"[card-vs-cpu] packet {f}: the first stage that differs in its "
           f"rows is {first}")
     return first
@@ -2358,14 +2417,18 @@ def _split(fe, W, step, args, smi):
     switch for it), then each stage alone on its recorded inputs under
     torch.profiler (device kernels, device ms) and timed with CUDA
     events (ms a call, the host's issue included), the whole step
-    likewise, with the kernel and with the plain trio in its place, and
-    with the plain tone mask in the tone-mask kernel's place.  Returns
-    ({stage: (kernels, device ms, ms)}, the recorded floor_encode call's
-    (cfg, posts, used), the recorded tone-mask call's (DeviceToneMask,
-    logfft, global, local))."""
+    likewise, with the kernels, with the floor's plain trio in the
+    floor-encode kernel's place, with the residue path's plain trio in
+    the residue kernel's place, and with the plain tone mask in the
+    tone-mask kernel's place.  Returns ({stage: (kernels, device ms,
+    ms)}, the recorded floor_encode call's (cfg, posts, used), the
+    recorded tone-mask call's (DeviceToneMask, logfft, global, local)
+    and the recorded residue_encode call's (cfg, res, used))."""
     import torch
     from vorbis_tpu_torch.ops import encdevice, psydevice
     from vorbis_tpu_torch.ops.floor_encode_cuda import floor_encode_plain
+    from vorbis_tpu_torch.ops.residue_encode_cuda import (
+        residue_encode_plain)
     from vorbis_tpu_torch.ops.tone_mask_cuda import tone_mask_plain
     ctx = fe.ctx(W)
     owners = dict(psydevice=psydevice, encdevice=encdevice, ctx=ctx,
@@ -2389,17 +2452,23 @@ def _split(fe, W, step, args, smi):
     rows["other"] = tuple(w - sum(r[i] for r in rows.values())
                           for i, w in enumerate(whole))
     fcall = next(a for lb, _, a, _ in calls if lb == "floor encode")
-    rows["floor encode, plain trio"] = (
-        *_device_profile(lambda: floor_encode_plain(*fcall)),
-        _cuda_ms(lambda: floor_encode_plain(*fcall), 3))
-    kernel = encdevice.floor_encode
-    encdevice.floor_encode = floor_encode_plain
-    try:
-        rows["step, plain trio"] = (
-            *_device_profile(lambda: step(*args)),
-            _cuda_ms(lambda: step(*args), 3))
-    finally:
-        encdevice.floor_encode = kernel
+    rcall = next(a for lb, _, a, _ in calls if lb == "residue encode")
+    # each kernel's plain trio alone, and the step with it in the
+    # kernel's place
+    for label, attr, plain, call in (
+            ("floor", "floor_encode", floor_encode_plain, fcall),
+            ("residue", "residue_encode", residue_encode_plain, rcall)):
+        rows[f"{label} encode, plain trio"] = (
+            *_device_profile(lambda: plain(*call)),
+            _cuda_ms(lambda: plain(*call), 3))
+        kernel = getattr(encdevice, attr)
+        setattr(encdevice, attr, plain)
+        try:
+            rows[f"step, plain {label} trio"] = (
+                *_device_profile(lambda: step(*args)),
+                _cuda_ms(lambda: step(*args), 3))
+        finally:
+            setattr(encdevice, attr, kernel)
     # the tone mask: its plain version alone, and the step with it in the
     # kernel's place
     tm, targs = next((f, a) for lb, f, a, _ in calls if lb == "tone mask")
@@ -2416,7 +2485,8 @@ def _split(fe, W, step, args, smi):
     rows["step"] = whole
     B = fcall[1].shape[0]
     for label, what in (("floor encode", "floor_encode"),
-                        ("tone mask", "tone_mask")):
+                        ("tone mask", "tone_mask"),
+                        ("residue encode", "residue_encode")):
         if rows[label][0] > 1:
             raise RuntimeError(f"3j W={W}: one {what} call ran "
                                f"{rows[label][0]} device kernels")
@@ -2427,15 +2497,78 @@ def _split(fe, W, step, args, smi):
     for label, (k, dms, ms) in rows.items():
         print(f"[split] W={W} {B} rows: {label}: {k} device kernels, "
               f"device {dms:.4f} ms, {ms:.4f} ms a call")
-    print(f"[split] W={W}: the step with the floor-encode kernel "
-          f"{whole[0]} device kernels ({whole[1]:.4f} ms on the device, "
-          f"{whole[2]:.4f} ms a call), with the plain trio "
-          f"{rows['step, plain trio'][0]} ({rows['step, plain trio'][1]:.4f}"
-          f" ms, {rows['step, plain trio'][2]:.4f} ms), with the plain tone "
-          f"mask {rows['step, plain tone mask'][0]} "
-          f"({rows['step, plain tone mask'][1]:.4f} ms, "
-          f"{rows['step, plain tone mask'][2]:.4f} ms) ({smi})")
-    return rows, fcall, (tm, *targs)
+    print(f"[split] W={W}: the step with the kernels {whole[0]} device "
+          f"kernels ({whole[1]:.4f} ms on the device, {whole[2]:.4f} ms a "
+          f"call); " + "; ".join(
+              f"with the plain {what} {rows[key][0]} ({rows[key][1]:.4f} "
+              f"ms, {rows[key][2]:.4f} ms)" for what, key in (
+                  ("floor trio", "step, plain floor trio"),
+                  ("residue trio", "step, plain residue trio"),
+                  ("tone mask", "step, plain tone mask")))
+          + f" ({smi})")
+    rows["graph"] = _step_graphs(W, step, args, smi)
+    return rows, fcall, (tm, *targs), rcall
+
+
+def _step_graph(step, args):
+    """The finish step captured in one CUDA graph on static copies of its
+    inputs (ROADMAP 2.16): -> (graph, its outputs, the eager step's
+    outputs on the same inputs)."""
+    import torch
+    static = [x.clone() if torch.is_tensor(x) else x for x in args]
+    eager = step(*static)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            step(*static)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = step(*static)
+    graph.replay()
+    torch.cuda.synchronize()
+    return graph, out, eager, static
+
+
+def _step_graphs(W, step, args, smi):
+    """ROADMAP 2.16: the recorded finish step in one CUDA graph, with the
+    residue kernel and with the residue path's plain trio in its place:
+    the replay's packets and bit counts bitwise against the eager step's,
+    and the eager step's and the replay's ms a call in turns (median of
+    three rounds each).  A step that cannot be captured raises."""
+    import torch
+    from vorbis_tpu_torch.ops import encdevice
+    from vorbis_tpu_torch.ops.residue_encode_cuda import (
+        residue_encode_plain)
+    out = {}
+    kernel = encdevice.residue_encode
+    for label, fn in (("kernel", kernel), ("plain residue trio",
+                                            residue_encode_plain)):
+        encdevice.residue_encode = fn
+        try:
+            graph, got, want, static = _step_graph(step, args)
+            same = all(torch.equal(a, b) for a, b in zip(got, want))
+            if not same:
+                raise RuntimeError(f"3j W={W}: the CUDA graph's packets "
+                                   f"differ from the eager step's ({label})")
+            eager, replay = [], []
+            for _ in range(3):
+                eager.append(_cuda_ms(lambda: step(*static), 3))
+                replay += [_cuda_ms(graph.replay, 10),
+                           _cuda_ms(graph.replay, 10)]
+                eager.append(_cuda_ms(lambda: step(*static), 3))
+        finally:
+            encdevice.residue_encode = kernel
+        e, r = _med(eager)[0], _med(replay)[0]
+        print(f"[graph] W={W}, the step with the {label}: eager {e:.4f} ms "
+              f"a call, one CUDA graph {r:.4f} ms a replay (medians of "
+              f"{len(eager)}, {len(replay)}), packets and bit counts bitwise "
+              f"equal to the eager step's ({smi})")
+        out[label] = dict(eager_ms=e, graph_ms=r, eager_rounds_ms=eager,
+                          graph_rounds_ms=replay)
+        del graph
+    return out
 
 
 def _phase_floor_encode(fsw, fm, f51, smi, baseline=None, report=""):
@@ -2453,14 +2586,16 @@ def _phase_floor_encode(fsw, fm, f51, smi, baseline=None, report=""):
     design where `baseline`, a _FencBaseline, is given, whose outputs must
     equal this design's), its bound and share, the plain trio's time and
     device kernels; and the two 4d batches split by stage (_split).
-    Returns the kernel's record for the JSON line, and the tone-mask
-    calls recorded on the way for phase 3k: [(label, DeviceToneMask,
-    logfft, global, local)] of the two 4d batches and each look's first
-    call in the managed, 5.1, 16 and 32 kHz runs."""
+    Returns the kernel's record for the JSON line, the tone-mask calls
+    recorded on the way for phase 3k: [(label, DeviceToneMask, logfft,
+    global, local)] of the two 4d batches and each look's first call in
+    the managed, 5.1, 16 and 32 kHz runs, and the residue calls for phase
+    3l: [(label, cfg, res, used)] of the two 4d batches and each residue
+    config's first call in the same runs."""
     import numpy as np
     import torch
     from vorbis_tpu_torch.models.fastenc import FastEncoder
-    from vorbis_tpu_torch.ops import torchdsp
+    from vorbis_tpu_torch.ops import encdevice, torchdsp
     from vorbis_tpu_torch.ops.floor_encode_cuda import (floor_encode,
                                                         floor_encode_plain)
     synthetic = _test_module("floor_encode_cases").synthetic
@@ -2483,12 +2618,13 @@ def _phase_floor_encode(fsw, fm, f51, smi, baseline=None, report=""):
                           .cuda() for k in range(3)])
     finally:
         del fsw._finish_step
-    split, cases, tone_cases = {}, [], []
+    split, cases, tone_cases, res_cases = {}, [], [], []
     for W, label in ((1, "4d long batch"), (0, "4d short batch")):
         step, a = steps[W]
-        split[label], call, tcall = _split(fsw, W, step, a, smi)
+        split[label], call, tcall, rcall = _split(fsw, W, step, a, smi)
         cases.append((label, *call))
         tone_cases.append((label, *tcall))
+        res_cases.append((label, *rcall))
     cfg, posts, used = cases[0][1:]
     if posts.shape[0] != 4096 or cases[1][2].shape[0] != 512:
         raise RuntimeError(f"4d batches of {posts.shape[0]} and "
@@ -2506,22 +2642,30 @@ def _phase_floor_encode(fsw, fm, f51, smi, baseline=None, report=""):
                 _gate_signal("mix", 16000, 1.0, 2))),
             ("32 kHz", lambda: FastEncoder(2, 32000, 0.5).encode(
                 _gate_signal("mix", 32000, 1.0, 2)))):
-        tcalls = []
+        tcalls, rcalls = [], []
         restore = _patched([("tone mask", torchdsp.DeviceToneMask,
-                             "__call__")], tcalls)
+                             "__call__"),
+                            ("residue encode", encdevice, "residue_encode")],
+                           tcalls)
         try:
             recorded = _record_floor_encode(run)
         finally:
             restore()
-        first = {}
-        for _, _, (tm, *targs), _ in tcalls:
-            first.setdefault(id(tm), (tm, *targs))
+        first, rfirst = {}, {}
+        for lb, _, (obj, *targs), _ in tcalls:
+            (first if lb == "tone mask" else rfirst).setdefault(
+                id(obj), (obj, *targs))
         tone_cases += [(f"{label} n={v[0].look.n}", *v)
                        for v in first.values()]
+        res_cases += [(f"{label} {_res_name(v[0])}", *v)
+                      for v in rfirst.values()]
         if label == "5.1" and sorted(c.P for c, _, _ in recorded) \
                 != [2, 2, 13, 29]:
             raise RuntimeError(f"5.1 floor configs "
                                f"{[c.P for c, _, _ in recorded]}")
+        if label == "5.1" and sorted(c.res_enc.type for c, *_ in
+                                     rfirst.values()) != [1, 1, 2, 2]:
+            raise RuntimeError(f"5.1 residue configs {len(rfirst)}")
         cases += [(f"{label} P={c.P} n={c.floor_enc.n}", c, p, u)
                   for c, p, u in recorded]
     err = 0.0
@@ -2597,12 +2741,13 @@ def _phase_floor_encode(fsw, fm, f51, smi, baseline=None, report=""):
                          bound_by=by, share=bound_ms / ms,
                          shared_bytes=smem.value, blocks_per_sm=blocks,
                          **base,
-                         split={k: list(v) for k, v in split[name].items()})
+                         split={k: list(v) if isinstance(v, tuple) else v
+                                for k, v in split[name].items()})
     main = rec["4d long batch"]
     return dict({k: main[k] for k in ("ms", "plain_ms", "bound_ms",
                                       "bound_by")},
                 max_abs_err=err, library_ms=None, at_long=main,
-                at_short=rec["4d short batch"]), tone_cases
+                at_short=rec["4d short batch"]), tone_cases, res_cases
 
 
 # The tone mask's own arithmetic, whatever a kernel's schedule: float32
@@ -2761,6 +2906,160 @@ def _phase_tone_mask(cases, smi, report="", baseline=None):
                          bound_ms=bound_ms, bound_by=by,
                          share=bound_ms / ms, shared_bytes=smem.value,
                          blocks_per_sm=blocks, **extra)
+    main = rec["4d long batch"]
+    return dict({k: main[k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "share")},
+                max_abs_err=err, library_ms=None, at_long=main,
+                at_short=rec["4d short batch"])
+
+
+# -- the residue path: csrc/residue_encode.cu -------------------------------
+
+# The residue path's own arithmetic, whatever a kernel's schedule,
+# counted on this run's data:
+#  - a value, its class statistic: type 2, the |x| and the max, 2 float32
+#    operations; type 1, the conversion, |x|, the max and the sum, 4 int32;
+#  - a value at a stage where its partition's class has a book: the
+#    offset's subtract and add, 2 float32; the conversion, the divide, the
+#    zigzag's compare, subtract and shift, the clamp's two and the index's
+#    multiply and add, 10 int32; where a later stage follows, the
+#    remainder: the digit's remainder and quotient, the zigzag's three and
+#    the conversion, 6 int32, and the multiply and subtract, 2 float32;
+#  - a column: its liveness tests and the codeword and length loads, 4
+#    int32.
+F32_RES_CLASS2, OPS_RES_CLASS1 = 2, 4
+F32_RES_STAGE, OPS_RES_STAGE = 2, 10
+F32_RES_CARRY, OPS_RES_CARRY = 2, 6
+OPS_RES_COL = 4
+
+
+def _res_name(cfg):
+    t = cfg.res_enc
+    return (f"type {t.type} nch={t.nch} res_ch={t.res_ch} parts="
+            f"{cfg.partvals} RC={t.rc}")
+
+
+def _res_classes(cfg, res):
+    """The partition classes of rows res through the plain classifier of
+    cfg's residue path (the plain trio's first stage)."""
+    from vorbis_tpu_torch.ops.residue_encode_cuda import classify_rows
+    dev = cfg.res_enc.dev
+    if cfg.res_type == 2:
+        return classify_rows(dev, res, cfg.res_enc.nch, cfg)
+    return dev._classify(res, cfg=cfg)
+
+
+def _res_bound(cfg, res, used):
+    """(bound ms, bound_by, bytes, int32 ops, float32 ops) of one
+    residue_encode call: each row's partitions read once, used read once,
+    the columns written once (int64 values, int32 lengths), the blob read
+    once; the operations as counted above, the stages' on this run's
+    classes."""
+    import numpy as np
+    t = cfg.res_enc
+    R, L = res.shape
+    F = used.shape[0]
+    span = max(0, min(L - cfg.ri.begin, cfg.partvals * cfg.spp))
+    nbytes = R * span * 4 + used.numel() + F * t.rc * 12 \
+        + t.blob.numel() * 4
+    pw = _res_classes(cfg, res).cpu().numpy()
+    has = np.array([[d is not None for d in row] for row in cfg.res_books])
+    act = has[:, pw].reshape(cfg.stages, -1).sum(1)   # (stages,)
+    vals = R * cfg.partvals * cfg.spp
+    staged = int(act.sum()) * cfg.spp
+    carried = int(act[:-1].sum()) * cfg.spp
+    f32_ops = (vals * F32_RES_CLASS2 if t.type == 2 else 0) \
+        + staged * F32_RES_STAGE + carried * F32_RES_CARRY
+    int_ops = (vals * OPS_RES_CLASS1 if t.type == 1 else 0) \
+        + staged * OPS_RES_STAGE + carried * OPS_RES_CARRY \
+        + F * t.rc * OPS_RES_COL
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(int_ops / INT32_OPS_PER_S, f32_ops / F32_OPS_PER_S) * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", nbytes, int_ops, f32_ops)
+
+
+def _res_check(name, cfg, res, used):
+    """residue_encode's kernel against its plain version on the card,
+    values and lengths bitwise; returns the largest difference."""
+    import torch
+    from vorbis_tpu_torch.ops.residue_encode_cuda import (
+        residue_encode, residue_encode_plain)
+    got = residue_encode(cfg, res, used)
+    want = residue_encode_plain(cfg, res, used)
+    torch.cuda.synchronize()
+    same = [torch.equal(g, w) for g, w in zip(got, want)]
+    err = max(float((g.double() - w.double()).abs().max())
+              if g.numel() else 0.0 for g, w in zip(got, want))
+    print(f"[residue encode] {name}: {tuple(res.shape)} rows, F="
+          f"{used.shape[0]} RC={cfg.res_enc.rc}: vals, lens "
+          + ("bitwise equal to the plain version" if all(same) else
+             f"DIFFER {same}") + f", max_abs_err {err}")
+    if not all(same):
+        raise RuntimeError(f"residue encode {name}: kernel != plain")
+    return err
+
+
+def _phase_residue_encode(cases, smi, report=""):
+    """Phase 3l: the residue path (csrc/residue_encode.cu: classify,
+    lattice VQ and the codeword columns in one launch) against its plain
+    version (the finish's classifier, _vq_stages and _residue_fields),
+    values and lengths bitwise, on the calls 3j recorded (`cases`: 4d's
+    long and short finish batch, the managed encoder's 15-blob rows, both
+    5.1 submaps long and short, the 16 and 32 kHz configs) and on
+    tests/residue_encode_cases.py's seeded, threshold, zero, unused and
+    stress rows at each of those configs; the build's registers
+    (`report`), shared memory a block and blocks an SM; its time at the
+    two 4d batches (CUDA graphs, median and spread of six), its bound and
+    share, the plain trio's time and device kernels (no library call
+    computes it).  Returns the kernel's record for the JSON line."""
+    import torch
+    from vorbis_tpu_torch.ops.residue_encode_cuda import (
+        H, load_library, residue_encode, residue_encode_plain)
+    rcs = _test_module("residue_encode_cases")
+    err, configs = 0.0, {}
+    for name, cfg, res, used in cases:
+        err = max(err, _res_check(name, cfg, res, used))
+        configs.setdefault(id(cfg), (name, cfg))
+    for k, (name, cfg) in enumerate(configs.values()):
+        n2 = cfg.res_enc.dev.n // 2
+        for rows, host in (("seeded and edge", rcs.inputs(cfg, n2, 500 + k)),
+                           ("stress", rcs.stress_rows(cfg, n2, 600 + k))):
+            err = max(err, _res_check(
+                f"{name}, {rows} rows", cfg,
+                *(torch.from_numpy(a).cuda() for a in host)))
+    per_sm = load_library().vtt_residue_encode_blocks_per_sm
+    build = [ln.strip() for ln in report.splitlines()
+             if "registers" in ln or "stack" in ln]
+    rec = {}
+    for name, cfg, res, used in cases[:2]:
+        t = cfg.res_enc
+        blocks = per_sm(t.head.ctypes.data)
+        smem = int(t.head[H["smem"]])
+        print(f"[residue encode] {name}: build {build or 'cached'}; {smem} "
+              f"bytes of shared memory a block ({int(t.head[H['threads']])} "
+              f"threads, {int(t.head[H['fpb']])} frames), {blocks} blocks "
+              f"an SM")
+        ts, _ = _turns(lambda c=cfg, r=res, u=used: residue_encode(c, r, u),
+                       None)
+        ms, lo, hi = _med(ts)
+        plain_k, plain_dev = _device_profile(
+            lambda: residue_encode_plain(cfg, res, used))
+        plain_ms = _cuda_ms(lambda: residue_encode_plain(cfg, res, used), 3)
+        bound_ms, by, nb, io, fo = _res_bound(cfg, res, used)
+        print(f"[residue encode] {name} F={used.shape[0]}: kernel "
+              f"{ms:.5f} ms (CUDA graphs; median of {len(ts)}, "
+              f"{lo:.5f}-{hi:.5f}); bound {bound_ms * 1e3:.3f} us by {by} "
+              f"({nb} bytes, {io} int32 + {fo} float32 operations), share "
+              f"{100 * bound_ms / ms:.1f}%; plain trio {plain_ms:.4f} ms a "
+              f"call, {plain_k} device kernels ({plain_dev:.4f} ms on the "
+              f"device); library call: none ({smi})")
+        rec[name] = dict(frames=used.shape[0], rows=res.shape[0],
+                         rc=t.rc, ms=ms, rounds_ms=ts, plain_ms=plain_ms,
+                         plain_kernels=plain_k, plain_device_ms=plain_dev,
+                         bound_ms=bound_ms, bound_by=by, bytes=nb,
+                         share=bound_ms / ms, shared_bytes=smem,
+                         blocks_per_sm=blocks)
     main = rec["4d long batch"]
     return dict({k: main[k] for k in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "share")},
@@ -4269,7 +4568,7 @@ def main():
     from vorbis_tpu_torch.ops import (bark_cuda, floor_cuda,
                                       floor_encode_cuda, imdct_cuda,
                                       lap_cuda, m3_cuda, mdct_cuda,
-                                      tone_mask_cuda)
+                                      residue_encode_cuda, tone_mask_cuda)
     t0 = time.perf_counter()
     jobs = {"floor_fit.cu": floor_cuda.build,
             "floor_encode.cu": floor_encode_cuda.build,
@@ -4279,6 +4578,7 @@ def main():
             "mdct_fwd.cu": mdct_cuda.build,
             "bark_fit.cu": bark_cuda.build,
             "tone_mask.cu": tone_mask_cuda.build,
+            "residue_encode.cu": residue_encode_cuda.build,
             "host_ogg.c": native.build_host,
             "host_decode.c": native.build_decode,
             "host_pack.c": native.build_pack}
@@ -4293,6 +4593,7 @@ def main():
     mdct_cuda.load_library()
     bark_cuda.load_library()
     tone_mask_cuda.load_library()
+    residue_encode_cuda.load_library()
     native.host_library()
     native.decode_library()
     native.pack_library()
@@ -4304,8 +4605,10 @@ def main():
             if "registers" in line or "Compiling entry" in line:
                 print(f"[build]   {line.strip()}")
 
-    # every call of the tone mask's two callers is counted from here on
+    # every call of the tone mask's two callers, and every finish call's
+    # residue blocks, is counted from here on
     _count_tone_calls()
+    _count_finish_calls()
 
     # 3. kernel vs plain
     from vorbis_tpu_torch.codec.encoder import Encoder
@@ -4398,7 +4701,7 @@ def main():
     # split counts each stage's device kernels with torch.profiler, which
     # after phases 3b-3i saw three device events fewer a profiled call,
     # the floor-encode kernel among them
-    fenc_rec, tone_cases = _phase_floor_encode(
+    fenc_rec, tone_cases, res_cases = _phase_floor_encode(
         fsw, fm, f51, smi,
         _FencBaseline(args.floor_encode_baseline)
         if args.floor_encode_baseline else None,
@@ -4412,6 +4715,12 @@ def main():
         if args.tone_mask_baseline else None)
     del tone_cases
     _lap(t_start, "3k")
+
+    # 3l. the residue path on 3j's recorded calls, its times and bound
+    res_rec = _phase_residue_encode(res_cases, smi,
+                                    built["residue_encode.cu"][1])
+    del res_cases
+    _lap(t_start, "3l")
 
     # 3b. the M3 scan kernel vs its plain version, times and bounds
     m3_rec = _phase_m3(fsw, smi, args.m3_baseline)
@@ -4822,6 +5131,11 @@ def main():
     tone = {k: v[3] for k, v in PATH_LAUNCHES.items()}
     print(f"[tone mask] launches by phase {tone}, each equal to the "
           f"phase's finish steps and mask_components calls")
+    # the residue path: one launch a finish call a residue submap, held
+    # phase by phase in _path_add
+    resl = {k: v[4] for k, v in PATH_LAUNCHES.items()}
+    print(f"[residue encode] launches by phase {resl}, each equal to the "
+          f"phase's finish calls x residue submaps")
     print(f"[time] {time.perf_counter() - t_start:.1f} s of command time")
     print(json.dumps({"kernels": [{
         "name": "floor1_greedy_fit", "route": "cuda",
@@ -4875,7 +5189,12 @@ def main():
         "source": "vorbis_tpu_torch/csrc/tone_mask.cu",
         "replaces": "vorbis_tpu/ops/jaxdsp.py:477-558 (DeviceToneMask."
                     "__call__, jitted XLA)",
-        "launches": sum(tone.values()), "by_phase": tone, **tone_rec}]}))
+        "launches": sum(tone.values()), "by_phase": tone, **tone_rec}, {
+        "name": "residue_encode", "route": "cuda",
+        "source": "vorbis_tpu_torch/csrc/residue_encode.cu",
+        "replaces": "vorbis_tpu/ops/encdevice.py:767-1000 (_classify, "
+                    "_vq_stages, _residue_fields, _classify2; jitted XLA)",
+        "launches": sum(resl.values()), "by_phase": resl, **res_rec}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

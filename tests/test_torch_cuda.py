@@ -1,8 +1,9 @@
 """Tests that need the card: the port's CUDA kernels (csrc/floor_fit.cu,
 csrc/floor_encode.cu, csrc/m3_scan.cu, csrc/imdct.cu, csrc/lap.cu,
-csrc/mdct_fwd.cu, csrc/bark_fit.cu, csrc/tone_mask.cu) against their
-plain PyTorch versions (the floor fit's prefix sums against the CPU's,
-the tone mask at every encoder look, the floor fit on
+csrc/mdct_fwd.cu, csrc/bark_fit.cu, csrc/tone_mask.cu,
+csrc/residue_encode.cu) against their plain PyTorch versions (the floor
+fit's prefix sums against the CPU's, the tone mask at every encoder
+look, the residue path at every residue config, the floor fit on
 the 5.1 looks too, M3 on six channels, the IMDCT at every blocksize and
 the lap at every blocksize and on -0.0 and subnormal products, both
 against the host C, the forward MDCT at every blocksize and the bark
@@ -219,6 +220,46 @@ def test_tone_mask_kernel_on_cuda(cuda):
             want = tone_mask_plain(tm, *args)
             assert torch.equal(got.view(torch.int32),
                                want.view(torch.int32)), (case, len(host[0]))
+
+
+def test_residue_encode_on_cuda(cuda):
+    """csrc/residue_encode.cu against residue_encode_plain on the card,
+    bitwise (values and lengths), at every residue config of the finish:
+    FastEncoder(2, 44100, 0.5) long and short, FastEncoder(6, 48000,
+    0.4)'s coupled submap long and short and its LFE, and FastEncoder(2,
+    44100, 0.5, coupling=False) long and short, on tests/
+    residue_encode_cases.py's seeded, threshold, zero, unused and stress
+    rows, their first frame and first three, and 1,001 and 4,096 frames
+    of seeded rows; one launch a call."""
+    from vorbis_tpu_torch.ops.residue_encode_cuda import (
+        residue_encode, residue_encode_plain)
+    cases = _test_module("residue_encode_cases")
+    for args, kw in (((2, 44100, 0.5), {}), ((6, 48000, 0.4), {}),
+                     ((2, 44100, 0.5), {"coupling": False})):
+        fe = TFE(*args, **kw)
+        for W in (1, 0):
+            dev = fe._dev_for(W)
+            n2 = dev.n // 2
+            for k, cfg in enumerate(dev.groups if dev.multi else [dev]):
+                seed = 7 * W + k
+                rc = cfg.res_ch
+                rows = [cases.inputs(cfg, n2, seed),
+                        cases.stress_rows(cfg, n2, seed + 1),
+                        cases.inputs(cfg, n2, seed + 2, frames=1001),
+                        cases.inputs(cfg, n2, seed + 3, frames=4096)]
+                r0, u0 = rows[0]
+                rows += [(r0[:rc * f], u0[:f]) for f in (1, 3)]
+                for res, used in rows:
+                    r = torch.from_numpy(res).cuda()
+                    u = torch.from_numpy(used).cuda()
+                    before = residue_encode.launches
+                    got = residue_encode(cfg, r, u)
+                    torch.cuda.synchronize()
+                    assert residue_encode.launches == before + 1
+                    want = residue_encode_plain(cfg, r, u)
+                    assert got[0].shape == (len(used), cfg.res_enc.rc)
+                    for g, w in zip(got, want):
+                        assert torch.equal(g, w), (args, W, k, len(used))
 
 
 def test_fit_prefix_sums_equal_the_cpu_on_cuda(cuda):

@@ -46,6 +46,8 @@ pcm = np.stack([0.3 * np.sin(2 * np.pi * 440 * t),
 out, vi = decode_ogg(fe.encode(pcm))
 assert out.shape == pcm.shape, out.shape
 assert np.isfinite(out).all()
+# the finish step's residue kernel module came with it
+assert "vorbis_tpu_torch.ops.residue_encode_cuda" in sys.modules
 # the default encoder: block switching and the cross-frame psy state
 fs = FastEncoder(2, 44100, 0.5, device="cpu")
 assert fs.switching and fs.psy_state

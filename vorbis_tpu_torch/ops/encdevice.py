@@ -7,8 +7,9 @@ oggpack_write):
   framing -> window/MDCT/FFT -> psy mask -> floor1 fit (CUDA kernel)
   -> post wrap coding, floor curve render and floor columns (one CUDA
   kernel, ops/floor_encode_cuda.py) -> stereo coupling -> residue
-  classify + lattice VQ -> codeword lookup -> bit-field columns ->
-  LSB-first bit packing
+  classify, lattice VQ and residue columns (one CUDA kernel,
+  ops/residue_encode_cuda.py) -> bit-field merge -> LSB-first bit
+  packing
 
 The host receives only (packed packet bytes, bit counts).  The port
 covers the stateless step (`make_step`), the frame-gather step
@@ -45,6 +46,7 @@ import torch
 from ..bitstream.bitpack import ilog
 from ..convert import device_tables
 from .floor_encode_cuda import FloorEncodeConfig, floor_encode, trio
+from .residue_encode_cuda import ResidueEncodeConfig, residue_encode
 
 f32 = np.float32
 i32 = torch.int32
@@ -524,6 +526,11 @@ class DeviceFastEncode:
         vars(cfg).update({f"{k}_t": v for k, v in device_tables(dict(
             sec=cfg.sec.astype(np.int32), ph_cw=cfg.ph_cw,
             ph_cl=cfg.ph_cl), dev).items()})
+        # the residue kernel's blob; a type-2 row interleaves the
+        # config's channels
+        nch = (1 if cfg.res_type != 2 else len(cfg.channels) if self.multi
+               else self.ch)
+        cfg.res_enc = ResidueEncodeConfig(cfg, nch, self)
 
     # -- device stages -------------------------------------------------------
     def _floor_wrap(self, posts, cfg=None):
@@ -755,7 +762,7 @@ class DeviceFastEncode:
             # codeword lookup: a plain gather from the stacked
             # (class, entry) tables
             e_in = torch.where(inr, e, 0).long()
-            ev = t["cw"][pwl[..., None], e_in]
+            ev = torch.where(inr, t["cw"][pwl[..., None], e_in], 0)
             el = torch.where(inr, t["cl"][pwl[..., None], e_in], 0)
             # pad partitions to nchunks*ppw
             if padn:
@@ -773,7 +780,7 @@ class DeviceFastEncode:
                 ph_ok = (ph_v < cfg.phrasebook.entries) \
                     & used[..., None]
                 ph_idx = torch.where(ph_ok, ph_v, 0).long()
-                ph_cw = cfg.ph_cw_t[ph_idx]
+                ph_cw = torch.where(ph_ok, cfg.ph_cw_t[ph_idx], 0)
                 ph_cl = torch.where(ph_ok, cfg.ph_cl_t[ph_idx], 0)
                 # (F, ch, nck) -> (F, nck, ch)
                 blk_v = torch.cat([ph_cw.permute(0, 2, 1),
@@ -1173,15 +1180,7 @@ class DeviceFastEncode:
                     epeak=ep3[:, gs] if ep3 is not None else None,
                     npeak=npk3[:, gs] if npk3 is not None else None)
                 out_g = torch.where(inband, out_g, 0.0)
-                inter = out_g.transpose(1, 2).reshape(F, -1)
-                absA = torch.abs(out_g[:, 1]) if nc == 2 else \
-                    torch.abs(out_g[:, 1:]).amax(1)
-                pw = self._classify2(torch.abs(out_g[:, 0]), absA,
-                                     nch=nc, cfg=g)
-                entries = self._vq_stages(inter, pw, cfg=g)
-                pw_p = pw.reshape(F, 1, -1)
-                ent_p = [e.reshape(F, 1, g.partvals, -1)
-                         for e in entries]
+                res_g = out_g.transpose(1, 2).reshape(F, -1)
                 used_p = used_o.any(-1).reshape(F, 1)
             else:
                 curg2 = torch.where(usedg[..., None], curg,
@@ -1201,14 +1200,10 @@ class DeviceFastEncode:
                         torch.abs(mdg * mdg).reshape(R, n2),
                         cand.reshape(R, n2), rr.reshape(R, n2),
                         npeak=npk_g).reshape(F, nc, n2)
-                pw = self._classify(res.reshape(R, n2), cfg=g)
-                entries = self._vq_stages(res.reshape(R, n2), pw, cfg=g)
-                pw_p = pw.reshape(F, nc, -1)
-                ent_p = [e.reshape(F, nc, g.partvals, -1)
-                         for e in entries]
+                res_g = res.reshape(R, n2)
                 used_p = usedg
-            res_blocks.append(self._residue_fields(pw_p, ent_p, used_p,
-                                                   cfg=g))
+            # classify, VQ and the residue columns: one kernel launch
+            res_blocks.append(residue_encode(g, res_g, used_p))
         hdr_v, hdr_l = self._header(F, wid, md.device)
         vals = torch.cat([hdr_v] + fl_cols_v
                          + [rv for rv, _ in res_blocks], 1)
@@ -1322,10 +1317,7 @@ class DeviceFastEncode:
                 md, curve, used, F, thr1=thr1, threv=threv,
                 inlimit=inlimit, epeak=epeak, npeak=npeak)
             # interleave the coupled pair: flat[i] = out2[:, i%2, i//2]
-            inter = out2.transpose(1, 2).reshape(F, -1)
-            pw = self._classify2(torch.abs(out2[:, 0]),
-                                 torch.abs(out2[:, 1]))
-            entries = self._vq_stages(inter, pw)
+            res = out2.transpose(1, 2).reshape(F, -1)
             used_p = any_used.reshape(F, 1)
         else:
             rr = md / curve
@@ -1339,16 +1331,12 @@ class DeviceFastEncode:
                     & used[:, None]
                 res = self._normalize_promote(res, ve, torch.abs(md * md),
                                               cand, rr, npeak=npeak)
-            pw = self._classify(res)
-            entries = self._vq_stages(res, pw)
             used_p = used.reshape(F, ch)
+        # classify, VQ and the residue columns: one kernel launch
+        rv, rl = residue_encode(self, res, used_p)
         hdr_v, hdr_l = self._header(F, wid, md.device)
         fv = fv.reshape(F, -1)
         fl = fl.reshape(F, -1)
-        rc = self.res_ch
-        pw_p = pw.reshape(F, rc, -1)
-        ent_p = [e.reshape(F, rc, self.partvals, -1) for e in entries]
-        rv, rl = self._residue_fields(pw_p, ent_p, used_p)
         vals = torch.cat([hdr_v, fv, rv], 1)
         lens = torch.cat([hdr_l, fl, rl], 1)
         mv, ml = merge_columns(vals, lens, self.gidx_t)
