@@ -3013,9 +3013,10 @@ def _phase_residue_encode(cases, smi, report=""):
     two 4d batches (CUDA graphs, median and spread of six), its bound and
     share, the plain trio's time and device kernels (no library call
     computes it).  Returns the kernel's record for the JSON line."""
+    import ctypes
     import torch
     from vorbis_tpu_torch.ops.residue_encode_cuda import (
-        H, load_library, residue_encode, residue_encode_plain)
+        geometry, load_library, residue_encode, residue_encode_plain)
     rcs = _test_module("residue_encode_cases")
     err, configs = 0.0, {}
     for name, cfg, res, used in cases:
@@ -3032,14 +3033,19 @@ def _phase_residue_encode(cases, smi, report=""):
     build = [ln.strip() for ln in report.splitlines()
              if "registers" in ln or "stack" in ln]
     rec = {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for name, cfg, res, used in cases[:2]:
         t = cfg.res_enc
-        blocks = per_sm(t.head.ctypes.data)
-        smem = int(t.head[H["smem"]])
-        print(f"[residue encode] {name}: build {build or 'cached'}; {smem} "
-              f"bytes of shared memory a block ({int(t.head[H['threads']])} "
-              f"threads, {int(t.head[H['fpb']])} frames), {blocks} blocks "
-              f"an SM")
+        F = used.shape[0]
+        threads, smem = ctypes.c_int(0), ctypes.c_int(0)
+        blocks = per_sm(t.head.ctypes.data, F, ctypes.byref(threads),
+                        ctypes.byref(smem))
+        fpb = geometry(t.head, F, sms)["fpb"]
+        print(f"[residue encode] {name}: build {build or 'cached'}; "
+              f"{smem.value} bytes of shared memory a block ({threads.value} "
+              f"threads, {fpb} frames, {-(-F // fpb)} blocks), {blocks} "
+              f"blocks an SM")
+        smem = smem.value
         ts, _ = _turns(lambda c=cfg, r=res, u=used: residue_encode(c, r, u),
                        None)
         ms, lo, hi = _med(ts)

@@ -147,17 +147,30 @@ def _bits(word):
     return np.asarray(word, np.int32).view(np.float32)
 
 
-def replay(blob, res, used):
+def _trunc_div(v, delta, magic, shift):
+    """csrc/residue_encode.cu trunc_div: |v| by the magic number, the
+    sign put back (uint32 arithmetic)."""
+    a = np.where(v < 0, -v, v).astype(np.uint64)         # |INT_MIN| = 2^31
+    t = (magic.astype(np.uint64) & 0xFFFFFFFF) * a >> np.uint64(32)
+    q = (t + ((a - t) >> np.uint64(1))) >> shift.astype(np.uint64)
+    q = np.where(delta == 1, a, q).astype(np.int64)
+    return _i32(np.where(v < 0, -q, q))
+
+
+def replay(blob, res, used, sms=132):
     """The kernel's walk over `blob` for rows res (F * res_ch, L) float32
-    and used (F, res_ch): every block's threads side by side (axis 0 the
-    block, axis 1 the thread), the shared entry slots as an array, then
-    the column walk.  -> (vals (F, RC) int64, lens (F, RC) int32)."""
+    and used (F, res_ch), launched on a card of `sms` SMs: every block's
+    phase-1 threads side by side (axis 0 the block, axis 1 the thread),
+    the shared entry slots as an array, then the column walk, four
+    columns a thread a round.  -> (vals (F, RC) int64, lens (F, RC)
+    int32)."""
     b = np.asarray(blob, np.int32)
     h = REC.blob_tables(b)
     F, rc_ch = used.shape
     L = res.shape[1]
     S, P, spp = h["stages"], h["possible"], h["spp"]
-    fpb, T, pp = h["fpb"], h["threads"], h["parts_pad"]
+    g = REC.geometry(b, F, sms)
+    fpb, T, pp = g["fpb"], g["p1"], h["parts_pad"]
     recs = h["recs"].astype(np.int64)
     nblk = -(-F // fpb)
     blk = np.arange(nblk)[:, None]
@@ -199,7 +212,9 @@ def replay(blob, res, used):
         r = recs[s][cls]                        # (nblk, T, REC)
         dim, qv, steps = (r[..., REC.R[k]] for k in ("dim", "qv", "steps"))
         delta, remap = r[..., REC.R["delta"]], r[..., REC.R["remap"]]
+        mg, sh = r[..., REC.R["magic"]], r[..., REC.R["shift"]]
         has = live & (dim > 0)
+        carry = s + 1 < S
         dim1, qv1, delta1 = (np.maximum(x, 1) for x in (dim, qv, delta))
         minval = _bits(r[..., REC.R["minval"]])
         add = _bits(r[..., REC.R["add"]])
@@ -212,10 +227,14 @@ def replay(blob, res, used):
         for j in range(REC.MAX_SPP):
             act = has & (j < spp)
             t = (w[..., j] - minval) + add
-            ti = _f2i(t)
-            v = np.where(ti >= 0, ti // delta1, -((-ti) // delta1))
+            v = _trunc_div(_f2i(t), delta1, mg, sh)
             m = _i32(np.where(v < ze, ((ze - v) << 1) - 1, (v - ze) << 1))
             m = np.minimum(np.maximum(m, 0), qv1 - 1)
+            if carry:
+                # an identity book's remainder, a digit as it comes
+                zz = np.where(m & 1, -((m + 1) >> 1), m >> 1)
+                rem = w[..., j] - deltaf * zz.astype(np.float32)
+                w[..., j] = np.where(act & (remap < 0), rem, w[..., j])
             acc = np.where(act, acc + m * pw, acc)
             o = np.where(act, o + 1, o)
             done = act & (o == dim)
@@ -228,13 +247,14 @@ def replay(blob, res, used):
             pw = np.where(done, 1, np.where(act, pw * qv1, pw))
             acc = np.where(done, 0, acc)
             o = np.where(done, 0, o)
-        if s + 1 == S:
+        if not carry:
             break
+        # a remapped book's remainder: the remapped entries' digits
         o = np.zeros_like(dim)
         k = np.zeros_like(dim)
         q = ent_slots[:, h["soff"][s], :].copy()
         for j in range(REC.MAX_SPP):
-            act = has & (j < spp)
+            act = has & (j < spp) & (remap >= 0)
             d = q % qv1
             q = np.where(act, q // qv1, q)
             zz = np.where(d & 1, -((d + 1) >> 1), d >> 1)
@@ -297,6 +317,38 @@ def test_kernel_schedule_replay(name):
     assert np.array_equal(rl, pl.numpy())
     assert np.array_equal(rv, pv.numpy())
     assert (rl > 0).sum() > 100
+    # the kernel's output does not depend on its launch geometry
+    for sms in (1, 8):
+        gv, gl = replay(cfg.res_enc.blob_np, res, used, sms)
+        assert np.array_equal(gv, rv) and np.array_equal(gl, rl)
+
+
+def test_magic_division_is_exact():
+    """trunc_div's magic numbers (REC.magic) give C's truncating division
+    at every lattice step of the configs and a spread of other divisors,
+    on dividends near 0, near each multiple of the divisor up to 2^20,
+    near +-2^31 and at random."""
+    rng = np.random.RandomState(9)
+    deltas = {1, 2, 3, 7, 255, 357, 625, 931, 1875, 65535, 65537,
+              (1 << 30) + 1}
+    for name in LOOKS:
+        cfg = _config(name)[3]
+        deltas |= {int(d["delta"]) for row in cfg.res_books for d in row
+                   if d is not None}
+    for d in sorted(deltas):
+        m, sh = REC.magic(d)
+        near = np.arange(0, 1 << 20, d)[:, None] + np.arange(-1, 2)
+        v = np.concatenate([np.arange(-4096, 4096), near.ravel(),
+                            -near.ravel(), rng.randint(-2 ** 31, 2 ** 31,
+                                                       20000),
+                            [-2 ** 31, -2 ** 31 + 1, 2 ** 31 - 1,
+                             2 ** 31 - 2]]).astype(np.int64)
+        v = v[(v >= -2 ** 31) & (v < 2 ** 31)]
+        want = _i32(np.where(v >= 0, v // d, -((-v) // d)))
+        got = _trunc_div(v, np.full(v.shape, d), np.full(v.shape, m,
+                                                         np.int64),
+                         np.full(v.shape, sh))
+        assert np.array_equal(got, want), d
 
 
 def test_pack_blob_layout():
@@ -315,8 +367,13 @@ def test_pack_blob_layout():
         assert h["ms"] == ms and h["soff"] == list(np.cumsum([0] + ms)[:-1])
         assert h["rc"] == cfg.nchunks * cfg.res_ch * (
             1 + cfg.ppw * sum(ms))
-        assert h["threads"] == h["fpb"] * cfg.res_ch * cfg.parts_pad
-        assert h["threads"] <= REC.MAX_THREADS
+        assert h["per_frame"] == cfg.res_ch * cfg.parts_pad
+        big = REC.geometry(blob, 1 << 20, 132)
+        assert big["fpb"] == h["fpb"] and big["smem"] == h["smem"]
+        assert big["p1"] <= REC.THREADS or h["fpb"] == 1
+        assert big["threads"] <= REC.MAX_THREADS
+        small = REC.geometry(blob, 256, 132)
+        assert small["fpb"] == 1 and small["threads"] >= REC.MIN_THREADS
         assert np.array_equal(h["cm1"], np.asarray(
             cfg.ri.classmetric1)[:cfg.possible])
         # the columns: stage 0's phrase words first in each chunk
@@ -342,6 +399,9 @@ def test_pack_blob_layout():
                     d["dim"], d["qv"], cfg.spp // d["dim"], d["delta"],
                     d["entries"])
                 assert _bits(r[REC.R["minval"]]) == np.float32(d["minval"])
+                assert (int(r[REC.R["magic"]]) & 0xFFFFFFFF,
+                        r[REC.R["shift"]]) == REC.magic(int(d["delta"]))
+                assert r[REC.R["book"]] % 2 == 0
                 E = d["entries"]
                 bk = blob[r[REC.R["book"]]:r[REC.R["book"]] + 2 * E]
                 st = cfg.stage_tabs[s]

@@ -11,9 +11,11 @@ n2) rows of residue type 2, the (F * ch, n2) rows of type 1), and used
 (F, res_ch) bool, and returns the config's residue columns (vals (F, RC)
 int64, lens (F, RC) int32) in res01_forward's emission order: one thread
 a (row, partition) classifies and quantizes its partition through every
-stage with its values in registers, the entries in shared memory, then
-the block's threads write its frames' columns in order, a column a
-thread.  Its tables come as one int32 blob a residue config
+stage with its values in registers (the lattice step's divide a
+multiply-high by a magic number, `magic`), the entries in shared memory,
+then the block's threads write its frames' columns in order, four
+columns a thread a round; the launch sizes its blocks to the batch
+(`geometry`).  Its tables come as one int32 blob a residue config
 (`pack_blob`): a header (HEADER), the classmetric thresholds, one record
 a (stage, class) (REC), the column records (`columns`), the phrase book
 and each stage book once as (codeword, length) pairs and the remapped
@@ -45,26 +47,29 @@ from .floor_cuda import NVCC_FLAGS, nvcc
 SOURCE = PKG / "csrc" / "residue_encode.cu"
 MAX_STAGES = 8
 # the blob's header words, in order (csrc/residue_encode.cu H_*): the
-# layout, the launch geometry (frames a block, threads a block, dynamic
-# shared bytes), then each stage's most steps (ms) and its first entry
-# slot in shared memory (soff), and the offsets of the tables
+# layout, the most frames a block (fpb), the phase-1 threads a frame
+# (per_frame) and the shared bytes of a block of fpb frames, the offsets
+# of the tables, then each stage's most steps (ms) and its first entry
+# slot in shared memory (soff)
 HEADER = ("type", "nch", "res_ch", "begin", "spp", "partvals", "ppw",
           "nck", "parts_pad", "possible", "stages", "rc", "phr_entries",
-          "scale", "sument", "fpb", "threads", "smem", "cm1", "cm2", "recs",
-          "cols", "phr", "words") + tuple(
+          "scale", "sument", "fpb", "per_frame", "smem", "cm1", "cm2",
+          "recs", "cols", "phr", "words") + tuple(
     f"ms{s}" for s in range(MAX_STAGES)) + tuple(
     f"soff{s}" for s in range(MAX_STAGES))
 H = {k: i for i, k in enumerate(HEADER)}
 # a (stage, class) record (csrc/residue_encode.cu R_*): dim 0 where the
 # class has no book at the stage; minval, add and delta's float32 bits;
 # book: the (codeword, length) pairs' offset; remap: the remapped
-# indices' offset, -1 for the identity
+# indices' offset, -1 for the identity; magic and shift: delta's
+# divisor (`magic`)
 REC = ("dim", "qv", "steps", "minval", "add", "delta", "deltaf", "book",
-       "remap", "entries")
+       "remap", "entries", "magic", "shift")
 R = {k: i for i, k in enumerate(REC)}
 MAX_SPP = 32                    # csrc/residue_encode.cu kMaxSpp
-THREADS = 128                   # the threads a block aims at
+THREADS = 128                   # a block of fpb frames' phase-1 threads
 MAX_THREADS = 512               # csrc/residue_encode.cu kMaxThreads
+MIN_THREADS = 64                # csrc/residue_encode.cu kMinThreads
 MAX_SHARED = 227 * 1024
 # a column record: its step, stage, partition and channel, and the top
 # bit for a phrase word
@@ -73,6 +78,35 @@ COL_STEP, COL_STAGE, COL_PART, COL_CHAN, COL_PHRASE = 0, 6, 9, 21, 31
 
 def _f32bits(v) -> int:
     return int(np.float32(v).view(np.int32))
+
+
+def magic(d: int) -> tuple[int, int]:
+    """(m, shift) of the divisor d >= 1 (csrc/residue_encode.cu
+    trunc_div): for d > 1, L = ceil(log2 d), m = floor(2^32 (2^L - d) /
+    d) + 1 < 2^32 and shift = L - 1, so that a // d = (t + ((a - t) >> 1))
+    >> shift with t = (m * a) >> 32 for every 0 <= a < 2^32 (Granlund and
+    Montgomery's round-up method); d = 1 divides by no number."""
+    if d < 1 or d >= 1 << 31:
+        raise ValueError(f"residue encode: divisor {d}")
+    if d == 1:
+        return 0, 0
+    L = (d - 1).bit_length()
+    return ((1 << 32) * ((1 << L) - d)) // d + 1, L - 1
+
+
+def geometry(head, frames: int, sms: int) -> dict:
+    """The launch of `frames` frames on a card of `sms` SMs
+    (csrc/residue_encode.cu geometry): frames a block (fpb: two blocks an
+    SM where the batch allows, at most the header's fpb), phase-1 threads
+    (p1), threads a block (p1 in whole warps, at least MIN_THREADS) and
+    shared bytes."""
+    fpb = min(max(frames // (2 * sms), 1), int(head[H["fpb"]]))
+    p1 = fpb * int(head[H["per_frame"]])
+    threads = max(-(-p1 // 32) * 32, MIN_THREADS)
+    smem = (int(head[H["stages"]]) * int(head[H["possible"]]) * len(REC) * 4
+            + 2 * int(head[H["sument"]]) * p1 + p1
+            + fpb * int(head[H["res_ch"]]))
+    return dict(fpb=fpb, p1=p1, threads=threads, smem=-(-smem // 16) * 16)
 
 
 def columns(stages, nck, ppw, res_ch, ms) -> np.ndarray:
@@ -122,12 +156,14 @@ def pack_blob(cfg, nch: int) -> np.ndarray:
     hdr = {}
     at = len(HEADER)
 
-    def put(name, a):
+    def put(name, a, align=1):
+        """Place `a` at the next multiple of `align` words; -> offset."""
         nonlocal at
         a = np.asarray(a, np.int64).reshape(-1)
-        words.append(a)
-        hdr[name] = at
-        at += len(a)
+        pad = -at % align
+        words.append(np.concatenate([np.zeros(pad, np.int64), a]))
+        hdr[name] = at + pad
+        at += pad + len(a)
         return hdr[name]
 
     put("cm1", np.asarray(ri.classmetric1, np.int64)[:cfg.possible])
@@ -138,8 +174,10 @@ def pack_blob(cfg, nch: int) -> np.ndarray:
     rec_block = len(words) - 1
     cols = columns(cfg.stages, cfg.nchunks, cfg.ppw, rc_ch, ms)
     put("cols", cols)
+    # (codeword, length) pairs at even offsets: the kernel loads a pair
+    # as one 8-byte word
     put("phr", np.stack([cfg.ph_cw.view(np.int32),
-                         cfg.ph_cl.astype(np.int32)], 1))
+                         cfg.ph_cl.astype(np.int32)], 1), 2)
     for s in range(cfg.stages):
         st = cfg.stage_tabs[s]
         for c, d in enumerate(cfg.res_books[s]):
@@ -157,38 +195,37 @@ def pack_blob(cfg, nch: int) -> np.ndarray:
             r[R["add"]] = _f32bits(float(d["delta"] >> 1)
                                    if d["delta"] != 1 else 0.0)
             r[R["deltaf"]] = _f32bits(float(d["delta"]))
+            m, sh = magic(int(d["delta"]))
+            r[R["magic"]] = np.uint32(m).view(np.int32)
+            r[R["shift"]] = sh
             r[R["book"]] = put("book", np.stack(
-                [st["cw"][c, :E].view(np.int32), st["cl"][c, :E]], 1))
+                [st["cw"][c, :E].view(np.int32), st["cl"][c, :E]], 1), 2)
             if not d["ident"]:
                 remap = np.asarray(d["book"].remap_np, np.int64)
                 r[R["remap"]] = put("remap", remap)
     words[rec_block][:] = recs.reshape(-1)
     hdr.pop("book", None)
     hdr.pop("remap", None)
-    # launch geometry: whole frames a block, about THREADS threads
+    # launch geometry: whole frames a block, about THREADS phase-1 threads
     per_frame = rc_ch * cfg.parts_pad
     fpb = max(1, THREADS // per_frame)
-    threads = fpb * per_frame
-    if threads > MAX_THREADS:
-        raise ValueError(f"residue encode: {threads} threads a block")
-    smem = (cfg.stages * cfg.possible * len(REC) * 4 + threads
-            + fpb * rc_ch + 2 * int(soff[-1]) * threads)
-    smem = -(-smem // 16) * 16
-    if smem > MAX_SHARED:
-        raise ValueError(f"residue encode: {smem} bytes of shared memory")
     hdr.update(type=typ, nch=nch, res_ch=rc_ch, begin=ri.begin, spp=spp,
                partvals=cfg.partvals, ppw=cfg.ppw, nck=cfg.nchunks,
                parts_pad=cfg.parts_pad, possible=cfg.possible,
                stages=cfg.stages, rc=len(cols),
                phr_entries=cfg.phrasebook.entries,
                scale=_f32bits(np.float32(100.0) / np.float32(spp)),
-               sument=int(soff[-1]), fpb=fpb, threads=threads, smem=smem,
-               words=at)
+               sument=int(soff[-1]), fpb=fpb, per_frame=per_frame, words=at)
     for s in range(cfg.stages):
         hdr[f"ms{s}"] = ms[s]
         hdr[f"soff{s}"] = soff[s]
     for k, v in hdr.items():
         words[0][H[k]] = v
+    big = geometry(words[0], 1 << 30, 1)        # a block of fpb frames
+    words[0][H["smem"]] = big["smem"]
+    if big["threads"] > MAX_THREADS or big["smem"] > MAX_SHARED:
+        raise ValueError(f"residue encode: a block of {fpb} frames takes "
+                         f"{big['threads']} threads, {big['smem']} bytes")
     blob = np.concatenate(words)
     assert len(blob) == at
     if at >= 1 << 31:
@@ -280,7 +317,8 @@ def load_library() -> ctypes.CDLL:
                    + [ctypes.c_void_p] * 3)
     fn = lib.vtt_residue_encode_blocks_per_sm
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p]
     return lib
 
 
