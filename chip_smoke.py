@@ -9,10 +9,10 @@ vorbis_tpu and no network:
 
 Phases (any failure raises and the script exits non-zero):
   1. device: the card, its name and power limit, the fp32 policy;
-  2. build: nvcc compiles csrc/floor_fit.cu, csrc/floor_encode.cu,
-     csrc/m3_scan.cu, csrc/imdct.cu, csrc/lap.cu, csrc/mdct_fwd.cu,
-     csrc/bark_fit.cu, csrc/tone_mask.cu and csrc/residue_encode.cu and
-     cc compiles csrc/host_ogg.c (Ogg CRC and
+  2. build: nvcc compiles csrc/floor_fit.cu, csrc/floor_prepare.cu,
+     csrc/floor_encode.cu, csrc/m3_scan.cu, csrc/imdct.cu, csrc/lap.cu,
+     csrc/mdct_fwd.cu, csrc/bark_fit.cu, csrc/tone_mask.cu,
+     csrc/residue_encode.cu and csrc/pack_bits.cu and cc compiles csrc/host_ogg.c (Ogg CRC and
      pager, rescue walk, schedule), csrc/host_decode.c (the decode's
      page walk, packet parse, host IMDCT and lap, with
      -ffp-contract=off) and
@@ -45,9 +45,9 @@ Phases (any failure raises and the script exits non-zero):
   3f. managed kernels: FastEncoder(2, 44100, bitrate=(-1, 128000, -1))
      encodes 20 s of the click train at B = 256 with the finish step's
      arguments recorded; its first long and first short batch run again:
-     the stacked floor fit of the three offset_select masks (one launch
-     of 3*B*ch rows) bitwise against the plain fit and three separate
-     launches, the short batch's three M3 calls by bit pattern against
+     the stacked floor fit of the three offset_select masks (one
+     prepare and one fit launch of 3*B*ch rows) bitwise against the plain
+     fit and three separate launches, the short batch's three M3 calls by bit pattern against
      their plain version, and the 15-blob finish on the card against the
      same step on the CPU in >= 90% of the (F, 15) rows;
   3g. 5.1 kernels: the floor kernel bitwise against its plain version
@@ -99,18 +99,22 @@ Phases (any failure raises and the script exits non-zero):
      --floor-encode-baseline, whose outputs must equal this design's),
      bound by bytes, share, the plain trio's time and device kernels (no
      library call computes it); and the two batches split by
-     stage (noise-mask tail, tone mask, M3, mix, floor fit, floor encode,
-     coupling, residue encode, merge, pack, the rest): each stage alone on
-     its recorded inputs, device kernels and device ms under
-     torch.profiler and ms a call, the floor's and the residue path's
-     plain trios and the plain tone mask alone, and the whole step with
-     the kernels, with the floor's plain trio in the floor-encode
-     kernel's place, with the residue path's plain trio in the residue
-     kernel's place and with the plain tone mask in the tone-mask
-     kernel's place; then each step captured in one CUDA graph on static
-     copies of its inputs (ROADMAP 2.16), with the residue kernel and with
-     its plain trio: the replay's packets and bit counts bitwise equal to
-     the eager step's, the eager and replayed ms a call in turns;
+     stage (noise-mask tail, tone mask, M3, mix, the floor fit's prepare
+     kernel and its fit kernel, floor encode, coupling, residue encode,
+     the packer kernel, the rest): each stage alone on its recorded
+     inputs, device kernels and device ms under torch.profiler and ms a
+     call, the floor's and the residue path's plain trios, the plain
+     tone mask, the plain prepare and the packer's plain duo (merge and
+     pack) alone, and the whole step with the kernels, with the floor's
+     plain trio in the floor-encode kernel's place, with the residue
+     path's plain trio in the residue kernel's place, with the plain
+     tone mask in the tone-mask kernel's place and with the plain
+     prepare and packer in those two kernels' places; then each step
+     captured in one CUDA graph on static copies of its inputs (ROADMAP
+     2.16), with the kernels, with the residue path's plain trio and with
+     the plain prepare and packer: the replay's packets and bit counts
+     bitwise equal to the eager step's, the eager and replayed ms a call
+     in turns;
   3k. the tone mask: csrc/tone_mask.cu (the octave groups' maxima, the
      curve seeding, the chase and the windowed min with the ATH floor in
      one launch) bitwise against its plain version (the JAX package's
@@ -144,6 +148,33 @@ Phases (any failure raises and the script exits non-zero):
      (CUDA graphs, median and spread of six), its bound (bytes against
      the function's own arithmetic on this run's classes) and share, the
      plain trio's time and device kernels (no library call computes it);
+  3m. the packer: csrc/pack_bits.cu (the plan's column merge and the
+     LSB-first packing in one launch) bitwise, packets and bit counts,
+     against its plain version (merge_columns and pack_bits) on the
+     packer calls 3j recorded (4d's long and short finish batch, the
+     managed encoder's 15-blob rows long and short, the 5.1 encoder long
+     and short, the 16 and 32 kHz configs) at their budget and at the
+     plan's worst_bytes, and on _pack_rows' seeded rows, stale values in
+     zero-length columns, values with bits above their lengths, packets
+     over the budget and zero rows at each of those plans; the build's
+     registers, shared memory a block and blocks an SM; its time at the
+     two 4d batches (CUDA graphs, median and spread of six), its bound by
+     bytes and share, the plain duo's time and device kernels (no
+     library call computes it);
+  3n. the floor fit's prepare: csrc/floor_prepare.cu (the mask's dB
+     quantization, the above classes, the segments' moments and their
+     weighted prefix in one launch) bitwise against its plain version
+     (DeviceFloorFit.prepare; its prefix summed in the CPU's order, and
+     the elements where the card's own cumsum differs counted) on the
+     prepare calls 3j recorded (4d's long and short batch, the managed
+     encoder's stacked rows, the 5.1 encoder's three looks, the 16 and 32
+     kHz looks) and on _prepare_rows' seeded rows and edge rows (NaN and
+     +-inf in the mask and in logmdct, nothing above, nothing used, a
+     saturated mask) at each of those looks and at a synthetic look of
+     two posts; the build's registers, shared memory a block and blocks
+     an SM; its time at the two 4d batches (CUDA graphs, median and
+     spread of six), its bound by bytes and share, the plain version's
+     time and device kernels (no library call computes it);
   4. main path: FastEncoder(2, 44100, 0.5, switching=False,
      psy_state=False).encode of 60 s of 44.1 kHz stereo int16 (bench.py's
      signal, seed 0), from a CUDA tensor and from host numpy; the stream
@@ -202,8 +233,9 @@ Phases (any failure raises and the script exits non-zero):
      differs, the first stage whose card and CPU outputs differ (spectra
      and masks, fit posts, the floor's post coding, coupled residues,
      the residue path's columns, packed bytes), with its size and
-     whether its inputs were equal (the floor's post coding or the
-     residue path differing on equal inputs fails the phase);
+     whether its inputs were equal (the floor's post coding, the
+     residue path or the packer differing on equal inputs fails the
+     phase);
   5b. card vs CPU, stateful: the stateful packets of a 2 s clip
      (encode_batch at B_long=64), >= 90% identical; the count at encode's
      B_long=1024 and the stateless encode_batch's are printed beside it;
@@ -297,7 +329,9 @@ once a finish step or DeviceAnalysis.mask_components call (the two
 callers are counted apart from the kernel's wrapper) and the residue
 kernel once a finish call a residue submap (finish_from_posts and each
 submap of _finish_multi, counted apart from its wrapper; 3i's host pack
-and 7b's step call no finish).  Phase 5 prints the differing packets'
+and 7b's step call no finish), the packer kernel once a finish call
+(counted the same way) and the prepare kernel as often as the floor
+fit.  Phase 5 prints the differing packets'
 indices.
 It prints the kernel record as one JSON line, then the result line.
 """
@@ -714,6 +748,141 @@ def _synthetic_look(base, posts, seed):
                       maxerr=b.maxerr, twofitweight=b.twofitweight,
                       twofitatten=b.twofitatten)
     return Floor1Look(info)
+
+
+def _prepare_rows(n, B, seed, card=True):
+    """Spectra (logmdct, logmask) float32 (B + 8, n) numpy for the floor
+    prepare's checks: B seeded rows (the spread of _random_spectra), then
+    edge rows: nothing above, everything above, a mask below the
+    quantizer's first step (nothing used), a saturated mask, NaN in the
+    mask, -inf in the mask, NaN and +-inf in logmdct, and (card) +inf in
+    the mask, where torch's CPU cast gives 0 and the card's saturates to
+    1023 (otherwise a second NaN row).  A tenth of the seeded rows'
+    second-half bins hold a mask below the first step or saturated."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    lm = (rng.randn(B + 8, n) * 20 - 60).astype(np.float32)
+    mk = (lm + rng.randn(B + 8, n) * 6 - 3).astype(np.float32)
+    e = B
+    lm[e] = mk[e] - 1000.0                      # nothing above
+    lm[e + 1] = mk[e + 1] + 1000.0              # everything above
+    mk[e + 2] = -150.0                          # quant 0: nothing used
+    mk[e + 3] = 300.0                           # quant clamped at 1023
+    mk[e + 4, ::3] = np.nan
+    mk[e + 5, ::2] = -np.inf
+    lm[e + 6, ::3] = np.nan
+    lm[e + 6, 1::3] = np.inf
+    lm[e + 6, 2::6] = -np.inf
+    mk[e + 7, ::4] = np.inf if card else np.nan
+    pick = (np.arange(n) >= n // 2) & (rng.rand(B, n) < 0.1)
+    mk[:B][pick] = rng.choice(np.float32([-150.0, 300.0]), pick.sum())
+    return lm, mk
+
+
+def _pack_rows(gidx, n_cols, seed, seeded=4):
+    """Raw columns (vals (F, C) int64, lens (F, C) int32) numpy for the
+    packer's checks on a plan (gidx (C1, Gmax) with -1 pads, n_cols C):
+    `seeded` rows whose groups hold at most 32 bits with values below
+    2^length, then a row with stale values in every zero-length column, a
+    row whose values carry bits above their lengths (a group's columns
+    merge unmasked), a row with every group at 32 bits (longer than any
+    budget), a row of zero lengths with stale values and an all-zero
+    row."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    F = seeded + 5
+
+    def lengths(full):
+        lens = np.zeros((F, n_cols), np.int64)
+        for row in gidx:
+            cols = row[row >= 0]
+            cuts = np.sort(rng.randint(0, 33, (F, len(cols) + 1)), 1)
+            if full:
+                cuts[:, 0], cuts[:, -1] = 0, 32
+            lens[:, cols] = np.diff(cuts, axis=1)
+        return lens
+
+    lens = lengths(False)
+    lens[seeded + 2] = lengths(True)[seeded + 2]
+    lens[seeded + 3:] = 0
+    raw = rng.randint(0, 2 ** 32, (F, n_cols), dtype=np.uint64)
+    vals = raw & ((np.uint64(1) << lens.astype(np.uint64)) - np.uint64(1))
+    s = seeded
+    vals[s] = np.where(lens[s] == 0, raw[s], vals[s])      # stale values
+    vals[s + 1] = raw[s + 1]                               # high bits
+    vals[s + 3] = raw[s + 3]                               # stale, no bits
+    vals[s + 4] = 0
+    return vals.astype(np.int64), lens.astype(np.int32)
+
+
+def _prep_want(fit, logmdct, logmask):
+    """The plain prepare of fit's look on the card's tensors with its
+    prefix summed in the CPU's order (the plain moments' float64 running
+    sum taken on the CPU, one segment after another, rounded once): the
+    kernel's contract.  Returns ((quant, above, prefix, used), the prefix
+    elements in which the card's own cumsum of the same moments
+    differs)."""
+    import torch
+    seen = []
+    cumsum = torch.cumsum
+
+    def spy(x, *a, **kw):
+        seen.append(x)
+        return cumsum(x, *a, **kw)
+    torch.cumsum = spy
+    try:
+        quant, above, card, used = fit.prepare_plain(logmdct, logmask)
+    finally:
+        torch.cumsum = cumsum
+    run = torch.cumsum(seen[-1].cpu(), dim=-2).float().to(card.device)
+    prefix = torch.cat([torch.zeros_like(run[:, :1]), run], 1)
+    differ = int((prefix.view(torch.int32) != card.view(torch.int32)).sum())
+    return (quant, above, prefix, used), differ
+
+
+def _prep_check(name, fit, logmdct, logmask):
+    """The prepare kernel against _prep_want, bitwise (the prefix by bit
+    pattern); returns the largest difference."""
+    import torch
+    from vorbis_tpu_torch.ops.floor_cuda import floor_prepare
+    got = floor_prepare(fit, logmdct, logmask)
+    want, differ = _prep_want(fit, logmdct, logmask)
+    torch.cuda.synchronize()
+    same = [torch.equal(g.view(torch.int32) if g.is_floating_point() else g,
+                        w.view(torch.int32) if w.is_floating_point() else w)
+            for g, w in zip(got, want)]
+    err = max(float((g.double() - w.double()).abs().max()) if g.numel()
+              else 0.0 for g, w in zip(got, want))
+    print(f"[floor prepare] {name}: B={logmdct.shape[0]} n={fit.n} "
+          f"P={fit.posts}: quant, above, prefix, used "
+          + ("bitwise equal to the plain version" if all(same) else
+             f"DIFFER {same}") + f", max_abs_err {err}; the card's own "
+          f"cumsum differs from the CPU's order in {differ} prefix "
+          f"elements")
+    if not all(same):
+        raise RuntimeError(f"floor prepare {name}: kernel != plain")
+    return err
+
+
+def _pack_check(name, tabs, vals, lens, wb):
+    """The packer kernel against pack_packets_plain on the card, bitwise;
+    returns the largest difference."""
+    import torch
+    from vorbis_tpu_torch.ops.pack_cuda import pack_packets, pack_packets_plain
+    got = pack_packets(tabs, vals, lens, wb)
+    want = pack_packets_plain(tabs, vals, lens, wb)
+    torch.cuda.synchronize()
+    same = [torch.equal(g, w) for g, w in zip(got, want)]
+    err = max(float((g.double() - w.double()).abs().max()) if g.numel()
+              else 0.0 for g, w in zip(got, want))
+    print(f"[pack] {name}: F={vals.shape[0]} C={tabs.n_cols} "
+          f"C1={tabs.n_groups} wb={wb}: packets, nbits "
+          + ("bitwise equal to the plain version" if all(same) else
+             f"DIFFER {same}") + f", max_abs_err {err}; "
+          f"{int((want[1] > 8 * wb).sum())} packets over the budget")
+    if not all(same):
+        raise RuntimeError(f"pack {name}: kernel != plain")
+    return err
 
 
 def _check(fit, name, quant, above, prefix):
@@ -1286,15 +1455,18 @@ def _phase_managed_kernels(fm, fm_cpu, smi):
         fl.fit = fit
         fm._short_ctx.m3_scan = scan
         fl.launches = 0
+        prep0 = floor_cuda.floor_prepare.launches
         try:
             pk, nb = step_of(W, B)(*calls[W])
             torch.cuda.synchronize()
         finally:
             del fl.fit, mdev.ladder_rows, mdev.blob_rows
             fm._short_ctx.m3_scan = m3
-        if len(fits) != 1 or fl.launches != 1:
+        preps = floor_cuda.floor_prepare.launches - prep0
+        if len(fits) != 1 or fl.launches != 1 or preps != 1:
             raise RuntimeError(f"managed W={W}: {len(fits)} floor fits, "
-                               f"{fl.launches} launches (one expected)")
+                               f"{fl.launches} fit and {preps} prepare "
+                               f"launches (one each expected)")
         q, a, p = fits[0]
         R = q.shape[0] // 3
         got = fl.fit(q, a, p)
@@ -1305,8 +1477,8 @@ def _phase_managed_kernels(fm, fm_cpu, smi):
         bad = int((got != plain).sum()) + int((got != sep).sum())
         floor_err = max(floor_err, float((got - plain).abs().max()))
         print(f"[managed] W={W} stacked floor fit: {q.shape[0]} rows "
-              f"(3 x {R}) in one launch; mismatches against the plain fit "
-              f"and three launches {bad}")
+              f"(3 x {R}) in one prepare and one fit launch; mismatches "
+              f"against the plain fit and three launches {bad}")
         if bad:
             raise RuntimeError(f"managed W={W}: stacked floor fit differs")
         if W == 0:
@@ -1572,8 +1744,8 @@ def _phase_51_kernels(f51, smi):
 
 # -- the analysis front: csrc/mdct_fwd.cu and csrc/bark_fit.cu ------------
 
-# (mdct_fwd, bark_fit, floor_encode, tone_mask, residue_encode) launches
-# of each main-path run, by phase
+# (mdct_fwd, bark_fit, floor_encode, tone_mask, residue_encode,
+# pack_packets, floor_prepare) launches of each main-path run, by phase
 PATH_LAUNCHES = {}
 # the calls that reach the tone mask since _path_reset: the finish
 # steps' (each calls psydevice.noisemask_tail once) and
@@ -1583,6 +1755,9 @@ TONE_CALLS = [0]
 # the residue blocks of the finish calls since _path_reset: one a
 # finish_from_posts call, one a submap a _finish_multi call
 RES_CALLS = [0]
+# the finish calls since _path_reset (finish_from_posts and _finish_multi
+# each pack their packets once)
+FINISH_CALLS = [0]
 # the main-path runs that call no finish step (the host pack's device
 # step, the pipeline's encode_quantize_step): the residue kernel is not
 # on their path
@@ -1594,14 +1769,18 @@ def _path_kernels():
     the floor fit and M3: the analysis front's two (each DeviceAnalysis
     spectra call launches both), the floor's post coding (once a finish
     call a floor look), the tone mask (once a finish step or
-    mask_components call) and the residue path (once a finish call a
-    residue submap)."""
+    mask_components call), the residue path (once a finish call a
+    residue submap), the packer (once a finish call) and the floor fit's
+    prepare (once a floor fit launch)."""
     from vorbis_tpu_torch.ops.bark_cuda import bark_fit
+    from vorbis_tpu_torch.ops.floor_cuda import floor_prepare
     from vorbis_tpu_torch.ops.floor_encode_cuda import floor_encode
     from vorbis_tpu_torch.ops.mdct_cuda import mdct_fwd
+    from vorbis_tpu_torch.ops.pack_cuda import pack_packets
     from vorbis_tpu_torch.ops.residue_encode_cuda import residue_encode
     from vorbis_tpu_torch.ops.tone_mask_cuda import tone_mask
-    return mdct_fwd, bark_fit, floor_encode, tone_mask, residue_encode
+    return (mdct_fwd, bark_fit, floor_encode, tone_mask, residue_encode,
+            pack_packets, floor_prepare)
 
 
 def _count_tone_calls():
@@ -1624,17 +1803,20 @@ def _count_finish_calls():
     here on: one a DeviceFastEncode.finish_from_posts call (the
     single-submap layouts and the managed pass), one a submap a
     _finish_multi call (5.1); each is one call of the residue kernel,
-    counted apart from its wrapper."""
+    counted apart from its wrapper.  FINISH_CALLS counts the calls, each
+    one call of the packer."""
     from vorbis_tpu_torch.ops.encdevice import DeviceFastEncode
     real_one = DeviceFastEncode.finish_from_posts
     real_multi = DeviceFastEncode._finish_multi
 
     def one(self, *a, **kw):
         RES_CALLS[0] += 1
+        FINISH_CALLS[0] += 1
         return real_one(self, *a, **kw)
 
     def multi(self, *a, **kw):
         RES_CALLS[0] += len(self.groups)
+        FINISH_CALLS[0] += 1
         return real_multi(self, *a, **kw)
     DeviceFastEncode.finish_from_posts = one
     DeviceFastEncode._finish_multi = multi
@@ -1645,19 +1827,22 @@ def _path_reset():
         k.launches = 0
     TONE_CALLS[0] = 0
     RES_CALLS[0] = 0
+    FINISH_CALLS[0] = 0
 
 
 def _path_add(phase):
     """Add the _path_kernels' launches since _path_reset to `phase`;
     a main-path run that launched one of them no time (the residue
-    kernel outside NO_FINISH), the tone mask otherwise than once a finish
-    step or mask_components call, or the residue kernel otherwise than
-    once a finish call a residue submap, fails."""
+    kernel and the packer outside NO_FINISH), the tone mask otherwise
+    than once a finish step or mask_components call, the residue kernel
+    otherwise than once a finish call a residue submap, or the packer
+    otherwise than once a finish call, fails."""
     counts = [k.launches for k in _path_kernels()]
-    if min(counts[:4]) == 0 or (phase not in NO_FINISH and counts[4] == 0):
+    if (min(counts[:4] + counts[6:]) == 0
+            or (phase not in NO_FINISH and min(counts[4:6]) == 0)):
         raise RuntimeError(f"{phase}: mdct_fwd, bark_fit, floor_encode, "
-                           f"tone_mask and residue_encode launched {counts} "
-                           f"times")
+                           f"tone_mask, residue_encode, pack_packets and "
+                           f"floor_prepare launched {counts} times")
     if counts[3] != TONE_CALLS[0]:
         raise RuntimeError(f"{phase}: tone_mask launched {counts[3]} times "
                            f"for {TONE_CALLS[0]} finish steps and "
@@ -1666,6 +1851,9 @@ def _path_add(phase):
         raise RuntimeError(f"{phase}: residue_encode launched {counts[4]} "
                            f"times for {RES_CALLS[0]} finish calls x residue "
                            f"submaps")
+    if counts[5] != FINISH_CALLS[0]:
+        raise RuntimeError(f"{phase}: pack_packets launched {counts[5]} "
+                           f"times for {FINISH_CALLS[0]} finish calls")
     PATH_LAUNCHES[phase] = tuple(
         a + b for a, b in zip(PATH_LAUNCHES.get(phase, (0,) * len(counts)),
                               counts))
@@ -2299,12 +2487,12 @@ SPLIT_STAGES = (
     ("tone mask", "analysis", "tonemask"),
     ("M3", "ctx", "m3_scan"), ("M3", "psydevice", "m3_apply"),
     ("mix", "analysis", "mix_m4_m1"),
-    ("floor fit", "ctx", "floor"),
+    ("floor prepare", "floor_cuda", "floor_prepare"),
+    ("floor fit", "floor", "fit"),
     ("floor encode", "encdevice", "floor_encode"),
     ("coupling", "dev", "_couple_quantize"),
     ("residue encode", "encdevice", "residue_encode"),
-    ("merge", "encdevice", "merge_columns"),
-    ("pack", "encdevice", "pack_bits"))
+    ("pack", "encdevice", "pack_packets"))
 
 
 # the stateless step's stages in the encoder's order, for phase 5's
@@ -2317,7 +2505,7 @@ STAGES5 = (
     ("coupled residues (residues, any used)", "dev", "_couple_quantize"),
     ("residue path (classes, VQ and columns: vals, lens)", "encdevice",
      "residue_encode"),
-    ("packed bytes (packets, nbits)", "encdevice", "pack_bits"))
+    ("packed bytes (packets, nbits)", "encdevice", "pack_packets"))
 
 
 def _host(x):
@@ -2403,7 +2591,8 @@ def _localize(dev_card, dev_cpu, chunk_card, chunk_cpu, f, F):
         if in_packet and first is None:
             first = label
             if same_in and label.startswith(("floor post coding",
-                                             "residue path")):
+                                             "residue path",
+                                             "packed bytes")):
                 raise RuntimeError(f"5: the {label.split(' (')[0]} differs "
                                    f"card against CPU on equal inputs")
     print(f"[card-vs-cpu] packet {f}: the first stage that differs in its "
@@ -2419,20 +2608,25 @@ def _split(fe, W, step, args, smi):
     events (ms a call, the host's issue included), the whole step
     likewise, with the kernels, with the floor's plain trio in the
     floor-encode kernel's place, with the residue path's plain trio in
-    the residue kernel's place, and with the plain tone mask in the
-    tone-mask kernel's place.  Returns ({stage: (kernels, device ms,
-    ms)}, the recorded floor_encode call's (cfg, posts, used), the
-    recorded tone-mask call's (DeviceToneMask, logfft, global, local)
-    and the recorded residue_encode call's (cfg, res, used))."""
+    the residue kernel's place, with the plain tone mask in the
+    tone-mask kernel's place, and with the plain prepare and the
+    packer's plain duo (merge_columns and pack_bits) in those kernels'
+    places.  Returns ({stage: (kernels, device ms, ms)}, {stage: its
+    recorded call's arguments}: the floor_encode call's (cfg, posts,
+    used), the tone mask's (DeviceToneMask, logfft, global, local), the
+    residue_encode call's (cfg, res, used), the packer's (tabs, vals,
+    lens, wb) and the prepare's (fit, logmdct, logmask))."""
     import torch
-    from vorbis_tpu_torch.ops import encdevice, psydevice
+    from vorbis_tpu_torch.ops import encdevice, floor_cuda, psydevice
     from vorbis_tpu_torch.ops.floor_encode_cuda import floor_encode_plain
+    from vorbis_tpu_torch.ops.pack_cuda import pack_packets_plain
     from vorbis_tpu_torch.ops.residue_encode_cuda import (
         residue_encode_plain)
     from vorbis_tpu_torch.ops.tone_mask_cuda import tone_mask_plain
     ctx = fe.ctx(W)
     owners = dict(psydevice=psydevice, encdevice=encdevice, ctx=ctx,
-                  analysis=ctx.analysis, dev=fe._dev_for(W))
+                  analysis=ctx.analysis, dev=fe._dev_for(W),
+                  floor_cuda=floor_cuda, floor=ctx.floor)
     calls = []
     restore = _patched([(lb, owners[o], a) for lb, o, a in SPLIT_STAGES],
                        calls)
@@ -2451,48 +2645,58 @@ def _split(fe, W, step, args, smi):
              _cuda_ms(lambda: step(*args), 3))
     rows["other"] = tuple(w - sum(r[i] for r in rows.values())
                           for i, w in enumerate(whole))
-    fcall = next(a for lb, _, a, _ in calls if lb == "floor encode")
-    rcall = next(a for lb, _, a, _ in calls if lb == "residue encode")
-    # each kernel's plain trio alone, and the step with it in the
-    # kernel's place
-    for label, attr, plain, call in (
-            ("floor", "floor_encode", floor_encode_plain, fcall),
-            ("residue", "residue_encode", residue_encode_plain, rcall)):
-        rows[f"{label} encode, plain trio"] = (
-            *_device_profile(lambda: plain(*call)),
-            _cuda_ms(lambda: plain(*call), 3))
-        kernel = getattr(encdevice, attr)
-        setattr(encdevice, attr, plain)
-        try:
-            rows[f"step, plain {label} trio"] = (
-                *_device_profile(lambda: step(*args)),
-                _cuda_ms(lambda: step(*args), 3))
-        finally:
-            setattr(encdevice, attr, kernel)
-    # the tone mask: its plain version alone, and the step with it in the
-    # kernel's place
+    rec = {}
+    for label, _, a, _ in calls:
+        rec.setdefault(label, a)
     tm, targs = next((f, a) for lb, f, a, _ in calls if lb == "tone mask")
-    rows["tone mask, plain"] = (
-        *_device_profile(lambda: tone_mask_plain(tm, *targs)),
-        _cuda_ms(lambda: tone_mask_plain(tm, *targs), 3))
-    ctx.analysis.tonemask = lambda *a: tone_mask_plain(tm, *a)
-    try:
-        rows["step, plain tone mask"] = (
-            *_device_profile(lambda: step(*args)),
-            _cuda_ms(lambda: step(*args), 3))
-    finally:
-        ctx.analysis.tonemask = tm
+    rec["tone mask"] = (tm, *targs)
+
+    def plain_step(swaps):
+        """The step's (kernels, device ms, ms) with each (owner,
+        attribute) of `swaps` set to its plain version."""
+        undo = [(o, at, getattr(o, at)) for (o, at) in swaps]
+        for (o, at), fn in swaps.items():
+            setattr(o, at, fn)
+        try:
+            return (*_device_profile(lambda: step(*args)),
+                    _cuda_ms(lambda: step(*args), 3))
+        finally:
+            for o, at, fn in undo:
+                setattr(o, at, fn)
+
+    # each kernel's plain version alone, and the step with it in the
+    # kernel's place
+    for label, plain, call, what, swaps in (
+            ("floor encode, plain trio", floor_encode_plain,
+             rec["floor encode"], "floor trio",
+             {(encdevice, "floor_encode"): floor_encode_plain}),
+            ("residue encode, plain trio", residue_encode_plain,
+             rec["residue encode"], "residue trio",
+             {(encdevice, "residue_encode"): residue_encode_plain}),
+            ("tone mask, plain", tone_mask_plain, rec["tone mask"],
+             "tone mask", {(ctx.analysis, "tonemask"):
+                           lambda *a: tone_mask_plain(tm, *a)}),
+            ("floor prepare, plain", floor_cuda.floor_prepare_plain,
+             rec["floor prepare"], None, None),
+            ("pack, plain duo (merge + pack)", pack_packets_plain,
+             rec["pack"], "prepare and packer",
+             {(encdevice, "pack_packets"): pack_packets_plain,
+              (floor_cuda, "floor_prepare"):
+              floor_cuda.floor_prepare_plain})):
+        rows[label] = (*_device_profile(lambda: plain(*call)),
+                       _cuda_ms(lambda: plain(*call), 3))
+        if swaps:
+            rows[f"step, plain {what}"] = plain_step(swaps)
     rows["step"] = whole
-    B = fcall[1].shape[0]
-    for label, what in (("floor encode", "floor_encode"),
-                        ("tone mask", "tone_mask"),
-                        ("residue encode", "residue_encode")):
+    B = rec["floor encode"][1].shape[0]
+    for label in ("floor encode", "tone mask", "residue encode",
+                  "floor prepare", "floor fit", "pack"):
         if rows[label][0] > 1:
-            raise RuntimeError(f"3j W={W}: one {what} call ran "
+            raise RuntimeError(f"3j W={W}: one {label} call ran "
                                f"{rows[label][0]} device kernels")
         if rows[label][0] != 1:
             print(f"[split] W={W}: the profiler saw {rows[label][0]} "
-                  f"device kernels of one {what} launch: the counts "
+                  f"device kernels of one {label} launch: the counts "
                   f"below miss some")
     for label, (k, dms, ms) in rows.items():
         print(f"[split] W={W} {B} rows: {label}: {k} device kernels, "
@@ -2500,14 +2704,11 @@ def _split(fe, W, step, args, smi):
     print(f"[split] W={W}: the step with the kernels {whole[0]} device "
           f"kernels ({whole[1]:.4f} ms on the device, {whole[2]:.4f} ms a "
           f"call); " + "; ".join(
-              f"with the plain {what} {rows[key][0]} ({rows[key][1]:.4f} "
-              f"ms, {rows[key][2]:.4f} ms)" for what, key in (
-                  ("floor trio", "step, plain floor trio"),
-                  ("residue trio", "step, plain residue trio"),
-                  ("tone mask", "step, plain tone mask")))
-          + f" ({smi})")
+              f"with the plain {key[len('step, plain '):]} {r[0]} "
+              f"({r[1]:.4f} ms, {r[2]:.4f} ms)" for key, r in rows.items()
+              if key.startswith("step, plain")) + f" ({smi})")
     rows["graph"] = _step_graphs(W, step, args, smi)
-    return rows, fcall, (tm, *targs), rcall
+    return rows, rec
 
 
 def _step_graph(step, args):
@@ -2533,19 +2734,28 @@ def _step_graph(step, args):
 
 def _step_graphs(W, step, args, smi):
     """ROADMAP 2.16: the recorded finish step in one CUDA graph, with the
-    residue kernel and with the residue path's plain trio in its place:
+    kernels, with the residue path's plain trio in the residue kernel's
+    place and with the plain prepare and packer in those kernels' places:
     the replay's packets and bit counts bitwise against the eager step's,
     and the eager step's and the replay's ms a call in turns (median of
     three rounds each).  A step that cannot be captured raises."""
     import torch
-    from vorbis_tpu_torch.ops import encdevice
+    from vorbis_tpu_torch.ops import encdevice, floor_cuda
+    from vorbis_tpu_torch.ops.pack_cuda import pack_packets_plain
     from vorbis_tpu_torch.ops.residue_encode_cuda import (
         residue_encode_plain)
     out = {}
-    kernel = encdevice.residue_encode
-    for label, fn in (("kernel", kernel), ("plain residue trio",
-                                            residue_encode_plain)):
-        encdevice.residue_encode = fn
+    for label, swaps in (
+            ("kernels", {}),
+            ("plain residue trio", {(encdevice, "residue_encode"):
+                                    residue_encode_plain}),
+            ("plain prepare and packer",
+             {(encdevice, "pack_packets"): pack_packets_plain,
+              (floor_cuda, "floor_prepare"):
+              floor_cuda.floor_prepare_plain})):
+        undo = [(o, at, getattr(o, at)) for (o, at) in swaps]
+        for (o, at), fn in swaps.items():
+            setattr(o, at, fn)
         try:
             graph, got, want, static = _step_graph(step, args)
             same = all(torch.equal(a, b) for a, b in zip(got, want))
@@ -2559,7 +2769,8 @@ def _step_graphs(W, step, args, smi):
                            _cuda_ms(graph.replay, 10)]
                 eager.append(_cuda_ms(lambda: step(*static), 3))
         finally:
-            encdevice.residue_encode = kernel
+            for o, at, fn in undo:
+                setattr(o, at, fn)
         e, r = _med(eager)[0], _med(replay)[0]
         print(f"[graph] W={W}, the step with the {label}: eager {e:.4f} ms "
               f"a call, one CUDA graph {r:.4f} ms a replay (medians of "
@@ -2589,13 +2800,15 @@ def _phase_floor_encode(fsw, fm, f51, smi, baseline=None, report=""):
     Returns the kernel's record for the JSON line, the tone-mask calls
     recorded on the way for phase 3k: [(label, DeviceToneMask, logfft,
     global, local)] of the two 4d batches and each look's first call in
-    the managed, 5.1, 16 and 32 kHz runs, and the residue calls for phase
+    the managed, 5.1, 16 and 32 kHz runs, the residue calls for phase
     3l: [(label, cfg, res, used)] of the two 4d batches and each residue
-    config's first call in the same runs."""
+    config's first call in the same runs, the packer's calls for phase
+    3m: [(label, tabs, vals, lens, wb)] and the prepare's for phase 3n:
+    [(label, fit, logmdct, logmask)], each plan's or look's first."""
     import numpy as np
     import torch
     from vorbis_tpu_torch.models.fastenc import FastEncoder
-    from vorbis_tpu_torch.ops import encdevice, torchdsp
+    from vorbis_tpu_torch.ops import encdevice, floor_cuda, torchdsp
     from vorbis_tpu_torch.ops.floor_encode_cuda import (floor_encode,
                                                         floor_encode_plain)
     synthetic = _test_module("floor_encode_cases").synthetic
@@ -2619,12 +2832,15 @@ def _phase_floor_encode(fsw, fm, f51, smi, baseline=None, report=""):
     finally:
         del fsw._finish_step
     split, cases, tone_cases, res_cases = {}, [], [], []
+    pack_cases, prep_cases = [], []
     for W, label in ((1, "4d long batch"), (0, "4d short batch")):
         step, a = steps[W]
-        split[label], call, tcall, rcall = _split(fsw, W, step, a, smi)
-        cases.append((label, *call))
-        tone_cases.append((label, *tcall))
-        res_cases.append((label, *rcall))
+        split[label], got = _split(fsw, W, step, a, smi)
+        cases.append((label, *got["floor encode"]))
+        tone_cases.append((label, *got["tone mask"]))
+        res_cases.append((label, *got["residue encode"]))
+        pack_cases.append((label, *got["pack"]))
+        prep_cases.append((label, *got["floor prepare"]))
     cfg, posts, used = cases[0][1:]
     if posts.shape[0] != 4096 or cases[1][2].shape[0] != 512:
         raise RuntimeError(f"4d batches of {posts.shape[0]} and "
@@ -2642,23 +2858,31 @@ def _phase_floor_encode(fsw, fm, f51, smi, baseline=None, report=""):
                 _gate_signal("mix", 16000, 1.0, 2))),
             ("32 kHz", lambda: FastEncoder(2, 32000, 0.5).encode(
                 _gate_signal("mix", 32000, 1.0, 2)))):
-        tcalls, rcalls = [], []
+        tcalls = []
         restore = _patched([("tone mask", torchdsp.DeviceToneMask,
                              "__call__"),
-                            ("residue encode", encdevice, "residue_encode")],
+                            ("residue encode", encdevice, "residue_encode"),
+                            ("pack", encdevice, "pack_packets"),
+                            ("floor prepare", floor_cuda, "floor_prepare")],
                            tcalls)
         try:
             recorded = _record_floor_encode(run)
         finally:
             restore()
-        first, rfirst = {}, {}
+        first = {k: {} for k in ("tone mask", "residue encode", "pack",
+                                 "floor prepare")}
         for lb, _, (obj, *targs), _ in tcalls:
-            (first if lb == "tone mask" else rfirst).setdefault(
-                id(obj), (obj, *targs))
+            # a look's, a config's or a plan's first call
+            first[lb].setdefault(id(obj), (obj, *targs))
         tone_cases += [(f"{label} n={v[0].look.n}", *v)
-                       for v in first.values()]
+                       for v in first["tone mask"].values()]
+        rfirst = first["residue encode"]
         res_cases += [(f"{label} {_res_name(v[0])}", *v)
                       for v in rfirst.values()]
+        pack_cases += [(f"{label} C={v[0].n_cols}", *v)
+                       for v in first["pack"].values()]
+        prep_cases += [(f"{label} P={v[0].posts} n={v[0].n}", *v)
+                       for v in first["floor prepare"].values()]
         if label == "5.1" and sorted(c.P for c, _, _ in recorded) \
                 != [2, 2, 13, 29]:
             raise RuntimeError(f"5.1 floor configs "
@@ -2747,7 +2971,8 @@ def _phase_floor_encode(fsw, fm, f51, smi, baseline=None, report=""):
     return dict({k: main[k] for k in ("ms", "plain_ms", "bound_ms",
                                       "bound_by")},
                 max_abs_err=err, library_ms=None, at_long=main,
-                at_short=rec["4d short batch"]), tone_cases, res_cases
+                at_short=rec["4d short batch"]), tone_cases, res_cases, \
+        pack_cases, prep_cases
 
 
 # The tone mask's own arithmetic, whatever a kernel's schedule: float32
@@ -3066,6 +3291,199 @@ def _phase_residue_encode(cases, smi, report=""):
                          bound_ms=bound_ms, bound_by=by, bytes=nb,
                          share=bound_ms / ms, shared_bytes=smem,
                          blocks_per_sm=blocks)
+    main = rec["4d long batch"]
+    return dict({k: main[k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "share")},
+                max_abs_err=err, library_ms=None, at_long=main,
+                at_short=rec["4d short batch"])
+
+
+# The packer's own arithmetic, whatever a kernel's schedule: int32
+# operations a column (the zero-length test, the shift, the OR, the
+# length's add) and a group (its width mask, its offset's add, the
+# field's shift and split, two ORs, the byte's share of the store)
+OPS_PACK_COL, OPS_PACK_GROUP = 4, 8
+
+
+def _pack_bound(tabs, vals, lens, wb):
+    """(bound ms, bound_by, bytes, int32 ops) of one pack_packets call:
+    the columns read once (int64 values, int32 lengths), the packets and
+    bit counts written once, the plan read once."""
+    F = vals.shape[0]
+    nbytes = vals.numel() * 8 + lens.numel() * 4 + F * (wb + 4) \
+        + tabs.groups.numel() * 4
+    ops = F * (tabs.n_cols * OPS_PACK_COL + tabs.n_groups * OPS_PACK_GROUP)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", nbytes, ops)
+
+
+def _build_lines(report):
+    return [ln.strip() for ln in report.splitlines()
+            if "registers" in ln or "stack" in ln]
+
+
+def _phase_pack(cases, smi, report=""):
+    """Phase 3m: the packer (csrc/pack_bits.cu: the plan's column merge
+    and the LSB-first packing in one launch) against its plain version
+    (merge_columns and pack_bits), packets and bit counts bitwise, on the
+    calls 3j recorded (`cases`: 4d's long and short finish batch, the
+    managed encoder's 15-blob rows, the 5.1 encoder, the 16 and 32 kHz
+    configs) at their budget and at the plan's worst_bytes, and on
+    _pack_rows' seeded and stress rows at each of those plans; the
+    build's registers (`report`), shared memory a block and blocks an SM;
+    its time at the two 4d batches (CUDA graphs, median and spread of
+    six), its bound and share, the plain duo's time and device kernels
+    (no library call computes it).  Returns the kernel's record for the
+    JSON line."""
+    import ctypes
+    import torch
+    from vorbis_tpu_torch.ops.pack_cuda import (load_library, pack_packets,
+                                                pack_packets_plain)
+    err, plans = 0.0, {}
+    for name, tabs, vals, lens, wb in cases:
+        for w in sorted({wb, tabs.plan.worst_bytes}):
+            err = max(err, _pack_check(f"{name}, recorded", tabs, vals,
+                                       lens, w))
+        plans.setdefault(id(tabs), (name, tabs))
+    for k, (name, tabs) in enumerate(plans.values()):
+        v, l = (torch.from_numpy(a).cuda() for a in
+                _pack_rows(tabs.plan.gidx, tabs.n_cols, 700 + k))
+        for w in (tabs.plan.wb, tabs.plan.worst_bytes):
+            err = max(err, _pack_check(f"{name}, seeded and stress rows",
+                                       tabs, v, l, w))
+    per_sm = load_library().vtt_pack_packets_blocks_per_sm
+    build = _build_lines(report)
+    rec = {}
+    for name, tabs, vals, lens, wb in cases[:2]:
+        smem = ctypes.c_int(0)
+        blocks = per_sm(wb, ctypes.byref(smem))
+        F = vals.shape[0]
+        print(f"[pack] {name}: build {build or 'cached'}; {smem.value} "
+              f"bytes of shared memory a block (256 threads, {F} blocks), "
+              f"{blocks} blocks an SM")
+        ts, _ = _turns(lambda: pack_packets(tabs, vals, lens, wb), None)
+        ms, lo, hi = _med(ts)
+        plain_k, plain_dev = _device_profile(
+            lambda: pack_packets_plain(tabs, vals, lens, wb))
+        plain_ms = _cuda_ms(lambda: pack_packets_plain(tabs, vals, lens,
+                                                       wb), 3)
+        bound_ms, by, nb, ops = _pack_bound(tabs, vals, lens, wb)
+        print(f"[pack] {name} F={F} C={tabs.n_cols} C1={tabs.n_groups} "
+              f"wb={wb}: kernel {ms:.5f} ms (CUDA graphs; median of "
+              f"{len(ts)}, {lo:.5f}-{hi:.5f}); bound {bound_ms * 1e3:.3f} us "
+              f"by {by} ({nb} bytes, {ops} int32 operations), share "
+              f"{100 * bound_ms / ms:.1f}%; plain duo (merge + pack) "
+              f"{plain_ms:.4f} ms a call, {plain_k} device kernels "
+              f"({plain_dev:.4f} ms on the device); library call: none "
+              f"({smi})")
+        rec[name] = dict(packets=F, cols=tabs.n_cols, groups=tabs.n_groups,
+                         wb=wb, ms=ms, rounds_ms=ts, plain_ms=plain_ms,
+                         plain_kernels=plain_k, plain_device_ms=plain_dev,
+                         bound_ms=bound_ms, bound_by=by, bytes=nb,
+                         share=bound_ms / ms, shared_bytes=smem.value,
+                         blocks_per_sm=blocks)
+    main = rec["4d long batch"]
+    return dict({k: main[k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "share")},
+                max_abs_err=err, library_ms=None, at_long=main,
+                at_short=rec["4d short batch"])
+
+
+# The prepare's own arithmetic: a bin's fma, add and compare (float32)
+# and its cast and two clamps (int32); a used bin of a segment's window,
+# counted on this run's quant once a window that holds it: its six
+# features' three products and six adds (int32, though the kernel adds
+# in int64); a segment's twelve conversions, its weight's four and the
+# weighted moments' twelve float32 operations and the prefix's six adds
+F32_PREP_BIN, OPS_PREP_BIN, OPS_PREP_USED, F32_PREP_SEG = 3, 3, 9, 34
+
+
+def _prep_bound(fit, logmdct, quant):
+    """(bound ms, bound_by, bytes, int32 ops, float32 ops) of one
+    floor_prepare call: logmdct and logmask read once, quant, above, the
+    prefix and used written once, the segment table read once; the
+    operations as counted above, the windows' on this run's used bins."""
+    import numpy as np
+    import torch
+    B, n = logmdct.shape
+    P = fit.posts
+    nbytes = B * n * (4 + 4 + 4 + 1) + B * P * 6 * 4 + B \
+        + fit.seg_t.numel() * 4
+    cover = np.zeros(n, np.float32)              # windows holding a bin
+    for lo, hi in zip(fit.seg_lo, fit.seg_hi):
+        cover[lo:hi] += 1
+    used = float(((quant != 0).float()
+                  @ torch.from_numpy(cover).to(quant.device)).sum())
+    int_ops = B * n * OPS_PREP_BIN + used * OPS_PREP_USED
+    f32_ops = B * n * F32_PREP_BIN + B * (P - 1) * F32_PREP_SEG
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(int_ops / INT32_OPS_PER_S, f32_ops / F32_OPS_PER_S) * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", nbytes, int(int_ops), int(f32_ops))
+
+
+def _phase_floor_prepare(cases, smi, report=""):
+    """Phase 3n: the floor fit's prepare (csrc/floor_prepare.cu: the
+    mask's dB quantization, the above classes, the segments' moments and
+    their weighted prefix in one launch) against its plain version
+    (DeviceFloorFit.prepare, its prefix summed in the CPU's order:
+    _prep_want), bitwise, on the calls 3j recorded (`cases`: 4d's long
+    and short batch, the managed encoder's stacked rows, the 5.1
+    encoder's three looks, the 16 and 32 kHz looks) and on _prepare_rows'
+    seeded and edge rows at each of those looks and at a synthetic look of
+    two posts over n = 1,024; the build's registers (`report`), shared
+    memory a block and blocks an SM; its time at the two 4d batches (CUDA
+    graphs, median and spread of six), its bound and share, the plain
+    version's time and device kernels (no library call computes it).
+    Returns the kernel's record for the JSON line."""
+    import ctypes
+    import torch
+    from vorbis_tpu_torch.ops.floor_cuda import (DeviceFloorFitCuda,
+                                                 floor_prepare,
+                                                 floor_prepare_plain,
+                                                 load_prepare_library)
+    err, fits = 0.0, {}
+    for name, fit, lm, mk in cases:
+        err = max(err, _prep_check(f"{name}, recorded", fit, lm, mk))
+        fits.setdefault(id(fit), (name, fit))
+    two = DeviceFloorFitCuda(_synthetic_look(cases[0][1].look, 2, 4), "cuda")
+    for k, (name, fit) in enumerate(list(fits.values())
+                                    + [("synthetic P=2 n=1024", two)]):
+        lm, mk = (torch.from_numpy(a).cuda() for a in
+                  _prepare_rows(fit.n, 24, 800 + k))
+        err = max(err, _prep_check(f"{name}, seeded and edge rows", fit,
+                                   lm, mk))
+    per_sm = load_prepare_library().vtt_floor_prepare_blocks_per_sm
+    build = _build_lines(report)
+    rec = {}
+    for name, fit, lm, mk in cases[:2]:
+        smem = ctypes.c_int(0)
+        blocks = per_sm(fit.n, fit.posts, ctypes.byref(smem))
+        B = lm.shape[0]
+        print(f"[floor prepare] {name}: build {build or 'cached'}; "
+              f"{smem.value} bytes of shared memory a block (256 threads, "
+              f"{B} blocks), {blocks} blocks an SM")
+        ts, _ = _turns(lambda: floor_prepare(fit, lm, mk), None)
+        ms, lo, hi = _med(ts)
+        plain_k, plain_dev = _device_profile(
+            lambda: floor_prepare_plain(fit, lm, mk))
+        plain_ms = _cuda_ms(lambda: floor_prepare_plain(fit, lm, mk), 3)
+        quant = floor_prepare(fit, lm, mk)[0]
+        bound_ms, by, nb, io, fo = _prep_bound(fit, lm, quant)
+        print(f"[floor prepare] {name} B={B} n={fit.n} P={fit.posts}: "
+              f"kernel {ms:.5f} ms (CUDA graphs; median of {len(ts)}, "
+              f"{lo:.5f}-{hi:.5f}); bound {bound_ms * 1e3:.3f} us by {by} "
+              f"({nb} bytes, {io} int32 + {fo} float32 operations), share "
+              f"{100 * bound_ms / ms:.1f}%; plain version {plain_ms:.4f} ms "
+              f"a call, {plain_k} device kernels ({plain_dev:.4f} ms on the "
+              f"device); library call: none ({smi})")
+        rec[name] = dict(rows=B, n=fit.n, P=fit.posts, ms=ms, rounds_ms=ts,
+                         plain_ms=plain_ms, plain_kernels=plain_k,
+                         plain_device_ms=plain_dev, bound_ms=bound_ms,
+                         bound_by=by, bytes=nb, share=bound_ms / ms,
+                         shared_bytes=smem.value, blocks_per_sm=blocks)
     main = rec["4d long batch"]
     return dict({k: main[k] for k in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "share")},
@@ -4574,9 +4992,11 @@ def main():
     from vorbis_tpu_torch.ops import (bark_cuda, floor_cuda,
                                       floor_encode_cuda, imdct_cuda,
                                       lap_cuda, m3_cuda, mdct_cuda,
-                                      residue_encode_cuda, tone_mask_cuda)
+                                      pack_cuda, residue_encode_cuda,
+                                      tone_mask_cuda)
     t0 = time.perf_counter()
     jobs = {"floor_fit.cu": floor_cuda.build,
+            "floor_prepare.cu": floor_cuda.build_prepare,
             "floor_encode.cu": floor_encode_cuda.build,
             "m3_scan.cu": m3_cuda.build,
             "imdct.cu": imdct_cuda.build,
@@ -4585,6 +5005,7 @@ def main():
             "bark_fit.cu": bark_cuda.build,
             "tone_mask.cu": tone_mask_cuda.build,
             "residue_encode.cu": residue_encode_cuda.build,
+            "pack_bits.cu": pack_cuda.build,
             "host_ogg.c": native.build_host,
             "host_decode.c": native.build_decode,
             "host_pack.c": native.build_pack}
@@ -4592,6 +5013,7 @@ def main():
         futs = {k: ex.submit(f) for k, f in jobs.items()}
         built = {k: f.result() for k, f in futs.items()}
     floor_cuda.load_library()
+    floor_cuda.load_prepare_library()
     floor_encode_cuda.load_library()
     m3_cuda.load_library()
     imdct_cuda.load_library()
@@ -4600,6 +5022,7 @@ def main():
     bark_cuda.load_library()
     tone_mask_cuda.load_library()
     residue_encode_cuda.load_library()
+    pack_cuda.load_library()
     native.host_library()
     native.decode_library()
     native.pack_library()
@@ -4707,11 +5130,11 @@ def main():
     # split counts each stage's device kernels with torch.profiler, which
     # after phases 3b-3i saw three device events fewer a profiled call,
     # the floor-encode kernel among them
-    fenc_rec, tone_cases, res_cases = _phase_floor_encode(
-        fsw, fm, f51, smi,
-        _FencBaseline(args.floor_encode_baseline)
-        if args.floor_encode_baseline else None,
-        built["floor_encode.cu"][1])
+    fenc_rec, tone_cases, res_cases, pack_cases, prep_cases = \
+        _phase_floor_encode(fsw, fm, f51, smi,
+                            _FencBaseline(args.floor_encode_baseline)
+                            if args.floor_encode_baseline else None,
+                            built["floor_encode.cu"][1])
     _lap(t_start, "3j")
 
     # 3k. the tone mask on 3j's recorded calls, its times and bound
@@ -4727,6 +5150,17 @@ def main():
                                     built["residue_encode.cu"][1])
     del res_cases
     _lap(t_start, "3l")
+
+    # 3m. the packer on 3j's recorded calls, its times and bound
+    pack_rec = _phase_pack(pack_cases, smi, built["pack_bits.cu"][1])
+    del pack_cases
+    _lap(t_start, "3m")
+
+    # 3n. the floor fit's prepare on 3j's recorded calls
+    prep_rec = _phase_floor_prepare(prep_cases, smi,
+                                    built["floor_prepare.cu"][1])
+    del prep_cases
+    _lap(t_start, "3n")
 
     # 3b. the M3 scan kernel vs its plain version, times and bounds
     m3_rec = _phase_m3(fsw, smi, args.m3_baseline)
@@ -5142,6 +5576,16 @@ def main():
     resl = {k: v[4] for k, v in PATH_LAUNCHES.items()}
     print(f"[residue encode] launches by phase {resl}, each equal to the "
           f"phase's finish calls x residue submaps")
+    # the packer: one launch a finish call, held phase by phase in
+    # _path_add; the prepare: one launch a floor fit launch
+    packl = {k: v[5] for k, v in PATH_LAUNCHES.items()}
+    print(f"[pack] launches by phase {packl}, each equal to the phase's "
+          f"finish calls")
+    prepl = {k: v[6] for k, v in PATH_LAUNCHES.items()}
+    print(f"[floor prepare] launches by phase {prepl}, floor fit's {fits}")
+    if prepl != fits:
+        raise RuntimeError("floor_prepare did not launch once a floor fit "
+                           "launch")
     print(f"[time] {time.perf_counter() - t_start:.1f} s of command time")
     print(json.dumps({"kernels": [{
         "name": "floor1_greedy_fit", "route": "cuda",
@@ -5200,7 +5644,17 @@ def main():
         "source": "vorbis_tpu_torch/csrc/residue_encode.cu",
         "replaces": "vorbis_tpu/ops/encdevice.py:767-1000 (_classify, "
                     "_vq_stages, _residue_fields, _classify2; jitted XLA)",
-        "launches": sum(resl.values()), "by_phase": resl, **res_rec}]}))
+        "launches": sum(resl.values()), "by_phase": resl, **res_rec}, {
+        "name": "pack_packets", "route": "cuda",
+        "source": "vorbis_tpu_torch/csrc/pack_bits.cu",
+        "replaces": "vorbis_tpu/ops/encdevice.py:241-360 (merge_columns, "
+                    "_merge_limb_pairs, pack_bits_device; jitted XLA)",
+        "launches": sum(packl.values()), "by_phase": packl, **pack_rec}, {
+        "name": "floor_prepare", "route": "cuda",
+        "source": "vorbis_tpu_torch/csrc/floor_prepare.cu",
+        "replaces": "vorbis_tpu/ops/floor_device.py:114-145 and 199-208 "
+                    "(the quantization and _moments of the jitted fit)",
+        "launches": sum(prepl.values()), "by_phase": prepl, **prep_rec}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

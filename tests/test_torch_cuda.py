@@ -1,8 +1,10 @@
 """Tests that need the card: the port's CUDA kernels (csrc/floor_fit.cu,
-csrc/floor_encode.cu, csrc/m3_scan.cu, csrc/imdct.cu, csrc/lap.cu,
-csrc/mdct_fwd.cu, csrc/bark_fit.cu, csrc/tone_mask.cu,
-csrc/residue_encode.cu) against their plain PyTorch versions (the floor
-fit's prefix sums against the CPU's, the tone mask at every encoder
+csrc/floor_prepare.cu, csrc/floor_encode.cu, csrc/m3_scan.cu,
+csrc/imdct.cu, csrc/lap.cu, csrc/mdct_fwd.cu, csrc/bark_fit.cu,
+csrc/tone_mask.cu, csrc/residue_encode.cu, csrc/pack_bits.cu) against
+their plain PyTorch versions (the floor fit's prefix sums against the
+CPU's, the prepare at every floor look, the packer at every plan, the
+tone mask at every encoder
 look, the residue path at every residue config, the floor fit on
 the 5.1 looks too, M3 on six channels, the IMDCT at every blocksize and
 the lap at every blocksize and on -0.0 and subnormal products, both
@@ -266,19 +268,25 @@ def test_fit_prefix_sums_equal_the_cpu_on_cuda(cuda):
     """The floor fit's prefix moments (ops/floor_device.py _moments) sum
     in float64 and round once on the card as on the CPU: on the CPU's
     spectra and mask of chip_smoke.py phase 5's clip, moved to the card,
-    quant, above and the prefix equal the CPU's bitwise and so do all
+    quant, above and the prefix of the plain prepare and of the prepare
+    kernel (csrc/floor_prepare.cu) equal the CPU's bitwise and so do all
     5,104 fit posts; on random moments up to B = 20,000 rows (weighted
     fractions and squares up to 2^30) the card's float64 prefix equals
     the CPU's."""
+    from types import SimpleNamespace
     cases = _test_module("floor_encode_cases")
     kw = dict(switching=False, psy_state=False)
     fc, fg = TFE(2, 44100, 0.5, device="cpu", **kw), TFE(2, 44100, 0.5, **kw)
     lm, mk = cases.phase5_fit(fc, _signal(60, 44100, 0))
     qc, ac, pc, mc = cases.fit_moments(fc.dev.ctx.floor, lm, mk)
     fit = fg.dev.ctx.floor
-    qg, ag, pg, mg = cases.fit_moments(fit, lm.cuda(), mk.cuda())
+    qg, ag, pg, mg = cases.fit_moments(
+        SimpleNamespace(prepare=fit.prepare_plain), lm.cuda(), mk.cuda())
     assert torch.equal(qg.cpu(), qc) and torch.equal(ag.cpu(), ac)
     assert torch.equal(mg.cpu(), mc)
+    assert torch.equal(pg.cpu(), pc)
+    qg, ag, pg, _ = fit.prepare(lm.cuda(), mk.cuda())
+    assert torch.equal(qg.cpu(), qc) and torch.equal(ag.cpu(), ac)
     assert torch.equal(pg.cpu(), pc)
     assert not torch.equal(pc, cases.running_sum32(mc))
     posts_g, posts_c = fit.fit(qg, ag, pg).cpu(), fc.dev.ctx.floor.fit(
@@ -292,6 +300,89 @@ def test_fit_prefix_sums_equal_the_cpu_on_cuda(cuda):
         want = torch.cumsum(m, dim=-2)
         got = torch.cumsum(m.cuda().double(), dim=-2).float().cpu()
         assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+PREPARE_CONFIGS = ((2, 44100, 0.5), (6, 48000, 0.4), (2, 16000, 0.5),
+                   (1, 8000, 0.5), (2, 44100, -0.1))
+
+
+def test_floor_prepare_on_cuda(cuda):
+    """csrc/floor_prepare.cu against the plain prepare on the card,
+    bitwise, the prefix against the plain moments summed in the CPU's
+    order (chip_smoke.py `_prep_want`), at every look the encoders make
+    (PREPARE_CONFIGS' and the pipeline's 65 posts over 1,024 bins) on
+    chip_smoke.py's `_prepare_rows` (NaN and +-inf in the mask, nothing
+    above, nothing used), their first row and first three, and 4,096
+    rows; one launch a call.  The managed path's stacked prepare of three
+    masks is one launch that equals three."""
+    from chip_smoke import _prep_want, _prepare_rows
+    from vorbis_tpu_torch.models.pipeline import TorchCodecPipeline
+    from vorbis_tpu_torch.ops.floor_cuda import floor_prepare
+    looks = {}
+    for args in PREPARE_CONFIGS:
+        for lk in Encoder(encsetup.setup_vbr(*args)).floor_looks:
+            looks.setdefault((lk.posts, lk.n), lk)
+    pipe = TorchCodecPipeline(2, 44100, 0.5, device="cpu").floor_fit.look
+    looks[pipe.posts, pipe.n] = pipe
+    assert len(looks) == 9
+    for k, ((P, n), lk) in enumerate(sorted(looks.items())):
+        fit = make_floor_fit(lk, "cuda")
+        lm, mk = _prepare_rows(n, 24, 50 + k)
+        rows = [(lm, mk), (lm[:1], mk[:1]), (lm[:3], mk[:3]),
+                _prepare_rows(n, 4088, 70 + k)]
+        for a, b in rows:
+            a, b = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+            before = floor_prepare.launches
+            got = fit.prepare(a, b)
+            torch.cuda.synchronize()
+            assert floor_prepare.launches == before + 1
+            want, _ = _prep_want(fit, a, b)
+            assert got[2].shape == (len(a), P, 6)
+            for g, w in zip(got, want):
+                if g.is_floating_point():
+                    g, w = g.view(torch.int32), w.view(torch.int32)
+                assert torch.equal(g, w), (P, n, len(a))
+        if (P, n) == (29, 1024):
+            masks = [b, b - 6.0, b - 3.0]
+            before = floor_prepare.launches
+            ps, us = floor3(fit, a, masks)
+            assert floor_prepare.launches == before + 1
+            for m, p, u in zip(masks, ps, us):
+                wp, wu = fit(a, m)
+                assert torch.equal(p, wp) and torch.equal(u, wu)
+
+
+def test_pack_packets_on_cuda(cuda):
+    """csrc/pack_bits.cu against pack_packets_plain on the card, bitwise,
+    on every look's real plan (FastEncoder(2, 44100, 0.5), (6, 48000,
+    0.4), (2, 16000, 0.5) and (2, 32000, 0.5), long and short) at the
+    plan's budget and at worst_bytes, on chip_smoke.py's `_pack_rows`
+    (seeded rows, stale values in zero-length columns, values with bits
+    above their lengths, packets over the budget, zero rows), their first
+    row and first three, and 2,048 seeded rows; one launch a call."""
+    from chip_smoke import _pack_rows
+    from vorbis_tpu_torch.ops.pack_cuda import (pack_packets,
+                                                pack_packets_plain)
+    for args in ((2, 44100, 0.5), (6, 48000, 0.4), (2, 16000, 0.5),
+                 (2, 32000, 0.5)):
+        fe = TFE(*args)
+        for W in (1, 0):
+            dev = fe._dev_for(W)
+            plan, tabs = dev.plan, dev.pack_tabs
+            v, l = _pack_rows(plan.gidx, plan.n_cols, 40 + W)
+            rows = [(v, l), (v[:1], l[:1]), (v[:3], l[:3]),
+                    (np.tile(v[:4], (512, 1)), np.tile(l[:4], (512, 1)))]
+            for a, b in rows:
+                a, b = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+                for wb in (plan.wb, plan.worst_bytes):
+                    before = pack_packets.launches
+                    got = pack_packets(tabs, a, b, wb)
+                    torch.cuda.synchronize()
+                    assert pack_packets.launches == before + 1
+                    want = pack_packets_plain(tabs, a, b, wb)
+                    assert got[0].shape == (len(a), wb)
+                    for g, w in zip(got, want):
+                        assert torch.equal(g, w), (args, W, len(a), wb)
 
 
 def test_managed_finish15_on_cuda(cuda):

@@ -4,12 +4,13 @@ lib/mapping0.c mapping0_forward + lib/floor1.c floor1_encode +
 lib/res0.c _01forward + lib/codebook.c vorbis_book_encode + libogg
 oggpack_write):
 
-  framing -> window/MDCT/FFT -> psy mask -> floor1 fit (CUDA kernel)
-  -> post wrap coding, floor curve render and floor columns (one CUDA
+  framing -> window/MDCT/FFT -> psy mask -> floor1 fit (its prepare
+  and its greedy fit: two CUDA kernels, ops/floor_cuda.py) -> post
+  wrap coding, floor curve render and floor columns (one CUDA
   kernel, ops/floor_encode_cuda.py) -> stereo coupling -> residue
   classify, lattice VQ and residue columns (one CUDA kernel,
-  ops/residue_encode_cuda.py) -> bit-field merge -> LSB-first bit
-  packing
+  ops/residue_encode_cuda.py) -> bit-field merge and LSB-first bit
+  packing (one CUDA kernel, ops/pack_cuda.py `pack_packets`)
 
 The host receives only (packed packet bytes, bit counts).  The port
 covers the stateless step (`make_step`), the frame-gather step
@@ -28,9 +29,12 @@ Differences from the JAX module, all exact:
     every backend); values < 2^32 are exact;
   * the one-hot MXU table lookups (a TPU workaround for serial gathers)
     are plain gathers from the same tables;
-  * bit packing scatter-adds the byte planes of each (value << off&7)
-    onto the (F, wb) packet bytes.  Fields occupy disjoint bit ranges,
-    so integer addition equals bitwise OR and the bytes are exact.
+  * the packer's plain version (ops/pack_cuda.py `merge_columns`,
+    `pack_bits`) scatter-adds the byte planes of each (value << off&7)
+    onto the (F, wb) packet bytes, and its kernel (csrc/pack_bits.cu)
+    ORs each field into 32-bit words.  Fields occupy disjoint bit
+    ranges, so integer addition equals bitwise OR and the bytes are
+    exact.
 Host numpy (PackPlan, the _prepare_* table builders) is copied
 line-aligned with the JAX module.
 """
@@ -46,6 +50,8 @@ import torch
 from ..bitstream.bitpack import ilog
 from ..convert import device_tables
 from .floor_encode_cuda import FloorEncodeConfig, floor_encode, trio
+from .pack_cuda import (PackTables, merge_columns,  # noqa: F401
+                        pack_bits, pack_packets)
 from .residue_encode_cuda import ResidueEncodeConfig, residue_encode
 
 f32 = np.float32
@@ -90,49 +96,6 @@ class PackPlan:
         worst = (int(maxbits.sum()) + 7) // 8
         return PackPlan(gidx=gidx, n_cols=C,
                         wb=min(worst + 4, wb_cap), worst_bytes=worst + 4)
-
-
-def merge_columns(vals, lens, gidx):
-    """(F, C) columns -> (F, C1) merged columns per the static plan.
-    gidx: (C1, Gmax) long tensor, pads pointing at column C."""
-    F = vals.shape[0]
-    v = torch.cat([vals, vals.new_zeros((F, 1))], 1)
-    l = torch.cat([lens, lens.new_zeros((F, 1))], 1)
-    vg = v[:, gidx]                     # (F, C1, Gmax) static gather
-    lg = l[:, gidx]
-    # zero-length columns may carry stale values (masked lookups);
-    # they must contribute no bits to the OR-merge
-    vg = torch.where(lg > 0, vg, 0)
-    acc_v = vg[..., 0]
-    acc_l = lg[..., 0]
-    for k in range(1, gidx.shape[1]):
-        # plan guarantees acc_l <= 32 - maxbits_k < 32 whenever column
-        # k can be non-empty, so the shift stays in range
-        acc_v = acc_v | (vg[..., k] << torch.clamp_max(acc_l, 31))
-        acc_l = acc_l + lg[..., k]
-    # uint32 semantics: bits shifted past 32 are dropped
-    return acc_v & 0xFFFFFFFF, acc_l
-
-
-def pack_bits(vals, lens, wb):
-    """(F, C1) merged (value, nbits) columns -> (F, wb) packed bytes
-    uint8 + (F,) total bit counts int32.  LSB-first like
-    oggpack_write; bytes past wb are dropped (the caller redoes an
-    oversized packet with the worst-case budget)."""
-    F, C1 = vals.shape
-    lens = lens.to(i64)
-    off = torch.cumsum(lens, dim=1) - lens
-    total = off[:, -1] + lens[:, -1]
-    width = torch.bitwise_left_shift(torch.ones_like(lens), lens) - 1
-    v = torch.where(lens > 0, vals & width, 0)
-    base = off >> 3
-    shifted = v << (off & 7)                     # <= 39 bits
-    out = torch.zeros((F, wb + 1), dtype=i32, device=vals.device)
-    for j in range(5):
-        # column wb collects every byte past the budget
-        idx = torch.clamp_max(base + j, wb)
-        out.scatter_add_(1, idx, ((shifted >> (8 * j)) & 0xFF).to(i32))
-    return out[:, :wb].to(torch.uint8), total.to(i32)
 
 
 # ---------------------------------------------------------------------------
@@ -488,6 +451,7 @@ class DeviceFastEncode:
                     np.float32(0.04)).astype(np.float32)
         vars(self).update({f"{k}_t": v for k, v in
                            device_tables(tabs, dev).items()})
+        self.pack_tabs = PackTables(self.plan, self.gidx_t)
 
     def _prepare_config_device(self, cfg):
         """One floor+residue config's tables (cfg: self or a submap's
@@ -1209,8 +1173,8 @@ class DeviceFastEncode:
                          + [rv for rv, _ in res_blocks], 1)
         lens = torch.cat([hdr_l] + fl_cols_l
                          + [rl for _, rl in res_blocks], 1)
-        mv, ml = merge_columns(vals, lens, self.gidx_t)
-        return pack_bits(mv, ml, wb)
+        # the column merge and the packing: one kernel launch
+        return pack_packets(self.pack_tabs, vals, lens, wb)
 
     def _header(self, F, wid, dev):
         """The packet header columns (F, 4): packet-type bit, mode, and
@@ -1339,8 +1303,8 @@ class DeviceFastEncode:
         fl = fl.reshape(F, -1)
         vals = torch.cat([hdr_v, fv, rv], 1)
         lens = torch.cat([hdr_l, fl, rl], 1)
-        mv, ml = merge_columns(vals, lens, self.gidx_t)
-        return pack_bits(mv, ml, wb)
+        # the column merge and the packing: one kernel launch
+        return pack_packets(self.pack_tabs, vals, lens, wb)
 
     def make_step(self, wb=None):
         """Returns a callable pcm_chunk (ch, F*hop + hop) on the device

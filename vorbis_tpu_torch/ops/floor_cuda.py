@@ -1,13 +1,23 @@
-"""Floor1 greedy fit as a hand-written Hopper kernel (counterpart of
-vorbis_tpu/ops/floor_pallas.py).
+"""The floor1 fit as two hand-written Hopper kernels: the greedy fit
+(counterpart of vorbis_tpu/ops/floor_pallas.py) and its prepare
+(counterpart of the jitted quantization and `_moments` around it,
+vorbis_tpu/ops/floor_device.py:114-145 and :199-208).
 
 `csrc/floor_fit.cu` runs the greedy loop + final walk of
-`DeviceFloorFit.fit` with one warp per frame, four frames a block; the
-moments (the bin -> segment matmul) and the render stay plain torch, as
-they stay XLA around the Pallas kernel.  The library is compiled by nvcc
-at first use into build/vorbis_tpu_torch/ (keyed by a hash of the source
-and flags, vorbis_tpu_torch.native) and bound with ctypes.  On a CUDA
-tensor the kernel is the only path: a failed build or launch raises.
+`DeviceFloorFit.fit` with one warp per frame, four frames a block.
+`csrc/floor_prepare.cu` runs `DeviceFloorFit.prepare` with one CTA a
+row: the mask's dB quantization and the above classes a thread a bin,
+each segment's moments a warp in exact int64 sums, the weighted prefix
+in float64 in segment order (the CPU's torch.cumsum order; the card's
+cumsum may add in another).  `DeviceFloorFitCuda` is a fit whose
+`prepare` and `fit` are the two kernels, so a fit from the spectra is
+two launches; `floor_prepare(fit, logmdct, logmask)` is the prepare's
+wrapper (`floor_prepare.launches` counts its launches) and
+`floor_prepare_plain` its plain version.  The render stays plain torch.
+Each library is compiled by nvcc at first use into build/vorbis_tpu_torch/
+(keyed by a hash of the source and flags, vorbis_tpu_torch.native) and
+bound with ctypes.  On a CUDA tensor the kernel is the only path: a
+failed build or launch raises.
 """
 
 from __future__ import annotations
@@ -23,9 +33,10 @@ import torch
 
 from ..convert import device_tables
 from ..native import PKG, build_library
-from .floor_device import DeviceFloorFit
+from .floor_device import QUANT_OFFSET, QUANT_SCALE, DeviceFloorFit
 
 SOURCE = PKG / "csrc" / "floor_fit.cu"
+PREPARE_SOURCE = PKG / "csrc" / "floor_prepare.cu"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
@@ -46,6 +57,12 @@ def build() -> tuple[Path, str]:
                          extra=("-Xptxas=-v",))
 
 
+def build_prepare() -> tuple[Path, str]:
+    """Compile the prepare kernel's library (build)."""
+    return build_library(PREPARE_SOURCE, nvcc, NVCC_FLAGS, "libfloorprepare",
+                         extra=("-Xptxas=-v",))
+
+
 @lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()[0]))
@@ -56,9 +73,83 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
+@lru_cache(maxsize=None)
+def load_prepare_library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build_prepare()[0]))
+    fn = lib.vtt_floor_prepare
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                   + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 5)
+    fn = lib.vtt_floor_prepare_blocks_per_sm
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    return lib
+
+
+def floor_prepare_plain(fit: DeviceFloorFit, logmdct: torch.Tensor,
+                        logmask: torch.Tensor):
+    """(quant, above, prefix, used) of fit's look on (B, n) spectra: the
+    plain version in PyTorch (DeviceFloorFit.prepare)."""
+    return DeviceFloorFit.prepare(fit, logmdct, logmask)
+
+
+class FloorPrepareKernel:
+    """`self(fit, logmdct, logmask)` -> (quant (B, n) int32, above (B, n)
+    bool, prefix (B, P, 6) float32, used (B,) bool), as
+    floor_prepare_plain: on CPU tensors the plain version; on CUDA
+    tensors one launch of csrc/floor_prepare.cu on the current stream,
+    or an exception.  `fit` is a DeviceFloorFitCuda (its segment table
+    `seg_t`).  `launches` counts the kernel's launches (and nothing
+    else)."""
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, fit, logmdct: torch.Tensor, logmask: torch.Tensor):
+        if logmdct.device.type == "cpu":
+            return floor_prepare_plain(fit, logmdct, logmask)
+        if logmdct.device.type != "cuda":
+            raise ValueError(f"floor prepare: unsupported device "
+                             f"{logmdct.device}")
+        dev = fit.seg_t.device
+        B = logmdct.shape[0] if logmdct.dim() == 2 else -1
+        n, P = fit.n, fit.posts
+        for name, t in (("logmdct", logmdct), ("logmask", logmask)):
+            if (t.device != dev or t.dtype != torch.float32
+                    or tuple(t.shape) != (B, n)):
+                raise ValueError(
+                    f"floor prepare: {name} must be float32 {(B, n)} on "
+                    f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+            if not t.is_contiguous():
+                raise ValueError(f"floor prepare: {name} is not contiguous")
+        quant = torch.empty((B, n), dtype=torch.int32, device=dev)
+        above = torch.empty((B, n), dtype=torch.bool, device=dev)
+        prefix = torch.empty((B, P, 6), dtype=torch.float32, device=dev)
+        used = torch.empty((B,), dtype=torch.bool, device=dev)
+        if B == 0:
+            return quant, above, prefix, used
+        rc = load_prepare_library().vtt_floor_prepare(
+            logmdct.data_ptr(), logmask.data_ptr(), fit.seg_t.data_ptr(), B,
+            n, P, float(QUANT_SCALE), float(QUANT_OFFSET),
+            float(fit.twofitatten), float(fit.tw), quant.data_ptr(),
+            above.data_ptr(), prefix.data_ptr(), used.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"floor_prepare kernel launch failed: "
+                               f"cudaError {rc}")
+        self.launches += 1
+        return quant, above, prefix, used
+
+
+floor_prepare = FloorPrepareKernel()
+
+
 class DeviceFloorFitCuda(DeviceFloorFit):
-    """DeviceFloorFit whose greedy fit + final walk is the CUDA kernel.
-    `launches` counts kernel launches (and nothing else)."""
+    """DeviceFloorFit whose prepare (csrc/floor_prepare.cu, through
+    `floor_prepare`) and greedy fit + final walk (csrc/floor_fit.cu) are
+    CUDA kernels.  `launches` counts the fit kernel's launches (and
+    nothing else); `floor_prepare.launches` the prepare's, of every
+    look."""
 
     def __init__(self, look, device):
         super().__init__(look, device)
@@ -77,11 +168,23 @@ class DeviceFloorFitCuda(DeviceFloorFit):
         tabs[3, :P - 2] = self.lo_static
         tabs[4, :P - 2] = self.hi_static
         self.kernel_tabs = device_tables({"tabs": tabs}, self.device)["tabs"]
+        # the prepare's segment windows: each segment's first bin, then
+        # its end
+        self.seg_t = device_tables({"seg": np.stack(
+            [self.seg_lo, self.seg_hi]).astype(np.int32)},
+            self.device)["seg"]
         self._consts = (float(self.maxover), float(self.maxunder),
                         float(self.maxerr),
                         float(self.maxover * self.maxover),
                         float(self.maxunder * self.maxunder))
         self.launches = 0
+
+    def prepare(self, logmdct, logmask):
+        return floor_prepare(self, logmdct, logmask)
+
+    def prepare_plain(self, logmdct, logmask):
+        """The plain PyTorch version on the same tensors (for checks)."""
+        return floor_prepare_plain(self, logmdct, logmask)
 
     def fit(self, quant, above, prefix):
         if quant.device.type == "cpu":

@@ -12,9 +12,14 @@ the posts equal the Pallas kernel's bit for bit given the same inputs
 
   prepare(logmdct, logmask) -> quant, above, prefix, used
       dB quantization, above/below classes, the per-segment moment
-      matmul (exact, in float64) and its prefix sum (outside the kernel
-      on both backends)
+      matmul (exact, in float64) and its prefix sum in float64; the
+      plain version of the prepare kernel (ops/floor_cuda.py
+      `floor_prepare`, csrc/floor_prepare.cu)
   fit(quant, above, prefix) -> posts (B, P) int32 with 0x8000 flags
+      the plain version of the fit kernel (csrc/floor_fit.cu)
+
+On the card both stages are kernels (`DeviceFloorFitCuda`), so a fit is
+two launches from the spectra.
 """
 
 from __future__ import annotations
@@ -28,6 +33,9 @@ from .xla_f32 import fma
 
 f32 = np.float32
 NEG = -200
+# the mask's dB quantization, quant = logmask * QUANT_SCALE + QUANT_OFFSET
+QUANT_SCALE = f32(7.3142857)
+QUANT_OFFSET = f32(1023.5)
 
 
 def _render_point(x0, x1, y0, y1, x):
@@ -136,8 +144,8 @@ class DeviceFloorFit:
         """(B, n) spectra -> (quant (B, n) int32, above (B, n) bool,
         prefix (B, P, 6) f32, used (B,) bool)."""
         # XLA:CPU fuses the JAX package's logmask * 7.31 + 1023.5
-        quant = torch.clamp(fma(logmask, float(f32(7.3142857)),
-                                float(f32(1023.5))).to(torch.int32),
+        quant = torch.clamp(fma(logmask, float(QUANT_SCALE),
+                                float(QUANT_OFFSET)).to(torch.int32),
                             0, 1023)
         above = (logmdct + float(self.twofitatten)) >= logmask
         prefix, an = self._moments(quant, above)

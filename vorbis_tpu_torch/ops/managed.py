@@ -17,9 +17,9 @@ the packet bytes cross to the host).
 
 Differences from the JAX module, all exact:
   * the three floor fits of a batch run as ONE fit of 3*F*ch rows (the
-    CUDA kernel csrc/floor_fit.cu on the card): each select's
-    quantization and moments are prepared on its own, then the rows are
-    stacked; rows are independent, so the posts equal three fits;
+    CUDA kernels csrc/floor_prepare.cu and csrc/floor_fit.cu on the
+    card, one launch each): the selects' rows are stacked before the
+    prepare; rows are independent, so the posts equal three fits;
   * the M3 scan of each select is the short ctx's m3_scan (the kernel
     csrc/m3_scan.cu on the card), three calls as JAX makes them.
 ReservoirChooser (the host floater) is a verbatim copy of the JAX
@@ -69,14 +69,14 @@ def _blob_ladder(ps, us):
 def floor3(floor, logmdct, masks):
     """The three offset_select fits of one batch as one fit of 3*R
     rows: masks [m0, m1, m2], each (R, n2).  Returns ([posts] * 3,
-    [used] * 3).  Each select is prepared on its own rows, exactly as
-    a single fit prepares it; the fit (one kernel launch on the card)
-    treats every row alone."""
+    [used] * 3).  The prepare and the fit (one kernel launch each on
+    the card) treat every row alone, so the stacked rows give what three
+    fits give."""
     R = logmdct.shape[0]
-    preps = [floor.prepare(logmdct, m) for m in masks]
-    posts = floor.fit(*(torch.cat([p[k] for p in preps])
-                        for k in range(3)))
-    return list(posts.split(R)), [p[3] for p in preps]
+    quant, above, prefix, used = floor.prepare(
+        torch.cat([logmdct] * 3), torch.cat(masks))
+    posts = floor.fit(quant, above, prefix)
+    return list(posts.split(R)), list(used.split(R))
 
 
 class DeviceManagedEncode:
