@@ -24,8 +24,9 @@ long look (29 over 2,048) and the pipeline's (65 over 1,024).
     and JAX's distance is printed.
   * A numpy replay of the kernel's schedule (quant by a single-rounding
     fma and a saturating truncation, above by one add; a warp a segment
-    summing the features over its window in int64 lane by lane and by
-    xor shuffles; each sum rounded once to float32, the weight and the
+    summing the features over its window 32 bins a step, each step's
+    lanes in uint32 (redux.sync), the steps in int64; each sum rounded
+    once to float32, the weight and the
     weighted moments one float32 rounding an operation; the prefix in
     float64 in segment order, rounded once) is held bitwise to the plain
     version.  The card's cast saturates: a +inf mask quantizes to 1023
@@ -59,7 +60,6 @@ torch.set_num_threads(1)
 
 f32 = np.float32
 EPS = np.finfo(np.float32).eps
-WARPS = 8                           # csrc/floor_prepare.cu kThreads / 32
 CONFIGS = ((2, 44100, 0.5), (6, 48000, 0.4), (2, 16000, 0.5),
            (1, 8000, 0.5), (2, 44100, -0.1))
 
@@ -174,30 +174,32 @@ def replay(look, lm, mk):
         above = (lm + atten).astype(np.float32) >= mk
     prefix = np.zeros((B, P, 6), np.float32)
     used = np.zeros(B, bool)
-    x = np.arange(n, dtype=np.int64)
     for r in range(B):
         q = quant[r].astype(np.int64)
-        feats = np.stack([x, q, x * x, q * q, x * q, np.ones_like(x)])
         wm = np.zeros((S, 6), np.float32)
         an = np.zeros(S, bool)
-        # phase 2: a warp a segment (warp s % WARPS), lane l the bins
-        # lo + l, lo + l + 32, ...; sums exact in int64
+        # phase 2: a warp a segment (warp s % 8), 32 bins a step,
+        # lane l the step's bin l; each step's lanes summed in uint32
+        # (redux.sync) and added to int64 sums
         for s in range(S):
             lo, hi = int(fit.seg_lo[s]), int(fit.seg_hi[s])
-            lanes = np.zeros((2, 6, 32), np.int64)
-            for i in range(lo, hi):
-                if q[i] != 0:
-                    lanes[0 if above[r, i] else 1, :, (i - lo) % 32] += \
-                        feats[:, i]
-            d = 16
-            while d:                             # __shfl_xor_sync
-                lanes = lanes + lanes[..., np.arange(32) ^ d]
-                d >>= 1
-            a, b = lanes[..., 0].astype(np.float32)    # __ll2float_rn
+            sums = np.zeros((2, 6), np.int64)
+            for i0 in range(lo, hi, 32):
+                i = np.arange(i0, i0 + 32)
+                inwin = i < hi
+                qi = np.where(inwin, q[np.minimum(i, n - 1)], 0)
+                up = np.where(inwin, above[r, np.minimum(i, n - 1)], False)
+                f = np.stack([i, qi, i * i, qi * qi, i * qi,
+                              np.ones_like(i)]).astype(np.uint32)
+                for cls, m in ((0, (qi != 0) & up), (1, (qi != 0) & ~up)):
+                    step = np.where(m, f, np.uint32(0)).sum(
+                        1, dtype=np.uint32)
+                    sums[cls] += step.astype(np.int64)
+            a, b = sums.astype(np.float32)             # __ll2float_rn
             w = f32(f32(f32(f32(b[5] + a[5]) * tw) / f32(a[5] + f32(1)))
                     + f32(1))
             wm[s] = b + a * w
-            an[s] = lanes[0, 5, 0] != 0
+            an[s] = sums[0, 5] != 0
         # phase 3: a thread a feature, float64 in segment order
         acc = np.zeros(6, np.float64)
         for s in range(S):

@@ -20,12 +20,14 @@
 // saturating truncation of fma(logmask, scale, offset) clamped to [0,
 // 1023] (__fmaf_rn, __float2int_rz: torch's CUDA cast), above =
 // logmdct + atten >= logmask (one add), both written out and kept in
-// shared memory.  Phase 2, a warp a segment: the lanes sum the six
-// features (x, q, x^2, q^2, x q, 1) of the segment's inclusive bin
-// window over the used bins above and below in int64, exact in any
-// order; shuffles reduce them and lane 0 converts each sum once with
-// __ll2float_rn (what the plain version's exact float64 matmul rounds
-// to) and forms the weight (bn + an) tw / (an + 1) + 1 and the weighted
+// shared memory.  Phase 2, a warp a segment: 32 bins of the segment's
+// inclusive window a step, each step's six features (x, q, x^2, q^2,
+// x q, 1) of the used bins above and below summed over the warp by one
+// redux.sync each and added to int64 sums, exact in any order (the
+// first cut kept a lane's sums in int64 and reduced them by shuffle
+// trees: 120 shuffles a segment whatever its width); lane 0 converts each sum once with __ll2float_rn
+// (what the plain version's exact float64 matmul rounds to) and forms
+// the weight (bn + an) tw / (an + 1) + 1 and the weighted
 // moments Bv + A w in float32, one rounding an operation (__fmul_rn,
 // __fdiv_rn, __fadd_rn; built with -fmad=false besides).  Phase 3, a
 // thread a feature: the prefix over the segments in float64, one
@@ -41,12 +43,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ long long warp_sum(long long v) {
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(kFull, v, d);
-  return v;
-}
 
 // shared memory of a row: quant (n int32), the weighted moments (S x 6
 // float32), the prefix (P x 6 float32), the above counts (S int32),
@@ -90,28 +86,24 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
 
-  // phase 2: a warp a segment, the sums exact in int64
+  // phase 2: a warp a segment, 32 bins a step; each step's six features
+  // above and below summed over the warp in 32 bits (a bin's feature is
+  // below 2^26 for n <= 8,192, so 32 of them are below 2^31) and added
+  // to int64 sums, exact in any order
   for (int s = warp; s < S; s += kWarps) {
     const int lo = __ldg(seg + s), hi = __ldg(seg + S + s);
     long long A[6] = {0, 0, 0, 0, 0, 0}, B[6] = {0, 0, 0, 0, 0, 0};
-    for (int i = lo + lane; i < hi; i += 32) {
-      const long long q = q_s[i];
-      if (q == 0) continue;
-      const long long x = i;
-      const long long f[6] = {x, q, x * x, q * q, x * q, 1};
-      const bool a = ab_s[i];
+    for (int i0 = lo; i0 < hi; i0 += 32) {
+      const int i = i0 + lane;
+      const unsigned q = i < hi ? (unsigned)q_s[i] : 0u;
+      const unsigned x = i;
+      const unsigned f[6] = {x, q, x * x, q * q, x * q, 1u};
+      const bool a = q != 0 && ab_s[i], b = q != 0 && !ab_s[i];
 #pragma unroll
       for (int k = 0; k < 6; ++k) {
-        if (a)
-          A[k] += f[k];
-        else
-          B[k] += f[k];
+        A[k] += __reduce_add_sync(kFull, a ? f[k] : 0u);
+        B[k] += __reduce_add_sync(kFull, b ? f[k] : 0u);
       }
-    }
-#pragma unroll
-    for (int k = 0; k < 6; ++k) {
-      A[k] = warp_sum(A[k]);
-      B[k] = warp_sum(B[k]);
     }
     if (lane == 0) {
       float a[6], b[6];
@@ -163,7 +155,9 @@ extern "C" int vtt_floor_prepare(const float* logmdct, const float* logmask,
                                  float tw, int* quant, unsigned char* above,
                                  float* prefix, unsigned char* used,
                                  cudaStream_t stream) {
-  if (B < 1 || n < 1 || P < 2) return (int)cudaErrorInvalidValue;
+  // n <= 8,192 keeps a step's 32-bit warp sums exact (phase 2)
+  if (B < 1 || n < 1 || n > 8192 || P < 2)
+    return (int)cudaErrorInvalidValue;
   const int smem = shared_bytes(n, P);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
