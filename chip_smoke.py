@@ -823,6 +823,7 @@ def _prep_want(fit, logmdct, logmask):
     elements in which the card's own cumsum of the same moments
     differs)."""
     import torch
+    from vorbis_tpu_torch.ops.floor_cuda import floor_prepare_plain
     seen = []
     cumsum = torch.cumsum
 
@@ -831,7 +832,8 @@ def _prep_want(fit, logmdct, logmask):
         return cumsum(x, *a, **kw)
     torch.cumsum = spy
     try:
-        quant, above, card, used = fit.prepare_plain(logmdct, logmask)
+        quant, above, card, used = floor_prepare_plain(fit, logmdct,
+                                                       logmask)
     finally:
         torch.cumsum = cumsum
     run = torch.cumsum(seen[-1].cpu(), dim=-2).float().to(card.device)
@@ -1962,6 +1964,12 @@ def _med(ts):
     return ts[len(ts) // 2], ts[0], ts[-1]
 
 
+def _build_lines(report):
+    """The registers and stack lines of a build's ptxas report."""
+    return [ln.strip() for ln in report.splitlines()
+            if "registers" in ln or "stack" in ln]
+
+
 def _phase_front(fsw, f51, smi, baselines=None):
     """Phase 3i: the analysis front's two kernels against their plain
     versions, bitwise, at the main path's shapes: 4d's long batch (2,048
@@ -2918,8 +2926,7 @@ def _phase_floor_encode(fsw, fm, f51, smi, baseline=None, report=""):
     per_sm = load_library().vtt_floor_encode_blocks_per_sm
     per_sm.restype, per_sm.argtypes = ctypes.c_int, [ctypes.c_int,
                                                       ctypes.c_void_p]
-    build = [ln.strip() for ln in report.splitlines()
-             if "registers" in ln or "stack" in ln]
+    build = _build_lines(report)
     rec = {}
     for name, c, p, u in cases[:2]:
         smem = ctypes.c_int(0)
@@ -3064,8 +3071,7 @@ def _phase_tone_mask(cases, smi, report="", baseline=None):
                 f"{name}, {rows} rows", tm,
                 *(torch.from_numpy(a).cuda() for a in host)))
     per_sm = load_library().vtt_tone_mask_blocks_per_sm
-    build = [ln.strip() for ln in report.splitlines()
-             if "registers" in ln or "stack" in ln]
+    build = _build_lines(report)
     timed = _tone_lib(SOURCE, "libtonemask_timing",
                       _tone_argtypes(stamps=True), ("-DVTT_TONE_TIMING",))
     btimed = baseline.timing() if baseline is not None else None
@@ -3255,8 +3261,7 @@ def _phase_residue_encode(cases, smi, report=""):
                 f"{name}, {rows} rows", cfg,
                 *(torch.from_numpy(a).cuda() for a in host)))
     per_sm = load_library().vtt_residue_encode_blocks_per_sm
-    build = [ln.strip() for ln in report.splitlines()
-             if "registers" in ln or "stack" in ln]
+    build = _build_lines(report)
     rec = {}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for name, cfg, res, used in cases[:2]:
@@ -3317,11 +3322,6 @@ def _pack_bound(tabs, vals, lens, wb):
     t_ops = ops / INT32_OPS_PER_S * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
             else "operations", nbytes, ops)
-
-
-def _build_lines(report):
-    return [ln.strip() for ln in report.splitlines()
-            if "registers" in ln or "stack" in ln]
 
 
 def _phase_pack(cases, smi, report=""):

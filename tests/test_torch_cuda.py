@@ -274,6 +274,8 @@ def test_fit_prefix_sums_equal_the_cpu_on_cuda(cuda):
     fractions and squares up to 2^30) the card's float64 prefix equals
     the CPU's."""
     from types import SimpleNamespace
+
+    from vorbis_tpu_torch.ops.floor_cuda import floor_prepare_plain
     cases = _test_module("floor_encode_cases")
     kw = dict(switching=False, psy_state=False)
     fc, fg = TFE(2, 44100, 0.5, device="cpu", **kw), TFE(2, 44100, 0.5, **kw)
@@ -281,7 +283,8 @@ def test_fit_prefix_sums_equal_the_cpu_on_cuda(cuda):
     qc, ac, pc, mc = cases.fit_moments(fc.dev.ctx.floor, lm, mk)
     fit = fg.dev.ctx.floor
     qg, ag, pg, mg = cases.fit_moments(
-        SimpleNamespace(prepare=fit.prepare_plain), lm.cuda(), mk.cuda())
+        SimpleNamespace(prepare=lambda a, b: floor_prepare_plain(fit, a, b)),
+        lm.cuda(), mk.cuda())
     assert torch.equal(qg.cpu(), qc) and torch.equal(ag.cpu(), ac)
     assert torch.equal(mg.cpu(), mc)
     assert torch.equal(pg.cpu(), pc)

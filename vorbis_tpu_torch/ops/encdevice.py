@@ -50,8 +50,9 @@ import torch
 from ..bitstream.bitpack import ilog
 from ..convert import device_tables
 from .floor_encode_cuda import FloorEncodeConfig, floor_encode, trio
-from .pack_cuda import (PackTables, merge_columns,  # noqa: F401
-                        pack_bits, pack_packets)
+from .pack_cuda import PackTables, pack_packets
+# the packer's plain stages, for this module's callers
+from .pack_cuda import merge_columns, pack_bits  # noqa: F401
 from .residue_encode_cuda import ResidueEncodeConfig, residue_encode
 
 f32 = np.float32

@@ -182,10 +182,6 @@ class DeviceFloorFitCuda(DeviceFloorFit):
     def prepare(self, logmdct, logmask):
         return floor_prepare(self, logmdct, logmask)
 
-    def prepare_plain(self, logmdct, logmask):
-        """The plain PyTorch version on the same tensors (for checks)."""
-        return floor_prepare_plain(self, logmdct, logmask)
-
     def fit(self, quant, above, prefix):
         if quant.device.type == "cpu":
             return super().fit(quant, above, prefix)
