@@ -159,7 +159,8 @@ Phases (any failure raises and the script exits non-zero):
      over the budget and zero rows at each of those plans; the build's
      registers, shared memory a block and blocks an SM; its time at the
      two 4d batches (CUDA graphs, median and spread of six), its bound by
-     bytes and share, the plain duo's time and device kernels (no
+     bytes on this run's lengths (a zero-length column's value is never
+     read) and share, the plain duo's time and device kernels (no
      library call computes it);
   3n. the floor fit's prepare: csrc/floor_prepare.cu (the mask's dB
      quantization, the above classes, the segments' moments and their
@@ -817,26 +818,16 @@ def _pack_rows(gidx, n_cols, seed, seeded=4):
 
 def _prep_want(fit, logmdct, logmask):
     """The plain prepare of fit's look on the card's tensors with its
-    prefix summed in the CPU's order (the plain moments' float64 running
-    sum taken on the CPU, one segment after another, rounded once): the
-    kernel's contract.  Returns ((quant, above, prefix, used), the prefix
-    elements in which the card's own cumsum of the same moments
-    differs)."""
+    prefix summed in the CPU's order (the plain weighted moments' float64
+    running sum taken on the CPU, one segment after another, rounded
+    once): the kernel's contract.  Returns ((quant, above, prefix, used),
+    the prefix elements in which the card's own cumsum of the same
+    moments differs)."""
     import torch
     from vorbis_tpu_torch.ops.floor_cuda import floor_prepare_plain
-    seen = []
-    cumsum = torch.cumsum
-
-    def spy(x, *a, **kw):
-        seen.append(x)
-        return cumsum(x, *a, **kw)
-    torch.cumsum = spy
-    try:
-        quant, above, card, used = floor_prepare_plain(fit, logmdct,
-                                                       logmask)
-    finally:
-        torch.cumsum = cumsum
-    run = torch.cumsum(seen[-1].cpu(), dim=-2).float().to(card.device)
+    quant, above, card, used = floor_prepare_plain(fit, logmdct, logmask)
+    wm, _ = fit._weighted_moments(quant, above)
+    run = torch.cumsum(wm.double().cpu(), dim=-2).float().to(card.device)
     prefix = torch.cat([torch.zeros_like(run[:, :1]), run], 1)
     differ = int((prefix.view(torch.int32) != card.view(torch.int32)).sum())
     return (quant, above, prefix, used), differ
@@ -3304,20 +3295,31 @@ def _phase_residue_encode(cases, smi, report=""):
 
 
 # The packer's own arithmetic, whatever a kernel's schedule: int32
-# operations a column (the zero-length test, the shift, the OR, the
-# length's add) and a group (its width mask, its offset's add, the
-# field's shift and split, two ORs, the byte's share of the store)
-OPS_PACK_COL, OPS_PACK_GROUP = 4, 8
+# operations a column (the zero-length test, the length's add), a column
+# with bits (the shift, the OR) and a group (its width mask, its offset's
+# add, the field's shift and split, two ORs, the byte's share of the
+# store)
+OPS_PACK_COL, OPS_PACK_BITS, OPS_PACK_GROUP = 2, 2, 8
+SECTOR = 32                                   # bytes a DRAM sector
 
 
 def _pack_bound(tabs, vals, lens, wb):
-    """(bound ms, bound_by, bytes, int32 ops) of one pack_packets call:
-    the columns read once (int64 values, int32 lengths), the packets and
-    bit counts written once, the plan read once."""
+    """(bound ms, bound_by, bytes, int32 ops) of one pack_packets call on
+    this run's columns: every length read once (int32), of the int64
+    values only the 32-byte sectors that hold a column of nonzero length
+    (a zero-length column's value is never needed), the packets and bit
+    counts written once, the plan read once; the operations as counted
+    above, the bit columns' on this run's lengths."""
+    import torch
     F = vals.shape[0]
-    nbytes = vals.numel() * 8 + lens.numel() * 4 + F * (wb + 4) \
+    per = SECTOR // vals.element_size()
+    bits = torch.nonzero(lens.reshape(-1) > 0).squeeze(1)
+    first = (vals.data_ptr() % SECTOR) // vals.element_size()
+    sectors = torch.unique_consecutive((bits + first) // per).numel()
+    nbytes = sectors * SECTOR + lens.numel() * 4 + F * (wb + 4) \
         + tabs.groups.numel() * 4
-    ops = F * (tabs.n_cols * OPS_PACK_COL + tabs.n_groups * OPS_PACK_GROUP)
+    ops = F * (tabs.n_cols * OPS_PACK_COL + tabs.n_groups * OPS_PACK_GROUP) \
+        + bits.numel() * OPS_PACK_BITS
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / INT32_OPS_PER_S * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
@@ -3373,8 +3375,9 @@ def _phase_pack(cases, smi, report=""):
         print(f"[pack] {name} F={F} C={tabs.n_cols} C1={tabs.n_groups} "
               f"wb={wb}: kernel {ms:.5f} ms (CUDA graphs; median of "
               f"{len(ts)}, {lo:.5f}-{hi:.5f}); bound {bound_ms * 1e3:.3f} us "
-              f"by {by} ({nb} bytes, {ops} int32 operations), share "
-              f"{100 * bound_ms / ms:.1f}%; plain duo (merge + pack) "
+              f"by {by} ({nb} bytes: the lengths, the value sectors of "
+              f"columns with bits, the packets; {ops} int32 operations), "
+              f"share {100 * bound_ms / ms:.1f}%; plain duo (merge + pack) "
               f"{plain_ms:.4f} ms a call, {plain_k} device kernels "
               f"({plain_dev:.4f} ms on the device); library call: none "
               f"({smi})")

@@ -104,12 +104,12 @@ class DeviceFloorFit:
         self.seg_mat64 = self.seg_mat.double()
 
     # -- stage 1: quantization + per-segment moments -------------------
-    def _moments(self, quant, above):
-        """quant (B, n) int32, above (B, n) bool -> weighted prefix
-        moments (B, S+1, 6) float32 and per-segment above counts
-        (B, S).  The bin -> segment reduction is one matmul in float64:
-        every feature is an integer below 2^20 and a segment sums at
-        most n of them, so the float64 sums are exact (as the
+    def _weighted_moments(self, quant, above):
+        """quant (B, n) int32, above (B, n) bool -> each segment's
+        weighted moments (B, S, 6) float32 and above count (B, S), the
+        terms _moments sums.  The bin -> segment reduction is one matmul
+        in float64: every feature is an integer below 2^20 and a segment
+        sums at most n of them, so the float64 sums are exact (as the
         reference's integer accumulate_fit) and round once to float32,
         the same on the card and the CPU; an fp32 matmul would round in
         its library's order."""
@@ -132,7 +132,13 @@ class DeviceFloorFit:
         bn = Bv[..., 5]
         # fit_line weight: (bn+an)*tw/(an+1)+1 per segment (f32)
         w = ((bn + an) * float(self.tw) / (an + 1.0) + 1.0)[..., None]
-        wm = Bv + A * w
+        return Bv + A * w, an
+
+    def _moments(self, quant, above):
+        """quant (B, n) int32, above (B, n) bool -> weighted prefix
+        moments (B, S+1, 6) float32 and per-segment above counts
+        (B, S)."""
+        wm, an = self._weighted_moments(quant, above)
         # the prefix sums in float64, one segment after another, rounded
         # once: on the CPU torch.cumsum of float32 accumulates so, where
         # the card's would add in float32
