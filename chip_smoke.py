@@ -157,11 +157,17 @@ Phases (any failure raises and the script exits non-zero):
      plan's worst_bytes, and on _pack_rows' seeded rows, stale values in
      zero-length columns, values with bits above their lengths, packets
      over the budget and zero rows at each of those plans; the build's
-     registers, shared memory a block and blocks an SM; its time at the
-     two 4d batches (CUDA graphs, median and spread of six), its bound by
-     bytes on this run's lengths (a zero-length column's value is never
-     read) and share, the plain duo's time and device kernels (no
-     library call computes it);
+     registers and spills, the blocks sized to the batch (threads a
+     packet, packets a block, groups a thread, tiles), shared memory a
+     block and blocks an SM; its time at the two 4d batches (CUDA
+     graphs, median and spread of six; in turns with the first design,
+     commit 4c76a5d's, with --pack-baseline, whose outputs must equal
+     this design's), its bound by bytes on this run's lengths (a
+     zero-length column's value is never read) and share, the plain
+     duo's time and device kernels (no library call computes it), and
+     each phase's slowest-warp cycles (stage, copies, scan, wait, merge
+     and OR, store) from a timing build of the same source
+     (-DVTT_PACK_TIMING);
   3n. the floor fit's prepare: csrc/floor_prepare.cu (the mask's dB
      quantization, the above classes, the segments' moments and their
      weighted prefix in one launch) bitwise against its plain version
@@ -751,15 +757,15 @@ def _synthetic_look(base, posts, seed):
     return Floor1Look(info)
 
 
-def _prepare_rows(n, B, seed, card=True):
+def _prepare_rows(n, B, seed):
     """Spectra (logmdct, logmask) float32 (B + 8, n) numpy for the floor
     prepare's checks: B seeded rows (the spread of _random_spectra), then
     edge rows: nothing above, everything above, a mask below the
     quantizer's first step (nothing used), a saturated mask, NaN in the
-    mask, -inf in the mask, NaN and +-inf in logmdct, and (card) +inf in
-    the mask, where torch's CPU cast gives 0 and the card's saturates to
-    1023 (otherwise a second NaN row).  A tenth of the seeded rows'
-    second-half bins hold a mask below the first step or saturated."""
+    mask, -inf in the mask, NaN and +-inf in logmdct, and +inf in the
+    mask (quant 1023: the convert saturates).  A tenth of the seeded
+    rows' second-half bins hold a mask below the first step or
+    saturated."""
     import numpy as np
     rng = np.random.RandomState(seed)
     lm = (rng.randn(B + 8, n) * 20 - 60).astype(np.float32)
@@ -774,7 +780,7 @@ def _prepare_rows(n, B, seed, card=True):
     lm[e + 6, ::3] = np.nan
     lm[e + 6, 1::3] = np.inf
     lm[e + 6, 2::6] = -np.inf
-    mk[e + 7, ::4] = np.inf if card else np.nan
+    mk[e + 7, ::4] = np.inf
     pick = (np.arange(n) >= n // 2) & (rng.rand(B, n) < 0.1)
     mk[:B][pick] = rng.choice(np.float32([-150.0, 300.0]), pick.sum())
     return lm, mk
@@ -3317,7 +3323,7 @@ def _pack_bound(tabs, vals, lens, wb):
     first = (vals.data_ptr() % SECTOR) // vals.element_size()
     sectors = torch.unique_consecutive((bits + first) // per).numel()
     nbytes = sectors * SECTOR + lens.numel() * 4 + F * (wb + 4) \
-        + tabs.groups.numel() * 4
+        + tabs.offs.numel() * 4
     ops = F * (tabs.n_cols * OPS_PACK_COL + tabs.n_groups * OPS_PACK_GROUP) \
         + bits.numel() * OPS_PACK_BITS
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -3326,7 +3332,83 @@ def _pack_bound(tabs, vals, lens, wb):
             else "operations", nbytes, ops)
 
 
-def _phase_pack(cases, smi, report=""):
+# sha256 of the first design of csrc/pack_bits.cu (commit 4c76a5d): its C
+# entry point vtt_pack_packets takes the plan as C1 + 1 offsets followed by
+# the groups' column lists, a block a packet
+PACK_BASELINE_SHA256 = ("2a9dd694461a62297449f14a4d5fc5f2c183840571758c9d"
+                        "4e899fe257444ea2")
+# the timing build's phases (csrc/pack_bits.cu -DVTT_PACK_TIMING): a
+# warp's cycles in each, summed over the tiles, then its total
+PACK_PHASES = ("stage", "copies", "scan", "wait", "merge and OR", "store")
+
+
+class _PackBaseline:
+    """The first design of csrc/pack_bits.cu (a block a packet walking
+    the groups in rounds of a group a thread, a block scan a round: `git
+    show 4c76a5d:vorbis_tpu_torch/csrc/pack_bits.cu`), built from
+    `source` under its own library name, called on the same columns with
+    the column lists it reads (a plan's columns in order: every group is
+    a run) for timing in turns; any other source is refused (its hash
+    differs)."""
+
+    def __init__(self, source):
+        import ctypes
+        import hashlib
+        import weakref
+        from pathlib import Path
+        from vorbis_tpu_torch.native import build_library
+        from vorbis_tpu_torch.ops import floor_cuda
+        digest = hashlib.sha256(Path(source).read_bytes()).hexdigest()
+        if digest != PACK_BASELINE_SHA256:
+            raise RuntimeError(f"--pack-baseline {source} is not commit "
+                               f"4c76a5d's pack_bits.cu (sha256 {digest})")
+        so, _ = build_library(Path(source), floor_cuda.nvcc,
+                              floor_cuda.NVCC_FLAGS, "libpackbits_baseline")
+        self.fn = ctypes.CDLL(str(so)).vtt_pack_packets
+        self.fn.restype = ctypes.c_int
+        self.fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                            + [ctypes.c_void_p] * 3)
+        self.groups = weakref.WeakKeyDictionary()
+
+    def __call__(self, tabs, vals, lens, wb):
+        import torch
+        g = self.groups.get(tabs)
+        if g is None:
+            g = self.groups[tabs] = torch.cat([tabs.offs, torch.arange(
+                tabs.n_cols, dtype=torch.int32, device=tabs.offs.device)])
+        F = vals.shape[0]
+        out = torch.empty((F, wb), dtype=torch.uint8, device="cuda")
+        nbits = torch.empty((F,), dtype=torch.int32, device="cuda")
+        rc = self.fn(vals.data_ptr(), lens.data_ptr(), g.data_ptr(), F,
+                     tabs.n_cols, tabs.n_groups, wb, out.data_ptr(),
+                     nbits.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"baseline pack_packets launch failed: {rc}")
+        return out, nbits
+
+
+def _pack_phases(fn, tabs, vals, lens, wb):
+    """Where a block's time goes, from one call of the timing build's
+    entry point `fn`: for each of PACK_PHASES the slowest warp's cycles
+    (mean over the blocks), and a block's cycles, its slowest warp's
+    start to end (mean)."""
+    import numpy as np
+    import torch
+    from vorbis_tpu_torch.ops.pack_cuda import launch, sm_count
+    g = tabs.geometry(vals.shape[0], wb, sm_count(vals.device.index))
+    warps = g.tpp * g.ppb // 32
+    st = torch.zeros(g.blocks * warps * (len(PACK_PHASES) + 1),
+                     dtype=torch.int64, device="cuda")
+    launch(fn, tabs, vals, lens, wb, st.data_ptr())
+    torch.cuda.synchronize()
+    s = st.view(g.blocks, warps, -1).cpu().numpy()
+    return dict(slowest=[float(s[:, :, k].max(1).mean())
+                         for k in range(len(PACK_PHASES))],
+                block=float(s[:, :, -1].max(1).mean()),
+                block_median=float(np.median(s[:, :, -1].max(1))))
+
+
+def _phase_pack(cases, smi, report="", baseline=None):
     """Phase 3m: the packer (csrc/pack_bits.cu: the plan's column merge
     and the LSB-first packing in one launch) against its plain version
     (merge_columns and pack_bits), packets and bit counts bitwise, on the
@@ -3334,38 +3416,67 @@ def _phase_pack(cases, smi, report=""):
     managed encoder's 15-blob rows, the 5.1 encoder, the 16 and 32 kHz
     configs) at their budget and at the plan's worst_bytes, and on
     _pack_rows' seeded and stress rows at each of those plans; the
-    build's registers (`report`), shared memory a block and blocks an SM;
-    its time at the two 4d batches (CUDA graphs, median and spread of
-    six), its bound and share, the plain duo's time and device kernels
-    (no library call computes it).  Returns the kernel's record for the
-    JSON line."""
+    build's registers and spills (`report`), the block sizing chosen,
+    shared memory a block and blocks an SM; its time at the two 4d
+    batches (CUDA graphs, median and spread of six; in turns with the
+    first design where `baseline`, a _PackBaseline, is given, whose
+    outputs must equal this design's), its bound and share, the plain
+    duo's time and device kernels (no library call computes it); and
+    each phase's slowest-warp cycles from the timing build.  Returns the
+    kernel's record for the JSON line."""
     import ctypes
     import torch
+    from vorbis_tpu_torch.native import build_library
+    from vorbis_tpu_torch.ops import floor_cuda, pack_cuda
     from vorbis_tpu_torch.ops.pack_cuda import (load_library, pack_packets,
-                                                pack_packets_plain)
+                                                pack_packets_plain, sm_count)
     err, plans = 0.0, {}
     for name, tabs, vals, lens, wb in cases:
         for w in sorted({wb, tabs.plan.worst_bytes}):
             err = max(err, _pack_check(f"{name}, recorded", tabs, vals,
                                        lens, w))
-        plans.setdefault(id(tabs), (name, tabs))
-    for k, (name, tabs) in enumerate(plans.values()):
+        plans.setdefault(id(tabs), (name, tabs, vals, lens))
+    for k, (name, tabs, vals, lens) in enumerate(plans.values()):
         v, l = (torch.from_numpy(a).cuda() for a in
                 _pack_rows(tabs.plan.gidx, tabs.n_cols, 700 + k))
+        # and in tiles of at most 128 staged words, 32 threads a packet,
+        # up to eight packets a block
+        small = pack_cuda.PackTables(tabs.plan, tabs.gidx, 32, 128)
+        err = max(err, _pack_check(f"{name}, recorded, small tiles", small,
+                                   vals, lens, tabs.plan.wb))
         for w in (tabs.plan.wb, tabs.plan.worst_bytes):
-            err = max(err, _pack_check(f"{name}, seeded and stress rows",
-                                       tabs, v, l, w))
+            for label, t in (("", tabs), (", small tiles", small)):
+                err = max(err, _pack_check(
+                    f"{name}, seeded and stress rows{label}", t, v, l, w))
     per_sm = load_library().vtt_pack_packets_blocks_per_sm
     build = _build_lines(report)
+    so, _ = build_library(pack_cuda.SOURCE, floor_cuda.nvcc,
+                          (*floor_cuda.NVCC_FLAGS, "-DVTT_PACK_TIMING"),
+                          "libpackbits_timing")
+    timed = pack_cuda.bind(ctypes.CDLL(str(so)), stamps=True)
     rec = {}
     for name, tabs, vals, lens, wb in cases[:2]:
-        smem = ctypes.c_int(0)
-        blocks = per_sm(wb, ctypes.byref(smem))
         F = vals.shape[0]
-        print(f"[pack] {name}: build {build or 'cached'}; {smem.value} "
-              f"bytes of shared memory a block (256 threads, {F} blocks), "
-              f"{blocks} blocks an SM")
-        ts, _ = _turns(lambda: pack_packets(tabs, vals, lens, wb), None)
+        g = tabs.geometry(F, wb, sm_count(vals.device.index))
+        blocks = per_sm(g.tpp * g.ppb, g.smem)
+        tiles = -(-tabs.n_groups // (g.tpp * g.run))
+        print(f"[pack] {name}: build {build or 'cached'}; blocks sized to "
+              f"the batch: {g.tpp} threads a packet x {g.ppb} packets a "
+              f"block, {g.run} groups a thread, {tiles} tile(s) a packet, "
+              f"{g.blocks} blocks; {g.smem} bytes of shared memory a block "
+              f"({g.lw} staged columns, lengths and values' low words, + "
+              f"{g.nw} packet words a packet), {blocks} blocks an SM")
+        mine = (lambda t=tabs, v=vals, l=lens, w=wb: pack_packets(t, v, l, w))
+        theirs = None
+        if baseline is not None:
+            theirs = (lambda t=tabs, v=vals, l=lens, w=wb:
+                      baseline(t, v, l, w))
+            same = all(torch.equal(a, b) for a, b in zip(theirs(), mine()))
+            torch.cuda.synchronize()
+            if not same:
+                raise RuntimeError(f"3m {name}: the first design's output "
+                                   f"differs from this one's")
+        ts, tb = _turns(mine, theirs)
         ms, lo, hi = _med(ts)
         plain_k, plain_dev = _device_profile(
             lambda: pack_packets_plain(tabs, vals, lens, wb))
@@ -3381,12 +3492,29 @@ def _phase_pack(cases, smi, report=""):
               f"{plain_ms:.4f} ms a call, {plain_k} device kernels "
               f"({plain_dev:.4f} ms on the device); library call: none "
               f"({smi})")
+        extra = {}
+        if tb:
+            bms, blo, bhi = _med(tb)
+            print(f"[pack] {name}: in turns, the first design (4c76a5d) "
+                  f"{bms:.5f} ms ({blo:.5f}-{bhi:.5f}), share "
+                  f"{100 * bound_ms / bms:.1f}%, against this design's "
+                  f"{ms:.5f} ms ({100 * bound_ms / ms:.1f}%), "
+                  f"{bms / ms:.2f}x, outputs equal ({smi})")
+            extra = dict(baseline_ms=bms, baseline_rounds_ms=tb,
+                         baseline_share=bound_ms / bms)
+        ph = _pack_phases(timed, tabs, vals, lens, wb)
+        print(f"[pack] {name}: a block {ph['block']:.0f} cycles (median "
+              f"{ph['block_median']:.0f}); a phase's slowest warp: "
+              + ", ".join(f"{n} {c:.0f}" for n, c in
+                          zip(PACK_PHASES, ph["slowest"]))
+              + f" (timing build, clock64; {smi})")
         rec[name] = dict(packets=F, cols=tabs.n_cols, groups=tabs.n_groups,
                          wb=wb, ms=ms, rounds_ms=ts, plain_ms=plain_ms,
                          plain_kernels=plain_k, plain_device_ms=plain_dev,
                          bound_ms=bound_ms, bound_by=by, bytes=nb,
-                         share=bound_ms / ms, shared_bytes=smem.value,
-                         blocks_per_sm=blocks)
+                         share=bound_ms / ms, shared_bytes=g.smem,
+                         blocks_per_sm=blocks, geometry=g._asdict(),
+                         phases=dict(ph, names=list(PACK_PHASES)), **extra)
     main = rec["4d long batch"]
     return dict({k: main[k] for k in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "share")},
@@ -4959,6 +5087,10 @@ def main():
                     help="the first csrc/tone_mask.cu (git show c40e5f8:"
                          "vorbis_tpu_torch/csrc/tone_mask.cu, checked by its "
                          "hash) to time in turns with this one in phase 3k")
+    ap.add_argument("--pack-baseline", metavar="SOURCE",
+                    help="the first csrc/pack_bits.cu (git show 4c76a5d:"
+                         "vorbis_tpu_torch/csrc/pack_bits.cu, checked by its "
+                         "hash) to time in turns with this one in phase 3m")
     for name in ("mdct_fwd", "bark_fit"):
         ap.add_argument(f"--{name.replace('_', '-')}-baseline",
                         metavar="SOURCE",
@@ -5155,7 +5287,9 @@ def main():
     _lap(t_start, "3l")
 
     # 3m. the packer on 3j's recorded calls, its times and bound
-    pack_rec = _phase_pack(pack_cases, smi, built["pack_bits.cu"][1])
+    pack_rec = _phase_pack(pack_cases, smi, built["pack_bits.cu"][1],
+                           _PackBaseline(args.pack_baseline)
+                           if args.pack_baseline else None)
     del pack_cases
     _lap(t_start, "3m")
 

@@ -127,3 +127,24 @@ def stress_rows(cfg, n2, seed, frames=4):
     res = np.rint((rng.rand(frames * rc, L) * 2 - 1) * mags)
     return (np.ascontiguousarray(res.astype(np.float32)),
             np.ones((frames, rc), bool))
+
+
+def cast_rows(cfg, n2, seed, frames=2):
+    """Frames of typical values with three partitions of zeros holding a
+    quarter of their values at the edge of int32: +3e9 and +inf, which
+    XLA's convert saturates to INT_MAX (the widest class, digits
+    clamped) and torch's own CPU cast takes to INT_MIN, and NaN, which
+    XLA converts to 0.  All used.  (Values past -2^31 convert to INT_MIN
+    both ways.)"""
+    rng = np.random.RandomState(seed)
+    rc, L, spp = cfg.res_ch, row_len(cfg, n2), cfg.spp
+    begin = cfg.ri.begin
+    res = np.rint(rng.laplace(size=(frames * rc, L)) * 30)
+    for r in range(frames * rc):
+        for v in (3e9, np.inf, np.nan):
+            lo = begin + rng.randint(cfg.partvals) * spp
+            res[r, lo:lo + spp] = 0
+            pick = lo + rng.choice(spp, size=max(spp // 4, 1), replace=False)
+            res[r, pick] = v
+    return (np.ascontiguousarray(res.astype(np.float32)),
+            np.ones((frames, rc), bool))

@@ -362,22 +362,26 @@ def test_pack_packets_on_cuda(cuda):
     plan's budget and at worst_bytes, on chip_smoke.py's `_pack_rows`
     (seeded rows, stale values in zero-length columns, values with bits
     above their lengths, packets over the budget, zero rows), their first
-    row and first three, and 2,048 seeded rows; one launch a call."""
+    row and first three, and 2,048 seeded rows; one launch a call; and
+    the same at tables of small tiles (32 threads a packet, 128 staged
+    words, up to eight packets a block)."""
     from chip_smoke import _pack_rows
-    from vorbis_tpu_torch.ops.pack_cuda import (pack_packets,
+    from vorbis_tpu_torch.ops.pack_cuda import (PackTables, pack_packets,
                                                 pack_packets_plain)
     for args in ((2, 44100, 0.5), (6, 48000, 0.4), (2, 16000, 0.5),
                  (2, 32000, 0.5)):
         fe = TFE(*args)
         for W in (1, 0):
             dev = fe._dev_for(W)
-            plan, tabs = dev.plan, dev.pack_tabs
+            plan = dev.plan
+            small = PackTables(plan, dev.pack_tabs.gidx, 32, 128)
             v, l = _pack_rows(plan.gidx, plan.n_cols, 40 + W)
             rows = [(v, l), (v[:1], l[:1]), (v[:3], l[:3]),
                     (np.tile(v[:4], (512, 1)), np.tile(l[:4], (512, 1)))]
             for a, b in rows:
                 a, b = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
-                for wb in (plan.wb, plan.worst_bytes):
+                for wb, tabs in ((w, t) for w in (plan.wb, plan.worst_bytes)
+                                 for t in (dev.pack_tabs, small)):
                     before = pack_packets.launches
                     got = pack_packets(tabs, a, b, wb)
                     torch.cuda.synchronize()

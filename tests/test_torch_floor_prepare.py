@@ -9,9 +9,10 @@ long look (29 over 2,048) and the pipeline's (65 over 1,024).
   * The plain prepare's quant, above and used are held bitwise to the
     JAX package's DeviceFloorFit (its jitted fit, quant and above taken
     where it hands them to `_moments`), on chip_smoke.py's
-    `_prepare_rows` without the card-only rows (seeded spectra, nothing
-    above, everything above, nothing used, a saturated mask, NaN and
-    -inf in the mask, NaN and +-inf in logmdct).  Its prefix is held to
+    `_prepare_rows` (seeded spectra, nothing above, everything above,
+    nothing used, a saturated mask, NaN and -inf in the mask, NaN and
+    +-inf in logmdct, +inf in the mask: XLA's convert saturates it to
+    1023, and so does the plain version's `to_int32`).  Its prefix is held to
     JAX's `_moments` within test_torch_floor.py::test_moments_close's
     tolerance, 4 float32 ulp relative, on the seeded rows of the looks
     up to its own (P <= 29, n <= 1,024), the spectra that bound is
@@ -33,9 +34,9 @@ long look (29 over 2,048) and the pipeline's (65 over 1,024).
     once to float32, the weight and the
     weighted moments one float32 rounding an operation; the prefix in
     float64 in segment order, rounded once) is held bitwise to the plain
-    version.  The card's cast saturates: a +inf mask quantizes to 1023
-    on the card and in the replay, to 0 through torch's CPU cast, so
-    those rows are held on the card only (chip phase 3n).
+    version.  The cast saturates everywhere: a +inf mask quantizes to
+    1023 in JAX, in the replay, on the card and in the plain version
+    (torch's own CPU cast would give INT_MIN, clamped to 0).
   * The wrapper takes the plain version on CPU tensors; the managed
     path's three offset_select fits prepare their stacked rows in one
     call, equal to three calls.
@@ -122,7 +123,7 @@ def _plain(look, lm, mk):
 
 @pytest.mark.parametrize("P,n", LOOKS)
 def test_plain_prepare_equals_jax(looks, P, n):
-    lm, mk = _prepare_rows(n, 24, 7 * P + n, card=False)
+    lm, mk = _prepare_rows(n, 24, 7 * P + n)
     quant, above, prefix, used = _plain(looks[P, n], lm, mk)
     jq, ja, jp, ju = map(np.asarray, _jax_prepare(looks[P, n])(lm, mk))
     assert np.array_equal(quant, jq)
@@ -218,7 +219,7 @@ def replay(look, lm, mk):
 @pytest.mark.parametrize("P,n", LOOKS)
 def test_kernel_replay_equals_plain(looks, P, n):
     B = 6 if n >= 1024 else 16
-    lm, mk = _prepare_rows(n, B, 3 * P + n, card=False)
+    lm, mk = _prepare_rows(n, B, 3 * P + n)
     got = replay(looks[P, n], lm, mk)
     want = _plain(looks[P, n], lm, mk)
     for name, g, w in zip(("quant", "above", "prefix", "used"), got, want):
@@ -227,18 +228,20 @@ def test_kernel_replay_equals_plain(looks, P, n):
 
 
 def test_card_cast_saturates(looks):
-    """The card-only row: +inf in the mask quantizes to 1023 in the
-    kernel's replay (the card's cast saturates) and to 0 through torch's
-    CPU cast; every other output of the row agrees."""
-    lm, mk = _prepare_rows(128, 2, 5, card=True)
+    """The +inf row: +inf in the mask quantizes to 1023 in the kernel's
+    replay (the card's cast saturates), in the plain version (whose cast
+    saturates as XLA's does) and in JAX; the row agrees everywhere."""
+    lm, mk = _prepare_rows(128, 2, 5)
     row = slice(len(lm) - 1, len(lm))
     got = replay(looks[19, 128], lm[row], mk[row])
     want = _plain(looks[19, 128], lm[row], mk[row])
+    jq = np.asarray(_jax_prepare(looks[19, 128])(lm[row], mk[row])[0])
     inf = np.isposinf(mk[row])
     assert inf.any()
-    assert (got[0][inf] == 1023).all() and (want[0][inf] == 0).all()
-    assert np.array_equal(got[0][~inf], want[0][~inf])
-    assert np.array_equal(got[1], want[1])
+    assert (got[0][inf] == 1023).all() and (want[0][inf] == 1023).all()
+    assert np.array_equal(jq, want[0])
+    for g, w in zip(got, want):
+        assert np.array_equal(g.view(np.uint8), w.view(np.uint8))
 
 
 def test_cpu_wrapper_and_managed_stack(looks):
@@ -248,8 +251,7 @@ def test_cpu_wrapper_and_managed_stack(looks):
     from vorbis_tpu_torch.ops import managed
     look = looks[29, 1024]
     fit = DeviceFloorFit(look, "cpu")
-    lm, mk = (torch.from_numpy(a) for a in _prepare_rows(1024, 8, 9,
-                                                          card=False))
+    lm, mk = (torch.from_numpy(a) for a in _prepare_rows(1024, 8, 9))
     before = floor_cuda.floor_prepare.launches
     got = floor_cuda.floor_prepare(fit, lm, mk)
     want = fit.prepare(lm, mk)

@@ -12,7 +12,9 @@ bits; the port writes 0 there), at the configs of FastEncoder(2, 44100,
 0.5) long and short, FastEncoder(6, 48000, 0.4)'s coupled submap long
 and short and its LFE, and FastEncoder(2, 44100, 0.5, coupling=False)
 (residue type 1 over two channels), on tests/residue_encode_cases.py's
-seeded, threshold, zero, unused and stress rows.  A numpy replay of the
+seeded, threshold, zero, unused and stress rows and its rows at
+int32's edge (+3e9, +inf and NaN residues, which the JAX package's
+converts saturate or take to 0).  A numpy replay of the
 kernel's schedule (`replay`: the blob read through its header, a block
 of whole frames, a thread a (row, partition) with its values carried
 from stage to stage, the entries in a slot a thread, then a column a
@@ -32,7 +34,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from tests.residue_encode_cases import inputs, stress_rows
+from tests.residue_encode_cases import cast_rows, inputs, stress_rows
 from vorbis_tpu.models.fastenc import FastEncoder as JFE
 from vorbis_tpu_torch.models.fastenc import FastEncoder as TFE
 from vorbis_tpu_torch.ops import residue_encode_cuda as REC
@@ -67,11 +69,13 @@ def _config(name):
 
 
 def _rows(td, cfg, seed):
-    """The seeded and edge rows, then the stress rows."""
+    """The seeded and edge rows, the stress rows, then the rows at
+    int32's edge (the port's converts saturate as XLA's do)."""
     n2 = td.n // 2
     r1, u1 = inputs(cfg, n2, seed)
     r2, u2 = stress_rows(cfg, n2, seed + 1)
-    return np.concatenate([r1, r2]), np.concatenate([u1, u2])
+    r3, u3 = cast_rows(cfg, n2, seed + 2)
+    return np.concatenate([r1, r2, r3]), np.concatenate([u1, u2, u3])
 
 
 @pytest.fixture(scope="module", params=list(LOOKS))

@@ -46,7 +46,7 @@ import torch
 from ..native import PKG, build_library
 from .floor_cuda import NVCC_FLAGS, nvcc
 from .mdct_cuda import TODB_C345, TODB_SCALE, log_spectrum_plain, todB_u
-from .xla_f32 import add, block_cumsum, div, fma, mul, sub
+from .xla_f32 import add, block_cumsum, div, fma, mul, sub, to_int32
 
 SOURCE = PKG / "csrc" / "bark_fit.cu"
 f32 = np.float32
@@ -160,11 +160,8 @@ def bark_fit_plain(md: torch.Tensor, tabs: dict):
         Rf = _fit(P2, lo_f, hi_f, tabs["j1"], tabs["j2"], n)
         mask2 = torch.minimum(mask2, torch.clamp_min(Rf, 0.0))
     fit1 = sub(lm, work)
-    # XLA's float -> int32 convert saturates and takes NaN to 0
-    v = add(mask2, 0.5)
-    v = torch.where(torch.isnan(v), 0.0,
-                    v.clamp(0.0, NOISE_COMPAND_LEVELS - 1))
-    return fit1, v.to(torch.int32)
+    return fit1, torch.clamp(to_int32(add(mask2, 0.5)), 0,
+                             NOISE_COMPAND_LEVELS - 1)
 
 
 def bark_tables(bark_lo, bark_hi, i1, i2, j1, j2, fixed, device) -> dict:

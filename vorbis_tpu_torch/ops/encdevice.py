@@ -54,6 +54,7 @@ from .pack_cuda import PackTables, pack_packets
 # the packer's plain stages, for this module's callers
 from .pack_cuda import merge_columns, pack_bits  # noqa: F401
 from .residue_encode_cuda import ResidueEncodeConfig, residue_encode
+from .xla_f32 import to_int32
 
 f32 = np.float32
 i32 = torch.int32
@@ -596,10 +597,14 @@ class DeviceFastEncode:
         spp = cfg.spp
         need = ri.begin + cfg.partvals * spp
         res = self._pad_to(res, need)
-        seg = torch.abs(res[..., ri.begin:need].to(i32)) \
+        # XLA's convert saturates: a residue at or past 2^31 (float PCM
+        # far above full scale, or not finite) keeps its side
+        seg = torch.abs(to_int32(res[..., ri.begin:need])) \
             .reshape(res.shape[:-1] + (cfg.partvals, spp))
         mx = seg.amax(-1)
         scale = float(f32(f32(100.0) / f32(spp)))
+        # past int32's range only below -2^31 (INT_MIN both ways) or with
+        # mx past every threshold (the widest class whatever ent is)
         ent = (seg.sum(-1, dtype=i32).to(torch.float32) * scale).to(i32)
         cm1 = np.asarray(ri.classmetric1, np.int64)
         cm2 = np.asarray(ri.classmetric2, np.int64)
@@ -663,7 +668,7 @@ class DeviceFastEncode:
                 t = a - mv4 + addv[..., None, None]
                 # exact int32 trunc division (C: IEEE f32 divide +
                 # truncate; every delta is integral and t integer-valued)
-                ti = t.to(i32)
+                ti = to_int32(t)
                 di = dl4.to(i32)
                 v = torch.div(ti, di, rounding_mode="trunc")
                 m = torch.where(v < ze4, ((ze4 - v) << 1) - 1,

@@ -29,7 +29,7 @@ import torch
 
 from ..codec.floor1_codec import Floor1Look
 from ..convert import device_tables
-from .xla_f32 import fma
+from .xla_f32 import fma, to_int32
 
 f32 = np.float32
 NEG = -200
@@ -149,10 +149,10 @@ class DeviceFloorFit:
     def prepare(self, logmdct, logmask):
         """(B, n) spectra -> (quant (B, n) int32, above (B, n) bool,
         prefix (B, P, 6) f32, used (B,) bool)."""
-        # XLA:CPU fuses the JAX package's logmask * 7.31 + 1023.5
-        quant = torch.clamp(fma(logmask, float(QUANT_SCALE),
-                                float(QUANT_OFFSET)).to(torch.int32),
-                            0, 1023)
+        # XLA:CPU fuses the JAX package's logmask * 7.31 + 1023.5, and
+        # its convert saturates (a +inf mask quantizes to 1023)
+        quant = torch.clamp(to_int32(fma(logmask, float(QUANT_SCALE),
+                                         float(QUANT_OFFSET))), 0, 1023)
         above = (logmdct + float(self.twofitatten)) >= logmask
         prefix, an = self._moments(quant, above)
         used = an.sum(-1) > 0

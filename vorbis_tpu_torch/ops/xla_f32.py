@@ -2,7 +2,8 @@
 on the CPU, in eager PyTorch: the plain versions of csrc/mdct_fwd.cu
 (ops/mdct_cuda.py) and csrc/bark_fit.cu (ops/bark_cuda.py) are written
 with these operations, and the kernels with their PTX counterparts;
-`block_cumsum` is jnp.cumsum's order of summation.
+`block_cumsum` is jnp.cumsum's order of summation, `to_int32` XLA's
+float -> int32 convert.
 
 Two properties of XLA:CPU's code decide its float32 bits beyond IEEE
 round-to-nearest:
@@ -71,6 +72,16 @@ def fma(a, b, c) -> torch.Tensor:
     odd = (e != 0) & ((bits & 1) == 0) & torch.isfinite(s)
     s = torch.where(odd, (bits + step).view(torch.float64), s)
     return ftz(s.float())
+
+
+def to_int32(x: torch.Tensor) -> torch.Tensor:
+    """float -> int32 as XLA's convert (and the card's cvt.rzi) gives
+    it: truncated toward zero, saturated at the int32 range, NaN to 0.
+    Torch's CPU cast takes NaN, +inf and every value at or above 2^31 to
+    INT_MIN."""
+    big = x >= 2.0 ** 31
+    y = torch.where(torch.isnan(x) | big, 0.0, x.clamp_min(-2.0 ** 31))
+    return torch.where(big, 2 ** 31 - 1, y.to(torch.int32))
 
 
 def block_cumsum(x, base=16):
