@@ -12,7 +12,8 @@ Phases (any failure raises and the script exits non-zero):
   2. build: nvcc compiles csrc/floor_fit.cu, csrc/floor_prepare.cu,
      csrc/floor_encode.cu, csrc/m3_scan.cu, csrc/imdct.cu, csrc/lap.cu,
      csrc/mdct_fwd.cu, csrc/bark_fit.cu, csrc/tone_mask.cu,
-     csrc/residue_encode.cu and csrc/pack_bits.cu and cc compiles csrc/host_ogg.c (Ogg CRC and
+     csrc/residue_encode.cu, csrc/pack_bits.cu and
+     csrc/couple_quantize.cu and cc compiles csrc/host_ogg.c (Ogg CRC and
      pager, rescue walk, schedule), csrc/host_decode.c (the decode's
      page walk, packet parse, host IMDCT and lap, with
      -ffp-contract=off) and
@@ -108,13 +109,14 @@ Phases (any failure raises and the script exits non-zero):
      pack) alone, and the whole step with the kernels, with the floor's
      plain trio in the floor-encode kernel's place, with the residue
      path's plain trio in the residue kernel's place, with the plain
-     tone mask in the tone-mask kernel's place and with the plain
-     prepare and packer in those two kernels' places; then each step
-     captured in one CUDA graph on static copies of its inputs (ROADMAP
-     2.16), with the kernels, with the residue path's plain trio and with
-     the plain prepare and packer: the replay's packets and bit counts
-     bitwise equal to the eager step's, the eager and replayed ms a call
-     in turns;
+     tone mask in the tone-mask kernel's place, with the plain
+     prepare and packer in those two kernels' places and with the plain
+     coupling in the coupling kernel's place; then each step captured
+     in one CUDA graph on static copies of its inputs (ROADMAP 2.16),
+     with the kernels, with the residue path's plain trio, with the
+     plain prepare and packer and with the plain coupling: the replay's
+     packets and bit counts bitwise equal to the eager step's, the
+     eager and replayed ms a call in turns;
   3k. the tone mask: csrc/tone_mask.cu (the octave groups' maxima, the
      curve seeding, the chase and the windowed min with the ATH floor in
      one launch) bitwise against its plain version (the JAX package's
@@ -182,6 +184,20 @@ Phases (any failure raises and the script exits non-zero):
      an SM; its time at the two 4d batches (CUDA graphs, median and
      spread of six), its bound by bytes and share, the plain version's
      time and device kernels (no library call computes it);
+  3o. the stereo coupling: csrc/couple_quantize.cu (the lowpass, the
+     M9 lowering, M6, the lossless mag/ang, the point fold, the
+     normalize and the interleave in one launch) bitwise, residues and
+     flags, against its plain version (the lowpass where,
+     _couple_quantize, the interleave) on the coupling calls 3j
+     recorded (4d's long and short finish batch, the managed encoder's
+     15-blob rows long and short, the 16 and 32 kHz configs) and on
+     tests/couple_cases.py's seeded rows and its rows on M6's and the
+     normalize's edges (padded too) at each of those configs and at
+     FastEncoder(2, 44100, 0.2)'s; the build's registers, shared memory
+     a block and blocks an SM; its time at the two 4d batches (CUDA
+     graphs, median and spread of six), its bound by bytes and share,
+     the plain version's time and device kernels (no library call
+     computes it);
   4. main path: FastEncoder(2, 44100, 0.5, switching=False,
      psy_state=False).encode of 60 s of 44.1 kHz stereo int16 (bench.py's
      signal, seed 0), from a CUDA tensor and from host numpy; the stream
@@ -337,8 +353,9 @@ callers are counted apart from the kernel's wrapper) and the residue
 kernel once a finish call a residue submap (finish_from_posts and each
 submap of _finish_multi, counted apart from its wrapper; 3i's host pack
 and 7b's step call no finish), the packer kernel once a finish call
-(counted the same way) and the prepare kernel as often as the floor
-fit.  Phase 5 prints the differing packets'
+(counted the same way), the prepare kernel as often as the floor fit
+and the coupling kernel once a stereo finish_from_posts call (counted
+the same way; none in 3i, 4g and 7b, some in every other phase).  Phase 5 prints the differing packets'
 indices.
 It prints the kernel record as one JSON line, then the result line.
 """
@@ -1744,7 +1761,8 @@ def _phase_51_kernels(f51, smi):
 # -- the analysis front: csrc/mdct_fwd.cu and csrc/bark_fit.cu ------------
 
 # (mdct_fwd, bark_fit, floor_encode, tone_mask, residue_encode,
-# pack_packets, floor_prepare) launches of each main-path run, by phase
+# pack_packets, floor_prepare, couple_quantize) launches of each
+# main-path run, by phase
 PATH_LAUNCHES = {}
 # the calls that reach the tone mask since _path_reset: the finish
 # steps' (each calls psydevice.noisemask_tail once) and
@@ -1757,10 +1775,15 @@ RES_CALLS = [0]
 # the finish calls since _path_reset (finish_from_posts and _finish_multi
 # each pack their packets once)
 FINISH_CALLS = [0]
+# the stereo finish_from_posts calls since _path_reset (res_type 2: each
+# couples its pair once)
+COUPLE_CALLS = [0]
 # the main-path runs that call no finish step (the host pack's device
 # step, the pipeline's encode_quantize_step): the residue kernel is not
-# on their path
+# on their path; nor is the coupling kernel, nor on 5.1's (its chained
+# coupling is plain PyTorch)
 NO_FINISH = ("3i", "7b")
+NO_COUPLE = NO_FINISH + ("4g",)
 
 
 def _path_kernels():
@@ -1769,9 +1792,11 @@ def _path_kernels():
     spectra call launches both), the floor's post coding (once a finish
     call a floor look), the tone mask (once a finish step or
     mask_components call), the residue path (once a finish call a
-    residue submap), the packer (once a finish call) and the floor fit's
-    prepare (once a floor fit launch)."""
+    residue submap), the packer (once a finish call), the floor fit's
+    prepare (once a floor fit launch) and the stereo coupling (once a
+    stereo finish_from_posts call)."""
     from vorbis_tpu_torch.ops.bark_cuda import bark_fit
+    from vorbis_tpu_torch.ops.couple_cuda import couple_quantize
     from vorbis_tpu_torch.ops.floor_cuda import floor_prepare
     from vorbis_tpu_torch.ops.floor_encode_cuda import floor_encode
     from vorbis_tpu_torch.ops.mdct_cuda import mdct_fwd
@@ -1779,7 +1804,7 @@ def _path_kernels():
     from vorbis_tpu_torch.ops.residue_encode_cuda import residue_encode
     from vorbis_tpu_torch.ops.tone_mask_cuda import tone_mask
     return (mdct_fwd, bark_fit, floor_encode, tone_mask, residue_encode,
-            pack_packets, floor_prepare)
+            pack_packets, floor_prepare, couple_quantize)
 
 
 def _count_tone_calls():
@@ -1803,7 +1828,8 @@ def _count_finish_calls():
     single-submap layouts and the managed pass), one a submap a
     _finish_multi call (5.1); each is one call of the residue kernel,
     counted apart from its wrapper.  FINISH_CALLS counts the calls, each
-    one call of the packer."""
+    one call of the packer, and COUPLE_CALLS the finish_from_posts calls
+    of a stereo (res_type 2) layout, each one call of the coupling."""
     from vorbis_tpu_torch.ops.encdevice import DeviceFastEncode
     real_one = DeviceFastEncode.finish_from_posts
     real_multi = DeviceFastEncode._finish_multi
@@ -1811,6 +1837,7 @@ def _count_finish_calls():
     def one(self, *a, **kw):
         RES_CALLS[0] += 1
         FINISH_CALLS[0] += 1
+        COUPLE_CALLS[0] += self.res_type == 2
         return real_one(self, *a, **kw)
 
     def multi(self, *a, **kw):
@@ -1827,6 +1854,7 @@ def _path_reset():
     TONE_CALLS[0] = 0
     RES_CALLS[0] = 0
     FINISH_CALLS[0] = 0
+    COUPLE_CALLS[0] = 0
 
 
 def _path_add(phase):
@@ -1834,14 +1862,19 @@ def _path_add(phase):
     a main-path run that launched one of them no time (the residue
     kernel and the packer outside NO_FINISH), the tone mask otherwise
     than once a finish step or mask_components call, the residue kernel
-    otherwise than once a finish call a residue submap, or the packer
-    otherwise than once a finish call, fails."""
+    otherwise than once a finish call a residue submap, the packer
+    otherwise than once a finish call, or the coupling otherwise than
+    once a stereo finish_from_posts call (none in NO_COUPLE; main()
+    fails a phase outside it whose runs launched it no time: phase 8's
+    5.1 encode calls none), fails."""
     counts = [k.launches for k in _path_kernels()]
-    if (min(counts[:4] + counts[6:]) == 0
-            or (phase not in NO_FINISH and min(counts[4:6]) == 0)):
+    if (min(counts[:4] + counts[6:7]) == 0
+            or (phase not in NO_FINISH and min(counts[4:6]) == 0)
+            or (phase in NO_COUPLE and counts[7])):
         raise RuntimeError(f"{phase}: mdct_fwd, bark_fit, floor_encode, "
-                           f"tone_mask, residue_encode, pack_packets and "
-                           f"floor_prepare launched {counts} times")
+                           f"tone_mask, residue_encode, pack_packets, "
+                           f"floor_prepare and couple_quantize launched "
+                           f"{counts} times")
     if counts[3] != TONE_CALLS[0]:
         raise RuntimeError(f"{phase}: tone_mask launched {counts[3]} times "
                            f"for {TONE_CALLS[0]} finish steps and "
@@ -1853,6 +1886,10 @@ def _path_add(phase):
     if counts[5] != FINISH_CALLS[0]:
         raise RuntimeError(f"{phase}: pack_packets launched {counts[5]} "
                            f"times for {FINISH_CALLS[0]} finish calls")
+    if counts[7] != COUPLE_CALLS[0]:
+        raise RuntimeError(f"{phase}: couple_quantize launched {counts[7]} "
+                           f"times for {COUPLE_CALLS[0]} stereo "
+                           f"finish_from_posts calls")
     PATH_LAUNCHES[phase] = tuple(
         a + b for a, b in zip(PATH_LAUNCHES.get(phase, (0,) * len(counts)),
                               counts))
@@ -2495,7 +2532,7 @@ SPLIT_STAGES = (
     ("floor prepare", "floor_cuda", "floor_prepare"),
     ("floor fit", "floor", "fit"),
     ("floor encode", "encdevice", "floor_encode"),
-    ("coupling", "dev", "_couple_quantize"),
+    ("coupling", "encdevice", "couple_quantize"),
     ("residue encode", "encdevice", "residue_encode"),
     ("pack", "encdevice", "pack_packets"))
 
@@ -2507,7 +2544,8 @@ STAGES5 = (
     ("fit posts (posts, used)", "ctx", "floor"),
     ("floor post coding (curve, codewords, lengths)", "encdevice",
      "floor_encode"),
-    ("coupled residues (residues, any used)", "dev", "_couple_quantize"),
+    ("coupled residues (residues, any used)", "encdevice",
+     "couple_quantize"),
     ("residue path (classes, VQ and columns: vals, lens)", "encdevice",
      "residue_encode"),
     ("packed bytes (packets, nbits)", "encdevice", "pack_packets"))
@@ -2614,15 +2652,18 @@ def _split(fe, W, step, args, smi):
     likewise, with the kernels, with the floor's plain trio in the
     floor-encode kernel's place, with the residue path's plain trio in
     the residue kernel's place, with the plain tone mask in the
-    tone-mask kernel's place, and with the plain prepare and the
-    packer's plain duo (merge_columns and pack_bits) in those kernels'
-    places.  Returns ({stage: (kernels, device ms, ms)}, {stage: its
-    recorded call's arguments}: the floor_encode call's (cfg, posts,
-    used), the tone mask's (DeviceToneMask, logfft, global, local), the
-    residue_encode call's (cfg, res, used), the packer's (tabs, vals,
-    lens, wb) and the prepare's (fit, logmdct, logmask))."""
+    tone-mask kernel's place, with the plain prepare and the packer's
+    plain duo (merge_columns and pack_bits) in those kernels' places, and
+    with the plain coupling in the coupling kernel's place.  Returns
+    ({stage: (kernels, device ms, ms)}, {stage: its recorded call's
+    arguments}: the floor_encode call's (cfg, posts, used), the tone
+    mask's (DeviceToneMask, logfft, global, local), the residue_encode
+    call's (cfg, res, used), the packer's (tabs, vals, lens, wb), the
+    prepare's (fit, logmdct, logmask) and the coupling's ((dev, md,
+    curve, used, F), keyword arguments))."""
     import torch
     from vorbis_tpu_torch.ops import encdevice, floor_cuda, psydevice
+    from vorbis_tpu_torch.ops.couple_cuda import couple_quantize_plain
     from vorbis_tpu_torch.ops.floor_encode_cuda import floor_encode_plain
     from vorbis_tpu_torch.ops.pack_cuda import pack_packets_plain
     from vorbis_tpu_torch.ops.residue_encode_cuda import (
@@ -2655,6 +2696,8 @@ def _split(fe, W, step, args, smi):
         rec.setdefault(label, a)
     tm, targs = next((f, a) for lb, f, a, _ in calls if lb == "tone mask")
     rec["tone mask"] = (tm, *targs)
+    ca, ckw = next((a, kw) for lb, _, a, kw in calls if lb == "coupling")
+    rec["coupling"] = (ca, ckw)
 
     def plain_step(swaps):
         """The step's (kernels, device ms, ms) with each (owner,
@@ -2687,7 +2730,10 @@ def _split(fe, W, step, args, smi):
              rec["pack"], "prepare and packer",
              {(encdevice, "pack_packets"): pack_packets_plain,
               (floor_cuda, "floor_prepare"):
-              floor_cuda.floor_prepare_plain})):
+              floor_cuda.floor_prepare_plain}),
+            ("coupling, plain", lambda *a: couple_quantize_plain(*a, **ckw),
+             ca, "coupling",
+             {(encdevice, "couple_quantize"): couple_quantize_plain})):
         rows[label] = (*_device_profile(lambda: plain(*call)),
                        _cuda_ms(lambda: plain(*call), 3))
         if swaps:
@@ -2695,7 +2741,7 @@ def _split(fe, W, step, args, smi):
     rows["step"] = whole
     B = rec["floor encode"][1].shape[0]
     for label in ("floor encode", "tone mask", "residue encode",
-                  "floor prepare", "floor fit", "pack"):
+                  "floor prepare", "floor fit", "pack", "coupling"):
         if rows[label][0] > 1:
             raise RuntimeError(f"3j W={W}: one {label} call ran "
                                f"{rows[label][0]} device kernels")
@@ -2740,12 +2786,14 @@ def _step_graph(step, args):
 def _step_graphs(W, step, args, smi):
     """ROADMAP 2.16: the recorded finish step in one CUDA graph, with the
     kernels, with the residue path's plain trio in the residue kernel's
-    place and with the plain prepare and packer in those kernels' places:
+    place, with the plain prepare and packer in those kernels' places and
+    with the plain coupling in the coupling kernel's place:
     the replay's packets and bit counts bitwise against the eager step's,
     and the eager step's and the replay's ms a call in turns (median of
     three rounds each).  A step that cannot be captured raises."""
     import torch
     from vorbis_tpu_torch.ops import encdevice, floor_cuda
+    from vorbis_tpu_torch.ops.couple_cuda import couple_quantize_plain
     from vorbis_tpu_torch.ops.pack_cuda import pack_packets_plain
     from vorbis_tpu_torch.ops.residue_encode_cuda import (
         residue_encode_plain)
@@ -2757,7 +2805,9 @@ def _step_graphs(W, step, args, smi):
             ("plain prepare and packer",
              {(encdevice, "pack_packets"): pack_packets_plain,
               (floor_cuda, "floor_prepare"):
-              floor_cuda.floor_prepare_plain})):
+              floor_cuda.floor_prepare_plain}),
+            ("plain coupling", {(encdevice, "couple_quantize"):
+                                couple_quantize_plain})):
         undo = [(o, at, getattr(o, at)) for (o, at) in swaps]
         for (o, at), fn in swaps.items():
             setattr(o, at, fn)
@@ -2808,8 +2858,11 @@ def _phase_floor_encode(fsw, fm, f51, smi, baseline=None, report=""):
     the managed, 5.1, 16 and 32 kHz runs, the residue calls for phase
     3l: [(label, cfg, res, used)] of the two 4d batches and each residue
     config's first call in the same runs, the packer's calls for phase
-    3m: [(label, tabs, vals, lens, wb)] and the prepare's for phase 3n:
-    [(label, fit, logmdct, logmask)], each plan's or look's first."""
+    3m: [(label, tabs, vals, lens, wb)], the prepare's for phase 3n:
+    [(label, fit, logmdct, logmask)], each plan's or look's first, and
+    the coupling's for phase 3o: [(label, (dev, md, curve, used, F),
+    keyword arguments)] of the two 4d batches and each stereo config's
+    first call in the managed, 16 and 32 kHz runs."""
     import numpy as np
     import torch
     from vorbis_tpu_torch.models.fastenc import FastEncoder
@@ -2837,7 +2890,7 @@ def _phase_floor_encode(fsw, fm, f51, smi, baseline=None, report=""):
     finally:
         del fsw._finish_step
     split, cases, tone_cases, res_cases = {}, [], [], []
-    pack_cases, prep_cases = [], []
+    pack_cases, prep_cases, cpl_cases = [], [], []
     for W, label in ((1, "4d long batch"), (0, "4d short batch")):
         step, a = steps[W]
         split[label], got = _split(fsw, W, step, a, smi)
@@ -2846,6 +2899,7 @@ def _phase_floor_encode(fsw, fm, f51, smi, baseline=None, report=""):
         res_cases.append((label, *got["residue encode"]))
         pack_cases.append((label, *got["pack"]))
         prep_cases.append((label, *got["floor prepare"]))
+        cpl_cases.append((label, *got["coupling"]))
     cfg, posts, used = cases[0][1:]
     if posts.shape[0] != 4096 or cases[1][2].shape[0] != 512:
         raise RuntimeError(f"4d batches of {posts.shape[0]} and "
@@ -2868,7 +2922,8 @@ def _phase_floor_encode(fsw, fm, f51, smi, baseline=None, report=""):
                              "__call__"),
                             ("residue encode", encdevice, "residue_encode"),
                             ("pack", encdevice, "pack_packets"),
-                            ("floor prepare", floor_cuda, "floor_prepare")],
+                            ("floor prepare", floor_cuda, "floor_prepare"),
+                            ("coupling", encdevice, "couple_quantize")],
                            tcalls)
         try:
             recorded = _record_floor_encode(run)
@@ -2876,9 +2931,15 @@ def _phase_floor_encode(fsw, fm, f51, smi, baseline=None, report=""):
             restore()
         first = {k: {} for k in ("tone mask", "residue encode", "pack",
                                  "floor prepare")}
-        for lb, _, (obj, *targs), _ in tcalls:
+        cfirst = {}
+        for lb, _, (obj, *targs), kw in tcalls:
             # a look's, a config's or a plan's first call
-            first[lb].setdefault(id(obj), (obj, *targs))
+            if lb == "coupling":
+                cfirst.setdefault(id(obj), ((obj, *targs), kw))
+            else:
+                first[lb].setdefault(id(obj), (obj, *targs))
+        cpl_cases += [(f"{label} n={a[0].n}", a, kw)
+                      for a, kw in cfirst.values()]
         tone_cases += [(f"{label} n={v[0].look.n}", *v)
                        for v in first["tone mask"].values()]
         rfirst = first["residue encode"]
@@ -2976,7 +3037,7 @@ def _phase_floor_encode(fsw, fm, f51, smi, baseline=None, report=""):
                                       "bound_by")},
                 max_abs_err=err, library_ms=None, at_long=main,
                 at_short=rec["4d short batch"]), tone_cases, res_cases, \
-        pack_cases, prep_cases
+        pack_cases, prep_cases, cpl_cases
 
 
 # The tone mask's own arithmetic, whatever a kernel's schedule: float32
@@ -3615,6 +3676,187 @@ def _phase_floor_prepare(cases, smi, report=""):
                          plain_device_ms=plain_dev, bound_ms=bound_ms,
                          bound_by=by, bytes=nb, share=bound_ms / ms,
                          shared_bytes=smem.value, blocks_per_sm=blocks)
+    main = rec["4d long batch"]
+    return dict({k: main[k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "share")},
+                max_abs_err=err, library_ms=None, at_long=main,
+                at_short=rec["4d short batch"])
+
+
+# The coupling's own arithmetic, whatever a kernel's schedule, counted
+# from its plain version: float32 operations a bin
+#  - always: the two residues' divides and absolutes, the lossless
+#    compares, the two rints, the mag/ang transform (absolutes, compare,
+#    difference, the flip's multiply and compare), the fold's two signed
+#    squares, the two 0.94 products and absolutes, the hypot's products
+#    and sum, the floor energy's two squares and add, ve's divide, the
+#    square root, its rint and the candidate compare: 35;
+#  - with the M9 peaks: the two threshold subtracts and maxima, 4;
+#  - with M6: the point2 compares, the active compares, the signed
+#    squares, the imbalance's absolutes and difference, its add into the
+#    partition sum: 10;
+#  - with the normalize: the budget's add, and the candidate's place in
+#    its partition (two compares against each of the partition's keys:
+#    the stable descending rank the sort gives).
+F32_CPL_PER_BIN, F32_CPL_M9, F32_CPL_M6 = 35, 4, 10
+
+
+def _couple_bound(a, kw):
+    """(bound ms, bound_by, bytes, float32 ops) of one couple_quantize
+    call (dev, md, curve, used, F) with keyword arguments kw: md, curve,
+    the used flags and each optional input read once, each table row
+    read once, the interleaved residues and the flags written once; the
+    operations as counted above."""
+    dev, md, curve, used, F = a
+    n2 = md.shape[-1]
+    cp, nm = dev.ctx.couple, dev.ctx.normal
+    m6 = kw.get("epeak") is not None and int(cp.get("tonefix_end", 0)) > 0
+    normalize = nm["thresh"] < 9000.0
+
+    def table(t, default):
+        t = default[:n2] if t is None else t
+        return (t.shape[0] if t.dim() == 2 else 1) * n2 * t.element_size()
+    nbytes = (md.numel() + curve.numel()) * 4 + used.numel() \
+        + table(kw.get("thr1"), dev.thr1_t) \
+        + table(kw.get("threv"), dev.threv_t) \
+        + sum(kw[k].numel() * kw[k].element_size()
+              for k in ("epeak", "npeak", "lowpass", "inlimit")
+              if kw.get(k) is not None) \
+        + (n2 * 4 if m6 else 0) + (n2 if normalize else 0) \
+        + F * 2 * n2 * 4 + F
+    per_bin = F32_CPL_PER_BIN + (F32_CPL_M9 if kw.get("epeak") is not None
+                                 else 0) + (F32_CPL_M6 if m6 else 0) \
+        + (1 + 2 * nm["partition"] if normalize else 0)
+    ops = F * n2 * per_bin
+    bound_ms, by = _roofline(nbytes, ops)
+    return bound_ms, by, nbytes, ops
+
+
+def _couple_check(name, a, kw):
+    """couple_quantize's kernel against its plain version on the card,
+    residues by bit pattern and flags; returns the largest difference."""
+    import torch
+    from vorbis_tpu_torch.ops.couple_cuda import (couple_quantize,
+                                                  couple_quantize_plain)
+    before = couple_quantize.launches
+    got = couple_quantize(*a, **kw)
+    want = couple_quantize_plain(*a, **kw)
+    torch.cuda.synchronize()
+    if couple_quantize.launches != before + 1:
+        raise RuntimeError(f"couple quantize {name}: "
+                           f"{couple_quantize.launches - before} launches")
+    same = [torch.equal(got[0].view(torch.int32), want[0].view(torch.int32)),
+            torch.equal(got[1], want[1])]
+    err = float((got[0].double() - want[0].double()).abs().max()) \
+        if got[0].numel() else 0.0
+    dev, md = a[0], a[1]
+    print(f"[couple] {name}: F={a[4]} n2={md.shape[-1]} part="
+          f"{dev.ctx.couple['partition']}"
+          + "".join(f" {k}" for k in ("epeak", "npeak", "lowpass", "thr1")
+                    if kw.get(k) is not None)
+          + ": residues, flags " + ("bitwise equal to the plain version"
+                                    if all(same) else f"DIFFER {same}")
+          + f", max_abs_err {err}, {int((want[0] != 0).sum())} nonzero")
+    if not all(same):
+        raise RuntimeError(f"couple quantize {name}: kernel != plain")
+    return err
+
+
+def _phase_couple(cases, smi, report=""):
+    """Phase 3o: the stereo coupling (csrc/couple_quantize.cu: the
+    lowpass, the lossless flags with the M9 lowering, M6, the mag/ang and
+    point fold, the normalize and the interleave in one launch) against
+    its plain version, residues bitwise, on the calls 3j recorded
+    (`cases`: 4d's long and short finish batch, the managed encoder's
+    15-blob rows long and short, the 16 and 32 kHz configs) and on
+    tests/couple_cases.py's seeded rows (the M9 and M8 stores, lowpass,
+    unused channels and frames, equal energies; the managed calls' 15-row
+    tables) and its rows on M6's and the normalize's edges, padded too,
+    at each of those configs and at FastEncoder(2, 44100, 0.2)'s long and
+    short ones (the normalize on); the build's registers (`report`), shared
+    memory a block and blocks an SM; its time at the two 4d batches
+    (CUDA graphs, median and spread of six), its bound and share, the
+    plain version's time and device kernels (no library call computes
+    it).  Returns the kernel's record for the JSON line."""
+    import torch
+    from vorbis_tpu_torch.ops.couple_cuda import (
+        args, couple_quantize, couple_quantize_plain, load_library,
+        shared_bytes)
+    cc = _test_module("couple_cases")
+    err, configs = 0.0, {}
+    for name, a, kw in cases:
+        err = max(err, _couple_check(name, a, kw))
+        configs.setdefault(id(a[0]), (name, a[0], kw))
+    # q0.2 at 44.1 kHz: the normalize on at 32-bin partitions too
+    from vorbis_tpu_torch.models.fastenc import FastEncoder
+    q02 = FastEncoder(2, 44100, 0.2)
+    for W in (1, 0):
+        dev = q02._dev_for(W)
+        configs[id(dev)] = (f"q0.2 n={dev.n}", dev, {})
+    for k, (name, dev, kw) in enumerate(configs.values()):
+        cfg = cc.config(dev)
+        rows = {"seeded": cc.seeded(cfg, 64, 700 + k),
+                "seeded, M9 M8 lowpass": cc.seeded(
+                    cfg, 64, 710 + k, epeak=True, npeak=True, lowpass=True)}
+        if kw.get("thr1") is not None and kw["thr1"].shape[0] == 15:
+            c = cc.seeded(cfg, 30, 720 + k, epeak=True, npeak=True,
+                          lowpass=True)
+            c.update({t: kw[t].cpu().numpy()
+                      for t in ("thr1", "threv", "inlimit")})
+            rows["seeded, 15 blobs' rows"] = c
+        for pad in (0, cfg["part"] // 4):
+            for label, build, ok in (
+                    ("M6 edge", cc.m6_rows, cfg["tfe"] > 0),
+                    ("normalize edge", cc.normalize_rows, cfg["normalize"]),
+                    ("normalize edge after M6",
+                     lambda c, F, s, pad: cc.normalize_rows(
+                         c, F, s, pad=pad, epeak=True, npeak=True),
+                     cfg["normalize"] and cfg["tfe"] > 0)):
+                if not ok:
+                    continue
+                try:
+                    rows[f"{label}, pad {pad}"] = build(cfg, 32, 730 + k,
+                                                        pad=pad)[0]
+                except IndexError:
+                    print(f"[couple] {name}: no partition for the "
+                          f"{label} rows at this config")
+        for label, case in rows.items():
+            tc = cc.torch_case(case, "cuda")
+            F = tc.pop("F")
+            err = max(err, _couple_check(
+                f"{name.split(',')[0]}, {label}",
+                (dev, tc.pop("md"), tc.pop("curve"), tc.pop("used"), F),
+                tc))
+    per_sm = load_library().vtt_couple_quantize_blocks_per_sm
+    build = _build_lines(report)
+    rec = {}
+    for name, a, kw in cases[:2]:
+        ca, *_, (tpf, fpb) = args(*a, **kw)
+        smem = shared_bytes(ca)
+        blocks = per_sm(tpf * fpb, smem)
+        print(f"[couple] {name}: build {build or 'cached'}; {smem} bytes of "
+              f"shared memory a block ({tpf * fpb} threads, {fpb} frames, "
+              f"{-(-a[4] // fpb)} blocks), {blocks} blocks an SM")
+        ts, _ = _turns(lambda: couple_quantize(*a, **kw), None)
+        ms, lo, hi = _med(ts)
+        plain_k, plain_dev = _device_profile(
+            lambda: couple_quantize_plain(*a, **kw))
+        plain_ms = _cuda_ms(lambda: couple_quantize_plain(*a, **kw), 3)
+        bound_ms, by, nb, fo = _couple_bound(a, kw)
+        print(f"[couple] {name} F={a[4]}: kernel {ms:.5f} ms (CUDA graphs; "
+              f"median of {len(ts)}, {lo:.5f}-{hi:.5f}); bound "
+              f"{bound_ms * 1e3:.3f} us by {by} ({nb} bytes, {fo} float32 "
+              f"operations), share {100 * bound_ms / ms:.1f}%; plain "
+              f"{plain_ms:.4f} ms a call, {plain_k} device kernels "
+              f"({plain_dev:.4f} ms on the device); library call: none "
+              f"({smi})")
+        rec[name] = dict(frames=a[4], n2=a[1].shape[-1], ms=ms,
+                         rounds_ms=ts, plain_ms=plain_ms,
+                         plain_kernels=plain_k, plain_device_ms=plain_dev,
+                         bound_ms=bound_ms, bound_by=by, bytes=nb,
+                         share=bound_ms / ms, shared_bytes=smem,
+                         threads=tpf * fpb, blocks_per_sm=blocks,
+                         build=build)
     main = rec["4d long batch"]
     return dict({k: main[k] for k in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "share")},
@@ -5124,7 +5366,7 @@ def main():
 
     # 2. build: one compiler process per source, all started together
     from vorbis_tpu_torch import native
-    from vorbis_tpu_torch.ops import (bark_cuda, floor_cuda,
+    from vorbis_tpu_torch.ops import (bark_cuda, couple_cuda, floor_cuda,
                                       floor_encode_cuda, imdct_cuda,
                                       lap_cuda, m3_cuda, mdct_cuda,
                                       pack_cuda, residue_encode_cuda,
@@ -5141,6 +5383,7 @@ def main():
             "tone_mask.cu": tone_mask_cuda.build,
             "residue_encode.cu": residue_encode_cuda.build,
             "pack_bits.cu": pack_cuda.build,
+            "couple_quantize.cu": couple_cuda.build,
             "host_ogg.c": native.build_host,
             "host_decode.c": native.build_decode,
             "host_pack.c": native.build_pack}
@@ -5158,6 +5401,7 @@ def main():
     tone_mask_cuda.load_library()
     residue_encode_cuda.load_library()
     pack_cuda.load_library()
+    couple_cuda.load_library()
     native.host_library()
     native.decode_library()
     native.pack_library()
@@ -5265,7 +5509,7 @@ def main():
     # split counts each stage's device kernels with torch.profiler, which
     # after phases 3b-3i saw three device events fewer a profiled call,
     # the floor-encode kernel among them
-    fenc_rec, tone_cases, res_cases, pack_cases, prep_cases = \
+    fenc_rec, tone_cases, res_cases, pack_cases, prep_cases, cpl_cases = \
         _phase_floor_encode(fsw, fm, f51, smi,
                             _FencBaseline(args.floor_encode_baseline)
                             if args.floor_encode_baseline else None,
@@ -5298,6 +5542,11 @@ def main():
                                     built["floor_prepare.cu"][1])
     del prep_cases
     _lap(t_start, "3n")
+
+    # 3o. the stereo coupling on 3j's recorded calls
+    cpl_rec = _phase_couple(cpl_cases, smi, built["couple_quantize.cu"][1])
+    del cpl_cases
+    _lap(t_start, "3o")
 
     # 3b. the M3 scan kernel vs its plain version, times and bounds
     m3_rec = _phase_m3(fsw, smi, args.m3_baseline)
@@ -5723,6 +5972,14 @@ def main():
     if prepl != fits:
         raise RuntimeError("floor_prepare did not launch once a floor fit "
                            "launch")
+    # the coupling: one launch a stereo finish_from_posts call, held phase
+    # by phase in _path_add (none in 3i, 4g and 7b)
+    cpll = {k: v[7] for k, v in PATH_LAUNCHES.items()}
+    print(f"[couple] launches by phase {cpll}, each equal to the phase's "
+          f"stereo finish_from_posts calls")
+    if any(v == 0 for k, v in cpll.items() if k not in NO_COUPLE):
+        raise RuntimeError("couple_quantize launched no time in a phase "
+                           "with stereo finish calls")
     print(f"[time] {time.perf_counter() - t_start:.1f} s of command time")
     print(json.dumps({"kernels": [{
         "name": "floor1_greedy_fit", "route": "cuda",
@@ -5791,7 +6048,14 @@ def main():
         "source": "vorbis_tpu_torch/csrc/floor_prepare.cu",
         "replaces": "vorbis_tpu/ops/floor_device.py:114-145 and 199-208 "
                     "(the quantization and _moments of the jitted fit)",
-        "launches": sum(prepl.values()), "by_phase": prepl, **prep_rec}]}))
+        "launches": sum(prepl.values()), "by_phase": prepl, **prep_rec}, {
+        "name": "couple_quantize", "route": "cuda",
+        "source": "vorbis_tpu_torch/csrc/couple_quantize.cu",
+        "replaces": "vorbis_tpu/ops/encdevice.py:1011-1174 and 1448-1500 "
+                    "(_m6_promote, _couple_quantize, _normalize_promote) "
+                    "and 1525-1536 (finish_from_posts' lowpass and "
+                    "interleave; jitted XLA)",
+        "launches": sum(cpll.values()), "by_phase": cpll, **cpl_rec}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -1,11 +1,13 @@
 """Tests that need the card: the port's CUDA kernels (csrc/floor_fit.cu,
 csrc/floor_prepare.cu, csrc/floor_encode.cu, csrc/m3_scan.cu,
 csrc/imdct.cu, csrc/lap.cu, csrc/mdct_fwd.cu, csrc/bark_fit.cu,
-csrc/tone_mask.cu, csrc/residue_encode.cu, csrc/pack_bits.cu) against
+csrc/tone_mask.cu, csrc/residue_encode.cu, csrc/pack_bits.cu,
+csrc/couple_quantize.cu) against
 their plain PyTorch versions (the floor fit's prefix sums against the
 CPU's, the prepare at every floor look, the packer at every plan, the
 tone mask at every encoder
-look, the residue path at every residue config, the floor fit on
+look, the residue path at every residue config, the stereo coupling at
+both partition widths with M6 and the normalize on, the floor fit on
 the 5.1 looks too, M3 on six channels, the IMDCT at every blocksize and
 the lap at every blocksize and on -0.0 and subnormal products, both
 against the host C, the forward MDCT at every blocksize and the bark
@@ -262,6 +264,68 @@ def test_residue_encode_on_cuda(cuda):
                     assert got[0].shape == (len(used), cfg.res_enc.rc)
                     for g, w in zip(got, want):
                         assert torch.equal(g, w), (args, W, k, len(used))
+
+
+def test_couple_quantize_equals_plain_on_cuda(cuda):
+    """csrc/couple_quantize.cu against couple_quantize_plain on the card,
+    bitwise (residues and flags), at FastEncoder(2, 44100, 0.5) and 0.2
+    long and short and the managed ABR encoder: tests/couple_cases.py's
+    seeded rows (stateless, M9 and M6, the M8 store, a lowpass, unused
+    channels and frames, equal energies), the rows on M6's and the
+    normalize's edges (padded too), 2,048 long frames with M6 and the
+    normalize active, and the managed 15 blobs' rows read by frame % 15
+    and as a stride-0 view; one launch a call."""
+    from vorbis_tpu_torch.ops.couple_cuda import (couple_quantize,
+                                                  couple_quantize_plain)
+    cases = _test_module("couple_cases")
+
+    def check(dev, case, tag):
+        tc = cases.torch_case(case, "cuda")
+        F = tc.pop("F")
+        a = (dev, tc.pop("md"), tc.pop("curve"), tc.pop("used"), F)
+        before = couple_quantize.launches
+        got = couple_quantize(*a, **tc)
+        torch.cuda.synchronize()
+        assert couple_quantize.launches == before + 1, tag
+        want = couple_quantize_plain(*a, **tc)
+        assert got[0].shape == (F, 2 * a[1].shape[-1]), tag
+        assert torch.equal(got[0].view(torch.int32),
+                           want[0].view(torch.int32)), tag
+        assert torch.equal(got[1], want[1]), tag
+
+    for q in (0.5, 0.2):
+        fe = TFE(2, 44100, q)
+        for W in (1, 0):
+            dev = fe._dev_for(W)
+            cfg = cases.config(dev)
+            rows = {"stateless": cases.seeded(cfg, 16, 1),
+                    "m9": cases.seeded(cfg, 16, 2, epeak=True),
+                    "m9 m8 lowpass": cases.seeded(cfg, 16, 3, epeak=True,
+                                                  npeak=True, lowpass=True),
+                    "m8": cases.seeded(cfg, 16, 4, npeak=True),
+                    "2048 frames": cases.seeded(cfg, 2048, 5, epeak=True,
+                                                npeak=True)}
+            edge = cases.m6_rows if q == 0.5 else cases.normalize_rows
+            for pad in (0, cfg["part"] // 4):
+                rows[f"edge pad {pad}"] = edge(cfg, 16, 6 + pad, pad=pad)[0]
+            for name, case in rows.items():
+                check(dev, case, (q, W, name))
+    fe = TFE(2, 44100, bitrate=(-1, 128000, -1))
+    for W in (1, 0):
+        dev, tm = fe._dev_for(W), fe._managed_dev_for(W)
+        cfg = cases.config(dev)
+        case = cases.seeded(cfg, 30, 7, epeak=True, npeak=True, lowpass=True)
+        case.update(thr1=tm.thr1_15, threv=tm.threv_15, inlimit=tm.inlimit_15)
+        check(dev, case, ("managed", W))
+        tc = cases.torch_case(cases.seeded(cfg, 30, 8), "cuda")
+        F = tc.pop("F")
+        n2 = cfg["n2"]
+        rows = {k: tm.t[k + "_15"][7].expand(F, n2)
+                for k in ("thr1", "threv", "inlimit")}
+        a = (dev, tc.pop("md"), tc.pop("curve"), tc.pop("used"), F)
+        got = couple_quantize(*a, **rows)
+        want = couple_quantize_plain(*a, **rows)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_fit_prefix_sums_equal_the_cpu_on_cuda(cuda):

@@ -10,10 +10,14 @@ Tolerances, each with its cause and the count measured on this input:
     ntfix_trans/ntfix_short, M2, M8, M9, the low-compand tval,
     _m6_promote, _normalize_promote at q0.2): the float ops run in the
     JAX order; what could differ is the order of a few sums (the
-    8-bin mean of ntfix_trans, M8's lm.sum(-1) >= -95*part, M6's
-    imbalance sums against rdef > 1, normalize's acc against
-    floor(acc - thresh)) and XLA:CPU's FMA contraction (normalize's
-    acc + acc*npk*npk).  Measured: every stage bitwise equal, 0 flips,
+    8-bin mean of ntfix_trans, M8's lm.sum(-1) >= -95*part) and
+    XLA:CPU's FMA contraction (normalize's acc + acc*npk*npk).  M6's
+    imbalance sums (against rdef > 1) and normalize's acc (against
+    floor(acc - thresh)) sum in XLA:CPU's order at each site
+    (ops/xla_f32.py SUM_LANES, tests/test_torch_couple.py); the direct
+    jitted _normalize_promote below sums left to right, its own
+    fusion's order, where the port's coupled site takes 16 lanes.
+    Measured: every stage bitwise equal, 0 flips,
     but for ntfix_short, whose inmod = -70 + (sp + 70) * 0.1 XLA:CPU
     contracts into an FMA: 131 of 16384 short logmask values differ,
     by at most 1.5e-5 dB.  Asserted: at most 0.1% of the outputs

@@ -7,7 +7,8 @@ oggpack_write):
   framing -> window/MDCT/FFT -> psy mask -> floor1 fit (its prepare
   and its greedy fit: two CUDA kernels, ops/floor_cuda.py) -> post
   wrap coding, floor curve render and floor columns (one CUDA
-  kernel, ops/floor_encode_cuda.py) -> stereo coupling -> residue
+  kernel, ops/floor_encode_cuda.py) -> stereo coupling (one CUDA
+  kernel on the stereo pair, ops/couple_cuda.py) -> residue
   classify, lattice VQ and residue columns (one CUDA kernel,
   ops/residue_encode_cuda.py) -> bit-field merge and LSB-first bit
   packing (one CUDA kernel, ops/pack_cuda.py `pack_packets`)
@@ -49,12 +50,13 @@ import torch
 
 from ..bitstream.bitpack import ilog
 from ..convert import device_tables
+from .couple_cuda import couple_quantize
 from .floor_encode_cuda import FloorEncodeConfig, floor_encode, trio
 from .pack_cuda import PackTables, pack_packets
 # the packer's plain stages, for this module's callers
 from .pack_cuda import merge_columns, pack_bits  # noqa: F401
 from .residue_encode_cuda import ResidueEncodeConfig, residue_encode
-from .xla_f32 import to_int32
+from .xla_f32 import part_sum, to_int32
 
 f32 = np.float32
 i32 = torch.int32
@@ -829,10 +831,12 @@ class DeviceFastEncode:
         act_p = p4(active.to(torch.float32)).reshape(F, npt, part)
         opp_p = p4((active & opposed).to(torch.float32)) \
             .reshape(F, npt, part)
-        imb_p = p4(torch.where(active, imb, 0.0)).reshape(F, npt, part)
+        # the counts are exact in any order; the imbalance sum is
+        # compared with rdef > 1, so it takes XLA's
         ap = act_p.sum(-1)
         rp = opp_p.sum(-1)
-        rdsum = imb_p.sum(-1)
+        rdsum = part_sum(p4(torch.where(active, imb, 0.0)), part, "m6",
+                         padn > 0)
         temp_def = rdsum / torch.clamp_min(ap, 1.0)
         nz = (ap > 0) & gate
         carry = torch.nn.functional.pad(
@@ -888,7 +892,8 @@ class DeviceFastEncode:
         f1M = r[:, 0] >= thrM
         f1A = r[:, 1] >= thrA
         lossless = f1M | f1A
-        if epeak is not None and int(cp.get("tonefix_end", 0)) > 0:
+        m6 = epeak is not None and int(cp.get("tonefix_end", 0)) > 0
+        if m6:
             # flag -1 (point2 threshold) feeds the M6 promotion
             thr2 = self.thr2_t[:n2]
             flagm1 = ((~f1M) & (r[:, 0] >= thr2)) \
@@ -950,8 +955,9 @@ class DeviceFastEncode:
                 neg = (npk2[:, 0] < -0.5) | (npk2[:, 1] < -0.5)
                 npk_m = torch.where(neg, -1.0,
                                     torch.minimum(npk2[:, 0], npk2[:, 1]))
-            outM = self._normalize_promote(outM, ve, torch.abs(hyp),
-                                           cand, hyp, npeak=npk_m)
+            outM = self._normalize_promote(
+                outM, ve, torch.abs(hyp), cand, hyp, npeak=npk_m,
+                site="normalize_m6" if m6 else "normalize")
         outM = torch.where(any_used[:, None], outM, 0.0)
         outA = torch.where(any_used[:, None], outA, 0.0)
         return torch.stack([outM, outA], 1), any_used
@@ -1069,7 +1075,8 @@ class DeviceFastEncode:
                                         torch.minimum(npk[Mi], npk[Ai]))
                     npk[Mi] = torch.where(pu, npk_m, npk[Mi])
                 out_pt = self._normalize_promote(
-                    mag_pt, ve, torch.abs(hyp), cand, hyp, npeak=npk_m)
+                    mag_pt, ve, torch.abs(hyp), cand, hyp, npeak=npk_m,
+                    site="normalize_multi")
             # commit the pair's new state (the C's quant energies are
             # not read by any later stage of this path and are not kept)
             out[Mi] = torch.where(lossless, magi,
@@ -1169,7 +1176,8 @@ class DeviceFastEncode:
                         res.reshape(R, n2), ve.reshape(R, n2),
                         torch.abs(mdg * mdg).reshape(R, n2),
                         cand.reshape(R, n2), rr.reshape(R, n2),
-                        npeak=npk_g).reshape(F, nc, n2)
+                        npeak=npk_g, site="normalize_submap"
+                    ).reshape(F, nc, n2)
                 res_g = res.reshape(R, n2)
                 used_p = usedg
             # classify, VQ and the residue columns: one kernel launch
@@ -1200,7 +1208,8 @@ class DeviceFastEncode:
                              lw_v, nw_v], 1)
         return hdr_v, self.hdr_l_t.expand(F, 4)
 
-    def _normalize_promote(self, out, ve, qe, cand, sgn, npeak=None):
+    def _normalize_promote(self, out, ve, qe, cand, sgn, npeak=None,
+                           site="normalize"):
         """noise_normalize's energy-budget promotion (psy.c:4732-4854),
         batched per partition: candidate bins (sub-unity energy) sort
         by raw energy descending; while the accumulated energy budget
@@ -1209,7 +1218,8 @@ class DeviceFastEncode:
         the M8 per-partition store -- negative disables the partition,
         positive boosts its budget (acc += acc*npeak^2).  Both sorts
         are stable, as jnp.argsort is: candidates of equal energy rank
-        by bin."""
+        by bin.  The budget sums each partition in XLA's order at
+        `site` (SUM_LANES)."""
         nm = self.ctx.normal
         thresh = float(f32(nm["thresh"]))
         part = nm["partition"]
@@ -1232,8 +1242,7 @@ class DeviceFastEncode:
             gate = torch.repeat_interleave(
                 npk > -0.5, part, dim=-1)[:, :out2.shape[-1]]
             c2 = c2 & gate
-        vp = torch.where(c2, ve2, 0.0).reshape(F, np_, part)
-        acc = vp.sum(-1)
+        acc = part_sum(torch.where(c2, ve2, 0.0), part, site, npad > 0)
         if npeak is not None:
             acc = acc + acc * npk * npk
         npro = torch.where(acc >= thresh,
@@ -1276,20 +1285,20 @@ class DeviceFastEncode:
         ctx = self.ctx
         ch = self.ch
         curve, fv, fl = floor_encode(self, posts, used)
-        if lowpass is not None:
-            # per-row sliding lowpass: zero residues at and above the
-            # blob's bin limit (psy.c:5126-5131)
-            bins = torch.arange(md.shape[-1], dtype=torch.int32,
-                                device=md.device)
-            md = torch.where(bins[None, :] < lowpass[:, None], md, 0.0)
         if self.res_type == 2:
-            out2, any_used = self._couple_quantize(
-                md, curve, used, F, thr1=thr1, threv=threv,
-                inlimit=inlimit, epeak=epeak, npeak=npeak)
-            # interleave the coupled pair: flat[i] = out2[:, i%2, i//2]
-            res = out2.transpose(1, 2).reshape(F, -1)
+            # the lowpass, the coupling and the interleave of the pair
+            # (flat[i] = out2[:, i%2, i//2]): one kernel launch
+            res, any_used = couple_quantize(
+                self, md, curve, used, F, thr1=thr1, threv=threv,
+                inlimit=inlimit, lowpass=lowpass, epeak=epeak, npeak=npeak)
             used_p = any_used.reshape(F, 1)
         else:
+            if lowpass is not None:
+                # per-row sliding lowpass: zero residues at and above the
+                # blob's bin limit (psy.c:5126-5131)
+                bins = torch.arange(md.shape[-1], dtype=torch.int32,
+                                    device=md.device)
+                md = torch.where(bins[None, :] < lowpass[:, None], md, 0.0)
             rr = md / curve
             res = torch.round(rr)
             res = torch.where(used[:, None], res, 0.0)
@@ -1300,7 +1309,8 @@ class DeviceFastEncode:
                 cand = (ve < float(f32(0.25))) & self.nm_inreg_t \
                     & used[:, None]
                 res = self._normalize_promote(res, ve, torch.abs(md * md),
-                                              cand, rr, npeak=npeak)
+                                              cand, rr, npeak=npeak,
+                                              site="normalize_uncoupled")
             used_p = used.reshape(F, ch)
         # classify, VQ and the residue columns: one kernel launch
         rv, rl = residue_encode(self, res, used_p)

@@ -140,25 +140,23 @@ class DeviceManagedEncode:
     def blob_rows(self, F, md, epeak=None, npeak=None, wid=None):
         """md and the per-row finish arguments over the rows (F, blob,
         ch): each frame's rows repeated for its 15 blobs, with each
-        blob's sliding lowpass and (res2) coupling rows.  Returns (md
-        rows (F*15*ch, n2), finish_from_posts keyword arguments)."""
-        ch, NB, n2 = self.dev.ch, PACKETBLOBS, self.n2
+        blob's sliding lowpass and (res2) the 15 blobs' coupling rows,
+        which the coupling reads by frame % 15.  Returns (md rows
+        (F*15*ch, n2), finish_from_posts keyword arguments)."""
+        ch, NB = self.dev.ch, PACKETBLOBS
 
         def bcast(x):
             return x.reshape(F, 1, ch, x.shape[-1]).expand(
                 F, NB, ch, x.shape[-1]).reshape(F * NB * ch, x.shape[-1])
-
-        def rows(t):
-            return t[None].expand(F, NB, n2).reshape(F * NB, n2)
 
         kw = dict(lowpass=self.t["lowpass_15"][None, :, None].expand(
             F, NB, ch).reshape(F * NB * ch))
         if epeak is not None:
             kw.update(epeak=bcast(epeak), npeak=bcast(npeak))
         if self.dev.res_type == 2:
-            kw.update(thr1=rows(self.t["thr1_15"]),
-                      threv=rows(self.t["threv_15"]),
-                      inlimit=rows(self.t["inlimit_15"]))
+            # (15, n2) rows: frame f of the F*15 reads blob f % 15's
+            kw.update(thr1=self.t["thr1_15"], threv=self.t["threv_15"],
+                      inlimit=self.t["inlimit_15"])
         if wid is not None:
             kw["wid"] = torch.repeat_interleave(wid, NB * ch)
         return bcast(md), kw

@@ -2,7 +2,8 @@
 on the CPU, in eager PyTorch: the plain versions of csrc/mdct_fwd.cu
 (ops/mdct_cuda.py) and csrc/bark_fit.cu (ops/bark_cuda.py) are written
 with these operations, and the kernels with their PTX counterparts;
-`block_cumsum` is jnp.cumsum's order of summation, `to_int32` XLA's
+`block_cumsum` is jnp.cumsum's order of summation, `partition_sum` the
+order of a jitted `x.reshape(..., part).sum(-1)`, `to_int32` XLA's
 float -> int32 convert.
 
 Two properties of XLA:CPU's code decide its float32 bits beyond IEEE
@@ -107,3 +108,59 @@ def block_cumsum(x, base=16):
         excl = torch.nn.functional.pad(pre[..., :-1], (1, 0))
         inner = inner + excl[..., None]
     return inner.reshape(x.shape[:-1] + (m,))[..., :n]
+
+
+def partition_sum(x: torch.Tensor, part: int, lanes: int) -> torch.Tensor:
+    """(..., m * part) -> (..., m): each partition of `part` values
+    summed in the order XLA:CPU's jitted `reshape(..., m, part).sum(-1)`
+    takes.  That order is the fusion's: `lanes` accumulators, lane l
+    taking values l, l + lanes, l + 2 lanes, ... in turn, then the
+    lanes folded in halves (l + (l + lanes/2), and so on down to one);
+    `lanes` 1 is a left-to-right sum.  The callers name the lanes each
+    site was measured to take (`SUM_LANES`, through `part_sum`).
+
+    Written as slice adds, so every device rounds as the CPU does (a
+    library reduction states no order: torch's CPU sum agrees with
+    XLA's on about half of random 32-value partitions).  Each chain
+    starts from its first value, not from 0.0: the two differ only
+    for a partition of negative zeros."""
+    if lanes < 1 or part % lanes or lanes & (lanes - 1):
+        raise ValueError(f"partition_sum: {lanes} lanes over {part}")
+    x = x.reshape(x.shape[:-1] + (-1, part))
+    acc = x[..., 0:lanes]
+    for k in range(lanes, part, lanes):
+        acc = acc + x[..., k:k + lanes]
+    while lanes > 1:
+        lanes //= 2
+        acc = acc[..., :lanes] + acc[..., lanes:2 * lanes]
+    return acc[..., 0]
+
+
+# The accumulators XLA:CPU sums a partition in, by site and partition
+# width (partition_sum; 1 is left to right).  Its fusion decides them,
+# so each was measured against the JAX package's jitted
+# finish_from_posts, _couple_quantize and _couple_multi
+# (tests/test_torch_couple.py, tests/test_torch_couple_orders.py):
+# "m6" is M6's imbalance sum at both callers, "normalize" the coupled
+# pair's normalize, "normalize_m6" the same after an M6 promotion ran,
+# "normalize_multi" the chained coupling's, "normalize_uncoupled" the
+# uncoupled branch's; the 5.1 uncoupled submap (the LFE, whose floor
+# ends below the normalize region) takes the uncoupled branch's order,
+# unmeasured there.  A row padded to whole partitions is summed left to
+# right at every site.
+SUM_LANES = {("m6", 32): 8, ("m6", 8): 1,
+             ("normalize", 32): 16, ("normalize", 8): 1,
+             ("normalize_m6", 32): 8, ("normalize_m6", 8): 8,
+             ("normalize_multi", 32): 8, ("normalize_multi", 8): 8,
+             ("normalize_uncoupled", 32): 1, ("normalize_uncoupled", 8): 1,
+             ("normalize_submap", 32): 1, ("normalize_submap", 8): 1}
+
+
+def part_sum(x, part, site, padded=False):
+    """(..., m * part) -> (..., m) partition sums in XLA:CPU's order at
+    `site` for rows padded (or not) from a width that is not a multiple
+    of `part`; a width with no measured order raises."""
+    if (site, part) not in SUM_LANES:
+        raise ValueError(f"no measured summation order for partitions "
+                         f"of {part} at {site}")
+    return partition_sum(x, part, 1 if padded else SUM_LANES[site, part])
