@@ -191,13 +191,18 @@ Phases (any failure raises and the script exits non-zero):
      _couple_quantize, the interleave) on the coupling calls 3j
      recorded (4d's long and short finish batch, the managed encoder's
      15-blob rows long and short, the 16 and 32 kHz configs) and on
-     tests/couple_cases.py's seeded rows and its rows on M6's and the
-     normalize's edges (padded too) at each of those configs and at
-     FastEncoder(2, 44100, 0.2)'s; the build's registers, shared memory
-     a block and blocks an SM; its time at the two 4d batches (CUDA
-     graphs, median and spread of six), its bound by bytes and share,
-     the plain version's time and device kernels (no library call
-     computes it);
+     tests/couple_cases.py's seeded rows, its rows on M6's and the
+     normalize's edges (padded too) and its rows of every instantiation
+     (with and without the M9 peaks, padded, the carry of a warp's first
+     partition) at each of those configs and at FastEncoder(2, 44100,
+     0.2)'s, failing unless every instantiation of the kernel launched;
+     each instantiation's registers, shared memory and blocks an SM;
+     its time at the two 4d batches (CUDA graphs, median and spread of
+     six; in turns with the first design, commit e6f7150's, with
+     --couple-baseline, whose outputs must equal this design's), its
+     bound by bytes and share, the plain version's time and device
+     kernels (no library call computes it), and each phase's
+     slowest-warp cycles from a -DVTT_COUPLE_TIMING build;
   4. main path: FastEncoder(2, 44100, 0.5, switching=False,
      psy_state=False).encode of 60 s of 44.1 kHz stereo int16 (bench.py's
      signal, seed 0), from a CUDA tensor and from host numpy; the stream
@@ -3762,27 +3767,140 @@ def _couple_check(name, a, kw):
     return err
 
 
-def _phase_couple(cases, smi, report=""):
+# sha256 of the first design's csrc/couple_quantize.cu (commit e6f7150),
+# whose CoupleArgs _CoupleBaseline mirrors
+COUPLE_BASELINE_SHA256 = ("c7624ccb192745c992e4d639b0deeb2cf84e70130f02d4"
+                          "1dc51a53e635e8654b")
+
+
+class _CoupleBaseline:
+    """The first design of csrc/couple_quantize.cu (a frame a block of up
+    to 256 threads, M6 as two passes over the frame with one barrier, the
+    bin reloaded in the second: `git show
+    e6f7150:vorbis_tpu_torch/csrc/couple_quantize.cu`), built from
+    `source` under its own library name and called through a mirror of
+    its own CoupleArgs (this design's fields, then its threads a frame
+    and frames a block) on this design's inputs, for timing in turns; any
+    other source is refused (its hash differs)."""
+
+    def __init__(self, source):
+        import ctypes
+        import hashlib
+        from pathlib import Path
+        from vorbis_tpu_torch.native import build_library
+        from vorbis_tpu_torch.ops import floor_cuda
+        digest = hashlib.sha256(Path(source).read_bytes()).hexdigest()
+        if digest != COUPLE_BASELINE_SHA256:
+            raise RuntimeError(f"--couple-baseline {source} is not commit "
+                               f"e6f7150's couple_quantize.cu (sha256 "
+                               f"{digest})")
+        so, _ = build_library(Path(source), floor_cuda.nvcc,
+                              floor_cuda.NVCC_FLAGS, "libcouple_baseline")
+        p, ll, i, f = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                       ctypes.c_float)
+
+        class Args(ctypes.Structure):
+            _fields_ = ([(k, p) for k in (
+                "md", "curve", "used", "lowpass", "epeak", "npeak", "thr1",
+                "threv", "inlimit", "thr2", "nm_inreg", "nm_start", "res",
+                "any_used")]
+                + [(k, ll) for k in ("thr1_rs", "threv_rs", "inl_rs")]
+                + [(k, i) for k in (
+                    "thr1_rows", "threv_rows", "inl_rows", "F", "n2",
+                    "part", "npt", "ncols", "tfe", "m6", "normalize",
+                    "lanes_m6", "lanes_nm", "tpf", "fpb")]
+                + [(k, f) for k in ("prepoint", "prae", "thresh")])
+        self.Args = Args
+        self.fn = ctypes.CDLL(str(so)).vtt_couple_quantize
+        self.fn.restype = ctypes.c_int
+        self.fn.argtypes = [ctypes.POINTER(Args), ctypes.c_void_p]
+
+    def __call__(self, a, kw):
+        """(res, any_used) of the first design on a couple_quantize call
+        (dev, md, curve, used, F) with keyword arguments kw."""
+        import ctypes
+        import torch
+        from vorbis_tpu_torch.ops.couple_cuda import args
+        ca, res, anyu, keep, _ = args(*a, **kw)
+        n2 = a[1].shape[-1]
+        slots = -(-(-(-n2 // ca.part) * ca.part) // 32) * 32
+        tpf = min(slots, 256)
+        b = self.Args(**{k: getattr(ca, k) for k, _ in self.Args._fields_
+                         if k not in ("tpf", "fpb")},
+                      tpf=tpf, fpb=max(1, 256 // tpf))
+        rc = self.fn(ctypes.byref(b), torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"baseline couple_quantize launch failed: "
+                               f"cudaError {rc}")
+        return res, anyu
+
+
+def _couple_phases(lib, a, kw):
+    """Where a frame's time goes, from one call of the timing build
+    (`lib`, -DVTT_COUPLE_TIMING) on a couple_quantize call: for each of
+    couple_cuda.PHASES the slowest of a frame's warps' cycles (mean over
+    the frames), and a frame's cycles, its slowest warp's start to end
+    (mean and median); the call's outputs must equal the default
+    build's."""
+    import ctypes
+    import numpy as np
+    import torch
+    from vorbis_tpu_torch.ops.couple_cuda import (PHASES, args,
+                                                  couple_quantize, geometry)
+    ca, res, anyu, keep, _ = args(*a, **kw)
+    F = a[4]
+    wpf, blocks = geometry(a[1].shape[-1], ca.part, a[4])
+    st = torch.zeros(blocks * (len(PHASES) + 1), dtype=torch.int64,
+                     device="cuda")
+    rc = lib.vtt_couple_quantize(ctypes.byref(ca),
+                                 torch.cuda.current_stream().cuda_stream,
+                                 st.data_ptr())
+    if rc != 0:
+        raise RuntimeError(f"couple_quantize timing build: cudaError {rc}")
+    want = couple_quantize(*a, **kw)
+    torch.cuda.synchronize()
+    if not (torch.equal(res.view(torch.int32), want[0].view(torch.int32))
+            and torch.equal(anyu, want[1])):
+        raise RuntimeError("couple_quantize timing build != default build")
+    s = st.view(F, wpf, -1).cpu().numpy()
+    return dict(slowest=[float(s[:, :, k].max(1).mean())
+                         for k in range(len(PHASES))],
+                frame=float(s[:, :, -1].max(1).mean()),
+                frame_median=float(np.median(s[:, :, -1].max(1))),
+                warps_a_frame=wpf, blocks=blocks)
+
+
+def _phase_couple(cases, smi, report="", baseline=None):
     """Phase 3o: the stereo coupling (csrc/couple_quantize.cu: the
     lowpass, the lossless flags with the M9 lowering, M6, the mag/ang and
     point fold, the normalize and the interleave in one launch) against
     its plain version, residues bitwise, on the calls 3j recorded
     (`cases`: 4d's long and short finish batch, the managed encoder's
     15-blob rows long and short, the 16 and 32 kHz configs) and on
-    tests/couple_cases.py's seeded rows (the M9 and M8 stores, lowpass,
-    unused channels and frames, equal energies; the managed calls' 15-row
-    tables) and its rows on M6's and the normalize's edges, padded too,
-    at each of those configs and at FastEncoder(2, 44100, 0.2)'s long and
-    short ones (the normalize on); the build's registers (`report`), shared
-    memory a block and blocks an SM; its time at the two 4d batches
-    (CUDA graphs, median and spread of six), its bound and share, the
-    plain version's time and device kernels (no library call computes
-    it).  Returns the kernel's record for the JSON line."""
+    tests/couple_cases.py's rows at each of those configs and at
+    FastEncoder(2, 44100, 0.2)'s long and short ones (the normalize on):
+    seeded rows (the M9 and M8 stores, lowpass, unused channels and
+    frames, equal energies; the managed calls' 15-row tables), its rows
+    on M6's and the normalize's edges, padded too, `instance_rows` (with
+    and without the M9 peaks, padded and not, the carry of a warp's first
+    partition); fails unless every instantiation (couple_cuda.INSTANCES)
+    was launched.  Prints each instantiation's registers, static shared
+    and local bytes and blocks an SM (`report`: the ptxas lines); at the
+    two 4d batches the launch's geometry, its time (CUDA graphs, median
+    and spread of six; in turns with the first design where `baseline`,
+    a _CoupleBaseline, is given, whose outputs must equal this design's),
+    its bound and share, the plain version's time and device kernels (no
+    library call computes it), and each phase's slowest-warp cycles from
+    the timing build.  Returns the kernel's record for the JSON line."""
+    import ctypes
+    from collections import Counter
     import torch
+    from vorbis_tpu_torch.ops import couple_cuda
     from vorbis_tpu_torch.ops.couple_cuda import (
-        args, couple_quantize, couple_quantize_plain, load_library,
-        shared_bytes)
+        BPT, INSTANCES, PHASES, args, couple_quantize,
+        couple_quantize_plain, geometry, load_library)
     cc = _test_module("couple_cases")
+    seen = Counter(couple_quantize.instances)
     err, configs = 0.0, {}
     for name, a, kw in cases:
         err = max(err, _couple_check(name, a, kw))
@@ -3820,6 +3938,7 @@ def _phase_couple(cases, smi, report=""):
                 except IndexError:
                     print(f"[couple] {name}: no partition for the "
                           f"{label} rows at this config")
+        rows.update(cc.instance_rows(cfg, 740 + 10 * k))
         for label, case in rows.items():
             tc = cc.torch_case(case, "cuda")
             F = tc.pop("F")
@@ -3827,41 +3946,90 @@ def _phase_couple(cases, smi, report=""):
                 f"{name.split(',')[0]}, {label}",
                 (dev, tc.pop("md"), tc.pop("curve"), tc.pop("used"), F),
                 tc))
-    per_sm = load_library().vtt_couple_quantize_blocks_per_sm
+    ran = Counter(couple_quantize.instances)
+    ran.subtract(seen)
+    missing = [k for k in INSTANCES if ran[k] < 1]
+    print(f"[couple] launches by instantiation (partition, M6, normalize, "
+          f"lanes M6, lanes normalize): "
+          + ", ".join(f"{k} {ran[k]}" for k in INSTANCES))
+    if missing:
+        raise RuntimeError(f"3o launched no instantiation {missing}")
+    inst = {d["key"]: d for d in couple_cuda.attrs(load_library())}
+    for d in inst.values():
+        print(f"[couple] instantiation {d['key']}: {d['registers']} "
+              f"registers, {d['shared_bytes']} bytes of static shared "
+              f"memory, {d['local_bytes']} local bytes a thread, "
+              f"{d['blocks_per_sm']} blocks of one warp an SM")
     build = _build_lines(report)
+    print(f"[couple] build: {build or 'cached'}")
+    so, _ = couple_cuda.build(timing=True)
+    timed = couple_cuda.bind(ctypes.CDLL(str(so)), stamps=True)
     rec = {}
     for name, a, kw in cases[:2]:
-        ca, *_, (tpf, fpb) = args(*a, **kw)
-        smem = shared_bytes(ca)
-        blocks = per_sm(tpf * fpb, smem)
-        print(f"[couple] {name}: build {build or 'cached'}; {smem} bytes of "
-              f"shared memory a block ({tpf * fpb} threads, {fpb} frames, "
-              f"{-(-a[4] // fpb)} blocks), {blocks} blocks an SM")
-        ts, _ = _turns(lambda: couple_quantize(*a, **kw), None)
+        F, n2 = a[4], a[1].shape[-1]
+        key = args(*a, **kw)[4]
+        d = inst[key]
+        wpf, blocks = geometry(n2, key[0], F)
+        print(f"[couple] {name}: instantiation {key}, {d['registers']} "
+              f"registers, {d['blocks_per_sm']} warps an SM; {wpf} warps a "
+              f"frame ({32 * BPT[key[0]]} bins a warp), {blocks} blocks of "
+              f"one warp, no shared memory")
+        mine = (lambda a=a, kw=kw: couple_quantize(*a, **kw))
+        theirs = None
+        if baseline is not None:
+            theirs = (lambda a=a, kw=kw: baseline(a, kw))
+            got, want = theirs(), mine()
+            torch.cuda.synchronize()
+            if not (torch.equal(got[0].view(torch.int32),
+                                want[0].view(torch.int32))
+                    and torch.equal(got[1], want[1])):
+                raise RuntimeError(f"3o {name}: the first design's output "
+                                   f"differs from this one's")
+        ts, tb = _turns(mine, theirs)
         ms, lo, hi = _med(ts)
         plain_k, plain_dev = _device_profile(
             lambda: couple_quantize_plain(*a, **kw))
         plain_ms = _cuda_ms(lambda: couple_quantize_plain(*a, **kw), 3)
         bound_ms, by, nb, fo = _couple_bound(a, kw)
-        print(f"[couple] {name} F={a[4]}: kernel {ms:.5f} ms (CUDA graphs; "
+        print(f"[couple] {name} F={F}: kernel {ms:.5f} ms (CUDA graphs; "
               f"median of {len(ts)}, {lo:.5f}-{hi:.5f}); bound "
               f"{bound_ms * 1e3:.3f} us by {by} ({nb} bytes, {fo} float32 "
               f"operations), share {100 * bound_ms / ms:.1f}%; plain "
               f"{plain_ms:.4f} ms a call, {plain_k} device kernels "
               f"({plain_dev:.4f} ms on the device); library call: none "
               f"({smi})")
-        rec[name] = dict(frames=a[4], n2=a[1].shape[-1], ms=ms,
-                         rounds_ms=ts, plain_ms=plain_ms,
-                         plain_kernels=plain_k, plain_device_ms=plain_dev,
-                         bound_ms=bound_ms, bound_by=by, bytes=nb,
-                         share=bound_ms / ms, shared_bytes=smem,
-                         threads=tpf * fpb, blocks_per_sm=blocks,
-                         build=build)
+        extra = {}
+        if tb:
+            bms, blo, bhi = _med(tb)
+            print(f"[couple] {name}: in turns, the first design (e6f7150) "
+                  f"{bms:.5f} ms ({blo:.5f}-{bhi:.5f}), share "
+                  f"{100 * bound_ms / bms:.1f}%, against this design's "
+                  f"{ms:.5f} ms ({100 * bound_ms / ms:.1f}%), "
+                  f"{bms / ms:.2f}x, outputs equal ({smi})")
+            extra = dict(baseline_ms=bms, baseline_rounds_ms=tb,
+                         baseline_share=bound_ms / bms)
+        ph = _couple_phases(timed, a, kw)
+        print(f"[couple] {name}: a frame {ph['frame']:.0f} cycles (median "
+              f"{ph['frame_median']:.0f}); a phase's slowest warp: "
+              + ", ".join(f"{n} {c:.0f}" for n, c in
+                          zip(PHASES, ph["slowest"]))
+              + f" (timing build, clock64; {smi})")
+        rec[name] = dict(frames=F, n2=n2, ms=ms, rounds_ms=ts,
+                         plain_ms=plain_ms, plain_kernels=plain_k,
+                         plain_device_ms=plain_dev, bound_ms=bound_ms,
+                         bound_by=by, bytes=nb, share=bound_ms / ms,
+                         instance=list(key), registers=d["registers"],
+                         shared_bytes=d["shared_bytes"], threads=32,
+                         blocks=blocks, blocks_per_sm=d["blocks_per_sm"],
+                         phases=dict(ph, names=list(PHASES)), build=build,
+                         **extra)
     main = rec["4d long batch"]
     return dict({k: main[k] for k in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "share")},
                 max_abs_err=err, library_ms=None, at_long=main,
-                at_short=rec["4d short batch"])
+                at_short=rec["4d short batch"],
+                instances=[dict(d, key=list(d["key"]))
+                           for d in inst.values()])
 
 
 def _decode(ogg):
@@ -5329,6 +5497,11 @@ def main():
                     help="the first csrc/tone_mask.cu (git show c40e5f8:"
                          "vorbis_tpu_torch/csrc/tone_mask.cu, checked by its "
                          "hash) to time in turns with this one in phase 3k")
+    ap.add_argument("--couple-baseline", metavar="SOURCE",
+                    help="the first csrc/couple_quantize.cu (git show "
+                         "e6f7150:vorbis_tpu_torch/csrc/couple_quantize.cu, "
+                         "checked by its hash) to time in turns with this "
+                         "one in phase 3o")
     ap.add_argument("--pack-baseline", metavar="SOURCE",
                     help="the first csrc/pack_bits.cu (git show 4c76a5d:"
                          "vorbis_tpu_torch/csrc/pack_bits.cu, checked by its "
@@ -5384,6 +5557,8 @@ def main():
             "residue_encode.cu": residue_encode_cuda.build,
             "pack_bits.cu": pack_cuda.build,
             "couple_quantize.cu": couple_cuda.build,
+            "couple_quantize.cu, timing build":
+                lambda: couple_cuda.build(timing=True),
             "host_ogg.c": native.build_host,
             "host_decode.c": native.build_decode,
             "host_pack.c": native.build_pack}
@@ -5544,7 +5719,9 @@ def main():
     _lap(t_start, "3n")
 
     # 3o. the stereo coupling on 3j's recorded calls
-    cpl_rec = _phase_couple(cpl_cases, smi, built["couple_quantize.cu"][1])
+    cpl_rec = _phase_couple(cpl_cases, smi, built["couple_quantize.cu"][1],
+                            _CoupleBaseline(args.couple_baseline)
+                            if args.couple_baseline else None)
     del cpl_cases
     _lap(t_start, "3o")
 

@@ -8,9 +8,11 @@ A case is a dict: F and the numpy keyword arguments of `couple_quantize`
 (md and curve (2F, n2) float32, used (2F,) bool; optionally epeak (2F,
 n2), npeak (2F, ncols), lowpass (2F,) int32 and the thr1, threv and
 inlimit rows).  `config(dev)` reads a stereo DeviceFastEncode's coupling
-tables; `replay(cfg, case)` is the kernel's schedule in numpy (slots of
-a frame in warps, the partition sums as the kernel's shuffles, counts
-as ballots, M6's two passes, the normalize's rank by counting).
+tables; `replay(cfg, case)` is the kernel's schedule in numpy (a warp
+four partitions of a frame, BPT bins a thread, the partition sums as the
+kernel's chains, folds and shuffles, counts as ballots, M6 only below
+tonefix_end with the carry's recount, the normalize's rank by
+counting).
 """
 
 import numpy as np
@@ -45,6 +47,14 @@ def _orders(part):
            for L in (1, 2, 8, 16) if L <= part}
     out["torch"] = lambda v: f32(torch.from_numpy(np.asarray(v, f32)).sum())
     return out
+
+
+# the encoders whose coupling configs reach every instantiation of the
+# kernel (ops/couple_cuda.py INSTANCES), with the padded rows:
+# name -> FastEncoder's positional and keyword arguments
+ENCODERS = {"q0.5": ((2, 44100, 0.5), {}), "q0.2": ((2, 44100, 0.2), {}),
+            "16 kHz": ((2, 16000, 0.5), {}), "32 kHz": ((2, 32000, 0.5), {}),
+            "managed": ((2, 44100), dict(bitrate=(-1, 128000, -1)))}
 
 
 def config(dev):
@@ -194,15 +204,16 @@ def normalize_rows(cfg, F, seed, pad=0, epeak=False, npeak=False):
     return c, p0, rows
 
 
-def seeded(cfg, F, seed, epeak=False, npeak=False, lowpass=False):
+def seeded(cfg, F, seed, epeak=False, npeak=False, lowpass=False, pad=0):
     """F frames of seeded spectra against seeded curves: about half the
     bins below the point fold's unit energy (normalize candidates), a
     run of bins a frame repeated (equal energies rank by bin), frame 1's
     angle channel and frame 2's magnitude channel unused, frame 3 unused
     on both; epeak sparse M9 peaks, npeak the M8 store with about a
-    fifth of its partitions at -1; lowpass a per-row bin limit."""
+    fifth of its partitions at -1; lowpass a per-row bin limit; `pad`
+    bins cut from n2."""
     rng = np.random.RandomState(seed)
-    n2, P = cfg["n2"], cfg["part"]
+    n2, P = cfg["n2"] - pad, cfg["part"]
     md = (rng.randn(2 * F, n2) * 2.0).astype(f32)
     curve = ((np.abs(md) * 0.6 + 1e-3)
              * np.exp(rng.randn(2 * F, n2) * 0.3)).astype(f32)
@@ -229,6 +240,56 @@ def seeded(cfg, F, seed, epeak=False, npeak=False, lowpass=False):
     return c
 
 
+def carry_rows(cfg, F, seed):
+    """F frames whose M6 decision in the first partition of a warp (bin
+    128 k, below tonefix_end) turns on the carry, the previous warp's
+    last partition's mean imbalance: the first partition's magnitude
+    channel holds values in [max thr2, min thr1) there, at most 0.5 wide
+    (every bin flags -1), mean m; the previous partition's, a level drawn
+    a frame around 2 - m, so rdef = (m + the carry) / 2 crosses 1 on
+    about half the frames; curve 1, epeak zeros (M6 on), the angle
+    channel zeros.
+    Returns (case, the partition's start), or None where no warp's first
+    partition can flag -1."""
+    P, thr1, thr2 = cfg["part"], cfg["thr1"], cfg["thr2"]
+    for p0 in range(128, min(cfg["n2"], cfg["tfe"]), 128):
+        lo = max(float(thr2[p0:p0 + P].max()), 0.5)
+        hi = min(float(thr1[p0:p0 + P].min()), lo + 0.5)
+        if hi > lo * 1.001:
+            break
+    else:
+        return None
+    rng = np.random.RandomState(seed)
+    c = _empty(F, cfg["n2"])
+    rows = rng.uniform(lo, hi, (F, P)).astype(f32)
+    lvl = np.maximum(2.0 - rows.mean(1, keepdims=True)
+                     + rng.uniform(-0.5, 0.5, (F, 1)), 0.6)
+    c["md"][0::2, p0 - P:p0] = (lvl * rng.uniform(0.95, 1.05, (F, P))) \
+        .astype(f32)
+    c["md"][0::2, p0:p0 + P] = rows
+    c["epeak"] = np.zeros_like(c["md"])
+    return c, p0
+
+
+def instance_rows(cfg, seed):
+    """label -> case: seeded rows with and without the M9 peaks, padded
+    and not, plain and with the M8 store and a lowpass, so that every
+    instantiation this config's launches pick runs (with the carry's
+    rows where a warp's first partition lies below tonefix_end)."""
+    out = {}
+    for k, (ep, pad) in enumerate((e, d) for e in (False, True)
+                                  for d in (0, cfg["part"] // 4)):
+        out[f"epeak {ep}, pad {pad}"] = seeded(cfg, 8, seed + 2 * k,
+                                               epeak=ep, pad=pad)
+        out[f"epeak {ep}, pad {pad}, M8 lowpass"] = seeded(
+            cfg, 8, seed + 2 * k + 1, epeak=ep, npeak=True, lowpass=True,
+            pad=pad)
+    carry = carry_rows(cfg, 16, seed + 9)
+    if carry is not None:
+        out["carry"] = carry[0]
+    return out
+
+
 def torch_case(case, device="cpu"):
     """The case's arrays as tensors on `device` (F as it is)."""
     return {k: (v if k == "F" else torch.from_numpy(np.ascontiguousarray(v))
@@ -238,38 +299,37 @@ def torch_case(case, device="cpu"):
 # ---------------------------------------------------------------------------
 # the kernel's schedule in numpy
 
-def _shfl(v, k, width):
-    """__shfl_sync(v, k, width) over the last axis (32 lanes)."""
-    lane = np.arange(32)
-    return v[..., (lane // width) * width + k]
-
-
-def _shfl_down(v, d, width):
-    lane = np.arange(32)
-    src = np.where(lane % width + d < width, lane + d, lane)
-    return v[..., src]
-
-
-def _part_sum(v, part, lanes):
+def _psum(v, part, lanes):
+    """csrc/couple_quantize.cu psum over (..., PPW, TPP, BPT) values, v[...,
+    l, j] bin l + TPP j of the partition: with lanes >= TPP a thread's
+    accumulators chain its own slots and fold in halves, then the
+    threads' fold by shuffles; one lane is a left-to-right chain of
+    shuffled values.  Returns (..., PPW), the sum each thread gets."""
+    tpp, bpt = v.shape[-2:]
     if lanes == 1:
-        acc = _shfl(v, 0, part)
-        for k in range(1, part):
-            acc = (acc + _shfl(v, k, part)).astype(f32)
+        acc = v[..., 0, 0]
+        for b in range(1, part):
+            acc = (acc + v[..., b % tpp, b // tpp]).astype(f32)
         return acc
-    a = v.copy()
-    for k in range(lanes, part, lanes):
-        a = (a + _shfl_down(v, k, part)).astype(f32)
-    h = lanes // 2
+    m = lanes // tpp
+    acc = v[..., :m].copy()
+    for j in range(m, bpt, m):
+        acc = (acc + v[..., j:j + m]).astype(f32)
+    h = m // 2
     while h >= 1:
-        a = (a + _shfl_down(a, h, part)).astype(f32)
+        acc = (acc[..., :h] + acc[..., h:2 * h]).astype(f32)
         h //= 2
-    return _shfl(a, 0, part)
+    a = acc[..., 0]                    # (..., PPW, TPP): a thread's
+    h = tpp // 2
+    while h >= 1:                      # __shfl_down_sync(a, h, TPP)
+        a = (a[..., :h] + a[..., h:2 * h]).astype(f32)
+        h //= 2
+    return a[..., 0]
 
 
-def _count(x, part):
-    """the partition's lanes set, as the kernel's ballot and popc"""
-    g = x.reshape(x.shape[:-1] + (32 // part, part)).sum(-1)
-    return np.repeat(g, part, -1)
+def _count(x):
+    """the partition's bins set, as the kernel's ballots and popc"""
+    return x.sum((-1, -2))
 
 
 def _rows(t, default, F, n2):
@@ -278,86 +338,138 @@ def _rows(t, default, F, n2):
     return t[np.arange(F) % t.shape[0]][:, :n2]
 
 
+def schedule(n2, part):
+    """(bins (W, PPW, TPP, BPT), live (W, PPW), partitions (W, PPW)) of
+    a frame's warps: warp w, partition q of the warp, thread l of the
+    partition, slot j -> bin (w PPW + q) part + l + TPP j, with BPT the
+    kernel's bins a thread at this width (ops/couple_cuda.py BPT)."""
+    from vorbis_tpu_torch.ops.couple_cuda import BPT
+    bpt = BPT[part]
+    tpp = part // bpt
+    ppw = 32 // tpp
+    npt = -(-n2 // part)
+    W = -(-npt // ppw)
+    p = np.arange(W)[:, None] * ppw + np.arange(ppw)[None]
+    bins = (p[..., None, None] * part + np.arange(tpp)[:, None]
+            + tpp * np.arange(bpt)[None])
+    return bins, p < npt, p
+
+
+def _load(a, bins, real, fill):
+    """a (F, n2) at the schedule's bins, `fill` where not real."""
+    return np.where(real[None], a[:, np.minimum(bins, a.shape[1] - 1)],
+                    fill).astype(a.dtype)
+
+
 def replay(cfg, case):
     """(res (F, 2 n2) float32, any_used (F,) bool) of the case as
-    csrc/couple_quantize.cu computes it: each frame's bins in slots of
-    whole warps (bins past n2 zero), the partition sums, counts and
-    ranks on 32-lane words."""
+    csrc/couple_quantize.cu computes it: a warp four partitions of a
+    frame, BPT bins a thread strided by its partition's threads, held
+    from load to store, M6 only in warps holding a partition below
+    tonefix_end with the warp's first partition's carry from a recount
+    of the previous partition, the sums in the kernel's chains and
+    folds, counts as ballots, the normalize's rank over each thread's
+    keys and the partition's shuffled ones (skipped where no thread can
+    promote)."""
     F = case["F"]
     md = np.asarray(case["md"], f32)
     n2 = md.shape[-1]
     P = cfg["part"]
-    npt = -(-n2 // P)
-    slots = -(-npt * P // 32) * 32
-    W = slots // 32
+    bins, live, pidx = schedule(n2, P)
+    W, ppw = live.shape
+    bpt = bins.shape[-1]
+    tpp = P // bpt
+    real = live[..., None, None] & (bins < n2)
+    tfe = cfg["tfe"]
     epeak, npeak = case.get("epeak"), case.get("npeak")
-    m6 = epeak is not None and cfg["tfe"] > 0
+    m6 = epeak is not None and tfe > 0
     padded = n2 % P != 0
     lm = 1 if padded else cfg["lanes"]["m6"]
     ln = 1 if padded else cfg["lanes"][
         "normalize_m6" if m6 else "normalize"]
     used = np.asarray(case["used"], bool).reshape(F, 2)
-    uM, uA = used[:, 0, None], used[:, 1, None]
+    uM, uA = (used[:, k].reshape(F, 1, 1, 1, 1) for k in (0, 1))
     anyu = uM | uA
-
-    def slot(x, fill=0):
-        out = np.full((F, slots), fill, x.dtype)
-        out[:, :n2] = x
-        return out
-    real = slot(np.ones((F, n2), bool), False)
-    mM, mA = slot(md[0::2]), slot(md[1::2])
+    lp = np.full((F, 2), n2)
     if case.get("lowpass") is not None:
         lp = np.asarray(case["lowpass"]).reshape(F, 2)
-        b = np.arange(slots)
-        mM = np.where(b < lp[:, :1], mM, f32(0))
-        mA = np.where(b < lp[:, 1:], mA, f32(0))
     cv = np.asarray(case["curve"], f32)
-    cM = np.where(uM, slot(cv[0::2], f32(1)), f32(1e-10))
-    cA = np.where(uA, slot(cv[1::2], f32(1)), f32(1e-10))
-    with np.errstate(divide="ignore", invalid="ignore"):
-        rM = np.where(uM, mM / cM, f32(0)).astype(f32)
-        rA = np.where(uA, mA / cA, f32(0)).astype(f32)
-    t1 = slot(_rows(case.get("thr1"), cfg["thr1"], F, n2))
+
+    def res_of(b, r):
+        """md (lowpassed), curve and residues of both channels at bins b
+        (real r), as load_res and the kernel's divides."""
+        mM = np.where(b[None] < lp[:, 0, None, None, None, None],
+                      _load(md[0::2], b, r, f32(0)), f32(0))
+        mA = np.where(b[None] < lp[:, 1, None, None, None, None],
+                      _load(md[1::2], b, r, f32(0)), f32(0))
+        cM = np.where(uM, _load(cv[0::2], b, r, f32(1)), f32(1e-10))
+        cA = np.where(uA, _load(cv[1::2], b, r, f32(1)), f32(1e-10))
+        with np.errstate(divide="ignore", invalid="ignore"):
+            rM = np.where(uM, mM / cM, f32(0)).astype(f32)
+            rA = np.where(uA, mA / cA, f32(0)).astype(f32)
+        return mM, mA, cM, cA, rM, rA
+
+    mM, mA, cM, cA, rM, rA = res_of(bins, real)
+    t1 = _load(_rows(case.get("thr1"), cfg["thr1"], F, n2), bins, real,
+               f32(0))
     thM = thA = t1
     if epeak is not None:
         ep = np.asarray(epeak, f32)
-        thM = np.maximum((t1 - slot(ep[0::2])).astype(f32), cfg["prepoint"])
-        thA = np.maximum((t1 - slot(ep[1::2])).astype(f32), cfg["prepoint"])
+        thM = np.maximum((t1 - _load(ep[0::2], bins, real, f32(0)))
+                         .astype(f32), cfg["prepoint"])
+        thA = np.maximum((t1 - _load(ep[1::2], bins, real, f32(0)))
+                         .astype(f32), cfg["prepoint"])
     f1M = real & (np.abs(rM) >= thM)
     f1A = real & (np.abs(rA) >= thA)
     lossless = f1M | f1A
     sq = lambda x: np.where(x < 0, -(x * x), x * x).astype(f32)  # noqa
-    if m6:
-        t2 = slot(np.asarray(cfg["thr2"], f32)[:n2])
-        flagm1 = real & (((~f1M) & (np.abs(rM) >= t2))
-                         | ((~f1A) & (np.abs(rA) >= t2)))
-        rwM, rwA = sq(mM), sq(mA)
-        opp = ((rwM > 0) & (rwA < 0)) | ((rwA > 0) & (rwM < 0))
-        act = real & ((np.abs(rM) >= 0.5) | (np.abs(rA) >= 0.5))
+
+    def stats(rM, rA, r):
+        act = r & ((np.abs(rM) >= 0.5) | (np.abs(rA) >= 0.5))
         imb = np.where(act, np.abs((np.abs(rM) - np.abs(rA)).astype(f32)),
                        f32(0)).astype(f32)
-        w = lambda x: x.reshape(F, W, 32)  # noqa: E731
-        ap = _count(w(act), P).reshape(F, slots)
-        rp = _count(w(act & opp), P).reshape(F, slots)
-        rd = _part_sum(w(imb), P, lm).reshape(F, slots)
-        # the lane at each partition's start writes shared memory
-        first = np.arange(0, npt * P, P)
-        apf = np.maximum(ap[:, first].astype(f32), f32(1))
-        tdef = (rd[:, first] / apf).astype(f32)
-        nz = (ap[:, first] > 0) & (first < cfg["tfe"])[None]
-        c2 = nz & ((rp[:, first].astype(f32) / apf).astype(f32)
-                   >= f32(0.34))
-        carry = np.full_like(tdef, -1.0)
-        carry[:, 1:] = np.where(nz[:, :-1], tdef[:, :-1], f32(-1))
-        rdef = np.where(carry > 0, (tdef * f32(0.5) + carry * f32(0.5))
-                        .astype(f32), tdef)
+        return act, imb
+
+    if m6:
+        m6w = np.arange(W) * 32 * bpt < tfe          # warps that run M6
+        t2 = _load(np.asarray(cfg["thr2"], f32)[None, :n2], bins,
+                   real & m6w[:, None, None, None], f32(0))
+        fm1 = real & (((~f1M) & (np.abs(rM) >= t2))
+                      | ((~f1A) & (np.abs(rA) >= t2)))
+        xM, xA = sq(mM), sq(mA)
+        opp = ((xM > 0) & (xA < 0)) | ((xA > 0) & (xM < 0))
+        act, imb = stats(rM, rA, real)
+        ap, rp = _count(act), _count(act & opp)
+        rdsum = _psum(imb, P, lm)
+        apf = np.maximum(ap.astype(f32), f32(1))
+        td = (rdsum / apf).astype(f32)
+        nz = live[None] & (ap > 0) & (pidx * P < tfe)[None]
+        c2 = nz & ((rp.astype(f32) / apf).astype(f32) >= f32(0.34))
+        # the carry: a shuffle from the previous partition of the warp,
+        # the warp's first partition's a recount of the previous warp's
+        # last one (where it gates)
+        carry = np.full_like(td, f32(-1))
+        carry[..., 1:] = np.where(nz, td, f32(-1))[..., :-1]
+        for w in range(1, W):
+            pp = w * ppw - 1
+            if not (m6w[w] and pp * P < tfe):
+                continue
+            b = pp * P + np.arange(tpp)[:, None] + tpp * np.arange(bpt)
+            b = b[None, None]
+            r = b < n2
+            *_, qM, qA = res_of(b, r)
+            a_, i_ = stats(qM, qA, r)
+            n_ = _count(a_)[:, 0, 0]
+            s_ = _psum(i_, P, lm)[:, 0, 0]
+            m_ = (s_ / np.maximum(n_.astype(f32), f32(1))).astype(f32)
+            carry[:, w, 0] = np.where(n_ > 0, m_, f32(-1))
+        rdef = np.where(carry > 0, (td * f32(0.5) + carry * f32(0.5))
+                        .astype(f32), td)
         rdef = np.where(nz, rdef, f32(0))
         c1 = nz & (rdef > 1)
-        pidx = np.minimum(np.arange(slots) // P, npt - 1)
-        inpart = np.arange(slots) < npt * P
-        prom = flagm1 & ~lossless & inpart & (
-            c1[:, pidx] | (c2[:, pidx] & opp))
-        lossless = lossless | prom
+        g = lambda x: x[..., None, None]  # noqa: E731
+        prom = fm1 & ~lossless & (g(c1) | (g(c2) & opp))
+        lossless = lossless | (prom & m6w[None, :, None, None, None])
     qM, qA = np.rint(rM), np.rint(rA)
     c1 = np.abs(qM) > np.abs(qA)
     mag = np.where(c1, qM, qA)
@@ -371,7 +483,8 @@ def replay(cfg, case):
     rwM, rwA = sq(mm), sq(ma)
     a2 = np.abs((rwM * f32(0.94)).astype(f32))
     b2 = np.abs((rwA * f32(0.94)).astype(f32))
-    tv = slot(_rows(case.get("threv"), cfg["threv"], F, n2))
+    tv = _load(_rows(case.get("threv"), cfg["threv"], F, n2), bins, real,
+               f32(0))
     hyp = np.where(
         rwM > 0,
         np.where(rwA > 0, a2 + b2,
@@ -388,14 +501,14 @@ def replay(cfg, case):
     outA = np.where(lossless, ang, f32(0)).astype(f32)
     if cfg["normalize"]:
         if case.get("inlimit") is None:
-            inreg = slot(np.asarray(cfg["nm_inreg"])[:n2][None]
-                         .repeat(F, 0), False)
+            inreg = _load(np.asarray(cfg["nm_inreg"])[None, :n2], bins, real,
+                          False)
         else:
-            inreg = slot(np.asarray(cfg["nm_start"])[:n2][None]
-                         & _rows(case["inlimit"], None, F, n2), False)
+            inreg = _load(np.asarray(cfg["nm_start"])[None, :n2]
+                          & _rows(case["inlimit"], None, F, n2), bins,
+                          real, False)
         cand = real & ~lossless & (ve < f32(0.25)) & inreg & anyu
-        pidx = np.arange(slots) // P
-        npk = np.zeros((F, slots), f32)
+        npk = np.zeros((F, W, ppw), f32)
         if npeak is not None:
             nk = np.asarray(npeak, f32)
             ok = pidx < nk.shape[1]
@@ -404,26 +517,32 @@ def replay(cfg, case):
             pA = np.where(ok, nk[1::2][:, pc], f32(0))
             npk = np.where((pM < -0.5) | (pA < -0.5), f32(-1),
                            np.minimum(pM, pA)).astype(f32)
-            cand = cand & (npk > -0.5)
-        w = lambda x: x.reshape(F, W, 32)  # noqa: E731
-        acc = _part_sum(w(np.where(cand, ve, f32(0))), P, ln) \
-            .reshape(F, slots)
+            cand = cand & (npk > -0.5)[..., None, None]
+        acc = _psum(np.where(cand, ve, f32(0)), P, ln)
         if npeak is not None:
             acc = (acc + ((acc * npk).astype(f32) * npk).astype(f32)) \
                 .astype(f32)
         th = cfg["thresh"]
-        npro = np.where(acc >= th, np.floor((acc - th).astype(f32))
-                        .astype(np.int64) + 1, 0)
-        npro = np.minimum(npro, acc.astype(np.int64) + 1)
-        key = w(np.where(cand, np.abs(hyp), f32(-np.inf)))
-        j = np.arange(32) % P
+        with np.errstate(invalid="ignore"):
+            npro = np.where(acc >= th, np.floor((acc - th).astype(f32))
+                            .astype(np.int64) + 1, 0)
+            npro = np.minimum(npro, acc.astype(np.int64) + 1)
+        npro = npro[..., None, None]
+        key = np.where(cand, np.abs(hyp), f32(-np.inf))
         rank = np.zeros(key.shape, np.int64)
-        for k in range(P):
-            kk = _shfl(key, k, P)
-            rank += (kk > key) | ((kk == key) & (k < j))
-        sel = cand & (rank.reshape(F, slots) < npro)
+        pos = np.arange(tpp)[:, None] + tpp * np.arange(bpt)[None]
+        for s_ in range(tpp):
+            for k in range(bpt):
+                kk = key[..., s_:s_ + 1, k:k + 1]
+                rank += (kk > key) | ((kk == key) & (pos[s_, k] < pos))
+        # a warp where no thread can promote skips the rank
+        want = (cand & (npro > 0)).any((2, 3, 4))
+        sel = cand & (rank < npro) & want[:, :, None, None, None]
         outM = np.where(sel, np.where(hyp < 0, f32(-1), f32(1)), outM)
-    outM = np.where(anyu, outM, f32(0))[:, :n2]
-    outA = np.where(anyu, outA, f32(0))[:, :n2]
-    res = np.stack([outM, outA], -1).reshape(F, 2 * n2).astype(f32)
-    return res, anyu[:, 0]
+    outM = np.where(anyu, outM, f32(0)).astype(f32)
+    outA = np.where(anyu, outA, f32(0)).astype(f32)
+    res = np.zeros((F, n2, 2), f32)
+    rb = real.reshape(-1)
+    res[:, bins.reshape(-1)[rb], 0] = outM.reshape(F, -1)[:, rb]
+    res[:, bins.reshape(-1)[rb], 1] = outA.reshape(F, -1)[:, rb]
+    return res.reshape(F, 2 * n2), anyu.reshape(F)

@@ -274,10 +274,17 @@ def test_couple_quantize_equals_plain_on_cuda(cuda):
     channels and frames, equal energies), the rows on M6's and the
     normalize's edges (padded too), 2,048 long frames with M6 and the
     normalize active, and the managed 15 blobs' rows read by frame % 15
-    and as a stride-0 view; one launch a call."""
-    from vorbis_tpu_torch.ops.couple_cuda import (couple_quantize,
+    and as a stride-0 view; then every instantiation of the kernel
+    (couple_cuda.INSTANCES: M6 on and off, the normalize on and off, the
+    M8 store, a lowpass, padded widths) on `instance_rows` at each of
+    couple_cases.ENCODERS' looks; one launch a call."""
+    from collections import Counter
+
+    from vorbis_tpu_torch.ops.couple_cuda import (INSTANCES,
+                                                  couple_quantize,
                                                   couple_quantize_plain)
     cases = _test_module("couple_cases")
+    seen = Counter(couple_quantize.instances)
 
     def check(dev, case, tag):
         tc = cases.torch_case(case, "cuda")
@@ -326,6 +333,16 @@ def test_couple_quantize_equals_plain_on_cuda(cuda):
         got = couple_quantize(*a, **rows)
         want = couple_quantize_plain(*a, **rows)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for name, (args, kw) in cases.ENCODERS.items():
+        fe = TFE(*args, **kw)
+        for W in (1, 0):
+            dev = fe._dev_for(W)
+            for label, case in cases.instance_rows(cases.config(dev),
+                                                   900 + W).items():
+                check(dev, case, (name, W, label))
+    ran = Counter(couple_quantize.instances)
+    ran.subtract(seen)
+    assert [k for k in INSTANCES if ran[k] < 1] == []
 
 
 def test_fit_prefix_sums_equal_the_cpu_on_cuda(cuda):

@@ -22,13 +22,17 @@ rows so; a view whose rows repeat by stride 0 is taken as it is).
 package's jitted coupling, tests/test_torch_couple.py; on the card the
 kernel, chip_smoke.py).  `couple_quantize(dev, ...)` runs the plain
 version on CPU tensors and on CUDA tensors launches the kernel or raises;
-`couple_quantize.launches` counts its launches.  Both sum each partition
-in XLA:CPU's order (ops/xla_f32.py `part_sum`, `SUM_LANES`).
+`couple_quantize.launches` counts its launches and
+`couple_quantize.instances` its launches by instantiation (`INSTANCES`:
+the kernel is specialised on the partition width, M6, the normalize and
+the two sums' lanes, the keys `instance` gives).  Both sum each
+partition in XLA:CPU's order (ops/xla_f32.py `part_sum`, `SUM_LANES`).
 """
 
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 from functools import lru_cache
 from pathlib import Path
 
@@ -40,7 +44,15 @@ from .floor_cuda import NVCC_FLAGS, nvcc
 from .xla_f32 import SUM_LANES
 
 SOURCE = PKG / "csrc" / "couple_quantize.cu"
-THREADS = 256                      # csrc/couple_quantize.cu THREADS
+BPT = {32: 4, 8: 1}                # bins a thread a partition width
+# csrc/couple_quantize.cu kInstances, in its order: (partition, M6,
+# normalize, M6's lanes, the normalize's lanes; 0 where the step is off)
+INSTANCES = ((32, 1, 0, 8, 0), (32, 1, 1, 8, 8), (32, 0, 0, 0, 0),
+             (32, 0, 1, 0, 16), (32, 1, 0, 1, 0), (32, 1, 1, 1, 1),
+             (32, 0, 1, 0, 1), (8, 1, 0, 1, 0), (8, 1, 1, 1, 8),
+             (8, 0, 0, 0, 0), (8, 0, 1, 0, 1), (8, 1, 1, 1, 1))
+# the timing build's phases a warp (VTT_COUPLE_TIMING)
+PHASES = ("load", "M6", "carry", "fold", "normalize", "store")
 f32 = np.float32
 
 _P = ctypes.c_void_p
@@ -57,8 +69,7 @@ class CoupleArgs(ctypes.Structure):
         + [(k, _LL) for k in ("thr1_rs", "threv_rs", "inl_rs")]
         + [(k, _I) for k in (
             "thr1_rows", "threv_rows", "inl_rows", "F", "n2", "part", "npt",
-            "ncols", "tfe", "m6", "normalize", "lanes_m6", "lanes_nm",
-            "tpf", "fpb")]
+            "ncols", "tfe", "m6", "normalize", "lanes_m6", "lanes_nm")]
         + [(k, _F) for k in ("prepoint", "prae", "thresh")])
 
 
@@ -92,32 +103,61 @@ def couple_quantize_plain(dev, md, curve, used, F, thr1=None, threv=None,
     return out2.transpose(1, 2).reshape(F, -1), any_used
 
 
-def build() -> tuple[Path, str]:
-    """Compile the kernel library unless this source's build exists.
-    Returns (path, ptxas report); the report is empty when cached."""
+def build(timing=False) -> tuple[Path, str]:
+    """Compile the kernel library (with `timing` its -DVTT_COUPLE_TIMING
+    build) unless this source's build exists.  Returns (path, ptxas
+    report); the report is empty when cached."""
+    if timing:
+        return build_library(SOURCE, nvcc,
+                             (*NVCC_FLAGS, "-DVTT_COUPLE_TIMING"),
+                             "libcouple_timing")
     return build_library(SOURCE, nvcc, NVCC_FLAGS, "libcouple",
                          extra=("-Xptxas=-v",))
 
 
-@lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()[0]))
+def bind(lib, stamps=False):
+    """Set the argument types of a library's entry points (a timing
+    build's launch takes the stamps array after the stream)."""
     fn = lib.vtt_couple_quantize
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.POINTER(CoupleArgs), ctypes.c_void_p]
-    fn = lib.vtt_couple_quantize_blocks_per_sm
+    fn.argtypes = [ctypes.POINTER(CoupleArgs), ctypes.c_void_p] + (
+        [ctypes.c_void_p] if stamps else [])
+    lib.vtt_couple_quantize_instances.restype = ctypes.c_int
+    fn = lib.vtt_couple_quantize_attrs
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     return lib
 
 
-def geometry(n2: int, part: int) -> tuple[int, int]:
-    """(threads a frame, frames a block) of a launch: a frame's
-    partitions over whole warps, at most THREADS threads; frames share a
-    block where a frame needs fewer."""
-    slots = -(-(-(-n2 // part) * part) // 32) * 32
-    tpf = min(slots, THREADS)
-    return tpf, max(1, THREADS // tpf)
+@lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    return bind(ctypes.CDLL(str(build()[0])))
+
+
+def attrs(lib) -> list[dict]:
+    """Each instantiation's key, registers, static shared and local bytes
+    a thread and blocks (of one warp) an SM (the report of 3o)."""
+    n = lib.vtt_couple_quantize_instances()
+    out = []
+    for k in range(n):
+        v = (ctypes.c_int * 9)()
+        rc = lib.vtt_couple_quantize_attrs(k, v)
+        if rc != 0:
+            raise RuntimeError(f"couple quantize attrs {k}: cudaError {rc}")
+        out.append(dict(key=tuple(v[:5]), registers=v[5], shared_bytes=v[6],
+                        local_bytes=v[7], blocks_per_sm=v[8]))
+    if tuple(o["key"] for o in out) != INSTANCES:
+        raise RuntimeError("couple quantize: the library's instantiations "
+                           "are not INSTANCES")
+    return out
+
+
+def geometry(n2: int, part: int, F: int) -> tuple[int, int]:
+    """(warps a frame, blocks) of a launch: a warp holds 32 BPT[part] /
+    part partitions of a frame, a block is one warp."""
+    npt = -(-n2 // part)
+    wpf = -(-npt // (32 * BPT[part] // part))
+    return wpf, F * wpf
 
 
 def lanes(dev, n2: int, m6: bool) -> tuple[int, int]:
@@ -129,6 +169,19 @@ def lanes(dev, n2: int, m6: bool) -> tuple[int, int]:
         return 1, 1
     return (SUM_LANES["m6", part],
             SUM_LANES["normalize_m6" if m6 else "normalize", part])
+
+
+def instance(dev, n2: int, epeak: bool) -> tuple:
+    """The INSTANCES key a launch of this config at width n2 picks, with
+    the M9 peaks given or not (M6 runs where they are and tonefix_end
+    is above 0)."""
+    cp = dev.ctx.couple
+    part = int(cp["partition"])
+    m6 = epeak and int(cp.get("tonefix_end", 0)) > 0
+    normalize = dev.ctx.normal["thresh"] < 9000.0
+    lm, ln = lanes(dev, n2, m6)
+    return (part, int(m6), int(normalize), lm if m6 else 0,
+            ln if normalize else 0)
 
 
 def _table(name, t, default, F, n2, dt, dev):
@@ -150,8 +203,9 @@ def _table(name, t, default, F, n2, dt, dev):
 
 def args(dev, md, curve, used, F, thr1=None, threv=None, inlimit=None,
          lowpass=None, epeak=None, npeak=None):
-    """(CoupleArgs, res, any_used, tensors to keep alive, geometry) of a
-    call on the card: checks every input and allocates the outputs."""
+    """(CoupleArgs, res, any_used, tensors to keep alive, instantiation
+    key) of a call on the card: checks every input, picks the
+    instantiation and allocates the outputs."""
     dv = md.device
     n2 = md.shape[-1] if md.dim() == 2 else -1
     if lowpass is not None:
@@ -191,8 +245,10 @@ def args(dev, md, curve, used, F, thr1=None, threv=None, inlimit=None,
         "inlimit", inlimit, None, F, n2, torch.bool, dv)
     res = torch.empty((F, 2 * n2), dtype=torch.float32, device=dv)
     any_used = torch.empty((F,), dtype=torch.bool, device=dv)
-    tpf, fpb = geometry(n2, part)
     lm, ln = lanes(dev, n2, m6)
+    key = instance(dev, n2, epeak is not None)
+    if key not in INSTANCES:
+        raise ValueError(f"couple quantize: no instantiation {key}")
     keep = [t1, tv, il[0], npeak, lowpass]
 
     def ptr(x):
@@ -208,15 +264,10 @@ def args(dev, md, curve, used, F, thr1=None, threv=None, inlimit=None,
         thr1_rows=r1, threv_rows=rv, inl_rows=il[1], F=F, n2=n2, part=part,
         npt=-(-n2 // part), ncols=0 if npeak is None else npeak.shape[1],
         tfe=int(cp.get("tonefix_end", 0)), m6=int(m6),
-        normalize=int(normalize), lanes_m6=lm, lanes_nm=ln, tpf=tpf,
-        fpb=fpb, prepoint=f32(cp["prepoint"]), prae=f32(0.34),
+        normalize=int(normalize), lanes_m6=lm, lanes_nm=ln,
+        prepoint=f32(cp["prepoint"]), prae=f32(0.34),
         thresh=f32(nm["thresh"]) if normalize else f32(0.0))
-    return a, res, any_used, keep, (tpf, fpb)
-
-
-def shared_bytes(a: CoupleArgs) -> int:
-    """csrc/couple_quantize.cu shared_bytes."""
-    return a.fpb * a.npt * 8 if a.m6 else 0
+    return a, res, any_used, keep, key
 
 
 class CoupleQuantizeKernel:
@@ -225,10 +276,12 @@ class CoupleQuantizeKernel:
     any_used (F,) bool), as couple_quantize_plain: on CPU tensors the
     plain version; on CUDA tensors one launch of csrc/couple_quantize.cu
     on the current stream, or an exception.  `launches` counts the
-    kernel's launches (and nothing else)."""
+    kernel's launches (and nothing else), `instances` them by INSTANCES
+    key."""
 
     def __init__(self):
         self.launches = 0
+        self.instances = Counter()
 
     def __call__(self, dev, md, curve, used, F, thr1=None, threv=None,
                  inlimit=None, lowpass=None, epeak=None, npeak=None):
@@ -239,9 +292,9 @@ class CoupleQuantizeKernel:
         if md.device.type != "cuda":
             raise ValueError(f"couple quantize: unsupported device "
                              f"{md.device}")
-        a, res, any_used, _keep, _ = args(dev, md, curve, used, F, thr1,
-                                          threv, inlimit, lowpass, epeak,
-                                          npeak)
+        a, res, any_used, _keep, key = args(dev, md, curve, used, F, thr1,
+                                            threv, inlimit, lowpass, epeak,
+                                            npeak)
         if F == 0:
             return res, any_used
         rc = load_library().vtt_couple_quantize(
@@ -250,6 +303,7 @@ class CoupleQuantizeKernel:
             raise RuntimeError(f"couple_quantize kernel launch failed: "
                                f"cudaError {rc}")
         self.launches += 1
+        self.instances[key] += 1
         return res, any_used
 
 
