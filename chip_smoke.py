@@ -144,12 +144,19 @@ Phases (any failure raises and the script exits non-zero):
      calls 3j recorded: 4d's long and short finish batch, the managed
      encoder's 15-blob rows (long and short), the 5.1 encoder's two
      submaps long and short, the 16 and 32 kHz configs, and on
-     tests/residue_encode_cases.py's seeded, threshold, zero, unused and
-     stress rows at each of those configs; the build's registers, shared
-     memory a block and blocks an SM; its time at the two 4d batches
-     (CUDA graphs, median and spread of six), its bound (bytes against
-     the function's own arithmetic on this run's classes) and share, the
-     plain trio's time and device kernels (no library call computes it);
+     tests/residue_encode_cases.py's seeded, threshold, zero, unused,
+     stress and INT_MIN rows at each of those configs, the INT_MIN rows
+     also at each config's LatticeVariant (the widest class at lattice
+     steps 2 and 3); the build's registers, its launch (warps a block,
+     shared memory a block, blocks an SM); its time at the two 4d
+     batches (CUDA graphs, median and spread of six; in turns with
+     commit f26b635's design, with --residue-baseline, whose outputs must
+     equal this design's), its bound (bytes against the function's own
+     arithmetic on this run's classes) and share, the plain trio's time
+     and device kernels (no library call computes it), and each phase's
+     cycles an item (tables, load, classify, VQ, columns) from a timing
+     build of the same source (-DVTT_RESIDUE_TIMING), and the baseline's
+     a block from a copy of it stamped at its barriers;
   3m. the packer: csrc/pack_bits.cu (the plan's column merge and the
      LSB-first packing in one launch) bitwise, packets and bit counts,
      against its plain version (merge_columns and pack_bits) on the
@@ -180,10 +187,15 @@ Phases (any failure raises and the script exits non-zero):
      kHz looks) and on _prepare_rows' seeded rows and edge rows (NaN and
      +-inf in the mask and in logmdct, nothing above, nothing used, a
      saturated mask) at each of those looks and at a synthetic look of
-     two posts; the build's registers, shared memory a block and blocks
-     an SM; its time at the two 4d batches (CUDA graphs, median and
-     spread of six), its bound by bytes and share, the plain version's
-     time and device kernels (no library call computes it);
+     two posts; the build's registers, its launch (warps a block,
+     shared memory a block, blocks an SM); its time at the two 4d
+     batches (CUDA graphs, median and spread of six; in turns with commit
+     f26b635's design, with --prepare-baseline, whose outputs must equal
+     this design's), its bound by bytes and share, the plain version's
+     time and device kernels (no library call computes it), and each
+     phase's cycles a row (wait, quant and above, moments, windows,
+     prefix, store) from a timing build of the same source
+     (-DVTT_PREPARE_TIMING), and the baseline's from a stamped copy;
   3o. the stereo coupling: csrc/couple_quantize.cu (the lowpass, the
      M9 lowering, M6, the lossless mag/ang, the point fold, the
      normalize and the interleave in one launch) bitwise, residues and
@@ -2364,9 +2376,9 @@ class _ToneBaseline:
     def timing(self):
         """The stamped copy's vtt_tone_mask: its last argument the
         stamps (TONE_STAMPS int64 a warp a row)."""
-        text = self.source.read_text()
+        import ctypes
         stamp = "VTT_STAMP();"
-        edits = [
+        lib = _stamped_library(self.source, [
             ("float* __restrict__ out) {\n  extern __shared__ int smem[];",
              "float* __restrict__ out, long long* __restrict__ stamps) {\n"
              "  extern __shared__ int smem[];\n  int vtt_st = 0;\n  "
@@ -2377,23 +2389,12 @@ class _ToneBaseline:
              "size_t smem_bytes", 1),
             ("void* stream) {", "void* stream, void* stamps) {", 1),
             ("(const int*)blob, (float*)out);",
-             "(const int*)blob, (float*)out, (long long*)stamps);", 1)]
-        for old, new, count in edits:
-            if text.count(old) != count:
-                raise RuntimeError(f"baseline stamps: {old!r} found "
-                                   f"{text.count(old)} times")
-            text = text.replace(old, new)
-        macro = ("#define VTT_STAMP() do { if ((threadIdx.x & 31) == 0) "
-                 "stamps[((size_t)blockIdx.x * (blockDim.x >> 5) + "
-                 f"(threadIdx.x >> 5)) * {TONE_STAMPS} + vtt_st] = "
-                 "clock64(); ++vtt_st; } while (0)\n")
-        text = text.replace("namespace {", macro + "namespace {", 1)
-        from vorbis_tpu_torch.native import BUILD_DIR
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        stamped = BUILD_DIR / "tone_mask_c40e5f8_stamped.cu"
-        stamped.write_text(text)
-        return _tone_lib(stamped, "libtonemask_baseline_timing",
-                         _tone_argtypes(baseline=True, stamps=True))
+             "(const int*)blob, (float*)out, (long long*)stamps);", 1)],
+            "tone_mask_c40e5f8_stamped", TONE_STAMPS)
+        fn = lib.vtt_tone_mask
+        fn.restype = ctypes.c_int
+        fn.argtypes = _tone_argtypes(baseline=True, stamps=True)
+        return fn
 
 
 def _tone_phases(call, R):
@@ -3294,23 +3295,373 @@ def _res_check(name, cfg, res, used):
     return err
 
 
-def _phase_residue_encode(cases, smi, report=""):
+# sha256 of the designs before their Hopper redesign (commit f26b635):
+# csrc/residue_encode.cu, a thread a (row, partition) then a column a
+# thread, and csrc/floor_prepare.cu, a CTA a row
+RESIDUE_BASELINE_SHA256 = ("f56d847fdc5f47d63672bef6f612a8c8c433e46a5f803e"
+                           "ad3b670520c6c48625")
+PREPARE_BASELINE_SHA256 = ("f00ee76910e235fd8395f3eabf9d23f8e3d454f5f4230d"
+                           "49ee3db8bc435f2a9d")
+# a stamped baseline's phases: the work before each barrier, the wait at
+# it, then the work after the last
+RESIDUE_PHASES_BASELINE = ("records", "barrier", "classify and VQ",
+                           "barrier", "columns")
+PREPARE_PHASES_BASELINE = ("quant and above", "barrier", "segment sums",
+                           "barrier", "prefix", "barrier", "store")
+
+
+def _baseline_source(source, sha, flag, commit, name):
+    """`source` as a Path, refused unless its sha256 is `sha`."""
+    import hashlib
+    from pathlib import Path
+    digest = hashlib.sha256(Path(source).read_bytes()).hexdigest()
+    if digest != sha:
+        raise RuntimeError(f"--{flag} {source} is not commit {commit}'s "
+                           f"{name} (sha256 {digest})")
+    return Path(source)
+
+
+def _stamped_library(source, edits, stem, nstamps):
+    """A copy of the baseline `source` with a clock64 stamp a warp at its
+    start, before and after each barrier and at its end (`edits`, [(old,
+    new, count)], each `old` found `count` times; VTT_STAMP() in `new`
+    writes the warp's next of `nstamps` stamps), built under its own
+    library name: its entry point takes the stamps array last."""
+    import ctypes
+    from vorbis_tpu_torch.native import BUILD_DIR, build_library
+    from vorbis_tpu_torch.ops import floor_cuda
+    text = source.read_text()
+    for old, new, count in edits:
+        if text.count(old) != count:
+            raise RuntimeError(f"baseline stamps: {old!r} found "
+                               f"{text.count(old)} times")
+        text = text.replace(old, new)
+    macro = ("#define VTT_STAMP() do { if ((threadIdx.x & 31) == 0) "
+             "stamps[((size_t)blockIdx.x * (blockDim.x >> 5) + "
+             f"(threadIdx.x >> 5)) * {nstamps} + vtt_st] = clock64(); "
+             "++vtt_st; } while (0)\n")
+    text = text.replace("namespace {", macro + "namespace {", 1)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    stamped = BUILD_DIR / f"{stem}.cu"
+    stamped.write_text(text)
+    so, _ = build_library(stamped, floor_cuda.nvcc, floor_cuda.NVCC_FLAGS,
+                          stem)
+    return ctypes.CDLL(str(so))
+
+
+def _stamp_phases(st, blocks, warps, nstamps, frames_a_block):
+    """From a stamped baseline's stamps (blocks * warps * nstamps int64):
+    each phase's slowest warp (cycles between consecutive stamps, the
+    most of a block's warps; mean over the blocks), and a block's cycles,
+    its first warp's start to its last warp's end (mean and median), of
+    a block of `frames_a_block` frames (or rows)."""
+    import numpy as np
+    s = st.view(blocks, warps, nstamps).cpu().numpy()
+    slowest = [float((s[:, :, k + 1] - s[:, :, k]).max(1).mean())
+               for k in range(nstamps - 1)]
+    block = s[:, :, -1].max(1) - s[:, :, 0].min(1)
+    return dict(slowest=slowest, block=float(block.mean()),
+                block_median=float(np.median(block)),
+                frames_a_block=frames_a_block)
+
+
+class _ResidueBaseline:
+    """The design of csrc/residue_encode.cu before its Hopper redesign (a
+    thread a (row, partition) through every stage, then a column a
+    thread: `git show f26b635:vorbis_tpu_torch/csrc/residue_encode.cu`),
+    built from `source` under its own library name and called on this
+    design's blob (its HEADER and records lead the blob unchanged) for
+    timing in turns; any other source is refused (its hash differs).
+    `phases` runs a copy stamped at its two barriers."""
+
+    def __init__(self, source):
+        import ctypes
+        from vorbis_tpu_torch.native import build_library
+        from vorbis_tpu_torch.ops import floor_cuda
+        self.source = _baseline_source(
+            source, RESIDUE_BASELINE_SHA256, "residue-baseline", "f26b635",
+            "residue_encode.cu")
+        so, _ = build_library(self.source, floor_cuda.nvcc,
+                              floor_cuda.NVCC_FLAGS,
+                              "libresidueencode_baseline")
+        self.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+                         + [ctypes.c_void_p] * 3)
+        self.fn = ctypes.CDLL(str(so)).vtt_residue_encode
+        self.fn.restype, self.fn.argtypes = ctypes.c_int, self.argtypes
+        self.timed = None
+
+    def __call__(self, cfg, res, used, stamps=None, fn=None):
+        import torch
+        t = cfg.res_enc
+        F = used.shape[0]
+        vals = torch.empty((F, t.rc), dtype=torch.int64, device="cuda")
+        lens = torch.empty((F, t.rc), dtype=torch.int32, device="cuda")
+        head = self.head(t)
+        rc = (fn or self.fn)(
+            res.data_ptr(), used.data_ptr(), t.blob.data_ptr(),
+            head.ctypes.data, F, res.shape[-1], vals.data_ptr(),
+            lens.data_ptr(), torch.cuda.current_stream().cuda_stream,
+            *([stamps] if stamps is not None else []))
+        if rc != 0:
+            raise RuntimeError(f"baseline residue_encode launch failed: "
+                               f"cudaError {rc}")
+        return vals, lens
+
+    # f26b635's header: this design's first 40 words, its word 15 the
+    # frames a block (fpb, where this design keeps its unit)
+    OLD_WORDS, OLD_FPB = 40, 15
+
+    @classmethod
+    def head(cls, t):
+        """f26b635's header words for this design's blob: its first 40
+        words, fpb as f26b635's pack_blob set it (about 128 phase-1
+        threads a block of whole frames)."""
+        import numpy as np
+        from vorbis_tpu_torch.ops.residue_encode_cuda import H
+        h = np.ascontiguousarray(t.head[:cls.OLD_WORDS].copy())
+        h[cls.OLD_FPB] = max(1, 128 // int(h[H["per_frame"]]))
+        return h
+
+    def geometry(self, t, F, sms):
+        """(blocks, threads, frames a block) of f26b635's launch."""
+        from vorbis_tpu_torch.ops.residue_encode_cuda import H
+        h = self.head(t)
+        fpb = min(max(F // (2 * sms), 1), int(h[self.OLD_FPB]))
+        threads = max(-(-fpb * int(h[H["per_frame"]]) // 32) * 32, 64)
+        return -(-F // fpb), threads, fpb
+
+    def phases(self, cfg, res, used, sms):
+        """Each phase's slowest-warp cycles (RESIDUE_PHASES_BASELINE) of
+        one call of the stamped copy, its outputs equal to the plain
+        build's."""
+        import ctypes
+        import torch
+        stamp = "VTT_STAMP();"
+        if self.timed is None:
+            lib = _stamped_library(self.source, [
+                ("int* __restrict__ lens) {\n",
+                 "int* __restrict__ lens, long long* __restrict__ stamps) {\n"
+                 f"  int vtt_st = 0;\n  {stamp}\n", 1),
+                ("  __syncthreads();", f"  {stamp}\n  __syncthreads();\n  "
+                 f"{stamp}", 2),
+                ("        lout[j] = l[u];\n      }\n    }\n  }\n}\n",
+                 "        lout[j] = l[u];\n      }\n    }\n  }\n"
+                 f"  {stamp}\n}}\n", 1),
+                ("int* lens, cudaStream_t stream) {",
+                 "int* lens, cudaStream_t stream, long long* stamps) {", 1),
+                ("g.fpb, vec4, vals, lens);", "g.fpb, vec4, vals, lens, "
+                 "stamps);", 1)], "residue_encode_f26b635_stamped", 6)
+            self.timed = lib.vtt_residue_encode
+            self.timed.restype = ctypes.c_int
+            self.timed.argtypes = self.argtypes + [ctypes.c_void_p]
+        blocks, threads, fpb = self.geometry(cfg.res_enc, used.shape[0], sms)
+        st = torch.zeros(blocks * (threads // 32) * 6, dtype=torch.int64,
+                         device="cuda")
+        got = self(cfg, res, used, st.data_ptr(), self.timed)
+        want = self(cfg, res, used)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise RuntimeError("stamped residue baseline != its build")
+        return _stamp_phases(st, blocks, threads // 32, 6, fpb)
+
+
+class _PrepareBaseline:
+    """The design of csrc/floor_prepare.cu before its Hopper redesign (a
+    CTA of 256 threads a row, three barriers: `git show
+    f26b635:vorbis_tpu_torch/csrc/floor_prepare.cu`), built from
+    `source` under its own library name and called on this design's
+    inputs for timing in turns; any other source is refused (its hash
+    differs).  `phases` runs a copy stamped at its three barriers."""
+
+    def __init__(self, source):
+        import ctypes
+        from vorbis_tpu_torch.native import build_library
+        from vorbis_tpu_torch.ops import floor_cuda
+        self.source = _baseline_source(
+            source, PREPARE_BASELINE_SHA256, "prepare-baseline", "f26b635",
+            "floor_prepare.cu")
+        so, _ = build_library(self.source, floor_cuda.nvcc,
+                              floor_cuda.NVCC_FLAGS,
+                              "libfloorprepare_baseline")
+        self.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                         + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 5)
+        self.fn = ctypes.CDLL(str(so)).vtt_floor_prepare
+        self.fn.restype, self.fn.argtypes = ctypes.c_int, self.argtypes
+        self.timed = None
+
+    def __call__(self, fit, logmdct, logmask, stamps=None, fn=None):
+        import torch
+        from vorbis_tpu_torch.ops.floor_device import (QUANT_OFFSET,
+                                                       QUANT_SCALE)
+        B, n, P = logmdct.shape[0], fit.n, fit.posts
+        quant = torch.empty((B, n), dtype=torch.int32, device="cuda")
+        above = torch.empty((B, n), dtype=torch.bool, device="cuda")
+        prefix = torch.empty((B, P, 6), dtype=torch.float32, device="cuda")
+        used = torch.empty((B,), dtype=torch.bool, device="cuda")
+        rc = (fn or self.fn)(
+            logmdct.data_ptr(), logmask.data_ptr(), fit.seg_t.data_ptr(), B,
+            n, P, float(QUANT_SCALE), float(QUANT_OFFSET),
+            float(fit.twofitatten), float(fit.tw), quant.data_ptr(),
+            above.data_ptr(), prefix.data_ptr(), used.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
+            *([stamps] if stamps is not None else []))
+        if rc != 0:
+            raise RuntimeError(f"baseline floor_prepare launch failed: "
+                               f"cudaError {rc}")
+        return quant, above, prefix, used
+
+    def phases(self, fit, logmdct, logmask):
+        """Each phase's slowest-warp cycles (PREPARE_PHASES_BASELINE) of
+        one call of the stamped copy, its outputs equal to the plain
+        build's."""
+        import ctypes
+        import torch
+        stamp = "VTT_STAMP();"
+        if self.timed is None:
+            lib = _stamped_library(self.source, [
+                ("unsigned char* __restrict__ used) {\n",
+                 "unsigned char* __restrict__ used,\n"
+                 "                         long long* __restrict__ stamps) "
+                 f"{{\n  int vtt_st = 0;\n  {stamp}\n", 1),
+                ("  __syncthreads();", f"  {stamp}\n  __syncthreads();\n  "
+                 f"{stamp}", 3),
+                ("prow[i] = pre_s[i];\n}", f"prow[i] = pre_s[i];\n  {stamp}\n}}",
+                 1),
+                ("unsigned char* used,\n                                 "
+                 "cudaStream_t stream) {",
+                 "unsigned char* used, cudaStream_t stream, long long* "
+                 "stamps) {", 1),
+                ("      prefix, used);", "      prefix, used, stamps);", 1)],
+                "floor_prepare_f26b635_stamped", 8)
+            self.timed = lib.vtt_floor_prepare
+            self.timed.restype = ctypes.c_int
+            self.timed.argtypes = self.argtypes + [ctypes.c_void_p]
+        B = logmdct.shape[0]
+        st = torch.zeros(B * 8 * 8, dtype=torch.int64, device="cuda")
+        got = self(fit, logmdct, logmask, st.data_ptr(), self.timed)
+        want = self(fit, logmdct, logmask)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise RuntimeError("stamped prepare baseline != its build")
+        return _stamp_phases(st, B, 8, 8, 1)
+
+
+def _warp_phases(st, nphases):
+    """From a timing build's stamps (warps * (nphases + 2) int64: each
+    phase's cycles summed over the warp's rows or frames, their count,
+    the warp's total): each phase's cycles a row (or frame) of the
+    slowest warp and of the mean warp, over the warps holding rows; a
+    warp's cycles a row, and its total (mean and most)."""
+    import numpy as np
+    s = st.cpu().numpy().reshape(-1, nphases + 2).astype(np.float64)
+    rows = s[:, nphases]
+    busy = rows > 0
+    per_row = s[busy, :nphases] / rows[busy, None]
+    return dict(slowest=[float(v) for v in per_row.max(0)],
+                mean=[float(v) for v in per_row.mean(0)],
+                row=float((s[busy, nphases + 1] / rows[busy]).mean()),
+                warp=float(s[busy, nphases + 1].mean()),
+                warp_max=float(s[busy, nphases + 1].max()),
+                rows_a_warp=float(rows[busy].mean()))
+
+
+def _prep_phases(lib, fit, logmdct, logmask):
+    """Where a warp's time goes in csrc/floor_prepare.cu, from one call
+    of its timing build (`lib`, -DVTT_PREPARE_TIMING) on the same inputs:
+    for each of PREPARE_PHASES the cycles a row of the slowest warp and
+    the mean warp, a warp's cycles a row and its total; the call's
+    outputs must equal the default build's."""
+    import ctypes
+    import torch
+    from vorbis_tpu_torch.ops.floor_cuda import (PREPARE_PHASES,
+                                                 floor_prepare)
+    from vorbis_tpu_torch.ops.floor_device import QUANT_OFFSET, QUANT_SCALE
+    B, n, P = logmdct.shape[0], fit.n, fit.posts
+    wpb, smem, blocks = (ctypes.c_int(0) for _ in range(3))
+    if lib.vtt_floor_prepare_blocks_per_sm(
+            n, P, fit.prep_edges, B, ctypes.byref(wpb), ctypes.byref(smem),
+            ctypes.byref(blocks)) < 1:
+        raise RuntimeError("floor_prepare timing build: no occupancy")
+    st = torch.zeros(blocks.value * wpb.value * (len(PREPARE_PHASES) + 2),
+                     dtype=torch.int64, device="cuda")
+    out = (torch.empty((B, n), dtype=torch.int32, device="cuda"),
+           torch.empty((B, n), dtype=torch.bool, device="cuda"),
+           torch.empty((B, P, 6), dtype=torch.float32, device="cuda"),
+           torch.empty((B,), dtype=torch.bool, device="cuda"))
+    rc = lib.vtt_floor_prepare(
+        logmdct.data_ptr(), logmask.data_ptr(), fit.prep_tab.data_ptr(),
+        fit.prep_edges, B, n, P, float(QUANT_SCALE), float(QUANT_OFFSET),
+        float(fit.twofitatten), float(fit.tw),
+        *(t.data_ptr() for t in out),
+        torch.cuda.current_stream().cuda_stream, st.data_ptr())
+    if rc != 0:
+        raise RuntimeError(f"floor_prepare timing build: cudaError {rc}")
+    want = floor_prepare(fit, logmdct, logmask)
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, w) for g, w in zip(out, want)):
+        raise RuntimeError("floor_prepare timing build != default build")
+    return _warp_phases(st, len(PREPARE_PHASES))
+
+
+def _res_phases(lib, cfg, res, used):
+    """Where a warp's time goes in csrc/residue_encode.cu, from one call
+    of its timing build (`lib`, -DVTT_RESIDUE_TIMING) on the same inputs:
+    for each of residue_encode_cuda.PHASES the cycles an item of the
+    slowest and of the mean warp, a warp's cycles an item and its total;
+    the call's outputs must equal the default build's."""
+    import ctypes
+    import torch
+    from vorbis_tpu_torch.ops.residue_encode_cuda import (PHASES,
+                                                          residue_encode)
+    t = cfg.res_enc
+    F = used.shape[0]
+    wpb, smem, blocks = (ctypes.c_int(0) for _ in range(3))
+    if lib.vtt_residue_encode_blocks_per_sm(
+            t.head.ctypes.data, F, ctypes.byref(wpb), ctypes.byref(smem),
+            ctypes.byref(blocks)) < 1:
+        raise RuntimeError("residue_encode timing build: no occupancy")
+    st = torch.zeros(blocks.value * wpb.value * (len(PHASES) + 2),
+                     dtype=torch.int64, device="cuda")
+    vals = torch.empty((F, t.rc), dtype=torch.int64, device="cuda")
+    lens = torch.empty((F, t.rc), dtype=torch.int32, device="cuda")
+    rc = lib.vtt_residue_encode(
+        res.data_ptr(), used.data_ptr(), t.blob.data_ptr(), t.head.ctypes.data,
+        F, res.shape[-1], vals.data_ptr(), lens.data_ptr(),
+        torch.cuda.current_stream().cuda_stream, st.data_ptr())
+    if rc != 0:
+        raise RuntimeError(f"residue_encode timing build: cudaError {rc}")
+    want = residue_encode(cfg, res, used)
+    torch.cuda.synchronize()
+    if not (torch.equal(vals, want[0]) and torch.equal(lens, want[1])):
+        raise RuntimeError("residue_encode timing build != default build")
+    return _warp_phases(st, len(PHASES))
+
+
+def _phase_residue_encode(cases, smi, report="", baseline=None):
     """Phase 3l: the residue path (csrc/residue_encode.cu: classify,
     lattice VQ and the codeword columns in one launch) against its plain
     version (the finish's classifier, _vq_stages and _residue_fields),
     values and lengths bitwise, on the calls 3j recorded (`cases`: 4d's
     long and short finish batch, the managed encoder's 15-blob rows, both
     5.1 submaps long and short, the 16 and 32 kHz configs) and on
-    tests/residue_encode_cases.py's seeded, threshold, zero, unused and
-    stress rows at each of those configs; the build's registers
-    (`report`), shared memory a block and blocks an SM; its time at the
-    two 4d batches (CUDA graphs, median and spread of six), its bound and
-    share, the plain trio's time and device kernels (no library call
-    computes it).  Returns the kernel's record for the JSON line."""
+    tests/residue_encode_cases.py's seeded, threshold, zero, unused,
+    stress and INT_MIN rows at each of those configs, the INT_MIN rows
+    also at each config's LatticeVariant (the widest class at lattice
+    steps 2 and 3); the build's registers (`report`), its launch (warps
+    a block, shared memory a block, blocks, blocks an SM); its time at
+    the two 4d batches (CUDA graphs, median and spread of six; in turns
+    with f26b635's design where `baseline`, a _ResidueBaseline, is given,
+    whose outputs must equal this design's), its bound and share, the
+    plain trio's time and device kernels (no library call computes it),
+    and each phase's cycles from the timing build (and from the
+    baseline's stamped copy).  Returns the kernel's record for the JSON
+    line."""
     import ctypes
     import torch
+    from vorbis_tpu_torch.ops import residue_encode_cuda
     from vorbis_tpu_torch.ops.residue_encode_cuda import (
-        geometry, load_library, residue_encode, residue_encode_plain)
+        PHASES, ResidueEncodeConfig, load_library, residue_encode,
+        residue_encode_plain)
     rcs = _test_module("residue_encode_cases")
     err, configs = 0.0, {}
     for name, cfg, res, used in cases:
@@ -3318,29 +3669,48 @@ def _phase_residue_encode(cases, smi, report=""):
         configs.setdefault(id(cfg), (name, cfg))
     for k, (name, cfg) in enumerate(configs.values()):
         n2 = cfg.res_enc.dev.n // 2
-        for rows, host in (("seeded and edge", rcs.inputs(cfg, n2, 500 + k)),
-                           ("stress", rcs.stress_rows(cfg, n2, 600 + k))):
+        var = rcs.LatticeVariant(cfg)
+        var.res_enc = ResidueEncodeConfig(var, cfg.res_enc.nch,
+                                          cfg.res_enc.dev)
+        for rows, c, host in (
+                ("seeded and edge", cfg, rcs.inputs(cfg, n2, 500 + k)),
+                ("stress", cfg, rcs.stress_rows(cfg, n2, 600 + k)),
+                ("INT_MIN", cfg, rcs.int_min_rows(cfg, n2, 650 + k)),
+                ("INT_MIN, lattice steps 2 and 3", var,
+                 rcs.int_min_rows(cfg, n2, 650 + k))):
             err = max(err, _res_check(
-                f"{name}, {rows} rows", cfg,
+                f"{name}, {rows} rows", c,
                 *(torch.from_numpy(a).cuda() for a in host)))
-    per_sm = load_library().vtt_residue_encode_blocks_per_sm
+    lib = load_library()
     build = _build_lines(report)
+    timed = residue_encode_cuda.bind(ctypes.CDLL(str(
+        residue_encode_cuda.build(timing=True)[0])), stamps=True)
     rec = {}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for name, cfg, res, used in cases[:2]:
         t = cfg.res_enc
         F = used.shape[0]
-        threads, smem = ctypes.c_int(0), ctypes.c_int(0)
-        blocks = per_sm(t.head.ctypes.data, F, ctypes.byref(threads),
-                        ctypes.byref(smem))
-        fpb = geometry(t.head, F, sms)["fpb"]
+        wpb, smem, blocks = (ctypes.c_int(0) for _ in range(3))
+        per_sm = lib.vtt_residue_encode_blocks_per_sm(
+            t.head.ctypes.data, F, ctypes.byref(wpb), ctypes.byref(smem),
+            ctypes.byref(blocks))
+        h = residue_encode_cuda.blob_tables(t.blob_np)
         print(f"[residue encode] {name}: build {build or 'cached'}; "
-              f"{smem.value} bytes of shared memory a block ({threads.value} "
-              f"threads, {fpb} frames, {-(-F // fpb)} blocks), {blocks} "
-              f"blocks an SM")
-        smem = smem.value
-        ts, _ = _turns(lambda c=cfg, r=res, u=used: residue_encode(c, r, u),
-                       None)
+              f"{blocks.value} blocks of {wpb.value} warps, {smem.value} "
+              f"bytes of shared memory a block, {per_sm} blocks an SM; a "
+              f"lane {h['unit']} values, {h['units']} lanes a partition, "
+              f"{h['cpw']} chunks an item ({h['item_cols']} columns); blob "
+              f"{4 * h['words']} bytes (books through the read-only path)")
+        mine = (lambda c=cfg, r=res, u=used: residue_encode(c, r, u))
+        theirs = None
+        if baseline is not None:
+            theirs = (lambda c=cfg, r=res, u=used: baseline(c, r, u))
+            got, want = theirs(), mine()
+            torch.cuda.synchronize()
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise RuntimeError(f"3l {name}: f26b635's design's output "
+                                   f"differs from this one's")
+        ts, tb = _turns(mine, theirs)
         ms, lo, hi = _med(ts)
         plain_k, plain_dev = _device_profile(
             lambda: residue_encode_plain(cfg, res, used))
@@ -3353,12 +3723,42 @@ def _phase_residue_encode(cases, smi, report=""):
               f"{100 * bound_ms / ms:.1f}%; plain trio {plain_ms:.4f} ms a "
               f"call, {plain_k} device kernels ({plain_dev:.4f} ms on the "
               f"device); library call: none ({smi})")
+        extra = {}
+        if tb:
+            bms, blo, bhi = _med(tb)
+            print(f"[residue encode] {name}: in turns, f26b635's design "
+                  f"{bms:.5f} ms ({blo:.5f}-{bhi:.5f}), share "
+                  f"{100 * bound_ms / bms:.1f}%, against this design's "
+                  f"{ms:.5f} ms ({100 * bound_ms / ms:.1f}%), "
+                  f"{bms / ms:.2f}x, outputs equal ({smi})")
+            bph = baseline.phases(cfg, res, used, sms)
+            print(f"[residue encode] {name}: f26b635's design, a block "
+                  f"{bph['block']:.0f} cycles (median "
+                  f"{bph['block_median']:.0f}; {bph['frames_a_block']} "
+                  f"frames); a phase's slowest warp: "
+                  + ", ".join(f"{n} {c:.0f}" for n, c in
+                              zip(RESIDUE_PHASES_BASELINE, bph["slowest"]))
+                  + f" (stamped copy, clock64; {smi})")
+            extra = dict(baseline_ms=bms, baseline_rounds_ms=tb,
+                         baseline_share=bound_ms / bms,
+                         baseline_phases=dict(bph, names=list(
+                             RESIDUE_PHASES_BASELINE)))
+        ph = _res_phases(timed, cfg, res, used)
+        print(f"[residue encode] {name}: a warp {ph['warp']:.0f} cycles "
+              f"(most {ph['warp_max']:.0f}; {ph['rows_a_warp']:.2f} items "
+              f"a warp, {ph['row']:.0f} cycles an item); an item's "
+              f"cycles, slowest warp / mean warp: "
+              + ", ".join(f"{n} {c:.0f} / {m:.0f}" for n, c, m in
+                          zip(PHASES, ph["slowest"], ph["mean"]))
+              + f" (timing build, clock64; {smi})")
         rec[name] = dict(frames=used.shape[0], rows=res.shape[0],
                          rc=t.rc, ms=ms, rounds_ms=ts, plain_ms=plain_ms,
                          plain_kernels=plain_k, plain_device_ms=plain_dev,
                          bound_ms=bound_ms, bound_by=by, bytes=nb,
-                         share=bound_ms / ms, shared_bytes=smem,
-                         blocks_per_sm=blocks)
+                         share=bound_ms / ms, shared_bytes=smem.value,
+                         warps_a_block=wpb.value, blocks=blocks.value,
+                         blocks_per_sm=per_sm, build=build,
+                         phases=dict(ph, names=list(PHASES)), **extra)
     main = rec["4d long batch"]
     return dict({k: main[k] for k in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "share")},
@@ -3621,7 +4021,7 @@ def _prep_bound(fit, logmdct, quant):
             else "operations", nbytes, int(int_ops), int(f32_ops))
 
 
-def _phase_floor_prepare(cases, smi, report=""):
+def _phase_floor_prepare(cases, smi, report="", baseline=None):
     """Phase 3n: the floor fit's prepare (csrc/floor_prepare.cu: the
     mask's dB quantization, the above classes, the segments' moments and
     their weighted prefix in one launch) against its plain version
@@ -3630,14 +4030,20 @@ def _phase_floor_prepare(cases, smi, report=""):
     and short batch, the managed encoder's stacked rows, the 5.1
     encoder's three looks, the 16 and 32 kHz looks) and on _prepare_rows'
     seeded and edge rows at each of those looks and at a synthetic look of
-    two posts over n = 1,024; the build's registers (`report`), shared
-    memory a block and blocks an SM; its time at the two 4d batches (CUDA
-    graphs, median and spread of six), its bound and share, the plain
-    version's time and device kernels (no library call computes it).
-    Returns the kernel's record for the JSON line."""
+    two posts over n = 1,024; the build's registers (`report`), its
+    launch (warps a block, shared memory a block, blocks, blocks an SM);
+    its time at the two 4d batches (CUDA graphs, median and spread of
+    six; in turns with f26b635's design where `baseline`, a
+    _PrepareBaseline, is given, whose outputs must equal this design's),
+    its bound and share, the plain version's time and device kernels (no
+    library call computes it), and each phase's cycles from the timing
+    build (and from the baseline's stamped copy).  Returns the kernel's
+    record for the JSON line."""
     import ctypes
     import torch
-    from vorbis_tpu_torch.ops.floor_cuda import (DeviceFloorFitCuda,
+    from vorbis_tpu_torch.ops import floor_cuda
+    from vorbis_tpu_torch.ops.floor_cuda import (PREPARE_PHASES,
+                                                 DeviceFloorFitCuda,
                                                  floor_prepare,
                                                  floor_prepare_plain,
                                                  load_prepare_library)
@@ -3652,17 +4058,32 @@ def _phase_floor_prepare(cases, smi, report=""):
                   _prepare_rows(fit.n, 24, 800 + k))
         err = max(err, _prep_check(f"{name}, seeded and edge rows", fit,
                                    lm, mk))
-    per_sm = load_prepare_library().vtt_floor_prepare_blocks_per_sm
+    lib = load_prepare_library()
+    timed = floor_cuda.bind_prepare(ctypes.CDLL(str(
+        floor_cuda.build_prepare(timing=True)[0])), stamps=True)
     build = _build_lines(report)
     rec = {}
     for name, fit, lm, mk in cases[:2]:
-        smem = ctypes.c_int(0)
-        blocks = per_sm(fit.n, fit.posts, ctypes.byref(smem))
         B = lm.shape[0]
+        wpb, smem, blocks = (ctypes.c_int(0) for _ in range(3))
+        per_sm = lib.vtt_floor_prepare_blocks_per_sm(
+            fit.n, fit.posts, fit.prep_edges, B, ctypes.byref(wpb),
+            ctypes.byref(smem), ctypes.byref(blocks))
         print(f"[floor prepare] {name}: build {build or 'cached'}; "
-              f"{smem.value} bytes of shared memory a block (256 threads, "
-              f"{B} blocks), {blocks} blocks an SM")
-        ts, _ = _turns(lambda: floor_prepare(fit, lm, mk), None)
+              f"{blocks.value} blocks of {wpb.value} warps (a warp a row), "
+              f"{smem.value} bytes of shared memory a block, {per_sm} "
+              f"blocks an SM; {floor_cuda.bins_a_lane(fit.n)} bins a lane, "
+              f"{fit.prep_edges} window edges")
+        mine = (lambda f=fit, a=lm, b=mk: floor_prepare(f, a, b))
+        theirs = None
+        if baseline is not None:
+            theirs = (lambda f=fit, a=lm, b=mk: baseline(f, a, b))
+            got, want = theirs(), mine()
+            torch.cuda.synchronize()
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise RuntimeError(f"3n {name}: f26b635's design's output "
+                                   f"differs from this one's")
+        ts, tb = _turns(mine, theirs)
         ms, lo, hi = _med(ts)
         plain_k, plain_dev = _device_profile(
             lambda: floor_prepare_plain(fit, lm, mk))
@@ -3676,11 +4097,42 @@ def _phase_floor_prepare(cases, smi, report=""):
               f"{100 * bound_ms / ms:.1f}%; plain version {plain_ms:.4f} ms "
               f"a call, {plain_k} device kernels ({plain_dev:.4f} ms on the "
               f"device); library call: none ({smi})")
+        extra = {}
+        if tb:
+            bms, blo, bhi = _med(tb)
+            print(f"[floor prepare] {name}: in turns, f26b635's design "
+                  f"{bms:.5f} ms ({blo:.5f}-{bhi:.5f}), share "
+                  f"{100 * bound_ms / bms:.1f}%, against this design's "
+                  f"{ms:.5f} ms ({100 * bound_ms / ms:.1f}%), "
+                  f"{bms / ms:.2f}x, outputs equal ({smi})")
+            bph = baseline.phases(fit, lm, mk)
+            print(f"[floor prepare] {name}: f26b635's design, a row's block "
+                  f"{bph['block']:.0f} cycles (median "
+                  f"{bph['block_median']:.0f}); a phase's slowest warp: "
+                  + ", ".join(f"{n} {c:.0f}" for n, c in
+                              zip(PREPARE_PHASES_BASELINE, bph["slowest"]))
+                  + f" (stamped copy, clock64; {smi})")
+            extra = dict(baseline_ms=bms, baseline_rounds_ms=tb,
+                         baseline_share=bound_ms / bms,
+                         baseline_phases=dict(bph, names=list(
+                             PREPARE_PHASES_BASELINE)))
+        ph = _prep_phases(timed, fit, lm, mk)
+        print(f"[floor prepare] {name}: a warp {ph['warp']:.0f} cycles "
+              f"(most {ph['warp_max']:.0f}; {ph['rows_a_warp']:.2f} rows a "
+              f"warp, {ph['row']:.0f} cycles a row); a row's cycles, "
+              f"slowest warp / mean warp: "
+              + ", ".join(f"{n} {c:.0f} / {m:.0f}" for n, c, m in
+                          zip(PREPARE_PHASES, ph["slowest"], ph["mean"]))
+              + f" (timing build, clock64; {smi})")
         rec[name] = dict(rows=B, n=fit.n, P=fit.posts, ms=ms, rounds_ms=ts,
                          plain_ms=plain_ms, plain_kernels=plain_k,
                          plain_device_ms=plain_dev, bound_ms=bound_ms,
                          bound_by=by, bytes=nb, share=bound_ms / ms,
-                         shared_bytes=smem.value, blocks_per_sm=blocks)
+                         shared_bytes=smem.value, warps_a_block=wpb.value,
+                         blocks=blocks.value, blocks_per_sm=per_sm,
+                         build=build,
+                         phases=dict(ph, names=list(PREPARE_PHASES)),
+                         **extra)
     main = rec["4d long batch"]
     return dict({k: main[k] for k in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "share")},
@@ -5502,6 +5954,16 @@ def main():
                          "e6f7150:vorbis_tpu_torch/csrc/couple_quantize.cu, "
                          "checked by its hash) to time in turns with this "
                          "one in phase 3o")
+    ap.add_argument("--residue-baseline", metavar="SOURCE",
+                    help="csrc/residue_encode.cu before its Hopper redesign "
+                         "(git show f26b635:vorbis_tpu_torch/csrc/"
+                         "residue_encode.cu, checked by its hash) to time "
+                         "in turns with this one in phase 3l")
+    ap.add_argument("--prepare-baseline", metavar="SOURCE",
+                    help="csrc/floor_prepare.cu before its Hopper redesign "
+                         "(git show f26b635:vorbis_tpu_torch/csrc/"
+                         "floor_prepare.cu, checked by its hash) to time in "
+                         "turns with this one in phase 3n")
     ap.add_argument("--pack-baseline", metavar="SOURCE",
                     help="the first csrc/pack_bits.cu (git show 4c76a5d:"
                          "vorbis_tpu_torch/csrc/pack_bits.cu, checked by its "
@@ -5555,6 +6017,10 @@ def main():
             "bark_fit.cu": bark_cuda.build,
             "tone_mask.cu": tone_mask_cuda.build,
             "residue_encode.cu": residue_encode_cuda.build,
+            "residue_encode.cu, timing build":
+                lambda: residue_encode_cuda.build(timing=True),
+            "floor_prepare.cu, timing build":
+                lambda: floor_cuda.build_prepare(timing=True),
             "pack_bits.cu": pack_cuda.build,
             "couple_quantize.cu": couple_cuda.build,
             "couple_quantize.cu, timing build":
@@ -5700,8 +6166,10 @@ def main():
     _lap(t_start, "3k")
 
     # 3l. the residue path on 3j's recorded calls, its times and bound
-    res_rec = _phase_residue_encode(res_cases, smi,
-                                    built["residue_encode.cu"][1])
+    res_rec = _phase_residue_encode(
+        res_cases, smi, built["residue_encode.cu"][1],
+        _ResidueBaseline(args.residue_baseline)
+        if args.residue_baseline else None)
     del res_cases
     _lap(t_start, "3l")
 
@@ -5713,8 +6181,10 @@ def main():
     _lap(t_start, "3m")
 
     # 3n. the floor fit's prepare on 3j's recorded calls
-    prep_rec = _phase_floor_prepare(prep_cases, smi,
-                                    built["floor_prepare.cu"][1])
+    prep_rec = _phase_floor_prepare(
+        prep_cases, smi, built["floor_prepare.cu"][1],
+        _PrepareBaseline(args.prepare_baseline)
+        if args.prepare_baseline else None)
     del prep_cases
     _lap(t_start, "3n")
 

@@ -148,3 +148,53 @@ def cast_rows(cfg, n2, seed, frames=2):
             res[r, pick] = v
     return (np.ascontiguousarray(res.astype(np.float32)),
             np.ones((frames, rc), bool))
+
+
+def int_min_rows(cfg, n2, seed, frames=2):
+    """Frames of typical values with partitions holding a quarter of their
+    values at -3e9 and at -inf (both convert to INT_MIN) and the rest at
+    +-3000, so that every such partition takes the widest class (type 2:
+    channel 0's magnitude; type 1: the +-3000 values' max, the INT_MIN
+    ones wrapping to INT_MIN under abs).  INT_MIN then reaches the
+    widest class's lattice divide at every stage, the remainder staying
+    below -2^31.  All used."""
+    rng = np.random.RandomState(seed)
+    rc, L, spp = cfg.res_ch, row_len(cfg, n2), cfg.spp
+    begin = cfg.ri.begin
+    res = np.rint(rng.laplace(size=(frames * rc, L)) * 30)
+    for r in range(frames * rc):
+        for v in (-3e9, -np.inf):
+            for p in rng.choice(cfg.partvals, size=min(3, cfg.partvals),
+                                replace=False):
+                lo = begin + p * spp
+                res[r, lo:lo + spp] = rng.choice([-3000.0, 3000.0], spp)
+                pick = lo + rng.choice(spp, size=max(spp // 4, 1),
+                                       replace=False)
+                res[r, pick] = v
+    return (np.ascontiguousarray(res.astype(np.float32)),
+            np.ones((frames, rc), bool))
+
+
+class LatticeVariant:
+    """A residue config whose widest class has lattice steps `steps` at
+    its first stages with a book (every other field its base config's):
+    no shipped book has a step of 2, and a step of 3 only in a class that
+    INT_MIN's partitions never take, so the INT_MIN divide at those steps
+    is reached through this variant.  Works for the port's configs and
+    the JAX package's alike (the base's attributes are read through)."""
+
+    def __init__(self, base, steps=(2, 3)):
+        self._base = base
+        top = base.possible - 1
+        books = [list(row) for row in base.res_books]
+        todo = list(steps)
+        for s, row in enumerate(books):
+            if todo and row[top] is not None:
+                row[top] = dict(row[top], delta=todo.pop(0))
+        if todo:
+            raise ValueError("residue config: too few stages with a book "
+                             "for the variant's steps")
+        self.res_books = books
+
+    def __getattr__(self, name):
+        return getattr(self._base, name)

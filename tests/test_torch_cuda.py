@@ -232,11 +232,12 @@ def test_residue_encode_on_cuda(cuda):
     FastEncoder(2, 44100, 0.5) long and short, FastEncoder(6, 48000,
     0.4)'s coupled submap long and short and its LFE, and FastEncoder(2,
     44100, 0.5, coupling=False) long and short, on tests/
-    residue_encode_cases.py's seeded, threshold, zero, unused and stress
-    rows, their first frame and first three, and 1,001 and 4,096 frames
-    of seeded rows; one launch a call."""
+    residue_encode_cases.py's seeded, threshold, zero, unused, stress and
+    INT_MIN rows, their first frame and first three, and 1,001 and 4,096
+    frames of seeded rows, and the INT_MIN rows at the config's
+    LatticeVariant (lattice steps 2 and 3); one launch a call."""
     from vorbis_tpu_torch.ops.residue_encode_cuda import (
-        residue_encode, residue_encode_plain)
+        ResidueEncodeConfig, residue_encode, residue_encode_plain)
     cases = _test_module("residue_encode_cases")
     for args, kw in (((2, 44100, 0.5), {}), ((6, 48000, 0.4), {}),
                      ((2, 44100, 0.5), {"coupling": False})):
@@ -253,15 +254,20 @@ def test_residue_encode_on_cuda(cuda):
                         cases.inputs(cfg, n2, seed + 3, frames=4096)]
                 r0, u0 = rows[0]
                 rows += [(r0[:rc * f], u0[:f]) for f in (1, 3)]
-                for res, used in rows:
+                rows = [(cfg, r, u) for r, u in rows]
+                var = cases.LatticeVariant(cfg)
+                var.res_enc = ResidueEncodeConfig(var, cfg.res_enc.nch, dev)
+                for c in (cfg, var):
+                    rows.append((c, *cases.int_min_rows(cfg, n2, seed + 4)))
+                for c, res, used in rows:
                     r = torch.from_numpy(res).cuda()
                     u = torch.from_numpy(used).cuda()
                     before = residue_encode.launches
-                    got = residue_encode(cfg, r, u)
+                    got = residue_encode(c, r, u)
                     torch.cuda.synchronize()
                     assert residue_encode.launches == before + 1
-                    want = residue_encode_plain(cfg, r, u)
-                    assert got[0].shape == (len(used), cfg.res_enc.rc)
+                    want = residue_encode_plain(c, r, u)
+                    assert got[0].shape == (len(used), c.res_enc.rc)
                     for g, w in zip(got, want):
                         assert torch.equal(g, w), (args, W, k, len(used))
 

@@ -28,13 +28,15 @@ long look (29 over 2,048) and the pipeline's (65 over 1,024).
     fails.  The replay below, which sums exactly, holds the prefix
     bitwise besides.
   * A numpy replay of the kernel's schedule (quant by a single-rounding
-    fma and a saturating truncation, above by one add; a warp a segment
-    summing the features over its window 32 bins a step, each step's
-    lanes in uint32 (redux.sync), the steps in int64; each sum rounded
-    once to float32, the weight and the
-    weighted moments one float32 rounding an operation; the prefix in
-    float64 in segment order, rounded once) is held bitwise to the plain
-    version.  The cast saturates everywhere: a +inf mask quantizes to
+    fma and a saturating truncation, above by one add; a lane a run of
+    `bins_a_lane(n)` bins summing the features in uint32 in bin order,
+    recording the sums at the look's window edges as it passes them,
+    the records raised by the scan of the lanes' totals, a window's
+    sums the uint32 difference of its edges; each sum rounded once to
+    float32, the weight and the weighted moments one float32 rounding an
+    operation; the prefix in float64 in segment order, rounded once) is
+    held bitwise to the plain version, and the look's edge table, each
+    lane's edges and the launch's geometry are checked at every look.  The cast saturates everywhere: a +inf mask quantizes to
     1023 in JAX, in the replay, on the card and in the plain version
     (torch's own CPU cast would give INT_MIN, clamped to 0).
   * The wrapper takes the plain version on CPU tensors; the managed
@@ -168,51 +170,75 @@ def _cast_sat(x):
     return np.clip(out, -2 ** 31, 2 ** 31 - 1).astype(np.int32)
 
 
+def _lane_edges(edges, bpl):
+    """csrc/floor_prepare.cu: each lane's edges [e0, e1): those in its
+    bins [l bpl, (l + 1) bpl), and the last lane's also the edge past
+    every lane's bins."""
+    x0 = np.arange(32) * bpl
+    e0 = (edges[None, :] < x0[:, None]).sum(1)
+    e1 = (edges[None, :] < (x0 + bpl)[:, None]).sum(1)
+    e1[31] = len(edges)
+    return e0, e1
+
+
 def replay(look, lm, mk):
-    """csrc/floor_prepare.cu's schedule in numpy, a row at a time."""
+    """csrc/floor_prepare.cu's schedule in numpy, a warp's row at a time:
+    quant and above a lane a 4-bin chunk; the moments a lane a run of
+    bins_a_lane(n) bins in uint32, recorded at the look's window edges
+    (floor_cuda.prepare_table) as the lane passes them, the records
+    raised by a scan of the lanes' totals, a window's sums the uint32
+    difference of its two edges; a lane a segment's weight and moments
+    in float32; six lanes' prefix in float64 in segment order."""
     fit = DeviceFloorFit(look, "cpu")
     B, n = lm.shape
     P, S = fit.posts, fit.posts - 1
     tw, atten = f32(fit.tw), f32(fit.twofitatten)
-    # phase 1: a thread a bin
+    tab = floor_cuda.prepare_table(fit.seg_lo, fit.seg_hi)
+    nE = len(tab) - 2 * S
+    edges, lo_e, hi_e = tab[:nE], tab[nE:nE + S], tab[nE + S:]
+    bpl = floor_cuda.bins_a_lane(n)
+    e0, e1 = _lane_edges(edges, bpl)
+    # quant and above: a lane a 4-bin chunk, elementwise
     quant = np.clip(_cast_sat(_fma32(mk, QUANT_SCALE, QUANT_OFFSET)), 0,
                     1023)
     with np.errstate(invalid="ignore"):
         above = (lm + atten).astype(np.float32) >= mk
     prefix = np.zeros((B, P, 6), np.float32)
     used = np.zeros(B, bool)
+    x = np.arange(32 * bpl).reshape(32, bpl)        # lane, its j-th bin
+    inrow = x < n
+    xc = np.minimum(x, n - 1)
     for r in range(B):
-        q = quant[r].astype(np.int64)
-        wm = np.zeros((S, 6), np.float32)
-        an = np.zeros(S, bool)
-        # phase 2: a warp a segment (warp s % 8), 32 bins a step,
-        # lane l the step's bin l; each step's lanes summed in uint32
-        # (redux.sync) and added to int64 sums
-        for s in range(S):
-            lo, hi = int(fit.seg_lo[s]), int(fit.seg_hi[s])
-            sums = np.zeros((2, 6), np.int64)
-            for i0 in range(lo, hi, 32):
-                i = np.arange(i0, i0 + 32)
-                inwin = i < hi
-                qi = np.where(inwin, q[np.minimum(i, n - 1)], 0)
-                up = np.where(inwin, above[r, np.minimum(i, n - 1)], False)
-                f = np.stack([i, qi, i * i, qi * qi, i * qi,
-                              np.ones_like(i)]).astype(np.uint32)
-                for cls, m in ((0, (qi != 0) & up), (1, (qi != 0) & ~up)):
-                    step = np.where(m, f, np.uint32(0)).sum(
-                        1, dtype=np.uint32)
-                    sums[cls] += step.astype(np.int64)
-            a, b = sums.astype(np.float32)             # __ll2float_rn
-            w = f32(f32(f32(f32(b[5] + a[5]) * tw) / f32(a[5] + f32(1)))
-                    + f32(1))
-            wm[s] = b + a * w
-            an[s] = sums[0, 5] != 0
-        # phase 3: a thread a feature, float64 in segment order
-        acc = np.zeros(6, np.float64)
-        for s in range(S):
-            acc = acc + wm[s].astype(np.float64)
-            prefix[r, s + 1] = acc.astype(np.float32)
-        used[r] = an.any()
+        q = np.where(inrow, quant[r][xc], 0).astype(np.uint32)
+        up = np.where(inrow, above[r][xc], False)
+        u = q != 0
+        ux = x.astype(np.uint32)
+        f = np.stack([ux, q, ux * ux, q * q, ux * q,
+                      np.ones_like(ux)])                # (6, 32, bpl)
+        T = np.where(u, f, np.uint32(0))
+        A = np.where(u & up, f, np.uint32(0))
+        run = np.concatenate([T, A])                    # (12, 32, bpl)
+        # the sums before each bin, and the lane's total past its last
+        before = np.concatenate(
+            [np.zeros((12, 32, 1), np.uint32),
+             np.cumsum(run, 2, dtype=np.uint32)], 2)    # (12, 32, bpl+1)
+        ex = np.concatenate([np.zeros((12, 1), np.uint32), np.cumsum(
+            before[:, :, -1], 1, dtype=np.uint32)[:, :-1]], 1)
+        rec = np.zeros((nE, 12), np.uint32)
+        for lane in range(32):
+            for e in range(e0[lane], e1[lane]):
+                j = edges[e] - lane * bpl
+                assert 0 <= j <= bpl and (j < bpl or lane == 31)
+                rec[e] = before[:, lane, j] + ex[:, lane]
+        hi, lo = rec[hi_e], rec[lo_e]
+        at = hi[:, 6:] - lo[:, 6:]
+        a = at.astype(np.float32)                        # __uint2float_rn
+        b = (hi[:, :6] - lo[:, :6] - at).astype(np.float32)
+        w = f32(1) + ((b[:, 5] + a[:, 5]) * tw) / (a[:, 5] + f32(1))
+        wm = b + a * w[:, None].astype(np.float32)
+        prefix[r, 1:] = np.cumsum(wm.astype(np.float64), 0).astype(
+            np.float32)
+        used[r] = (at[:, 5] != 0).any()
     return quant, above, prefix, used
 
 
@@ -225,6 +251,40 @@ def test_kernel_replay_equals_plain(looks, P, n):
     for name, g, w in zip(("quant", "above", "prefix", "used"), got, want):
         assert g.shape == w.shape and g.dtype == w.dtype, name
         assert np.array_equal(g.view(np.uint8), w.view(np.uint8)), name
+
+
+@pytest.mark.parametrize("P,n", LOOKS)
+def test_prepare_table_and_geometry(looks, P, n):
+    """floor_cuda.prepare_table: the sorted distinct edges in [0, n], each
+    window [lo, hi) of DeviceFloorFit read back through its two edge
+    indices; every edge owned by exactly one lane (the last lane also the
+    end of every lane's bins); a warp's shared words fit a block; and a
+    window's six sums below 2^32 at the largest n the kernel takes (a
+    full row of bins at q = 1023), so the uint32 differences are exact."""
+    fit = DeviceFloorFit(looks[P, n], "cpu")
+    S = P - 1
+    tab = floor_cuda.prepare_table(fit.seg_lo, fit.seg_hi)
+    assert tab.dtype == np.int32
+    nE = len(tab) - 2 * S
+    edges = tab[:nE]
+    assert 2 <= nE <= 2 * S and (np.diff(edges) > 0).all()
+    assert edges[0] >= 0 and edges[-1] <= n
+    assert np.array_equal(edges[tab[nE:nE + S]], fit.seg_lo)
+    assert np.array_equal(edges[tab[nE + S:]], fit.seg_hi)
+    bpl = floor_cuda.bins_a_lane(n)
+    assert bpl % 4 == 0 and 32 * bpl >= n and (bpl == 4 or 32 * (bpl - 4)
+                                                < n)
+    e0, e1 = _lane_edges(edges, bpl)
+    owned = np.concatenate([np.arange(a, b) for a, b in zip(e0, e1)])
+    assert np.array_equal(owned, np.arange(nE))
+    for B in (1, 512, 4096):
+        g = floor_cuda.prepare_geometry(n, P, nE, B, 132)
+        assert 1 <= g["wpb"] <= min(floor_cuda.PREPARE_WARPS, -(-B // 132))
+        assert g["smem"] <= floor_cuda.PREPARE_SHARED and g["bpl"] == bpl
+    m = floor_cuda.PREPARE_MAX_N
+    x = np.arange(m, dtype=np.int64)
+    assert max(x.sum(), (x * x).sum(), 1023 * m, 1023 ** 2 * m,
+               1023 * x.sum(), m) < 2 ** 32
 
 
 def test_card_cast_saturates(looks):

@@ -12,13 +12,17 @@ bits; the port writes 0 there), at the configs of FastEncoder(2, 44100,
 0.5) long and short, FastEncoder(6, 48000, 0.4)'s coupled submap long
 and short and its LFE, and FastEncoder(2, 44100, 0.5, coupling=False)
 (residue type 1 over two channels), on tests/residue_encode_cases.py's
-seeded, threshold, zero, unused and stress rows and its rows at
-int32's edge (+3e9, +inf and NaN residues, which the JAX package's
-converts saturate or take to 0).  A numpy replay of the
-kernel's schedule (`replay`: the blob read through its header, a block
-of whole frames, a thread a (row, partition) with its values carried
-from stage to stage, the entries in a slot a thread, then a column a
-thread) must equal the plain version on the same rows, values
+seeded, threshold, zero, unused and stress rows, its rows at int32's
+edge (+3e9, +inf and NaN residues, which the JAX package's converts
+saturate or take to 0) and its INT_MIN rows (-3e9 and -inf residues,
+which JAX's divide takes to +ceil(2^31 / step); also at each config's
+LatticeVariant, whose widest class has lattice steps 2 and 3).  A numpy
+replay of the kernel's schedule (`replay`: the blob read through its
+header, a warp an item of chunks of a frame, a lane a unit of whole
+entries with its values carried from stage to stage, the class from the
+partition's lanes, the entries' pair offsets in the warp's column
+array in the item's column order, then the item's columns a stage's run
+at a time) must equal the plain version on the same rows, values
 included, so a layout, offset or schedule fault shows here, where no
 kernel runs.  The kernel itself needs a card:
 tests/test_torch_cuda.py::test_residue_encode_on_cuda and chip_smoke.py
@@ -34,7 +38,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from tests.residue_encode_cases import cast_rows, inputs, stress_rows
+from tests.residue_encode_cases import (LatticeVariant, cast_rows,
+                                        int_min_rows, inputs, stress_rows)
 from vorbis_tpu.models.fastenc import FastEncoder as JFE
 from vorbis_tpu_torch.models.fastenc import FastEncoder as TFE
 from vorbis_tpu_torch.ops import residue_encode_cuda as REC
@@ -70,18 +75,22 @@ def _config(name):
 
 def _rows(td, cfg, seed):
     """The seeded and edge rows, the stress rows, then the rows at
-    int32's edge (the port's converts saturate as XLA's do)."""
+    int32's edge (the port's converts saturate as XLA's do) and the rows
+    of INT_MIN residues (-3e9 and -inf)."""
     n2 = td.n // 2
     r1, u1 = inputs(cfg, n2, seed)
     r2, u2 = stress_rows(cfg, n2, seed + 1)
     r3, u3 = cast_rows(cfg, n2, seed + 2)
-    return np.concatenate([r1, r2, r3]), np.concatenate([u1, u2, u3])
+    r4, u4 = int_min_rows(cfg, n2, seed + 3)
+    return (np.concatenate([r1, r2, r3, r4]),
+            np.concatenate([u1, u2, u3, u4]))
 
 
-@pytest.fixture(scope="module", params=list(LOOKS))
-def case(request):
-    jd, jarg, td, cfg = _config(request.param)
-    res, used = _rows(td, cfg, 11 + list(LOOKS).index(request.param))
+def _jax_trio(jd, jarg, cfg, res, used, fields=True):
+    """The JAX package's jitted classify, VQ and (with `fields`) fields on
+    rows res and used at the JAX config `jarg` (None: the step itself),
+    laid out as the port's config `cfg` reads them: (classes, entries,
+    vals, lens) in numpy (vals and lens None without `fields`)."""
     F, rc = used.shape
     jcfg = jarg if jarg is not None else jd
     nch = cfg.res_enc.nch
@@ -96,40 +105,102 @@ def case(request):
         else:
             pw = jd._classify(res, cfg=jarg)
         entries = jd._vq_stages(res, pw, cfg=jarg)
+        if not fields:
+            return pw, entries, None, None
         vals, lens = jd._residue_fields(
             pw.reshape(F, rc, -1),
             [e.reshape(F, rc, jcfg.partvals, -1) for e in entries], used,
             cfg=jarg)
         return pw, entries, vals, lens
 
+    return jax.tree_util.tree_map(np.asarray, stages(res, used))
+
+
+@pytest.fixture(scope="module", params=list(LOOKS))
+def case(request):
+    jd, jarg, td, cfg = _config(request.param)
+    res, used = _rows(td, cfg, 11 + list(LOOKS).index(request.param))
     return dict(name=request.param, td=td, cfg=cfg, res=res, used=used,
-                jax=jax.tree_util.tree_map(np.asarray, stages(res, used)))
+                jax=_jax_trio(jd, jarg, cfg, res, used))
 
 
-def test_plain_equals_jax(case):
-    """Classes, entries and lengths bitwise, values where live."""
-    td, cfg = case["td"], case["cfg"]
-    res, used = torch.from_numpy(case["res"]), torch.from_numpy(case["used"])
-    jpw, jent, jvals, jlens = case["jax"]
+def _holds_to_jax(td, cfg, res, used, want):
+    """The plain version's classes, entries and lengths bitwise against
+    the JAX package's `want`, its values where live (where `want` has
+    them: the fields are a function of the classes and entries alone);
+    -> (vals, lens)."""
+    res, used = torch.from_numpy(res), torch.from_numpy(used)
+    jpw, jent, jvals, jlens = want
     if cfg.res_type == 2:
         pw = classify_rows(td, res, cfg.res_enc.nch, cfg)
     else:
         pw = td._classify(res, cfg=cfg)
     assert np.array_equal(pw.numpy(), jpw)
-    # every class occurs, and the stress rows reach the last
-    assert len(np.unique(jpw)) == cfg.possible
     ent = td._vq_stages(res, pw, cfg=cfg)
     assert len(ent) == len(jent) == cfg.stages
     for a, b in zip(ent, jent):
         assert np.array_equal(a.numpy(), b)
     vals, lens = residue_encode(cfg, res, used)
     assert vals.dtype == torch.int64 and lens.dtype == torch.int32
+    if jlens is None:
+        return vals.numpy(), lens.numpy()
     assert np.array_equal(lens.numpy(), jlens)
     live = jlens > 0
-    assert live.sum() > 100
     assert np.array_equal(vals.numpy()[live],
                           jvals.astype(np.int64)[live])
     assert not vals.numpy()[~live].any()
+    return vals.numpy(), lens.numpy()
+
+
+def test_plain_equals_jax(case):
+    """Classes, entries and lengths bitwise, values where live."""
+    _, lens = _holds_to_jax(case["td"], case["cfg"], case["res"],
+                            case["used"], case["jax"])
+    # every class occurs, and the stress rows reach the last
+    assert len(np.unique(case["jax"][0])) == case["cfg"].possible
+    assert (lens > 0).sum() > 100
+
+
+@pytest.fixture(scope="module", params=list(LOOKS))
+def int_min_case(request):
+    """tests/residue_encode_cases.py's INT_MIN rows at the config and at
+    its LatticeVariant (the widest class's first two stages with a book
+    at lattice steps 2 and 3), with the JAX package's outputs at both."""
+    jd, jarg, td, cfg = _config(request.param)
+    var = LatticeVariant(cfg)
+    var.res_enc = REC.ResidueEncodeConfig(var, cfg.res_enc.nch, td)
+    jvar = LatticeVariant(jarg if jarg is not None else jd)
+    res, used = int_min_rows(cfg, td.n // 2,
+                             70 + list(LOOKS).index(request.param))
+    return dict(td=td, cfg=cfg, var=var, res=res, used=used,
+                jax=_jax_trio(jd, jvar, var, res, used, fields=False))
+
+
+def test_int_min_divide_equals_jax(int_min_case):
+    """A residue of -3e9 or -inf converts to INT_MIN, which the JAX
+    package's divide, jnp.where(ti >= 0, ti // di, -((-ti) // di)),
+    takes to +ceil(2^31 / d) (its negation wraps) where a truncating
+    divide gives -trunc(2^31 / d).  At the variant's step of 2 the
+    zigzag digits differ as well (the truncated quotient's doubling
+    wraps, its digit clamps to 0 where JAX's clamps to qv - 1).  The
+    plain version's classes and entries hold to JAX there (its fields
+    are those of test_plain_equals_jax's code on them), and the kernel's
+    replay (vq_div) to the plain version, values and lengths."""
+    td, var = int_min_case["td"], int_min_case["var"]
+    res, used = int_min_case["res"], int_min_case["used"]
+    jpw = int_min_case["jax"][0]
+    top = var.possible - 1
+    steps = [d[top]["delta"] for d in var.res_books if d[top] is not None]
+    assert steps[:2] == [2, 3] and (jpw == top).sum() >= 2
+    vals, lens = _holds_to_jax(td, var, res, used, int_min_case["jax"])
+    rv, rl = replay(var.res_enc.blob_np, res, used)
+    assert np.array_equal(rl, lens) and np.array_equal(rv, vals)
+    # the shipped config on the same rows: its own steps
+    cfg = int_min_case["cfg"]
+    pv, pl = residue_encode(cfg, torch.from_numpy(res),
+                            torch.from_numpy(used))
+    rv, rl = replay(cfg.res_enc.blob_np, res, used)
+    assert np.array_equal(rl, pl.numpy()) and np.array_equal(rv, pv.numpy())
 
 
 # -- the kernel's schedule, replayed in numpy ------------------------------
@@ -151,163 +222,210 @@ def _bits(word):
     return np.asarray(word, np.int32).view(np.float32)
 
 
-def _trunc_div(v, delta, magic, shift):
-    """csrc/residue_encode.cu trunc_div: |v| by the magic number, the
-    sign put back (uint32 arithmetic)."""
-    a = np.where(v < 0, -v, v).astype(np.uint64)         # |INT_MIN| = 2^31
-    t = (magic.astype(np.uint64) & 0xFFFFFFFF) * a >> np.uint64(32)
-    q = (t + ((a - t) >> np.uint64(1))) >> shift.astype(np.uint64)
-    q = np.where(delta == 1, a, q).astype(np.int64)
-    return _i32(np.where(v < 0, -q, q))
+def _udiv(a, magic, shift, one):
+    """csrc/residue_encode.cu udiv: a // d for 0 <= a < 2^32 by the magic
+    number (uint32 arithmetic), a itself where d = 1."""
+    a = np.asarray(a, np.int64).astype(np.uint64)
+    t = (np.asarray(magic, np.int64).astype(np.uint64) & 0xFFFFFFFF) * a \
+        >> np.uint64(32)
+    q = (t + ((a - t) >> np.uint64(1))) >> np.asarray(
+        shift, np.int64).astype(np.uint64)
+    return np.where(one, a, q).astype(np.int64)
+
+
+def _vq_div(v, delta, magic, shift):
+    """csrc/residue_encode.cu vq_div: |v| by the magic number, the sign
+    put back, INT_MIN's quotient +ceil(2^31 / delta) as the JAX
+    package's wrapping negation gives it."""
+    v = np.asarray(v, np.int64)
+    a = np.abs(v)                                   # |INT_MIN| = 2^31
+    q = _udiv(a, magic, shift, delta == 1)
+    up = _i32(q + (q * delta != a))
+    return _i32(np.where(v == -2 ** 31, up, np.where(v < 0, -q, q)))
+
+
+def _jax_div(v, d):
+    """The JAX package's divide, jnp.where(v >= 0, v // d, -((-v) // d)),
+    in int32 (-INT_MIN wraps to INT_MIN)."""
+    v = np.asarray(v, np.int64)
+    return _i32(np.where(v >= 0, v // d, -(_i32(-v) // d)))
 
 
 def replay(blob, res, used, sms=132):
     """The kernel's walk over `blob` for rows res (F * res_ch, L) float32
-    and used (F, res_ch), launched on a card of `sms` SMs: every block's
-    phase-1 threads side by side (axis 0 the block, axis 1 the thread),
-    the shared entry slots as an array, then the column walk, four
-    columns a thread a round.  -> (vals (F, RC) int64, lens (F, RC)
-    int32)."""
+    and used (F, res_ch), launched on a card of `sms` SMs: every item
+    (axis 0; `cpw` chunks of a frame, every channel) and lane (axis 1; a
+    unit of `unit` values of a partition) side by side: the unit's
+    partial statistics combined over its partition's lanes into the
+    class, every stage's lattice quantization on the unit's values with
+    the remainder carried, the entries' pair offsets and the phrase
+    words written into the warp's column array in the item's column
+    order (an unwritten column fails), then the item's columns a stage's
+    run at a time.  -> (vals (F, RC) int64, lens (F, RC) int32)."""
     b = np.asarray(blob, np.int32)
     h = REC.blob_tables(b)
     F, rc_ch = used.shape
     L = res.shape[1]
     S, P, spp = h["stages"], h["possible"], h["spp"]
+    U, unit, cpw, nck, ppw = h["units"], h["unit"], h["cpw"], h["nck"], \
+        h["ppw"]
     g = REC.geometry(b, F, sms)
-    fpb, T, pp = g["fpb"], g["p1"], h["parts_pad"]
-    recs = h["recs"].astype(np.int64)
-    nblk = -(-F // fpb)
-    blk = np.arange(nblk)[:, None]
-    tid = np.arange(T)[None, :]
-    nf = np.minimum(fpb, F - blk * fpb)
-    row, p = tid // pp, tid % pp
-    live = (row < nf * rc_ch) & (p < h["partvals"])
-    grow = np.where(live, blk * fpb * rc_ch + row, 0)
-    i = np.arange(REC.MAX_SPP)
-    at = h["begin"] + p[..., None] * spp + i
-    ok = live[..., None] & (i < spp) & (at < L)
-    w = np.where(ok, res[grow[..., None], np.minimum(at, L - 1)],
-                 np.float32(0)).astype(np.float32)
-    # the class
-    cls = np.full(live.shape, P - 1, np.int64)
+    assert g["items"] == F * -(-nck // cpw) and g["wpb"] <= REC.WARPS
+    recs, rec2 = h["recs"].astype(np.int64), h["rec2"].astype(np.int64)
+    it = np.arange(g["items"])[:, None]
+    lane = np.arange(32)[None, :]
+    ps, u = lane // U, lane % U
+    cl = ps // (ppw * rc_ch)
+    k, c = ps // rc_ch - cl * ppw, ps % rc_ch
+    ipf = -(-nck // cpw)
+    f, c0a = it // ipf, (it % ipf) * cpw
+    nc = np.minimum(cpw, nck - c0a)
+    on = cl < nc
+    p = (c0a + cl) * ppw + k
+    row = f * rc_ch + c
+    use = on & used[f, np.minimum(c, rc_ch - 1)]
+    live = use & (p < h["partvals"])
+    i = np.arange(unit)
+    at = h["begin"] + (p * spp + u * unit)[..., None] + i
+    ok = live[..., None] & (at < L)
+    w = np.where(ok, res[np.where(live, row, 0)[..., None],
+                         np.minimum(at, L - 1)], np.float32(0)) \
+        .astype(np.float32)
+    # the class: the lanes' partial statistics, then the partition's
+    grp = np.minimum(ps[..., None] * U + np.arange(U), 31)   # (1, 32, U)
     if h["type"] == 2:
         a = np.abs(w)
-        ch0 = (i % h["nch"] == 0) & (i < spp)
-        rest = (i % h["nch"] != 0) & (i < spp)
-        mag = np.where(ch0, a, 0).max(-1)
-        ang = np.where(rest, a, 0).max(-1)
-        for k in range(P - 2, -1, -1):
-            hit = (mag <= np.float32(h["cm1"][k])) & (
-                ang <= np.float32(h["cm2"][k]))
-            cls = np.where(hit, k, cls)
+        ch0 = i % h["nch"] == 0
+
+        def nanmax(x, axis):
+            return np.where(np.isnan(x).any(axis), np.nan,
+                            np.nanmax(np.where(np.isnan(x), -1, x), axis))
+        mag = nanmax(np.where(ch0, a, 0), -1)
+        ang = nanmax(np.where(~ch0, a, 0), -1)
+        mag = nanmax(mag[:, grp[0]], -1)
+        ang = nanmax(ang[:, grp[0]], -1)
+        cls = np.full(live.shape, P - 1, np.int64)
+        for q in range(P - 2, -1, -1):
+            hit = (mag <= np.float32(h["cm1"][q])) & (
+                ang <= np.float32(h["cm2"][q]))
+            cls = np.where(hit, q, cls)
     else:
         v = _i32(np.abs(_f2i(w)))
-        mx = np.where(i < spp, v, -2 ** 31).max(-1)
-        tot = _i32(np.where(i < spp, v, 0).sum(-1))
+        mx = v.max(-1)[:, grp[0]].max(-1)
+        tot = _i32(_i32(v.sum(-1))[:, grp[0]].sum(-1))
         ent = _f2i(tot.astype(np.float32) * _bits(h["scale"]))
-        for k in range(P - 2, -1, -1):
-            c2 = h["cm2"][k]
-            hit = (mx <= h["cm1"][k]) & ((c2 < 0) | (ent < c2))
-            cls = np.where(hit, k, cls)
+        cls = np.full(live.shape, P - 1, np.int64)
+        for q in range(P - 2, -1, -1):
+            c2 = h["cm2"][q]
+            hit = (mx <= h["cm1"][q]) & ((c2 < 0) | (ent < c2))
+            cls = np.where(hit, q, cls)
     cls = np.where(live, cls, 0)
-    # every stage, the values in registers, the entries in slots
-    ent_slots = np.zeros((nblk, h["sument"], T), np.int64)
+    # every stage: the entries' pair offsets in the column array
+    col = np.full((g["items"], h["item_cols"]), -2, np.int64)
+    II = np.broadcast_to(it, live.shape)
+    ib = np.zeros_like(nc)
+    ms = h["ms"]
     for s in range(S):
-        r = recs[s][cls]                        # (nblk, T, REC)
-        dim, qv, steps = (r[..., REC.R[k]] for k in ("dim", "qv", "steps"))
+        cs = (rc_ch if s == 0 else 0) + ppw * rc_ch * ms[s]
+        base = ib + cl * cs + (rc_ch if s == 0 else 0) + (k * rc_ch + c) \
+            * ms[s]
+        ib = ib + nc * cs
+        r = recs[s][cls]
+        r2 = rec2[s][cls]
+        dim = np.where(live, r[..., REC.R["dim"]], 0)
+        qv, steps = r[..., REC.R["qv"]], r[..., REC.R["steps"]]
         delta, remap = r[..., REC.R["delta"]], r[..., REC.R["remap"]]
+        book = r[..., REC.R["book"]]
         mg, sh = r[..., REC.R["magic"]], r[..., REC.R["shift"]]
-        has = live & (dim > 0)
-        carry = s + 1 < S
-        dim1, qv1, delta1 = (np.maximum(x, 1) for x in (dim, qv, delta))
-        minval = _bits(r[..., REC.R["minval"]])
-        add = _bits(r[..., REC.R["add"]])
+        minval, add = _bits(r[..., REC.R["minval"]]), _bits(
+            r[..., REC.R["add"]])
         deltaf = _bits(r[..., REC.R["deltaf"]])
+        has = on & (dim > 0)
+        dim1, qv1 = np.maximum(dim, 1), np.maximum(qv, 1)
+        carry = s + 1 < S
         ze = qv >> 1
+        e0 = u * r2[..., REC.R2["per"]]
         o = np.zeros_like(dim)
-        k = np.zeros_like(dim)
+        kk = e0.copy()
         acc = np.zeros_like(dim)
         pw = np.ones_like(dim)
-        for j in range(REC.MAX_SPP):
-            act = has & (j < spp)
+        for j in range(unit):
             t = (w[..., j] - minval) + add
-            v = _trunc_div(_f2i(t), delta1, mg, sh)
+            v = _vq_div(_f2i(t), np.maximum(delta, 1), mg, sh)
             m = _i32(np.where(v < ze, ((ze - v) << 1) - 1, (v - ze) << 1))
             m = np.minimum(np.maximum(m, 0), qv1 - 1)
             if carry:
-                # an identity book's remainder, a digit as it comes
                 zz = np.where(m & 1, -((m + 1) >> 1), m >> 1)
                 rem = w[..., j] - deltaf * zz.astype(np.float32)
-                w[..., j] = np.where(act & (remap < 0), rem, w[..., j])
-            acc = np.where(act, acc + m * pw, acc)
-            o = np.where(act, o + 1, o)
-            done = act & (o == dim)
-            rmp = np.where(remap >= 0, b[np.clip(remap + acc, 0,
-                                                 len(b) - 1)], acc)
-            e = np.where(remap >= 0, rmp, acc)
-            bi, ti_ = np.nonzero(done)
-            ent_slots[bi, h["soff"][s] + k[bi, ti_], ti_] = e[bi, ti_]
-            k = np.where(done, k + 1, k)
-            pw = np.where(done, 1, np.where(act, pw * qv1, pw))
+                w[..., j] = np.where(has & (remap < 0), rem, w[..., j])
+            acc = acc + m * pw
+            o = o + 1
+            done = has & (o == dim1)
+            e = np.where(remap >= 0, b[np.clip(remap + acc, 0, len(b) - 1)],
+                         acc)
+            col[II[done], (base + kk)[done]] = (book + 2 * e)[done]
+            kk = np.where(done, kk + 1, kk)
+            pw = np.where(done, 1, pw * qv1)
             acc = np.where(done, 0, acc)
             o = np.where(done, 0, o)
-        if not carry:
-            break
-        # a remapped book's remainder: the remapped entries' digits
-        o = np.zeros_like(dim)
-        k = np.zeros_like(dim)
-        q = ent_slots[:, h["soff"][s], :].copy()
-        for j in range(REC.MAX_SPP):
-            act = has & (j < spp) & (remap >= 0)
-            d = q % qv1
-            q = np.where(act, q // qv1, q)
-            zz = np.where(d & 1, -((d + 1) >> 1), d >> 1)
-            rem = w[..., j] - deltaf * zz.astype(np.float32)
-            w[..., j] = np.where(act, rem, w[..., j])
-            o = np.where(act, o + 1, o)
-            nxt = act & (o == dim)
-            o = np.where(nxt, 0, o)
-            k = np.where(nxt, k + 1, k)
-            kk = np.minimum(k, h["ms"][s] - 1)
-            fresh = np.take_along_axis(
-                ent_slots[:, h["soff"][s]:h["soff"][s] + h["ms"][s], :],
-                kk[:, None, :], 1)[:, 0, :]
-            q = np.where(nxt & (k < steps), fresh, q)
-    # the column walk: a column a thread, in order
+        if carry:
+            # a remapped book's remainder: the remapped entries' digits
+            rm = has & (remap >= 0)
+            qm, qs = r2[..., REC.R2["qmagic"]], r2[..., REC.R2["qshift"]]
+            o = np.zeros_like(dim)
+            kk = e0.copy()
+            q = np.where(rm, (col[II, np.where(rm, base + kk, 0)] - book)
+                         >> 1, 0)
+            for j in range(unit):
+                nq = _udiv(q, qm, qs, qv1 == 1)
+                d = q - nq * qv1
+                q = nq
+                zz = np.where(d & 1, -((d + 1) >> 1), d >> 1)
+                rem = w[..., j] - deltaf * zz.astype(np.float32)
+                w[..., j] = np.where(rm, rem, w[..., j])
+                o = o + 1
+                nxt = rm & (o == dim1)
+                o = np.where(nxt, 0, o)
+                kk = np.where(nxt, kk + 1, kk)
+                fresh = rm & nxt & (kk < e0 + r2[..., REC.R2["per"]])
+                q = np.where(fresh, (col[II, np.where(fresh, base + kk, 0)]
+                                     - book) >> 1, q)
+        # dead slots: a lane's steps u, u + U, ... past the class's
+        first = np.where(has, steps, 0)
+        for st in range(ms[s]):
+            dead = on & (st >= first) & ((st - first) % U == u)
+            col[II[dead], (base + st)[dead]] = -1
+    # the phrase words
+    lead = on & (u == 0) & (k == 0)
+    pv = np.zeros(live.shape, np.int64)
+    for q in range(ppw):
+        # partition slot ps + q res_ch's class, from its first lane
+        pv = pv * P + cls[:, np.minimum((ps[0] + q * rc_ch) * U, 31)]
+    hs = rc_ch + ppw * rc_ch * ms[0]
+    phr = np.where(use & (pv < h["phr_entries"]), h["phr"] + 2 * pv, -1)
+    pos = np.broadcast_to(cl * hs + c, live.shape)
+    col[II[lead], pos[lead]] = phr[lead]
+    # the item's columns, a stage's run at a time
     RC = h["rc"]
-    cols = h["cols"].astype(np.int64)
-    vals = np.zeros((nblk * fpb, RC), np.int64)
-    lens = np.zeros((nblk * fpb, RC), np.int32)
-    usedp = np.zeros((nblk * fpb, rc_ch), bool)
-    usedp[:F] = used
-    fr = np.arange(fpb)[:, None]
-    word = cols[None, :]
-    chn = (word >> REC.COL_CHAN) & 0x3FF
-    part = (word >> REC.COL_PART) & 0xFFF
-    st = word & 63
-    s_ = (word >> REC.COL_STAGE) & 7
-    phrase = np.asarray(h["cols"], np.int32)[None, :] < 0
-    rr = fr * rc_ch + chn                       # (fpb, RC)
-    t = rr * pp + part
-    for bk in range(nblk):
-        c = cls[bk]
-        ok = usedp[bk * fpb + fr[:, 0]][np.arange(fpb)[:, None], chn]
-        pv = np.zeros(t.shape, np.int64)
-        for q in range(h["ppw"]):
-            pv = pv * P + c[np.minimum(t + q, T - 1)]
-        ok_ph = ok & (pv < h["phr_entries"])
-        rec = recs[s_, c[t]]
-        ok_st = ok & (part < h["partvals"]) & (rec[..., REC.R["dim"]] > 0) \
-            & (st < rec[..., REC.R["steps"]])
-        e = ent_slots[bk][np.minimum(np.asarray(h["soff"])[s_] + st,
-                                     h["sument"] - 1), t]
-        okc = np.where(phrase, ok_ph, ok_st)
-        book = np.where(phrase, h["phr"], rec[..., REC.R["book"]])
-        idx = np.where(okc, book + 2 * np.where(phrase, pv, e), 0)
-        vals[bk * fpb:(bk + 1) * fpb] = np.where(
-            okc, b[idx].view(np.uint32).astype(np.int64), 0)
-        lens[bk * fpb:(bk + 1) * fpb] = np.where(okc, b[idx + 1], 0)
-    return vals[:F], lens[:F]
+    vals = np.zeros((F, RC), np.int64)
+    lens = np.zeros((F, RC), np.int32)
+    gb, ib = 0, np.zeros(g["items"], np.int64)
+    for s in range(S):
+        cs = (rc_ch if s == 0 else 0) + ppw * rc_ch * ms[s]
+        for t in range(g["items"]):
+            n = int(nc[t, 0]) * cs
+            a = col[t, ib[t]:ib[t] + n]
+            assert (a >= -1).all(), "a column no lane wrote"
+            g0 = gb + int(c0a[t, 0]) * cs
+            ft = int(f[t, 0])
+            live_c = a >= 0
+            aa = np.where(live_c, a, 0)
+            vals[ft, g0:g0 + n] = np.where(live_c, b[aa].view(np.uint32)
+                                           .astype(np.int64), 0)
+            lens[ft, g0:g0 + n] = np.where(live_c, b[aa + 1], 0)
+            ib[t] += n
+        gb += nck * cs
+    return vals, lens
 
 
 @pytest.mark.parametrize("name", list(LOOKS))
@@ -328,17 +446,22 @@ def test_kernel_schedule_replay(name):
 
 
 def test_magic_division_is_exact():
-    """trunc_div's magic numbers (REC.magic) give C's truncating division
-    at every lattice step of the configs and a spread of other divisors,
-    on dividends near 0, near each multiple of the divisor up to 2^20,
-    near +-2^31 and at random."""
+    """vq_div's magic numbers (REC.magic) give the JAX package's division
+    (C's truncating division, INT_MIN's quotient +ceil(2^31 / d)) at
+    every lattice step of the configs and a spread of other divisors, on
+    dividends near 0, near each multiple of the divisor up to 2^20, near
+    +-2^31 and at random; and udiv gives a remapped book's digits at every
+    qv of the configs."""
     rng = np.random.RandomState(9)
     deltas = {1, 2, 3, 7, 255, 357, 625, 931, 1875, 65535, 65537,
               (1 << 30) + 1}
+    qvs = set()
     for name in LOOKS:
         cfg = _config(name)[3]
         deltas |= {int(d["delta"]) for row in cfg.res_books for d in row
                    if d is not None}
+        qvs |= {int(d["qv"]) for row in cfg.res_books for d in row
+                if d is not None}
     for d in sorted(deltas):
         m, sh = REC.magic(d)
         near = np.arange(0, 1 << 20, d)[:, None] + np.arange(-1, 2)
@@ -348,11 +471,15 @@ def test_magic_division_is_exact():
                             [-2 ** 31, -2 ** 31 + 1, 2 ** 31 - 1,
                              2 ** 31 - 2]]).astype(np.int64)
         v = v[(v >= -2 ** 31) & (v < 2 ** 31)]
-        want = _i32(np.where(v >= 0, v // d, -((-v) // d)))
-        got = _trunc_div(v, np.full(v.shape, d), np.full(v.shape, m,
-                                                         np.int64),
-                         np.full(v.shape, sh))
-        assert np.array_equal(got, want), d
+        got = _vq_div(v, np.full(v.shape, d), np.full(v.shape, m, np.int64),
+                      np.full(v.shape, sh))
+        assert np.array_equal(got, _jax_div(v, d)), d
+    assert _jax_div(-2 ** 31, 2) == 2 ** 30
+    assert _jax_div(-2 ** 31, 3) == 715827883
+    for qv in sorted(qvs):
+        m, sh = REC.magic(qv)
+        q = np.arange(1 << 16)
+        assert np.array_equal(_udiv(q, m, sh, qv == 1), q // qv), qv
 
 
 def test_pack_blob_layout():
@@ -373,11 +500,18 @@ def test_pack_blob_layout():
             1 + cfg.ppw * sum(ms))
         assert h["per_frame"] == cfg.res_ch * cfg.parts_pad
         big = REC.geometry(blob, 1 << 20, 132)
-        assert big["fpb"] == h["fpb"] and big["smem"] == h["smem"]
-        assert big["p1"] <= REC.THREADS or h["fpb"] == 1
-        assert big["threads"] <= REC.MAX_THREADS
-        small = REC.geometry(blob, 256, 132)
-        assert small["fpb"] == 1 and small["threads"] >= REC.MIN_THREADS
+        assert big["wpb"] == REC.WARPS and big["smem"] <= REC.MAX_SHARED
+        assert big["warps"] >= big["items"] > big["warps"] - REC.WARPS
+        small = REC.geometry(blob, 1, 132)
+        assert small["wpb"] == 1 and small["blocks"] == small["items"]
+        # a unit holds whole entries of every book (and whole channel
+        # rounds of a type-2 row); a chunk of every channel fits a warp
+        assert h["unit"] * h["units"] == cfg.spp
+        assert all(h["unit"] % d["dim"] == 0 for row in cfg.res_books
+                   for d in row if d is not None)
+        assert h["unit"] % cfg.res_enc.nch == 0
+        assert h["units"] * cfg.ppw * cfg.res_ch * h["cpw"] <= 32
+        assert h["item_cols"] == h["cpw"] * (h["rc"] // cfg.nchunks)
         assert np.array_equal(h["cm1"], np.asarray(
             cfg.ri.classmetric1)[:cfg.possible])
         # the columns: stage 0's phrase words first in each chunk
@@ -406,6 +540,10 @@ def test_pack_blob_layout():
                 assert (int(r[REC.R["magic"]]) & 0xFFFFFFFF,
                         r[REC.R["shift"]]) == REC.magic(int(d["delta"]))
                 assert r[REC.R["book"]] % 2 == 0
+                r2 = h["rec2"][s, c]
+                assert (int(r2[REC.R2["qmagic"]]) & 0xFFFFFFFF,
+                        r2[REC.R2["qshift"]]) == REC.magic(int(d["qv"]))
+                assert r2[REC.R2["per"]] * d["dim"] == h["unit"]
                 E = d["entries"]
                 bk = blob[r[REC.R["book"]]:r[REC.R["book"]] + 2 * E]
                 st = cfg.stage_tabs[s]

@@ -673,6 +673,10 @@ class DeviceFastEncode:
                 ti = to_int32(t)
                 di = dl4.to(i32)
                 v = torch.div(ti, di, rounding_mode="trunc")
+                # JAX's divide negates before it divides, and -INT_MIN
+                # wraps: INT_MIN by a step d > 1 is +ceil(2^31 / d)
+                v = torch.where((ti == -2 ** 31) & (di > 1),
+                                -torch.div(ti, di, rounding_mode="floor"), v)
                 m = torch.where(v < ze4, ((ze4 - v) << 1) - 1,
                                 (v - ze4) << 1)
                 m = torch.minimum(torch.clamp_min(m, 0), qv4 - 1)

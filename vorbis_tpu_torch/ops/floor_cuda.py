@@ -5,11 +5,15 @@ vorbis_tpu/ops/floor_device.py:114-145 and :199-208).
 
 `csrc/floor_fit.cu` runs the greedy loop + final walk of
 `DeviceFloorFit.fit` with one warp per frame, four frames a block.
-`csrc/floor_prepare.cu` runs `DeviceFloorFit.prepare` with one CTA a
-row: the mask's dB quantization and the above classes a thread a bin,
-each segment's moments a warp in exact int64 sums, the weighted prefix
-in float64 in segment order (the CPU's torch.cumsum order; the card's
-cumsum may add in another).  `DeviceFloorFitCuda` is a fit whose
+`csrc/floor_prepare.cu` runs `DeviceFloorFit.prepare` with a warp a
+row, several a block, persistent (`prepare_geometry`), the next row's
+spectra staged by cp.async under this one's work: the mask's dB
+quantization and the above classes a lane a 4-bin chunk, the moments a
+lane a run of `bins_a_lane(n)` bins with the sums recorded at the
+look's window edges (`prepare_table`) and scanned over the lanes, so a
+window's sums are its edges' exact uint32 difference, the weighted
+prefix in float64 in segment order (the CPU's torch.cumsum order; the
+card's cumsum may add in another).  `DeviceFloorFitCuda` is a fit whose
 `prepare` and `fit` are the two kernels, so a fit from the spectra is
 two launches; `floor_prepare(fit, logmdct, logmask)` is the prepare's
 wrapper (`floor_prepare.launches` counts its launches) and
@@ -57,8 +61,14 @@ def build() -> tuple[Path, str]:
                          extra=("-Xptxas=-v",))
 
 
-def build_prepare() -> tuple[Path, str]:
-    """Compile the prepare kernel's library (build)."""
+def build_prepare(timing=False) -> tuple[Path, str]:
+    """Compile the prepare kernel's library (build; with `timing` its
+    -DVTT_PREPARE_TIMING build, whose launch takes the stamps array
+    last)."""
+    if timing:
+        return build_library(PREPARE_SOURCE, nvcc,
+                             (*NVCC_FLAGS, "-DVTT_PREPARE_TIMING"),
+                             "libfloorprepare_timing")
     return build_library(PREPARE_SOURCE, nvcc, NVCC_FLAGS, "libfloorprepare",
                          extra=("-Xptxas=-v",))
 
@@ -73,17 +83,70 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
-@lru_cache(maxsize=None)
-def load_prepare_library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build_prepare()[0]))
+def bind_prepare(lib, stamps=False) -> ctypes.CDLL:
+    """Set the argument types of a prepare library's entry points (a
+    timing build's launch takes the stamps array last)."""
     fn = lib.vtt_floor_prepare
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-                   + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 5)
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                   + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 5
+                   + [ctypes.c_void_p] * stamps)
     fn = lib.vtt_floor_prepare_blocks_per_sm
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
     return lib
+
+
+@lru_cache(maxsize=None)
+def load_prepare_library() -> ctypes.CDLL:
+    return bind_prepare(ctypes.CDLL(str(build_prepare()[0])))
+
+
+# csrc/floor_prepare.cu: warps a block at most, the largest n (every
+# window's sums below 2^32), a block's shared bytes at most, the most
+# posts (two segments a lane), and the timing build's phases a warp
+# (VTT_PREPARE_TIMING)
+PREPARE_WARPS, PREPARE_MAX_N, PREPARE_SHARED = 8, 2048, 227 * 1024
+PREPARE_MAX_P = 65                  # floor1's posts at most
+PREPARE_PHASES = ("wait", "quant and above", "moments", "windows",
+                  "prefix", "store")
+
+
+def bins_a_lane(n: int) -> int:
+    """csrc/floor_prepare.cu bins_a_lane: the bins a lane owns in the
+    moments, n / 32 rounded up to 4s, at least 4."""
+    b = -(-n // 32)
+    return 4 if b < 4 else -(-b // 4) * 4
+
+
+def prepare_table(seg_lo, seg_hi) -> np.ndarray:
+    """A look's table for csrc/floor_prepare.cu: the sorted distinct
+    window edges (each segment's first bin and its end), then each
+    segment's lo edge and hi edge as indices into them (int32)."""
+    lo, hi = np.asarray(seg_lo, np.int64), np.asarray(seg_hi, np.int64)
+    edges = np.unique(np.concatenate([lo, hi]))
+    return np.concatenate([edges, np.searchsorted(edges, lo),
+                           np.searchsorted(edges, hi)]).astype(np.int32)
+
+
+def prepare_words(n: int, P: int, nE: int) -> int:
+    """A warp's shared words (csrc/floor_prepare.cu layout)."""
+    n4 = -(-n // 4) * 4
+    words = 4 * n4 + ((n + (n >> 5) + 4) & ~3) + ((n4 // 4 + 3) & ~3) \
+        + 12 * nE + 6 * (P - 1) + 6 * P
+    return -(-words // 4) * 4
+
+
+def prepare_geometry(n: int, P: int, nE: int, B: int, sms: int) -> dict:
+    """The block of a launch of B rows (csrc/floor_prepare.cu geometry):
+    warps a block (wpb: as many as the shared memory holds, at most
+    PREPARE_WARPS, fewer where the batch is small) and its shared bytes;
+    the launch has as many blocks as the card holds at once, at most one
+    a wpb rows, and a warp takes rows warp, warp + warps, ..."""
+    nbytes = 4 * prepare_words(n, P, nE)
+    wpb = max(1, min(PREPARE_WARPS, PREPARE_SHARED // nbytes,
+                     -(-B // sms)))
+    return dict(wpb=wpb, smem=wpb * nbytes, bpl=bins_a_lane(n))
 
 
 def floor_prepare_plain(fit: DeviceFloorFit, logmdct: torch.Tensor,
@@ -98,9 +161,9 @@ class FloorPrepareKernel:
     bool, prefix (B, P, 6) float32, used (B,) bool), as
     floor_prepare_plain: on CPU tensors the plain version; on CUDA
     tensors one launch of csrc/floor_prepare.cu on the current stream,
-    or an exception.  `fit` is a DeviceFloorFitCuda (its segment table
-    `seg_t`).  `launches` counts the kernel's launches (and nothing
-    else)."""
+    or an exception.  `fit` is a DeviceFloorFitCuda (its window table
+    `prep_tab` of `prep_edges` edges).  `launches` counts the kernel's
+    launches (and nothing else)."""
 
     def __init__(self):
         self.launches = 0
@@ -111,9 +174,13 @@ class FloorPrepareKernel:
         if logmdct.device.type != "cuda":
             raise ValueError(f"floor prepare: unsupported device "
                              f"{logmdct.device}")
-        dev = fit.seg_t.device
+        dev = fit.prep_tab.device
         B = logmdct.shape[0] if logmdct.dim() == 2 else -1
         n, P = fit.n, fit.posts
+        if n > PREPARE_MAX_N or P > PREPARE_MAX_P:
+            raise ValueError(f"floor prepare: n={n} (at most "
+                             f"{PREPARE_MAX_N}: a window's uint32 sums "
+                             f"could wrap), P={P} (at most {PREPARE_MAX_P})")
         for name, t in (("logmdct", logmdct), ("logmask", logmask)):
             if (t.device != dev or t.dtype != torch.float32
                     or tuple(t.shape) != (B, n)):
@@ -129,8 +196,8 @@ class FloorPrepareKernel:
         if B == 0:
             return quant, above, prefix, used
         rc = load_prepare_library().vtt_floor_prepare(
-            logmdct.data_ptr(), logmask.data_ptr(), fit.seg_t.data_ptr(), B,
-            n, P, float(QUANT_SCALE), float(QUANT_OFFSET),
+            logmdct.data_ptr(), logmask.data_ptr(), fit.prep_tab.data_ptr(),
+            fit.prep_edges, B, n, P, float(QUANT_SCALE), float(QUANT_OFFSET),
             float(fit.twofitatten), float(fit.tw), quant.data_ptr(),
             above.data_ptr(), prefix.data_ptr(), used.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
@@ -169,10 +236,13 @@ class DeviceFloorFitCuda(DeviceFloorFit):
         tabs[4, :P - 2] = self.hi_static
         self.kernel_tabs = device_tables({"tabs": tabs}, self.device)["tabs"]
         # the prepare's segment windows: each segment's first bin, then
-        # its end
+        # its end; and as the kernel reads them (prepare_table)
         self.seg_t = device_tables({"seg": np.stack(
             [self.seg_lo, self.seg_hi]).astype(np.int32)},
             self.device)["seg"]
+        tab = prepare_table(self.seg_lo, self.seg_hi)
+        self.prep_edges = len(tab) - 2 * (P - 1)
+        self.prep_tab = device_tables({"tab": tab}, self.device)["tab"]
         self._consts = (float(self.maxover), float(self.maxunder),
                         float(self.maxerr),
                         float(self.maxover * self.maxover),

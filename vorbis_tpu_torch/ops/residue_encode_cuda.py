@@ -9,17 +9,21 @@ res01_forward's emission loop).
 float32, laid out as `_vq_stages` reads them (the interleaved (F, nch *
 n2) rows of residue type 2, the (F * ch, n2) rows of type 1), and used
 (F, res_ch) bool, and returns the config's residue columns (vals (F, RC)
-int64, lens (F, RC) int32) in res01_forward's emission order: one thread
-a (row, partition) classifies and quantizes its partition through every
-stage with its values in registers (the lattice step's divide a
-multiply-high by a magic number, `magic`), the entries in shared memory,
-then the block's threads write its frames' columns in order, four
-columns a thread a round; the launch sizes its blocks to the batch
-(`geometry`).  Its tables come as one int32 blob a residue config
+int64, lens (F, RC) int32) in res01_forward's emission order.  A warp
+takes an item (`cpw` chunks of one frame, every channel), a lane a unit
+of `unit` values of a partition (whole entries at every stage): the
+class from the partition's lanes, every stage's quantization with the
+values in registers (the lattice step's divide a multiply-high by a
+magic number, `magic`; JAX's quotient at INT_MIN), the entries' pair
+offsets in the item's column order in shared memory, then the item's
+columns, a contiguous run a stage; a block of up to 8 warps an item
+each (`geometry`).  Its tables come as one int32 blob a residue config
 (`pack_blob`): a header (HEADER), the classmetric thresholds, one record
-a (stage, class) (REC), the column records (`columns`), the phrase book
-and each stage book once as (codeword, length) pairs and the remapped
-index of each entry of a book whose remap is not the identity.
+a (stage, class) (REC), the column records (`columns`, the emission
+order), the phrase book and each stage book once as (codeword, length)
+pairs, the remapped index of each entry of a book whose remap is not the
+identity, and a second record a (stage, class) (REC2: the digit
+divisor, the entries a unit).
 
 `residue_encode_plain(cfg, res, used)` is the plain version, the
 config's `ResidueEncodeConfig.plain`: the finish's three stages as they
@@ -47,16 +51,17 @@ from .floor_cuda import NVCC_FLAGS, nvcc
 SOURCE = PKG / "csrc" / "residue_encode.cu"
 MAX_STAGES = 8
 # the blob's header words, in order (csrc/residue_encode.cu H_*): the
-# layout, the most frames a block (fpb), the phase-1 threads a frame
-# (per_frame) and the shared bytes of a block of fpb frames, the offsets
-# of the tables, then each stage's most steps (ms) and its first entry
-# slot in shared memory (soff)
+# layout, a lane's values (unit), the partitions a frame (per_frame), a
+# partition's lanes (units), the offsets of the tables, each stage's most
+# steps (ms) and its first entry slot a partition (soff), then the rec2
+# table's offset, the chunks an item (cpw) and an item's columns at most
+# (item_cols)
 HEADER = ("type", "nch", "res_ch", "begin", "spp", "partvals", "ppw",
           "nck", "parts_pad", "possible", "stages", "rc", "phr_entries",
-          "scale", "sument", "fpb", "per_frame", "smem", "cm1", "cm2",
+          "scale", "sument", "unit", "per_frame", "units", "cm1", "cm2",
           "recs", "cols", "phr", "words") + tuple(
     f"ms{s}" for s in range(MAX_STAGES)) + tuple(
-    f"soff{s}" for s in range(MAX_STAGES))
+    f"soff{s}" for s in range(MAX_STAGES)) + ("rec2", "cpw", "item_cols")
 H = {k: i for i, k in enumerate(HEADER)}
 # a (stage, class) record (csrc/residue_encode.cu R_*): dim 0 where the
 # class has no book at the stage; minval, add and delta's float32 bits;
@@ -66,11 +71,18 @@ H = {k: i for i, k in enumerate(HEADER)}
 REC = ("dim", "qv", "steps", "minval", "add", "delta", "deltaf", "book",
        "remap", "entries", "magic", "shift")
 R = {k: i for i, k in enumerate(REC)}
-MAX_SPP = 32                    # csrc/residue_encode.cu kMaxSpp
-THREADS = 128                   # a block of fpb frames' phase-1 threads
-MAX_THREADS = 512               # csrc/residue_encode.cu kMaxThreads
-MIN_THREADS = 64                # csrc/residue_encode.cu kMinThreads
+# a (stage, class) second record (csrc/residue_encode.cu R2_*): qv's
+# divisor (`magic`) for a remapped book's digits, a unit's entries
+# (unit / dim, 0 where the class has no book), a pad word
+REC2 = ("qmagic", "qshift", "per", "pad")
+R2 = {k: i for i, k in enumerate(REC2)}
+MAX_SPP = 32                    # a partition's values, at most
+MAX_UNIT = 8                    # csrc/residue_encode.cu kMaxUnit
+WARPS = 8                       # csrc/residue_encode.cu kWarps
+WARP_EXTRA = 2 * 32 + 32        # csrc/residue_encode.cu kWarpExtra
 MAX_SHARED = 227 * 1024
+# the timing build's phases a warp (VTT_RESIDUE_TIMING)
+PHASES = ("tables", "load", "classify", "VQ", "columns")
 # a column record: its step, stage, partition and channel, and the top
 # bit for a phrase word
 COL_STEP, COL_STAGE, COL_PART, COL_CHAN, COL_PHRASE = 0, 6, 9, 21, 31
@@ -94,19 +106,39 @@ def magic(d: int) -> tuple[int, int]:
     return ((1 << 32) * ((1 << L) - d)) // d + 1, L - 1
 
 
+def _words(head) -> tuple[int, int]:
+    """(table words a block, words a warp) of csrc/residue_encode.cu."""
+    sp = int(head[H["stages"]]) * int(head[H["possible"]])
+    table = sp * (len(REC) + len(REC2)) + 2 * int(head[H["possible"]])
+    warp = int(head[H["item_cols"]]) + WARP_EXTRA
+    return -(-table // 4) * 4, -(-warp // 4) * 4
+
+
 def geometry(head, frames: int, sms: int) -> dict:
     """The launch of `frames` frames on a card of `sms` SMs
-    (csrc/residue_encode.cu geometry): frames a block (fpb: two blocks an
-    SM where the batch allows, at most the header's fpb), phase-1 threads
-    (p1), threads a block (p1 in whole warps, at least MIN_THREADS) and
-    shared bytes."""
-    fpb = min(max(frames // (2 * sms), 1), int(head[H["fpb"]]))
-    p1 = fpb * int(head[H["per_frame"]])
-    threads = max(-(-p1 // 32) * 32, MIN_THREADS)
-    smem = (int(head[H["stages"]]) * int(head[H["possible"]]) * len(REC) * 4
-            + 2 * int(head[H["sument"]]) * p1 + p1
-            + fpb * int(head[H["res_ch"]]))
-    return dict(fpb=fpb, p1=p1, threads=threads, smem=-(-smem // 16) * 16)
+    (csrc/residue_encode.cu geometry): its items (a frame's chunks in
+    items of cpw), warps a block (wpb: the items spread over the SMs, at
+    most WARPS), shared bytes a block, and blocks: one a wpb items, warp
+    w of the launch item w."""
+    cpw, nck = int(head[H["cpw"]]), int(head[H["nck"]])
+    items = frames * -(-nck // cpw)
+    wpb = max(1, min(WARPS, -(-items // sms)))
+    table, warp = _words(head)
+    blocks = -(-items // wpb)
+    return dict(items=items, wpb=wpb, smem=4 * (table + wpb * warp),
+                blocks=blocks, warps=blocks * wpb)
+
+
+def unit_of(spp: int, ppw: int, res_ch: int, lcm: int) -> int:
+    """A lane's values: the least multiple of `lcm` dividing spp whose
+    units (spp / unit a partition) let a chunk's partitions, every
+    channel, fit a warp; at most MAX_UNIT."""
+    for unit in range(lcm, min(spp, MAX_UNIT) + 1, lcm):
+        if spp % unit == 0 and spp // unit * ppw * res_ch <= 32:
+            return unit
+    raise ValueError(f"residue encode: no unit of at most {MAX_UNIT} "
+                     f"values (a multiple of {lcm}) lets a chunk of {ppw} "
+                     f"partitions x {res_ch} channels fit a warp")
 
 
 def columns(stages, nck, ppw, res_ch, ms) -> np.ndarray:
@@ -206,26 +238,41 @@ def pack_blob(cfg, nch: int) -> np.ndarray:
     words[rec_block][:] = recs.reshape(-1)
     hdr.pop("book", None)
     hdr.pop("remap", None)
-    # launch geometry: whole frames a block, about THREADS phase-1 threads
-    per_frame = rc_ch * cfg.parts_pad
-    fpb = max(1, THREADS // per_frame)
+    # a lane's unit: whole entries of every book (and whole channel
+    # rounds of a type-2 row), a chunk of every channel within a warp
+    dims = [d["dim"] for row in cfg.res_books for d in row if d is not None]
+    unit = unit_of(spp, cfg.ppw, rc_ch,
+                   int(np.lcm.reduce(dims + ([nch] if typ == 2 else []))))
+    units = spp // unit
+    rec2 = np.zeros((cfg.stages, cfg.possible, len(REC2)), np.int64)
+    for s in range(cfg.stages):
+        for c, d in enumerate(cfg.res_books[s]):
+            if d is not None:
+                m, sh = magic(int(d["qv"]))
+                rec2[s, c, [R2["qmagic"], R2["qshift"], R2["per"]]] = (
+                    np.uint32(m).view(np.int32), sh, unit // d["dim"])
+    put("rec2", rec2)
+    cpw = max(1, min(cfg.nchunks, 32 // (units * cfg.ppw * rc_ch)))
+    item_cols = cpw * sum((rc_ch if s == 0 else 0) + cfg.ppw * rc_ch * ms[s]
+                          for s in range(cfg.stages))
     hdr.update(type=typ, nch=nch, res_ch=rc_ch, begin=ri.begin, spp=spp,
                partvals=cfg.partvals, ppw=cfg.ppw, nck=cfg.nchunks,
                parts_pad=cfg.parts_pad, possible=cfg.possible,
                stages=cfg.stages, rc=len(cols),
                phr_entries=cfg.phrasebook.entries,
                scale=_f32bits(np.float32(100.0) / np.float32(spp)),
-               sument=int(soff[-1]), fpb=fpb, per_frame=per_frame, words=at)
+               sument=int(soff[-1]), unit=unit,
+               per_frame=rc_ch * cfg.parts_pad, units=units, cpw=cpw,
+               item_cols=item_cols, words=at)
     for s in range(cfg.stages):
         hdr[f"ms{s}"] = ms[s]
         hdr[f"soff{s}"] = soff[s]
     for k, v in hdr.items():
         words[0][H[k]] = v
-    big = geometry(words[0], 1 << 30, 1)        # a block of fpb frames
-    words[0][H["smem"]] = big["smem"]
-    if big["threads"] > MAX_THREADS or big["smem"] > MAX_SHARED:
-        raise ValueError(f"residue encode: a block of {fpb} frames takes "
-                         f"{big['threads']} threads, {big['smem']} bytes")
+    big = geometry(words[0], 1 << 30, 1)        # a block of WARPS warps
+    if big["smem"] > MAX_SHARED:
+        raise ValueError(f"residue encode: a block takes {big['smem']} "
+                         f"bytes")
     blob = np.concatenate(words)
     assert len(blob) == at
     if at >= 1 << 31:
@@ -235,8 +282,8 @@ def pack_blob(cfg, nch: int) -> np.ndarray:
 
 def blob_tables(blob) -> dict:
     """The blob read back by its header: the header's words, cm1 and cm2,
-    the records (stages, possible, len(REC)), the column records (rc,),
-    ms and soff (stages,)."""
+    the records (stages, possible, len(REC)) and (stages, possible,
+    len(REC2)), the column records (rc,), ms and soff (stages,)."""
     b = np.asarray(blob.cpu() if torch.is_tensor(blob) else blob, np.int32)
     out = {k: int(b[H[k]]) for k in HEADER}
     S, P = out["stages"], out["possible"]
@@ -244,6 +291,8 @@ def blob_tables(blob) -> dict:
     out["cm2"] = b[out["cm2"]:out["cm2"] + P].astype(np.int64)
     out["recs"] = b[out["recs"]:out["recs"] + S * P * len(REC)] \
         .reshape(S, P, len(REC))
+    out["rec2"] = b[out["rec2"]:out["rec2"] + S * P * len(REC2)] \
+        .reshape(S, P, len(REC2))
     out["cols"] = b[out["cols"]:out["cols"] + out["rc"]]
     out["ms"] = [out[f"ms{s}"] for s in range(S)]
     out["soff"] = [out[f"soff{s}"] for s in range(S)]
@@ -301,25 +350,35 @@ def residue_encode_plain(cfg, res: torch.Tensor, used: torch.Tensor):
     return cfg.res_enc.plain(res, used)
 
 
-def build() -> tuple[Path, str]:
-    """Compile the kernel library unless this source's build exists.
-    Returns (path, ptxas report); the report is empty when cached."""
+def build(timing=False) -> tuple[Path, str]:
+    """Compile the kernel library (with `timing` its -DVTT_RESIDUE_TIMING
+    build, whose launch takes the stamps array last) unless this source's
+    build exists.  Returns (path, ptxas report); the report is empty when
+    cached."""
+    if timing:
+        return build_library(SOURCE, nvcc,
+                             (*NVCC_FLAGS, "-DVTT_RESIDUE_TIMING"),
+                             "libresidueencode_timing")
     return build_library(SOURCE, nvcc, NVCC_FLAGS, "libresidueencode",
                          extra=("-Xptxas=-v",))
 
 
-@lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()[0]))
+def bind(lib, stamps=False) -> ctypes.CDLL:
+    """Set the argument types of a library's entry points (a timing
+    build's launch takes the stamps array last)."""
     fn = lib.vtt_residue_encode
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
-                   + [ctypes.c_void_p] * 3)
+                   + [ctypes.c_void_p] * (3 + stamps))
     fn = lib.vtt_residue_encode_blocks_per_sm
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
     return lib
+
+
+@lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    return bind(ctypes.CDLL(str(build()[0])))
 
 
 class ResidueEncodeKernel:
